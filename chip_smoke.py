@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Drive kasportsformer_torch on one NVIDIA GPU and check it, end to end.
+
+Run from the repository root:  python3 chip_smoke.py [--out DIR]
+
+Phases (any failure exits non-zero and prints no result line):
+  0. device: CUDA present; the card's name and power limit; TF32 off.
+  1. build both hand-written kernels from ops/csrc (one nvcc each, together).
+  2. K1 masked_sdpa against its plain version at the serving shapes
+     (spatial (128,27,17,128), temporal (128,17,27,128)), float32 and
+     bfloat16, strided views of one qkv projection, and the x60 inter-head
+     logit spread; kernel, plain and scaled_dot_product_attention times.
+  3. K3 fused_mlp_ln against its plain version at M = 58,752 and 1,377.
+     In phases 2 and 3 the plain version runs in float32 on the kernel's
+     own inputs (bfloat16 ones included), so a bfloat16 kernel is held to
+     the exact value and not to a second set of bfloat16 roundings.
+  4. the full-width 26-layer model with seeded, perturbed weights: the
+     forward on the card through the kernels against the same weights on
+     the CPU through the plain versions (B=4), 104 K1 and 156 K3 launches
+     per forward; the bfloat16 forward no further from the float32 one than
+     twice the CPU's bfloat16 forward is; 128-clip forward times (bfloat16
+     also with the weights converted on every call, interleaved) and a
+     profiler breakdown in both dtypes.
+  5. serving, the main path: serve() on cuda at batch 128 answers /healthz
+     and four /lift requests (40 frames, 405 frames, world space, 128 clips);
+     the launch counts are read around this phase alone.
+The last lines: the card, one JSON object per kernel table, and
+{"ok": true, "device": {...}}. Long reports (the compiler's register report,
+the profiler table) go to --out, by default chip_smoke_out/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import http.client
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import traceback
+
+# published peaks of one H100 SXM (data sheet; dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+FAILED: list[str] = []
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def phase(name: str):
+    """Run a phase; record a failure and keep going so one run shows all."""
+    def deco(fn):
+        def run(*args, **kwargs):
+            log(f"== {name}")
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                log(f"   {name}: ok in {time.perf_counter() - t0:.1f} s")
+                return out
+            except Exception:  # a phase boundary: report and go on
+                traceback.print_exc()
+                log(f"   {name}: FAILED")
+                FAILED.append(name)
+                return None
+        return run
+    return deco
+
+
+def card_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"nvidia-smi not available ({e})"
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max(1, |want|): absolute below 1, relative above."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+# ------------------------------------------------------------ phases
+
+
+@phase("phase 1: build kernels")
+def build(out_dir: str) -> dict:
+    from kasportsformer_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "chip_smoke_ptxas.txt"), "w") as f:
+        for name, r in report.items():
+            f.write(f"== {name}.cu ({r['seconds']:.2f} s)\n{r['ptxas']}\n")
+    for name, r in report.items():
+        regs = [ln.split(":", 1)[1].strip() for ln in r["ptxas"].splitlines()
+                if "registers" in ln]
+        log(f"   {name}.cu built in {r['seconds']:.2f} s; "
+            f"per instantiation: {regs}")
+    log(f"   build wall {wall:.2f} s (both nvcc started together)")
+    return report
+
+
+@phase("phase 2: K1 masked_sdpa vs plain")
+def check_k1(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from kasportsformer_torch.ops.attention import (masked_sdpa,
+                                                    masked_sdpa_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    heads, scale = 8, 16 ** -0.5
+    # against the float32 plain version: float32 differs in summation order
+    # only; bfloat16 by the output's rounding, half a unit in the last place
+    # (2^-9 relative: <= 3.9e-3 in scaled_err)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(128, 27, 17, 384, device=dev, generator=gen).to(dt)
+        q, k, v = qkv.split(128, dim=-1)
+        views = {"spatial": (q, k, v),
+                 "temporal": tuple(z.transpose(1, 2) for z in (q, k, v))}
+        for mode, (qq, kk, vv) in views.items():
+            got = masked_sdpa(qq, kk, vv, scale, heads)
+            want = masked_sdpa_reference(qq.float(), kk.float(), vv.float(),
+                                         scale, heads)
+            err = scaled_err(got, want)
+            if not (torch.isfinite(got).all() and err <= tol[dt]):
+                raise AssertionError(f"K1 {mode} {dt}: err {err} > {tol[dt]}")
+            b, g, n, c = qq.shape
+            # the library yardstick: one SDPA call on (B*G, H, N, D)
+            qh, kh, vh = (z.reshape(b * g, n, heads, c // heads)
+                          .transpose(1, 2).contiguous() for z in (qq, kk, vv))
+            ms = time_ms(lambda: masked_sdpa(qq, kk, vv, scale, heads), 50)
+            plain = time_ms(
+                lambda: masked_sdpa_reference(qq, kk, vv, scale, heads), 20)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), 50)
+            dname = str(dt).split(".")[1]
+            nbytes = 4 * b * g * n * c * qq.element_size()
+            flops = 4 * b * g * n * n * c
+            bms, by = bound_ms(nbytes, flops, dname)
+            rows[(mode, dname)] = dict(shape=[b, g, n, c], max_abs_err=(
+                got.float() - want).abs().max().item(), ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            log(f"   K1 {mode:8s} {dname:8s} {tuple(qq.shape)} err {err:.2e} "
+                f"(limit {tol[dt]:.0e}) kernel {ms:.4f} ms  plain "
+                f"{plain:.4f}  sdpa {lib:.4f}  bound {bms:.4f} ({by})")
+    # the x60 head-0 logit spread of tests/test_ops.py: exact per-head max
+    q, k, v = (torch.randn(2, 4, 17, 128, device=dev, generator=gen)
+               for _ in range(3))
+    q[..., :16] *= 60.0
+    k[..., :16] *= 60.0
+    got = masked_sdpa(q, k, v, 0.25, heads)
+    err = (got - masked_sdpa_reference(q, k, v, 0.25, heads)).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= 1e-4):
+        raise AssertionError(f"K1 x60 spread f32: err {err}")
+    qb, kb, vb = (z.bfloat16() for z in (q, k, v))
+    gotb = masked_sdpa(qb, kb, vb, 0.25, heads)
+    errb = scaled_err(gotb, masked_sdpa_reference(
+        qb.float(), kb.float(), vb.float(), 0.25, heads))
+    if not (torch.isfinite(gotb).all() and errb <= tol[torch.bfloat16]):
+        raise AssertionError(f"K1 x60 spread bf16: err {errb}")
+    log(f"   K1 x60 inter-head spread: f32 err {err:.2e}, bf16 err {errb:.2e}")
+    return rows
+
+
+def mlp_args(dev, gen, m: int, dt):
+    import torch
+
+    c, h = 128, 512
+    return (torch.randn(m, c, device=dev, generator=gen).to(dt),
+            1 + 0.1 * torch.randn(c, device=dev, generator=gen),
+            0.1 * torch.randn(c, device=dev, generator=gen),
+            (torch.randn(h, c, device=dev, generator=gen) / c ** 0.5).to(dt),
+            (0.1 * torch.randn(h, device=dev, generator=gen)).to(dt),
+            (torch.randn(c, h, device=dev, generator=gen) / h ** 0.5).to(dt),
+            (0.1 * torch.randn(c, device=dev, generator=gen)).to(dt),
+            torch.rand(c, device=dev, generator=gen))
+
+
+@phase("phase 3: K3 fused_mlp_ln vs plain")
+def check_k3(dev) -> dict:
+    import torch
+
+    from kasportsformer_torch.ops.mlp import (fused_mlp_ln,
+                                              fused_mlp_ln_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # against the float32 plain version: bfloat16 rounds the LayerNorm output
+    # and the hidden activations (the tensor cores' operands) and the output
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for m in (58752, 1377):
+            args = mlp_args(dev, gen, m, dt)
+            got = fused_mlp_ln(*args, 1e-5)
+            want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
+            err = scaled_err(got, want)
+            if not (torch.isfinite(got).all() and err <= tol[dt]):
+                raise AssertionError(f"K3 M={m} {dt}: err {err} > {tol[dt]}")
+            ms = time_ms(lambda: fused_mlp_ln(*args, 1e-5), 20)
+            plain = time_ms(lambda: fused_mlp_ln_reference(*args, 1e-5), 20)
+            dname = str(dt).split(".")[1]
+            it = args[0].element_size()
+            nbytes = 2 * m * 128 * it + 2 * 128 * 512 * it
+            flops = 4 * m * 128 * 512
+            bms, by = bound_ms(nbytes, flops, dname)
+            rows[(m, dname)] = dict(shape=[m, 128], max_abs_err=(
+                got.float() - want).abs().max().item(), ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+            log(f"   K3 M={m:6d} {dname:8s} err {err:.2e} (limit "
+                f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"bound {bms:.4f} ({by})")
+    return rows
+
+
+def perturbed_flagship():
+    """The full-width flagship on the CPU, every weight and batch-norm
+    statistic re-drawn at O(0.1-1) from a seeded generator (at init the layer
+    scales are 1e-5 and the fusion gate is constant)."""
+    import torch
+
+    from kasportsformer_torch.config import Config
+    from kasportsformer_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(Config(), device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            if not t.is_floating_point():
+                continue
+            if name.endswith("running_var"):
+                t.uniform_(0.5, 1.5, generator=gen)
+            elif "layer_scale" in name:
+                t.uniform_(0.1, 0.5, generator=gen)
+            elif name.endswith("norm_adj") or name.endswith("limb_idx"):
+                continue
+            elif name.endswith("weight") and t.dim() == 1:  # LN / BN
+                t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen))
+            elif name.endswith("weight") and t.dim() == 2:  # linear
+                t.normal_(0.0, t.shape[1] ** -0.5, generator=gen)
+            else:
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+    return model
+
+
+@contextlib.contextmanager
+def adjacency_tape(record: list | None = None, replay: list | None = None):
+    """Within the block, the temporal GCNs' top-k adjacencies are appended to
+    `record`, or replaced in call order by those of `replay`.
+
+    The top-k is a threshold: where the k-th and (k+1)-th largest
+    similarities of a frame lie closer than float32 rounding, two correct
+    implementations (card and CPU, or JAX and the port) may link different
+    neighbours and the outputs then differ far beyond rounding. Replaying
+    the CPU's adjacencies on the card compares the arithmetic alone; the
+    yielded list counts the entries the card would have chosen otherwise."""
+    from kasportsformer_torch.models import layers as L
+
+    orig = L.topk_adjacency
+    tape = iter(replay) if replay is not None else None
+    flips = [0, 0]  # differing entries, entries
+
+    def taped(tokens, k):
+        adj = orig(tokens, k)
+        if record is not None:
+            record.append(adj.cpu())
+        if tape is not None:
+            ref = next(tape)
+            flips[0] += int((ref != adj.cpu()).sum())
+            flips[1] += ref.numel()
+            adj = ref.to(adj.device, adj.dtype)
+        return adj
+
+    L.topk_adjacency = taped
+    try:
+        yield flips
+    finally:
+        L.topk_adjacency = orig
+
+
+@contextlib.contextmanager
+def casts_every_call():
+    """Within the block, weights are converted to the activation dtype on
+    every call instead of once (`layers.cast`): the yardstick for what
+    keeping the converted copies saves."""
+    from kasportsformer_torch.models import layers as L
+
+    orig = L.cast
+    L.cast = lambda t, dtype: t.to(dtype)
+    try:
+        yield
+    finally:
+        L.cast = orig
+
+
+def clip_batch(gen, b: int):
+    """Normalised keypoint clips: xy in [-1, 1], confidence in [0, 1]."""
+    import torch
+
+    x = torch.rand(b, 27, 17, 3, generator=gen)
+    x[..., :2] = 2 * x[..., :2] - 1
+    return x
+
+
+@phase("phase 4: full model on the card vs the CPU")
+def check_model(dev, out_dir: str) -> dict:
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln
+
+    cpu_model = perturbed_flagship()
+    model = copy.deepcopy(cpu_model).to(dev)
+    log(f"   parameters: {model.parameter_count():,}")
+    x = clip_batch(torch.Generator().manual_seed(3), 4)
+    adjacencies: list = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        with adjacency_tape(record=adjacencies):
+            want = cpu_model(x)
+        cpu_s = time.perf_counter() - t0
+        k1, k3 = masked_sdpa.launches, fused_mlp_ln.launches
+        with adjacency_tape(replay=adjacencies) as flips:
+            got = model(x.to(dev))
+        torch.cuda.synchronize()
+        d1, d3 = masked_sdpa.launches - k1, fused_mlp_ln.launches - k3
+        if (d1, d3) != (104, 156):
+            raise AssertionError(f"launches per forward {d1}, {d3} != 104, 156")
+        dev32 = (got.cpu() - want).abs().max().item()
+        if not (torch.isfinite(got).all() and dev32 <= 1e-3):
+            raise AssertionError(f"f32 card vs CPU deviation {dev32}")
+        free = (model(x.to(dev)).cpu() - want).abs().max().item()
+        if free > 1e-3 and flips[0] == 0:
+            raise AssertionError(f"free-running deviation {free} with no "
+                                 "top-k adjacency flip to explain it")
+        # bfloat16: the card's forward and the CPU's plain one, each against
+        # the CPU's float32 forward, with the float32 adjacencies replayed
+        # in both so that only the arithmetic differs
+        for m in (model, cpu_model):
+            m.compute_dtype = torch.bfloat16
+        with adjacency_tape(replay=adjacencies):
+            gotb = model(x.to(dev))
+        with adjacency_tape(replay=adjacencies):
+            cpub = cpu_model(x)
+        free_b = model(x.to(dev))
+        for m in (model, cpu_model):
+            m.compute_dtype = torch.float32
+        devb = (gotb.cpu() - want).abs().max().item()
+        devb_cpu = (cpub - want).abs().max().item()
+        devb_free = (free_b.cpu() - want).abs().max().item()
+        if not (torch.isfinite(gotb).all() and devb <= 2 * devb_cpu):
+            raise AssertionError(f"bf16 forward {devb} from f32, more than "
+                                 f"twice the CPU's bf16 forward ({devb_cpu})")
+    log(f"   B=4 forward: K1 launches {d1}, K3 launches {d3}; f32 max abs "
+        f"deviation card vs CPU {dev32:.3e} with the CPU's top-k adjacencies "
+        f"replayed (|y| max {want.abs().max().item():.3f}); free-running "
+        f"{free:.3e}, top-k entries the card chose differently: {flips[0]} of "
+        f"{flips[1]}; CPU forward {cpu_s:.2f} s")
+    log(f"   B=4 bf16 forward vs CPU f32 (f32 adjacencies replayed): card "
+        f"{devb:.3e}, CPU bf16 {devb_cpu:.3e} (limit 2x: {2 * devb_cpu:.3e}); "
+        f"card free-running {devb_free:.3e}")
+
+    xb = clip_batch(torch.Generator().manual_seed(4), 128).to(dev)
+    times = {}
+    with torch.inference_mode():
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            model.compute_dtype = dt
+            times[dname] = time_ms(lambda: model(xb), 5, warmup=1)
+        model.compute_dtype = torch.float32
+    log(f"   128-clip forward: f32 {times['float32']:.2f} ms "
+        f"({128e3 / times['float32']:.1f} clips/s), bf16 "
+        f"{times['bfloat16']:.2f} ms ({128e3 / times['bfloat16']:.1f} clips/s)")
+    # bf16 with the converted weights kept against converted on every call:
+    # ten pairs in one process, alternating which side runs first
+    ab = {"kept": [], "every call": []}
+
+    def bf16_forward_ms(side: str) -> None:
+        with contextlib.ExitStack() as stack:
+            if side == "every call":
+                stack.enter_context(casts_every_call())
+            ab[side].append(time_ms(lambda: model(xb), 5, warmup=1))
+
+    with torch.inference_mode():
+        model.compute_dtype = torch.bfloat16
+        for i in range(10):
+            for side in (("kept", "every call") if i % 2 == 0
+                         else ("every call", "kept")):
+                bf16_forward_ms(side)
+        model.compute_dtype = torch.float32
+    wins = sum(a < b for a, b in zip(ab["kept"], ab["every call"]))
+    log("   128-clip bf16 forward, weights converted once (kept) against "
+        f"on every call, 10 pairs: kept wins {wins}; " + "; ".join(
+            f"{k}: median {statistics.median(v):.2f} ms, runs "
+            + ", ".join(f"{t:.2f}" for t in v) for k, v in ab.items()))
+    for dt in (torch.float32, torch.bfloat16):
+        profile(model, xb, dt, out_dir)
+    return {"model": model, "deviation_f32": dev32, "deviation_bf16": devb,
+            "forward_ms": times}
+
+
+def profile(model, xb, dtype, out_dir: str) -> None:
+    """Device time by kernel over one 128-clip forward in `dtype`, and the
+    device's busy share of the wall time (torch.profiler; reported, never
+    fatal)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    dname = str(dtype).split(".")[1]
+    try:
+        with torch.inference_mode():
+            model.compute_dtype = dtype
+            model(xb)
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(xb)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events)
+        events.sort(key=lambda e: -e.self_device_time_total)
+        lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
+                 f"{e.key}" for e in events]
+        launches = sum(e.count for e in events)
+        path = os.path.join(out_dir, f"chip_smoke_profile_{dname}.txt")
+        with open(path, "w") as f:
+            f.write(f"one 128-clip {dname} forward, wall {wall_us / 1e3:.3f} "
+                    f"ms, device busy {busy / 1e3:.3f} ms, {launches} device "
+                    f"kernels\n" + "\n".join(lines))
+        log(f"   profile of one 128-clip {dname} forward: wall "
+            f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"({100 * busy / wall_us:.1f}%), {launches} device kernels")
+        for line in lines[:10]:
+            log(f"     {line[:110]}")
+    except Exception as e:  # measurement only: report, do not fail the run
+        log(f"   profile {dname}: not measured ({type(e).__name__}: {e})")
+    finally:
+        model.compute_dtype = torch.float32
+
+
+def _request(port: int, method: str, path: str, payload=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        body = json.dumps(payload) if payload is not None else None
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+        return resp.status, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+@phase("phase 5: serving on the card (main path)")
+def check_serving(dev, model) -> dict:
+    import numpy as np
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln
+    from kasportsformer_torch.serving import LiftService, serve
+
+    rng = np.random.default_rng(5)
+    requests = [
+        ("40 frames", {"keypoints": rng.uniform(0, 1000, (40, 17, 2)).tolist(),
+                       "width": 1280, "height": 720}),
+        ("405 frames", {"keypoints": rng.uniform(0, 1000, (405, 17, 2)).tolist(),
+                        "width": 1920, "height": 1080}),
+        ("world", {"keypoints": rng.uniform(0, 1000, (60, 17, 3)).tolist(),
+                   "width": 1280, "height": 720, "world": True}),
+        ("128 clips", {"keypoints": rng.uniform(
+            0, 1000, (128 * 27, 17, 2)).tolist(), "width": 1280,
+            "height": 720}),
+    ]
+    masked_sdpa.launches = 0
+    fused_mlp_ln.launches = 0
+    srv = serve(model, host="127.0.0.1", port=0, batch_size=128, device=dev)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    answers = {}
+    try:
+        status, data, lat = _request(port, "GET", "/healthz")
+        assert status == 200 and data["params"] == 29_365_668, data
+        log(f"   /healthz {status} {data} in {lat * 1e3:.1f} ms")
+        for name, req in requests:
+            status, data, lat = _request(port, "POST", "/lift", req)
+            assert status == 200, (name, status, data)
+            poses = np.asarray(data["poses"], np.float32)
+            frames = len(req["keypoints"])
+            assert poses.shape == (frames, 17, 3), (name, poses.shape)
+            assert np.isfinite(poses).all(), name
+            if req.get("world"):
+                np.testing.assert_allclose(poses[..., 2].min(-1), 0, atol=1e-5)
+                np.testing.assert_allclose(
+                    poses.reshape(frames, -1).max(1), 1, atol=1e-5)
+            else:
+                assert np.abs(poses[:, 0]).max() == 0.0, name  # root-zeroed
+            clips = -(-frames // 27)
+            log(f"   /lift {name:10s}: {status}, {clips:3d} clips, "
+                f"{lat * 1e3:8.1f} ms, {clips / lat:8.1f} clips/s")
+            answers[name] = poses
+        status, _, _ = _request(port, "GET", "/nope")
+        assert status == 404
+        status, _, _ = _request(port, "POST", "/lift", {"width": 1})
+        assert status == 400
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    launches = {"masked_sdpa": masked_sdpa.launches,
+                "fused_mlp_ln": fused_mlp_ln.launches}
+    log(f"   kernel launches in this phase: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    # the served poses: the same service called directly gives them back, and
+    # agrees with the plain versions on the CPU (same weights, the CPU's top-k
+    # adjacencies replayed; see adjacency_tape)
+    req = requests[0][1]
+    kpts = np.asarray(req["keypoints"], np.float32)
+    card = LiftService(model, batch_size=128, device=dev)
+    direct = card.lift_sequence(kpts, req["width"], req["height"])
+    same = float(np.abs(answers["40 frames"] - direct).max())
+    cpu = LiftService(copy.deepcopy(model).cpu(), batch_size=128, device="cpu")
+    adjacencies: list = []
+    with adjacency_tape(record=adjacencies):
+        want = cpu.lift_sequence(kpts, req["width"], req["height"])
+    with adjacency_tape(replay=adjacencies) as flips:
+        got = card.lift_sequence(kpts, req["width"], req["height"])
+    dev40 = float(np.abs(got - want).max())
+    log(f"   40-frame poses: served vs direct call {same:.3e}; card vs CPU "
+        f"plain versions {dev40:.3e} (top-k entries chosen differently: "
+        f"{flips[0]} of {flips[1]})")
+    if same > 1e-6 or dev40 > 1e-3:
+        raise AssertionError(f"served poses: {same}, {dev40}")
+    return launches
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default="chip_smoke_out",
+                        help="directory for the long reports")
+    args = parser.parse_args()
+    try:
+        import torch
+    except ImportError:
+        log("chip_smoke: PyTorch is not installed")
+        return 1
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False; this check "
+            "needs an NVIDIA GPU")
+        return 1
+    try:
+        import kasportsformer_torch  # noqa: F401
+    except ImportError:
+        log("chip_smoke: kasportsformer_torch not found; run from the "
+            "repository root")
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    t_start = time.perf_counter()
+    log("== phase 0: device")
+    card = card_line()
+    log(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    build(args.out)
+    k1 = check_k1(dev)
+    k3 = check_k3(dev)
+    res = check_model(dev, args.out)
+    launches = None
+    if res is not None:
+        launches = check_serving(dev, res["model"])
+    log(f"== total {time.perf_counter() - t_start:.1f} s")
+    if FAILED or not (k1 and k3 and launches):
+        log(f"chip_smoke: FAILED phases: {FAILED}")
+        return 1
+
+    k1_row = k1[("spatial", "float32")]
+    k3_row = k3[(58752, "float32")]
+    kernels = [
+        dict(name="masked_sdpa", route="cuda",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:227",
+             launches=launches["masked_sdpa"], **k1_row),
+        dict(name="fused_mlp_ln", route="cuda",
+             source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:202",
+             launches=launches["fused_mlp_ln"], **k3_row),
+    ]
+    for row in kernels:
+        row["dtype"] = "float32"
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

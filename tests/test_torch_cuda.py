@@ -1,0 +1,115 @@
+"""kasportsformer_torch's CUDA kernels against their plain PyTorch versions,
+on the card. Every test here carries the `cuda` marker and skips without a
+CUDA device; the file imports neither JAX nor the JAX package, so it runs on
+a machine that has only PyTorch: `python -m pytest tests/test_torch_cuda.py`.
+"""
+
+import pytest
+import torch
+
+from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_reference
+from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_reference
+
+pytestmark = pytest.mark.cuda
+
+# Each kernel is held to its plain version run in float32 on the same inputs,
+# the error scaled by max(1, |y|). float32: summation order only. bfloat16:
+# K1 rounds only its output (half a unit in the last place, <= 3.9e-3); K3
+# also rounds the LayerNorm output and the hidden activations, the operands
+# of its tensor-core products.
+TOL = {"masked_sdpa": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+       "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_masked_sdpa_kernel_matches_plain(cuda, dtype, mode):
+    """Strided q/k/v: column slices of one qkv projection, permuted views in
+    temporal mode, as the model passes them."""
+    qkv = torch.randn(4, 27, 17, 384, device="cuda", generator=cuda).to(dtype)
+    q, k, v = qkv.split(128, dim=-1)
+    if mode == "temporal":
+        q, k, v = (z.transpose(1, 2) for z in (q, k, v))
+    before = masked_sdpa.launches
+    got = masked_sdpa(q, k, v, 0.25, 8)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), 0.25, 8)
+    assert masked_sdpa.launches == before + 1
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_sdpa_kernel_unaligned_rows(cuda, dtype):
+    """Rows that do not start on a 16-byte boundary are copied to aligned
+    storage before the kernel's vector loads."""
+    qkv = torch.randn(3, 27, 17, 385, device="cuda", generator=cuda).to(dtype)
+    q, k, v = qkv[..., 1:129], qkv[..., 129:257], qkv[..., 257:385]
+    got = masked_sdpa(q, k, v, 0.25, 8)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), 0.25, 8)
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+def test_masked_sdpa_kernel_large_interhead_spread(cuda):
+    """Exact per-head max: a head ~1e4 below another stays finite."""
+    q, k, v = (torch.randn(2, 4, 17, 128, device="cuda", generator=cuda)
+               for _ in range(3))
+    q[..., :16] *= 60.0
+    k[..., :16] *= 60.0
+    got = masked_sdpa(q, k, v, 0.25, 8)
+    assert torch.isfinite(got).all()
+    assert (got - masked_sdpa_reference(q, k, v, 0.25, 8)).abs().max() <= 1e-4
+    qb, kb, vb = (z.bfloat16() for z in (q, k, v))
+    gotb = masked_sdpa(qb, kb, vb, 0.25, 8)
+    wantb = masked_sdpa_reference(qb.float(), kb.float(), vb.float(), 0.25, 8)
+    assert torch.isfinite(gotb).all()
+    assert _scaled_err(gotb, wantb) <= TOL["masked_sdpa"][torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [58752, 1377])
+def test_fused_mlp_ln_kernel_matches_plain(cuda, dtype, m):
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=cuda)
+
+    x = randn(m, 128).to(dtype)
+    gamma, beta = 1 + randn(128, scale=0.1), randn(128, scale=0.1)
+    w1 = randn(512, 128, scale=128 ** -0.5).to(dtype)
+    b1 = randn(512, scale=0.1).to(dtype)
+    w2 = randn(128, 512, scale=512 ** -0.5).to(dtype)
+    b2 = randn(128, scale=0.1).to(dtype)
+    ls2 = torch.rand(128, device="cuda", generator=cuda)
+    args = (x, gamma, beta, w1, b1, w2, b2, ls2, 1e-5)
+    before = fused_mlp_ln.launches
+    got = fused_mlp_ln(*args)
+    want = fused_mlp_ln_reference(*(a.float() for a in args[:-1]), args[-1])
+    assert fused_mlp_ln.launches == before + 1
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype])
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.randn(2, 3, 40, 128, device="cuda", generator=cuda)  # N > 32
+    with pytest.raises(ValueError, match="N <= 32"):
+        masked_sdpa(q, q, q, 0.25, 8)
+    with pytest.raises(ValueError, match="width 16"):  # 4 heads of 32
+        masked_sdpa(q[:, :, :17], q[:, :, :17], q[:, :, :17], 0.25, 4)
+    with pytest.raises(TypeError):
+        masked_sdpa(q.half(), q.half(), q.half(), 0.25, 8)
+    x = torch.randn(8, 64, device="cuda", generator=cuda)  # C != 128
+    w = torch.randn(256, 64, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="C=128"):
+        fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0])

@@ -1,0 +1,156 @@
+"""kasportsformer_torch's kernel modules against the JAX package: the plain
+versions of K1 (masked attention) and K3 (LN-folded MLP tail) against the
+JAX XLA formulations and Pallas kernels (interpret mode), and the wrappers'
+dispatch. On the CPU the wrappers run the plain versions; the CUDA kernels
+themselves are held against them on the card by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from kasportsformer_tpu.ops.attention import masked_sdpa_pallas, masked_sdpa_xla
+from kasportsformer_tpu.ops.mlp import _mlp_ln_xla, fused_mlp_ln_pallas
+from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_reference
+from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_reference
+
+RNG = np.random.default_rng(11)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _sdpa_inputs(shape, spread: float = 1.0):
+    q, k, v = (RNG.standard_normal(shape).astype(np.float32) for _ in range(3))
+    q[..., :16] *= spread  # head 0 (of 8 heads x 16) when spread > 1
+    k[..., :16] *= spread
+    return q, k, v
+
+
+def test_masked_sdpa_reference_matches_xla():
+    q, k, v = _sdpa_inputs((2, 5, 17, 64))
+    want = np.asarray(masked_sdpa_xla(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), 0.25, 4))
+    got = masked_sdpa_reference(_t(q), _t(k), _t(v), 0.25, 4).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_masked_sdpa_reference_strided_views(mode):
+    """q, k, v as column slices of one qkv projection, and (temporal) as
+    (B,T,J,C)->(B,J,T,C) permuted views, as the model passes them."""
+    b, t, j, c = 2, 27, 17, 64
+    qkv = RNG.standard_normal((b, t, j, 3 * c)).astype(np.float32)
+    q, k, v = _t(qkv).split(c, dim=-1)
+    qn, kn, vn = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    if mode == "temporal":
+        q, k, v = (z.transpose(1, 2) for z in (q, k, v))
+        qn, kn, vn = (z.transpose(0, 2, 1, 3) for z in (qn, kn, vn))
+    assert not q.is_contiguous()
+    want = np.asarray(masked_sdpa_xla(jnp.asarray(qn), jnp.asarray(kn),
+                                      jnp.asarray(vn), 0.3, 4))
+    got = masked_sdpa_reference(q, k, v, 0.3, 4).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_masked_sdpa_reference_large_interhead_spread():
+    """The x60 head-0 spread of tests/test_ops.py: the per-head softmax stays
+    finite and matches both the XLA formulation and the Pallas kernel."""
+    q, k, v = _sdpa_inputs((2, 4, 17, 128), spread=60.0)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25, 8)
+    got = masked_sdpa_reference(_t(q), _t(k), _t(v), 0.25, 8).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(masked_sdpa_xla(*args)),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(masked_sdpa_pallas(*args, interpret=True)),
+        atol=1e-4, rtol=1e-4)
+
+
+def test_masked_sdpa_reference_matches_pallas_interpret():
+    q, k, v = _sdpa_inputs((2, 3, 27, 128))
+    want = np.asarray(masked_sdpa_pallas(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), 0.25, 8,
+                                         interpret=True))
+    got = masked_sdpa_reference(_t(q), _t(k), _t(v), 0.25, 8).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_masked_sdpa_dispatches_plain_version_on_cpu():
+    q, k, v = (_t(a) for a in _sdpa_inputs((2, 3, 17, 128)))
+    before = masked_sdpa.launches
+    torch.testing.assert_close(masked_sdpa(q, k, v, 0.25, 8),
+                               masked_sdpa_reference(q, k, v, 0.25, 8),
+                               atol=0, rtol=0)
+    assert masked_sdpa.launches == before
+
+
+def _mlp_inputs(m: int, c: int = 128, hidden: int = 512):
+    f = np.float32
+    return dict(
+        x=RNG.standard_normal((m, c)).astype(f),
+        gamma=(1.0 + 0.1 * RNG.standard_normal(c)).astype(f),
+        beta=(0.1 * RNG.standard_normal(c)).astype(f),
+        w1=(RNG.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
+        b1=(RNG.standard_normal(hidden) * 0.05).astype(f),
+        w2=(RNG.standard_normal((hidden, c)) * 0.05).astype(f),
+        b2=(RNG.standard_normal(c) * 0.05).astype(f),
+        ls2=RNG.uniform(0.1, 1.0, c).astype(f),
+    )
+
+
+def _torch_mlp_args(a: dict):
+    """JAX-layout arrays -> the port's arguments (nn.Linear layout)."""
+    return (_t(a["x"]), _t(a["gamma"]), _t(a["beta"]), _t(a["w1"].T),
+            _t(a["b1"]), _t(a["w2"].T), _t(a["b2"]), _t(a["ls2"]))
+
+
+def _jax_mlp_args(a: dict):
+    return tuple(jnp.asarray(a[k]) for k in
+                 ("x", "gamma", "beta", "w1", "b1", "w2", "b2", "ls2"))
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_fused_mlp_ln_reference_matches_jax(eps):
+    a = _mlp_inputs(512)
+    got = fused_mlp_ln_reference(*_torch_mlp_args(a), eps=eps).numpy()
+    want = np.asarray(_mlp_ln_xla(*_jax_mlp_args(a), eps=eps))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    kernel = np.asarray(fused_mlp_ln_pallas(*_jax_mlp_args(a), eps=eps,
+                                            interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_mlp_ln_reference_ragged_rows():
+    """M = 1377 (3 clips x 27 x 17) has no 8-multiple row block; the TPU path
+    fell back to XLA there. The port takes any M."""
+    a = _mlp_inputs(1377)
+    got = fused_mlp_ln(*_torch_mlp_args(a), 1e-5).numpy()
+    want = np.asarray(_mlp_ln_xla(*_jax_mlp_args(a)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_mlp_ln_dispatches_plain_version_on_cpu():
+    args = _torch_mlp_args(_mlp_inputs(64))
+    x4 = args[0].reshape(2, 2, 16, 128)  # any leading shape
+    before = fused_mlp_ln.launches
+    got = fused_mlp_ln(x4, *args[1:], 1e-5)
+    torch.testing.assert_close(
+        got, fused_mlp_ln_reference(x4, *args[1:], 1e-5), atol=0, rtol=0)
+    assert got.shape == x4.shape and fused_mlp_ln.launches == before
+
+
+def test_fused_mlp_ln_reference_bf16_within_rounding():
+    """bf16 plain version against the JAX bf16 formulation: both round at the
+    same points, so they agree to bf16 rounding."""
+    a = _mlp_inputs(256)
+    args = [t.to(torch.bfloat16) if i in (0, 3, 4, 5, 6) else t
+            for i, t in enumerate(_torch_mlp_args(a))]
+    got = fused_mlp_ln_reference(*args).float().numpy()
+    jargs = list(_jax_mlp_args(a))
+    for i in (0, 3, 4, 5, 6):
+        jargs[i] = jargs[i].astype(jnp.bfloat16)
+    want = np.asarray(_mlp_ln_xla(*jargs), np.float32)
+    scale = np.maximum(np.abs(want), 1.0)
+    assert float(np.max(np.abs(got - want) / scale)) < 2e-2
