@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py [--out DIR]
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
-  1. build both hand-written kernels from ops/csrc (one nvcc each, together).
+  1. build the four hand-written kernels from ops/csrc (K1-K4, one nvcc
+     each, all started together).
   2. K1 masked_sdpa against its plain version at the serving shapes
      (spatial (128,27,17,128), temporal (128,17,27,128)), float32 and
      bfloat16, strided views of one qkv projection, and the x60 inter-head
@@ -24,6 +25,24 @@ Phases (any failure exits non-zero and prints no result line):
   5. serving, the main path: serve() on cuda at batch 128 answers /healthz
      and four /lift requests (40 frames, 405 frames, world space, 128 clips);
      the launch counts are read around this phase alone.
+  6. K2 masked_sdpa_bwd against its plain version at the train shapes
+     (spatial (32,27,17,128), temporal (32,17,27,128) with the gradient a
+     transposed view), float32 and bfloat16, and the x60 spread; kernel,
+     plain and scaled_dot_product_attention-backward times.
+  7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
+     all eight gradients, and a rerun bitwise equal. In phases 6 and 7 the
+     plain version runs in float32 on the kernel's own inputs.
+  8. full-model gradients: the train-mode loss and every parameter's
+     gradient on the card (kernels) against the CPU (plain versions), same
+     weights, B=4, the CPU's top-k adjacencies replayed; the batch-norm
+     running statistics; 104 K2 and 156 K4 launches per backward.
+  9. the train step at the config's batch 32, float32 and bfloat16: median
+     ms/step, clips/s, peak memory, device busy share and a profiler table;
+     then 50 steps on one batch, whose loss must fall.
+ 10. training, the second main path: `train` through the CLI's entry point
+     on a seeded synthetic .npz clip store (256 train, 64 test clips) for 2
+     epochs, each evaluated, then `evaluate` of the best checkpoint, which
+     must give its epoch's MPJPE; the launch counts are read around `train`.
 The last lines: the card, one JSON object per kernel table, and
 {"ok": true, "device": {...}}. Long reports (the compiler's register report,
 the profiler table) go to --out, by default chip_smoke_out/.
@@ -86,6 +105,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device ms per call of fn. The device first spins for ~2 ms a call
+    (`torch.cuda._sleep`), so the host has queued every call before the
+    first one runs: the events then time the device, not how fast the host
+    launches."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +116,7 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000 * iters)  # clock cycles, ~1.8 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -133,7 +157,7 @@ def build(out_dir: str) -> dict:
                 if "registers" in ln]
         log(f"   {name}.cu built in {r['seconds']:.2f} s; "
             f"per instantiation: {regs}")
-    log(f"   build wall {wall:.2f} s (both nvcc started together)")
+    log(f"   build wall {wall:.2f} s (all nvcc started together)")
     return report
 
 
@@ -439,6 +463,20 @@ def check_model(dev, out_dir: str) -> dict:
             "forward_ms": times}
 
 
+def device_events(prof) -> list:
+    """The profile's kernels by name, with device time. A range annotated on
+    the host (`Optimizer.step#AdamW.step`) is reported on the device as the
+    span of the kernels inside it: it is left out, or they would count
+    twice."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not ("#" in e.key and "(" not in e.key)]
+
+
 def profile(model, xb, dtype, out_dir: str) -> None:
     """Device time by kernel over one 128-clip forward in `dtype`, and the
     device's busy share of the wall time (torch.profiler; reported, never
@@ -458,9 +496,7 @@ def profile(model, xb, dtype, out_dir: str) -> None:
                 model(xb)
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
+        events = device_events(prof)
         busy = sum(e.self_device_time_total for e in events)
         events.sort(key=lambda e: -e.self_device_time_total)
         lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
@@ -581,6 +617,461 @@ def check_serving(dev, model) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ training path
+
+
+def _errs(got, want) -> list[float]:
+    return [scaled_err(a, b) for a, b in zip(got, want)]
+
+
+def sum_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|): for a gradient summed over
+    many rows, whose small entries are cancellations of large terms."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+
+def time_backward_ms(out, inputs, grad, iters: int) -> float:
+    """Device time of autograd's backward of `out` alone (the graph kept)."""
+    import torch
+
+    return time_ms(lambda: torch.autograd.grad(out, inputs, grad,
+                                               retain_graph=True), iters)
+
+
+@phase("phase 6: K2 masked_sdpa_bwd vs plain")
+def check_k2(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from kasportsformer_torch.ops.attention import (masked_sdpa_bwd,
+                                                    masked_sdpa_bwd_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    heads, scale = 8, 16 ** -0.5
+    # against the plain version run in float32 on the same inputs: float32
+    # differs in summation order only; bfloat16 rounds only dq, dk, dv
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(32, 27, 17, 384, device=dev, generator=gen).to(dt)
+        gfull = torch.randn(32, 27, 17, 128, device=dev, generator=gen).to(dt)
+        q, k, v = qkv.split(128, dim=-1)
+        views = {"spatial": (q, k, v, gfull),
+                 # temporal: the permuted views, the gradient a transposed view
+                 "temporal": tuple(z.transpose(1, 2) for z in (q, k, v, gfull))}
+        for mode, (qq, kk, vv, gg) in views.items():
+            got = masked_sdpa_bwd(qq, kk, vv, gg, scale, heads)
+            want = masked_sdpa_bwd_reference(*(z.float() for z in (qq, kk, vv, gg)),
+                                             scale, heads)
+            errs = _errs(got, want)
+            if not (all(torch.isfinite(z).all() for z in got)
+                    and max(errs) <= tol[dt]):
+                raise AssertionError(f"K2 {mode} {dt}: errs {errs} > {tol[dt]}")
+            b, g, n, c = qq.shape
+            ms = time_ms(lambda: masked_sdpa_bwd(qq, kk, vv, gg, scale, heads), 50)
+            plain = time_ms(lambda: masked_sdpa_bwd_reference(
+                qq, kk, vv, gg, scale, heads), 20)
+            # the library yardstick: the backward of one SDPA call on
+            # (B*G, H, N, D)
+            qh, kh, vh, gh = (z.reshape(b * g, n, heads, c // heads)
+                              .transpose(1, 2).contiguous().requires_grad_(z is not gg)
+                              for z in (qq, kk, vv, gg))
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            lib = time_backward_ms(sdpa_out, (qh, kh, vh), gh, 50)
+            dname = str(dt).split(".")[1]
+            nbytes = 7 * b * g * n * c * qq.element_size()
+            flops = 10 * b * g * n * n * c
+            bms, by = bound_ms(nbytes, flops, dname)
+            rows[(mode, dname)] = dict(shape=[b, g, n, c], max_abs_err=max(
+                (a.float() - w).abs().max().item() for a, w in zip(got, want)),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            log(f"   K2 {mode:8s} {dname:8s} {tuple(qq.shape)} err dq/dk/dv "
+                + "/".join(f"{e:.2e}" for e in errs) + f" (limit {tol[dt]:.0e}) "
+                f"kernel {ms:.4f} ms  plain {plain:.4f}  sdpa bwd {lib:.4f}  "
+                f"bound {bms:.4f} ({by})")
+    q, k, v, g = (torch.randn(2, 4, 17, 128, device=dev, generator=gen)
+                  for _ in range(4))
+    q[..., :16] *= 60.0
+    k[..., :16] *= 60.0
+    for dt in (torch.float32, torch.bfloat16):
+        args = [z.to(dt) for z in (q, k, v, g)]
+        got = masked_sdpa_bwd(*args, 0.25, heads)
+        errs = _errs(got, masked_sdpa_bwd_reference(
+            *(z.float() for z in args), 0.25, heads))
+        if not (all(torch.isfinite(z).all() for z in got) and max(errs) <= tol[dt]):
+            raise AssertionError(f"K2 x60 spread {dt}: errs {errs}")
+        log(f"   K2 x60 inter-head spread {dt}: errs "
+            + "/".join(f"{e:.2e}" for e in errs))
+    return rows
+
+
+_MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
+
+
+@phase("phase 7: K4 fused_mlp_ln_bwd vs plain")
+def check_k4(dev) -> dict:
+    import torch
+
+    from kasportsformer_torch.ops.mlp import (fused_mlp_ln_bwd,
+                                              fused_mlp_ln_bwd_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # against the plain version run in float32 on the same inputs: the
+    # kernel computes in float32 from either dtype and rounds only dx (half
+    # a unit in the last place, <= 3.9e-3 in bfloat16)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for m in (14688, 1377):
+            args = mlp_args(dev, gen, m, dt)
+            g = torch.randn(m, 128, device=dev, generator=gen).to(dt)
+            got = fused_mlp_ln_bwd(*args, g, 1e-5)
+            again = fused_mlp_ln_bwd(*args, g, 1e-5)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K4 M={m} {dt}: a rerun is not bitwise equal")
+            want = fused_mlp_ln_bwd_reference(*(a.float() for a in args),
+                                              g.float(), 1e-5)
+            # dx per element; the parameter gradients, sums over M rows,
+            # against their largest entry
+            errs = [scaled_err(got[0], want[0])] + [
+                sum_err(a, b) for a, b in zip(got[1:], want[1:])]
+            if not (all(torch.isfinite(z).all() for z in got)
+                    and max(errs) <= tol[dt]):
+                raise AssertionError(f"K4 M={m} {dt}: errs {dict(zip(_MLP_GRADS, errs))}")
+            ms = time_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
+            plain = time_ms(lambda: fused_mlp_ln_bwd_reference(*args, g, 1e-5), 20)
+            dname = str(dt).split(".")[1]
+            it = args[0].element_size()
+            # x, g in and dx out; the weights and biases in; the parameter
+            # gradients out in float32
+            nbytes = (3 * m * 128 * it + 2 * 128 * 512 * it
+                      + 4 * (2 * 128 * 512 + 512 + 5 * 128))
+            # five products of 2*M*C*H: fc1 recomputed, dh = do W2,
+            # da = dz W1, dW1 = dz^T a and G = g^T h (dW2 and dls2 follow
+            # from G, so fc2 is not recomputed)
+            flops = 10 * m * 128 * 512
+            bms, by = bound_ms(nbytes, flops, dname)
+            rows[(m, dname)] = dict(shape=[m, 128], max_abs_err=max(
+                (a.float() - w).abs().max().item() for a, w in zip(got, want)),
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+            log(f"   K4 M={m:6d} {dname:8s} worst err "
+                f"{max(errs):.2e} ({_MLP_GRADS[errs.index(max(errs))]}; limit "
+                f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"bound {bms:.4f} ({by}); rerun bitwise equal")
+    return rows
+
+
+def label_batch(gen, b: int):
+    """Root-relative 3D targets of the scale the normalised inputs have."""
+    import torch
+
+    y = 0.3 * torch.randn(b, 27, 17, 3, generator=gen)
+    return y - y[:, :, :1]
+
+
+@phase("phase 8: full-model gradients on the card vs the CPU")
+def check_grads(dev) -> dict:
+    import torch
+
+    from kasportsformer_torch.config import Config
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
+    from kasportsformer_torch.train.loop import make_grads_fn
+
+    cfg = Config(grad_microbatch=0)
+    cpu_model = perturbed_flagship()
+    model = copy.deepcopy(cpu_model).to(dev)
+    x = clip_batch(torch.Generator().manual_seed(8), 4)
+    y = label_batch(torch.Generator().manual_seed(9), 4)
+    w = torch.ones(4)
+    adjacencies: list = []
+    t0 = time.perf_counter()
+    with adjacency_tape(record=adjacencies):
+        want = make_grads_fn(cpu_model, cfg)(x, y, w)
+    cpu_s = time.perf_counter() - t0
+    k2, k4 = masked_sdpa_bwd.launches, fused_mlp_ln_bwd.launches
+    with adjacency_tape(replay=adjacencies) as flips:
+        got = make_grads_fn(model, cfg)(x.to(dev), y.to(dev), w.to(dev))
+    torch.cuda.synchronize()
+    d2, d4 = masked_sdpa_bwd.launches - k2, fused_mlp_ln_bwd.launches - k4
+    if (d2, d4) != (104, 156):
+        raise AssertionError(f"launches per backward {d2}, {d4} != 104, 156")
+    loss_rel = abs(got["loss_total"].item() - want["loss_total"].item()) / abs(
+        want["loss_total"].item())
+    # the loss reaches no limb norm of an attention or graph module (as in
+    # the reference): 2 parameters x 4 modules x 26 layers have no gradient,
+    # on the CPU and on the card; any other missing one is a cut graph
+    missing = {n for n, p in model.named_parameters() if p.grad is None}
+    cpu_missing = {n for n, p in cpu_model.named_parameters() if p.grad is None}
+    unreached = {n for n in cpu_missing if "norm1_limb" in n and ".bone_" not in n}
+    if not (missing == cpu_missing == unreached and len(unreached) == 208):
+        raise AssertionError(
+            f"parameters without a gradient: {len(missing)} on the card "
+            f"({sorted(missing - unreached)[:5]} beyond the limb norms), "
+            f"{len(cpu_missing)} on the CPU, {len(unreached)} limb norms")
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()
+                 if p.grad is not None}
+
+    # per parameter: max |card - CPU| over the largest CPU gradient entry of
+    # the module that holds it (a linear's weight and bias). A bias whose
+    # gradient is a sum that cancels to near zero is so held to the size of
+    # what flows through its module, which cancellation cannot shrink; its
+    # error over its own largest entry is printed beside it.
+    def owner(n: str) -> str:
+        return n.rpartition(".")[0]
+
+    module_max: dict[str, float] = {}
+    for n, ref in cpu_grads.items():
+        module_max[owner(n)] = max(module_max.get(owner(n), 0.0),
+                                   ref.abs().max().item())
+    rows = []
+    for name, p in model.named_parameters():
+        if name in missing:
+            continue
+        ref = cpu_grads[name]
+        diff = (p.grad.cpu() - ref).abs().max().item()
+        scale, own = module_max[owner(name)], ref.abs().max().item()
+        rows.append((diff / scale if scale else (0.0 if diff == 0 else float("inf")),
+                     diff / own if own else float("nan"), own, name))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    worst_own = max(rows, key=lambda r: r[1] if r[1] == r[1] else -1.0)
+    cpu_bufs = dict(cpu_model.named_buffers())
+    bn = max((b.cpu() - cpu_bufs[n]).abs().max().item()
+             for n, b in model.named_buffers() if "running" in n)
+    grad_tol, bn_tol = 1e-3, 1e-5
+    log(f"   B=4 train-mode backward: K2 launches {d2}, K4 launches {d4}; loss "
+        f"{got['loss_total'].item():.6f} (rel diff {loss_rel:.2e}); "
+        f"{len(rows)} parameters with a gradient, {len(missing)} without on "
+        f"both (the unreached limb norms); batch-norm running stats max abs "
+        f"diff {bn:.3e} (limit {bn_tol:.0e}); top-k entries chosen "
+        f"differently: {flips[0]} of {flips[1]}; CPU forward+backward "
+        f"{cpu_s:.2f} s")
+    errs = sorted(r[0] for r in rows)
+    log(f"   per-parameter error over its module's largest CPU gradient (limit "
+        f"{grad_tol:.0e}): median {errs[len(errs) // 2]:.2e}, 99th percentile "
+        f"{errs[int(0.99 * len(errs))]:.2e}, worst five: " + "; ".join(
+            f"{n} {e:.2e} (over its own |g| max {s:.2e}: {o:.2e})"
+            for e, o, s, n in rows[:5]))
+    log(f"   over its own largest CPU gradient the worst is {worst_own[3]} "
+        f"{worst_own[1]:.2e} (|g| max {worst_own[2]:.2e}, over its module's "
+        f"{worst_own[0]:.2e})")
+    if not (loss_rel <= 1e-5 and worst <= grad_tol and bn <= bn_tol):
+        raise AssertionError("full-model gradients off the CPU's")
+    return {"worst": worst, "worst_name": rows[0][3], "loss_rel": loss_rel}
+
+
+def synthetic_clipsets(seed: int, n_train: int, n_test: int):
+    """Seeded clip sets in the shape of a preprocessed SportsPose split:
+    normalised 2D inputs with a confidence channel, root-relative train
+    labels, and the test split's 2.5D-scaled labels, factors, (W, H)
+    resolutions and actions."""
+    import numpy as np
+
+    from kasportsformer_torch.data.clips import ClipSet
+
+    rng = np.random.default_rng(seed)
+
+    def inputs(n):
+        x = rng.uniform(-1, 1, (n, 27, 17, 3)).astype(np.float32)
+        x[..., 2] = rng.uniform(0, 1, (n, 27, 17))
+        return x
+
+    def labels(n):
+        y = (0.3 * rng.standard_normal((n, 27, 17, 3))).astype(np.float32)
+        return y - y[:, :, :1]
+
+    train = ClipSet("train", inputs(n_train), labels(n_train))
+    lab = labels(n_test)
+    test = ClipSet("test", inputs(n_test), lab,
+                   labels_scaled=(lab * 1000).astype(np.float32),
+                   factors=rng.uniform(2, 6, (n_test, 27)).astype(np.float32),
+                   actions=np.array(["serve", "smash", "dive", "sprint"])[
+                       np.arange(n_test) % 4],
+                   res=np.tile(np.array([[1920, 1080]], np.float32), (n_test, 1)))
+    return train, test
+
+
+_GROUPS = (("K4", ("mlp_ln_bwd",)), ("K3", ("mlp_ln_",)), ("K2", ("masked_sdpa_bwd",)),
+           ("K1", ("masked_sdpa",)), ("GEMM", ("gemm", "nvjet", "splitK", "cutlass")),
+           ("LayerNorm", ("layer_norm", "GammaBeta")), ("reduction", ("reduce_kernel",)),
+           ("AdamW", ("multi_tensor", "adam", "Adam")), ("copy/cast", ("copy",)))
+
+
+def kernel_group(key: str) -> str:
+    """A profiler kernel name's group in the step breakdown."""
+    for group, words in _GROUPS:
+        if any(w in key for w in words):
+            return group
+    return "element-wise/other"
+
+
+def profile_steps(step, n: int, name: str, out_dir: str) -> str:
+    """Device time by kernel over n train steps and the device's busy share
+    of their wall time (torch.profiler; reported, never fatal)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    try:
+        step()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = device_events(prof)
+        busy = sum(e.self_device_time_total for e in events)
+        events.sort(key=lambda e: -e.self_device_time_total)
+        lines = [f"{e.self_device_time_total / 1e3 / n:9.3f} ms/step "
+                 f"{e.count / n:7.1f} x  {e.key}" for e in events]
+        with open(os.path.join(out_dir, f"chip_smoke_profile_{name}.txt"), "w") as f:
+            f.write(f"{n} steps {name}: wall {wall_us / 1e3 / n:.3f} ms/step, "
+                    f"device busy {busy / 1e3 / n:.3f} ms/step\n" + "\n".join(lines))
+        groups: dict[str, list[float]] = {}
+        for e in events:
+            g = kernel_group(e.key)
+            acc = groups.setdefault(g, [0.0, 0.0])
+            acc[0] += e.self_device_time_total / 1e3 / n
+            acc[1] += e.count / n
+        log(f"   profile {name}: wall {wall_us / 1e3 / n:.2f} ms/step, device "
+            f"busy {busy / 1e3 / n:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
+            f"{sum(e.count for e in events) / n:.0f} device kernels a step")
+        log("     by group, ms/step (kernels a step): " + "; ".join(
+            f"{g} {t:.1f} ({c:.0f})" for g, (t, c) in
+            sorted(groups.items(), key=lambda kv: -kv[1][0])))
+        for line in lines[:8]:
+            log(f"     {line[:110]}")
+        return f"{100 * busy / wall_us:.1f}%"
+    except Exception as e:  # measurement only: report, do not fail the run
+        log(f"   profile {name}: not measured ({type(e).__name__}: {e})")
+        return "not measured"
+
+
+@phase("phase 9: train step at batch 32")
+def check_train_step(dev, out_dir: str) -> dict:
+    import numpy as np
+    import torch
+
+    from kasportsformer_torch.config import Config
+    from kasportsformer_torch.data.pipeline import flip_generator
+    from kasportsformer_torch.models import build_model
+    from kasportsformer_torch.train.loop import make_optimizer, make_train_step
+
+    train, _ = synthetic_clipsets(10, 320, 4)
+    arrays = {"inputs": torch.as_tensor(train.inputs, device=dev),
+              "labels": torch.as_tensor(train.labels, device=dev)}
+    res = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = Config(compute_dtype=dname)  # the public config: batch 32
+        model = build_model(cfg, device=dev)
+        opt = make_optimizer(model, cfg)
+        step = make_train_step(model, cfg, opt)
+        w = torch.ones(cfg.batch_size, device=dev)
+        plans = np.arange(320).reshape(10, 32)
+        times, i = [], 0
+
+        def one() -> None:
+            nonlocal i
+            step(arrays, plans[i % 10], w, flip_generator(cfg.seed, 0, i))
+            i += 1
+
+        one()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(12):
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        none = [n for n, p in model.named_parameters() if p.grad is None]
+        if none:  # the step gives the unreached parameters zeros for AdamW
+            raise AssertionError(f"no gradient after a step: {none[:5]}")
+        med = statistics.median(times)
+        busy = profile_steps(one, 3, f"train_{dname}", out_dir)
+        res[dname] = {"ms": med, "peak_gib": peak, "busy": busy}
+        log(f"   train step {dname}, batch 32: median {med:.1f} ms over 12 "
+            f"steps (min {min(times):.1f}, max {max(times):.1f}), "
+            f"{32e3 / med:.1f} clips/s, peak memory {peak:.2f} GiB")
+        del model, opt, step
+    # 50 steps on one fixed batch, float32, no flips: the loss must fall
+    cfg = Config(flip=False, learning_rate=1e-3)
+    model = build_model(cfg, device=dev)
+    opt = make_optimizer(model, cfg)
+    step = make_train_step(model, cfg, opt)
+    w = torch.ones(32, device=dev)
+    losses = [step(arrays, np.arange(32), w)["loss_total"].item()
+              for _ in range(50)]
+    log(f"   50 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"(min {min(losses):.5f})")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"fixed-batch losses did not fall: {losses}")
+    res["losses"] = (losses[0], losses[-1])
+    return res
+
+
+@phase("phase 10: train and evaluate through the CLI (main path)")
+def check_train_cli(dev, out_dir: str) -> dict:
+    import dataclasses
+    import io
+    import re
+    import tempfile
+
+    from kasportsformer_torch import cli
+    from kasportsformer_torch.config import load_config
+    from kasportsformer_torch.data.clips import save_clipstore
+    from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_bwd
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_bwd
+
+    counters = (masked_sdpa, masked_sdpa_bwd, fused_mlp_ln, fused_mlp_ln_bwd)
+    with tempfile.TemporaryDirectory() as tmp:
+        train, test = synthetic_clipsets(11, 256, 64)
+        for cs in (train, test):
+            save_clipstore(os.path.join(tmp, "clips", "SYN-27", f"{cs.split}.npz"), cs)
+        raw = dataclasses.asdict(
+            load_config("configs/sportspose-gt-kasportsformer.yaml"))
+        raw.update(epochs=2, warmup_epoches=1, data_root=os.path.join(tmp, "clips"),
+                   clip_set_name="SYN-27", new_checkpoint_dir=os.path.join(tmp, "ckpt"),
+                   new_checkpoint_name="syn", logger_dir_path=os.path.join(tmp, "log"),
+                   logger_file_name="train.log", use_wandb=False, checkpoint=False,
+                   resume=False, eval_only=False)
+        cfg_path = os.path.join(tmp, "syn.yaml")  # JSON is YAML
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config-path", cfg_path])
+        train_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        if rc != 0:
+            raise AssertionError(f"train exited {rc}")
+        logs = "".join(open(os.path.join(tmp, "log", n)).read()
+                       for n in os.listdir(os.path.join(tmp, "log")))
+        mpjpes = [float(v) for v in re.findall(r"epoch \d+: MPJPE ([0-9.eE+-]+) mm", logs)]
+        best = os.path.join(tmp, "ckpt", "syn_best")
+        if len(mpjpes) != 2 or not os.path.isdir(best):
+            raise AssertionError(f"expected 2 evaluated epochs and a best "
+                                 f"checkpoint, got {mpjpes}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["evaluate", "--config-path", cfg_path,
+                           "--checkpoint", best])
+        result = json.loads(buf.getvalue().strip().splitlines()[-1])
+        diff = abs(result["mpjpe"] - min(mpjpes))
+        log(f"   train: 2 epochs of 8 steps in {train_s:.1f} s, eval MPJPE per "
+            f"epoch {mpjpes}; evaluate on the best checkpoint: "
+            f"{result['mpjpe']} mm (diff {diff:.2e}); launches {launches}")
+        if rc != 0 or diff > 1e-3 or min(launches.values()) == 0:
+            raise AssertionError(f"evaluate rc {rc}, MPJPE diff {diff}, "
+                                 f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
@@ -618,22 +1109,38 @@ def main() -> int:
     launches = None
     if res is not None:
         launches = check_serving(dev, res["model"])
+        del res
+    k2 = check_k2(dev)
+    k4 = check_k4(dev)
+    check_grads(dev)
+    check_train_step(dev, args.out)
+    train_launches = check_train_cli(dev, args.out)
     log(f"== total {time.perf_counter() - t_start:.1f} s")
-    if FAILED or not (k1 and k3 and launches):
+    if FAILED or not (k1 and k3 and launches and k2 and k4 and train_launches):
         log(f"chip_smoke: FAILED phases: {FAILED}")
         return 1
 
-    k1_row = k1[("spatial", "float32")]
-    k3_row = k3[(58752, "float32")]
+    # f32 rows at the main paths' shapes: serving (K1, K3) and the train
+    # step (K2, K4); launches from the serving and the training run
     kernels = [
         dict(name="masked_sdpa", route="cuda",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
              replaces="kasportsformer_tpu/ops/attention.py:227",
-             launches=launches["masked_sdpa"], **k1_row),
+             launches=launches["masked_sdpa"], **k1[("spatial", "float32")]),
+        dict(name="masked_sdpa_bwd", route="cuda",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:365",
+             launches=train_launches["masked_sdpa_bwd"],
+             **k2[("spatial", "float32")]),
         dict(name="fused_mlp_ln", route="cuda",
              source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:202",
-             launches=launches["fused_mlp_ln"], **k3_row),
+             launches=launches["fused_mlp_ln"], **k3[(58752, "float32")]),
+        dict(name="fused_mlp_ln_bwd", route="cuda",
+             source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:284",
+             launches=train_launches["fused_mlp_ln_bwd"],
+             **k4[(14688, "float32")]),
     ]
     for row in kernels:
         row["dtype"] = "float32"

@@ -10,8 +10,10 @@ Parameters stay float32; activations run in the dtype of the input, and each
 linear casts its weights to that dtype, as the JAX package does (outside
 autograd the cast is made once and kept, see `cast`). LayerNorm and
 batch-norm statistics are float32. The attention core goes to
-`ops.attention.masked_sdpa` (kernel K1 on CUDA) and every FormerModule's MLP
-tail to `ops.mlp.fused_mlp_ln` (kernel K3 on CUDA).
+`ops.attention.masked_sdpa` (kernels K1 and, in the backward, K2 on CUDA)
+and every FormerModule's MLP tail to `ops.mlp.fused_mlp_ln` (K3 and K4).
+The dynamic top-k adjacency is a comparison, so no gradient flows through
+it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -309,14 +311,18 @@ class FormerModule(nn.Module):
 
 def mlp_tail(block: FormerModule, x: torch.Tensor) -> torch.Tensor:
     """The FormerModule MLP tail x + [ls2 *] MLP(LN_norm2(x)), in one call of
-    `fused_mlp_ln` (kernel K3 on CUDA), the weights already in the
-    activation dtype."""
+    `fused_mlp_ln` (K3 forward and K4 backward on CUDA). Under autograd the
+    float32 parameters go in as they are, so their gradients arrive in
+    float32 (the op makes its copies in the activation dtype); outside it
+    the kept copies of `cast` go in."""
     ls2 = (block.layer_scale_2 if block.use_layer_scale
            else torch.ones_like(block.norm2.weight))
     fc1, fc2, dt = block.mlp.fc1, block.mlp.fc2, x.dtype
-    return fused_mlp_ln(x, block.norm2.weight, block.norm2.bias,
-                        cast(fc1.weight, dt), cast(fc1.bias, dt),
-                        cast(fc2.weight, dt), cast(fc2.bias, dt), ls2, 1e-5)
+    weights = (fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    if not torch.is_grad_enabled():
+        weights = tuple(cast(t, dt) for t in weights)
+    return fused_mlp_ln(x, block.norm2.weight, block.norm2.bias, *weights,
+                        ls2, 1e-5)
 
 
 def adaptive_fusion(fusion: nn.Linear,

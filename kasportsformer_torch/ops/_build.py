@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("masked_sdpa", "mlp_ln")
+KERNEL_SOURCES = ("masked_sdpa", "masked_sdpa_bwd", "mlp_ln", "mlp_ln_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +97,17 @@ def library(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _libs[name]
     return lib
+
+
+def bind(name: str, sym: str, argtypes: list) -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    """The library of `csrc/<name>.cu` and its C function `sym`, typed with
+    `argtypes` and an int (cudaError_t) result on first use."""
+    lib = library(name)
+    fn = getattr(lib, sym)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

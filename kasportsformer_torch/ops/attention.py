@@ -1,4 +1,5 @@
-"""Per-head masked attention core (K1) and its plain PyTorch version.
+"""Per-head masked attention core: forward (K1), backward (K2), autograd,
+and their plain PyTorch versions.
 
 `masked_sdpa(q, k, v, scale, num_heads)` computes, for every (B, G) of
 (B, G, N, C) inputs and every head h of width D = C / num_heads,
@@ -6,12 +7,16 @@
 `kasportsformer_tpu/ops/attention.py:masked_sdpa` (Pallas kernel
 `_attn_kernel`, plain formulation `masked_sdpa_xla`).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/masked_sdpa.cu` or raises; on a CPU tensor it runs
-`masked_sdpa_reference`. The kernel subtracts the exact per-head max of the
-logits, so no head can underflow to 0/0: the JAX package's NaN guards
-(`nan_guarded`, `guard_scope`, the stable re-run) have nothing to guard here
-and are not ported.
+On a CUDA tensor the wrapper runs `MaskedSdpaFunction`, an autograd
+Function whose forward launches the hand-written kernel K1
+(`csrc/masked_sdpa.cu`) and whose backward launches K2
+(`csrc/masked_sdpa_bwd.cu`, the port of `_attn_bwd_kernel` behind the JAX
+VJP `_masked_sdpa_bwd`); an input it cannot take raises. On a CPU tensor it
+runs `masked_sdpa_reference` under plain autograd. Both kernels subtract the
+exact per-head max of the logits, so no head can underflow to 0/0: the JAX
+package's NaN guards (`nan_guarded`, `guard_scope`, the stable re-run, and
+the train step's `guarded_grads_fn`) have nothing to guard here and are not
+ported.
 """
 
 from __future__ import annotations
@@ -43,63 +48,154 @@ def masked_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, heads(v)).transpose(-3, -2).flatten(-2)
 
 
-def _kernel() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
-    lib = _build.library("masked_sdpa")
-    fn = lib.kasf_masked_sdpa
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+def masked_sdpa_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor, scale: float,
+                              num_heads: int
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of `masked_sdpa_reference` on (..., N, C) inputs and
+    output gradient g, in the closed form of K2 (and of the JAX kernel
+    `_attn_bwd_kernel`): P recomputed with a float32 softmax,
+    dV = P^T g, dP = g V^T, dS = P (dP - rowsum(P dP)) scale, dq = dS K,
+    dk = dS^T q per head. P and dS are rounded to the input dtype before
+    their products, as the JAX kernel does. Returns (dq, dk, dv)."""
+    c = q.shape[-1]
+    d = c // num_heads
+    dt = q.dtype
+
+    def heads(z: torch.Tensor) -> torch.Tensor:  # (..., N, C) -> (..., H, N, D)
+        return z.unflatten(-1, (num_heads, d)).transpose(-3, -2)
+
+    def merge(z: torch.Tensor) -> torch.Tensor:  # (..., H, N, D) -> (..., N, C)
+        return z.transpose(-3, -2).flatten(-2)
+
+    qh, kh, vh, gh = (heads(z) for z in (q, k, v, g.to(dt)))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * scale
+    probs = torch.softmax(logits, dim=-1)
+    dprobs = torch.matmul(gh, vh.transpose(-1, -2)).float()
+    ds = probs * (dprobs - (probs * dprobs).sum(-1, keepdim=True)) * scale
+    probs, ds = probs.to(dt), ds.to(dt)
+    dv = torch.matmul(probs.transpose(-1, -2), gh)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return merge(dq), merge(dk), merge(dv)
+
+
+def _fn(name: str, n_ptrs: int) -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    return _build.bind(name, f"kasf_{name}",
+                       [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib, fn
+
+
+def _check_operands(what: str, num_heads: int, *ts: torch.Tensor) -> None:
+    q = ts[0]
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{what} kernel takes equal (B, G, N, C) operands, "
+                         f"got {[tuple(t.shape) for t in ts]}")
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{what} kernel takes its operands on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+                        f"{[t.dtype for t in ts]}")
+    n, c = q.shape[2], q.shape[3]
+    if c != _HEAD_DIM * num_heads:
+        raise ValueError(f"{what} kernel takes heads of width "
+                         f"{_HEAD_DIM}, got C={c} over {num_heads} heads")
+    if n > _MAX_N or num_heads * n > 1024:
+        raise ValueError(f"{what} kernel takes N <= {_MAX_N}, got {n}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError(f"{what} kernel needs channel stride 1")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             num_heads: int) -> torch.Tensor:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"masked_sdpa kernel takes equal (B, G, N, C) q/k/v, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError("masked_sdpa kernel takes q, k, v on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"masked_sdpa kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    """K1 on operands `_check_operands` accepted and `_build.aligned` made."""
     b, g, n, c = q.shape
-    if c != _HEAD_DIM * num_heads:
-        raise ValueError(f"masked_sdpa kernel takes heads of width "
-                         f"{_HEAD_DIM}, got C={c} over {num_heads} heads")
-    if n > _MAX_N or num_heads * n > 1024:
-        raise ValueError(f"masked_sdpa kernel takes N <= {_MAX_N}, got {n}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("masked_sdpa kernel needs channel stride 1")
-    q, k, v = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty((b, g, n, c), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib, fn = _kernel()
+    lib, fn = _fn("masked_sdpa", 4)
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), strides, b, g, n, c,
-                  num_heads, float(scale), stream)
+                  num_heads, float(scale), _stream(q.device))
     _build.check(lib, code, "masked_sdpa kernel launch")
     masked_sdpa.launches += 1
     return out
+
+
+def masked_sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, scale: float, num_heads: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: (dq, dk, dv) of `masked_sdpa` at (q, k, v) for the output
+    gradient g, all (B, G, N, C) CUDA tensors of one dtype (strided views
+    with channel stride 1 are read in place; a gradient of another layout is
+    made contiguous). The results are contiguous. `masked_sdpa_bwd.launches`
+    counts kernel launches."""
+    if g.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+        g = g.contiguous()
+    _check_operands("masked_sdpa_bwd", num_heads, q, k, v, g)
+    q, k, v, g = (_build.aligned(t) for t in (q, k, v, g))
+    b, gg, n, c = q.shape
+    dq, dk, dv = (torch.empty((b, gg, n, c), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    lib, fn = _fn("masked_sdpa_bwd", 7)
+    strides = (ctypes.c_longlong * 16)(
+        *q.stride(), *k.stride(), *v.stride(), *g.stride())
+    with torch.cuda.device(q.device):
+        code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), strides, b, gg, n, c, num_heads,
+                  float(scale), _stream(q.device))
+    _build.check(lib, code, "masked_sdpa_bwd kernel launch")
+    masked_sdpa_bwd.launches += 1
+    return dq, dk, dv
+
+
+masked_sdpa_bwd.launches = 0
+
+
+class MaskedSdpaFunction(torch.autograd.Function):
+    """K1 forward, K2 backward (the port of the JAX custom VJP
+    `_masked_sdpa_fwd` / `_masked_sdpa_bwd`). The residuals are q, k and v
+    as given: strided views are saved without a copy, and an operand that
+    `_build.aligned` had to copy is saved as that copy."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, num_heads: int):
+        _check_operands("masked_sdpa", num_heads, q, k, v)
+        q, k, v = (_build.aligned(t) for t in (q, k, v))
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return _launch(q, k, v, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = masked_sdpa_bwd(q, k, v, g, ctx.scale, ctx.num_heads)
+        return dq, dk, dv, None, None
 
 
 def masked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, num_heads: int) -> torch.Tensor:
     """Per-head attention over N of (B, G, N, C) q/k/v -> (B, G, N, C).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    accepts strided views (channel stride 1; an operand whose rows are not
-    16-byte aligned is copied first) and returns a contiguous output.
-    `masked_sdpa.launches` counts kernel launches."""
+    CPU tensors take the plain version (plain autograd); CUDA tensors go
+    through `MaskedSdpaFunction`: K1 forward, which accepts strided views
+    (channel stride 1; an operand whose rows are not 16-byte aligned is
+    copied first) and returns a contiguous output, and K2 backward.
+    `masked_sdpa.launches` counts K1 launches."""
     if q.device.type == "cpu":
         return masked_sdpa_reference(q, k, v, scale, num_heads)
-    return _launch(q, k, v, scale, num_heads)
+    return MaskedSdpaFunction.apply(q, k, v, scale, num_heads)
 
 
 masked_sdpa.launches = 0

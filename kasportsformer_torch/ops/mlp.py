@@ -1,4 +1,5 @@
-"""LayerNorm-folded MLP tail (K3) and its plain PyTorch version.
+"""LayerNorm-folded MLP tail: forward (K3), backward (K4), autograd, and
+their plain PyTorch versions.
 
 `fused_mlp_ln(x, gamma, beta, w1, b1, w2, b2, ls2, eps)` computes the
 FormerModule tail `x + ls2 * (GELU(LN(x) W1^T + b1) W2^T + b2)` over the last
@@ -7,9 +8,12 @@ the torch `nn.Linear` layout: `w1` (hidden, C), `w2` (C, hidden). It is the
 port of `kasportsformer_tpu/ops/mlp.py:fused_mlp_ln` (Pallas kernel
 `_mlp_ln_kernel`, plain formulation `_mlp_ln_xla`).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/mlp_ln.cu` (float32 on the CUDA cores, bfloat16 on the tensor cores)
-or raises; on a CPU tensor it runs `fused_mlp_ln_reference`. The kernel
+On a CUDA tensor the wrapper runs `FusedMlpLnFunction`, an autograd
+Function whose forward launches the hand-written kernel K3 (`csrc/mlp_ln.cu`:
+float32 on the CUDA cores, bfloat16 on the tensor cores) and whose backward
+launches K4 (`csrc/mlp_ln_bwd.cu`, the port of `_mlp_ln_bwd_kernel` behind
+the JAX VJP `_fused_mlp_ln_bwd`); an input it cannot take raises. On a CPU
+tensor it runs `fused_mlp_ln_reference` under plain autograd. The kernel
 masks the tail rows of a ragged M, so any number of rows works. It evaluates
 GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
 up to 4.8e-4 away).
@@ -18,6 +22,7 @@ up to 4.8e-4 away).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,23 +50,63 @@ def fused_mlp_ln_reference(x: torch.Tensor, gamma: torch.Tensor,
     return x + ls2.to(dt) * y
 
 
-def _kernel() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
-    lib = _build.library("mlp_ln")
-    fn = lib.kasf_mlp_ln
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib, fn
 
 
-def _launch(x, gamma, beta, w1, b1, w2, b2, ls2, eps) -> torch.Tensor:
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz GELU(z) = Phi(z) + z phi(z), the exact-erf form."""
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.5 ** 0.5))
+    return cdf + z * torch.exp(-0.5 * z * z) * (2.0 * math.pi) ** -0.5
+
+
+def fused_mlp_ln_bwd_reference(x: torch.Tensor, gamma: torch.Tensor,
+                               beta: torch.Tensor, w1: torch.Tensor,
+                               b1: torch.Tensor, w2: torch.Tensor,
+                               b2: torch.Tensor, ls2: torch.Tensor,
+                               g: torch.Tensor, eps: float = 1e-5
+                               ) -> tuple[torch.Tensor, ...]:
+    """Plain backward of `fused_mlp_ln_reference` for the output gradient g,
+    in the closed form of K4 (and of the JAX kernel `_mlp_ln_bwd_kernel`):
+    LN -> fc1 -> GELU -> fc2 recomputed, products accumulated in float32,
+    LN(x), the hidden, do = g * ls2 and dz rounded to the input dtype where
+    the JAX kernel rounds them. Weights in the torch (out, in) layout.
+    Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2, dls2): dx like x, the
+    rest float32."""
+    dt, c = x.dtype, x.shape[-1]
+    xf = x.reshape(-1, c).float()
+    gf = g.reshape(-1, c).float()
+    # operands rounded to dt, products summed in float32
+    w1c, w2c = w1.to(dt).float(), w2.to(dt).float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    a = (xhat * gamma.float() + beta.float()).to(dt).float()
+    z = torch.matmul(a, w1c.t()) + b1.to(dt).float()
+    h = F.gelu(z).to(dt).float()
+    o = torch.matmul(h, w2c.t()) + b2.to(dt).float()
+    do = (gf * ls2.float()).to(dt).float()
+    dz = torch.matmul(do, w2c) * _gelu_grad(z)
+    dzb = dz.to(dt).float()
+    da = torch.matmul(dzb, w1c)
+    dxhat = da * gamma.float()
+    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dx.to(dt).reshape(x.shape), (da * xhat).sum(0), da.sum(0),
+            torch.matmul(dzb.t(), a), dz.sum(0), torch.matmul(do.t(), h),
+            do.sum(0), (gf * o).sum(0))
+
+
+def _fn(name: str, n_ptrs: int, n_tail: list) -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    return _build.bind(name, f"kasf_{name}",
+                       [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + n_tail)
+
+
+def _check(x, gamma, beta, w1, b1, w2, b2, ls2) -> None:
     dt, dev = x.dtype, x.device
     if dev.type != "cuda":
-        raise ValueError("mlp_ln kernel takes CUDA tensors")
+        raise ValueError("mlp_ln kernels take CUDA tensors")
     if dt not in _DTYPE_CODE:
-        raise TypeError(f"mlp_ln kernel takes float32 or bfloat16, got {dt}")
+        raise TypeError(f"mlp_ln kernels take float32 or bfloat16, got {dt}")
     c = x.shape[-1]
     hidden = w1.shape[0]
     if (c != _WIDTH or tuple(w1.shape) != (hidden, c)
@@ -75,27 +120,121 @@ def _launch(x, gamma, beta, w1, b1, w2, b2, ls2, eps) -> torch.Tensor:
     if any(t.device != dev for t in (gamma, beta, w1, b1, w2, b2, ls2)):
         raise ValueError("mlp_ln kernel takes all tensors on one CUDA device")
 
-    def prep(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        # no copy for operands already in the dtype, dense and aligned
-        return _build.aligned(t.to(dtype).contiguous())
 
-    xc = prep(x.reshape(-1, c), dt)
-    m = xc.shape[0]
+def _prep(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # no copy for operands already in the dtype, dense and aligned
+    return _build.aligned(t.to(dtype).contiguous())
+
+
+def _operands(x, gamma, beta, w1, b1, w2, b2, ls2) -> tuple[torch.Tensor, ...]:
+    """(x as (M, C), gamma, beta, w1, b1, w2, b2, ls2) as the kernels take
+    them: x and the linears' weights and biases in x's dtype, the rest
+    float32, all dense and aligned."""
+    dt = x.dtype
+    return (_prep(x.reshape(-1, x.shape[-1]), dt), _prep(gamma, torch.float32),
+            _prep(beta, torch.float32), _prep(w1, dt), _prep(b1, dt),
+            _prep(w2, dt), _prep(b2, dt), _prep(ls2, torch.float32))
+
+
+def _launch(ops: tuple[torch.Tensor, ...], eps: float) -> torch.Tensor:
+    """K3 on `_operands`; returns (M, C)."""
+    xc = ops[0]
+    m, c = xc.shape
+    hidden = ops[3].shape[0]
     out = torch.empty_like(xc)
     if m == 0:
-        return out.reshape(x.shape)
-    # keep every converted operand alive until the launch has been queued
-    ops = (xc, prep(gamma, torch.float32), prep(beta, torch.float32),
-           prep(w1, dt), prep(b1, dt), prep(w2, dt), prep(b2, dt),
-           prep(ls2, torch.float32))
-    lib, fn = _kernel()
+        return out
+    lib, fn = _fn("mlp_ln", 9, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float, ctypes.c_void_p])
+    dev = xc.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(_DTYPE_CODE[dt], *(t.data_ptr() for t in ops),
+        code = fn(_DTYPE_CODE[xc.dtype], *(t.data_ptr() for t in ops),
                   out.data_ptr(), m, c, hidden, float(eps), stream)
     _build.check(lib, code, "mlp_ln kernel launch")
     fused_mlp_ln.launches += 1
-    return out.reshape(x.shape)
+    return out
+
+
+_SMS = 132  # the H100's SMs: the weight pass aims at one block each
+
+
+def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
+                eps: float) -> tuple[torch.Tensor, ...]:
+    """K4 on `_operands` and the (M, C) output gradient g of x's dtype."""
+    xc = ops[0]
+    m, c = xc.shape
+    hidden = ops[3].shape[0]
+    dev, f32 = xc.device, torch.float32
+    dx = torch.empty_like(xc)
+    grads = [torch.empty(s, dtype=f32, device=dev) for s in
+             (c, c, (hidden, c), hidden, (c, hidden), c, c)]
+    if m == 0:
+        for t in grads:
+            t.zero_()
+        return (dx, *grads)
+    lib, fn = _fn("mlp_ln_bwd", 18, [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_void_p])
+    size = lib.kasf_mlp_ln_bwd_workspace
+    size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    tiles = -(-m // 64)
+    splits = max(1, min(tiles, _SMS // (hidden // _CHUNK)))
+    work = torch.empty(size(m, hidden, splits), dtype=f32, device=dev)
+    ptrs = [t.data_ptr() for t in (xc, g, *ops[1:], dx, *grads, work)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(_DTYPE_CODE[xc.dtype], *ptrs, m, c, hidden, splits,
+                  float(eps), stream)
+    _build.check(lib, code, "mlp_ln_bwd kernel launch")
+    fused_mlp_ln_bwd.launches += 1
+    return (dx, *grads)
+
+
+def fused_mlp_ln_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     b2: torch.Tensor, ls2: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, ...]:
+    """K4: the gradients (dx, dgamma, dbeta, dw1, db1, dw2, db2, dls2) of
+    `fused_mlp_ln` at these inputs for the output gradient g, on CUDA
+    tensors: dx like x, the rest float32. The kernel sums the parameter
+    gradients over the rows in a fixed order, so reruns are bitwise equal.
+    `fused_mlp_ln_bwd.launches` counts kernel launches."""
+    _check(x, gamma, beta, w1, b1, w2, b2, ls2)
+    ops = _operands(x, gamma, beta, w1, b1, w2, b2, ls2)
+    gc = _prep(g.reshape(-1, x.shape[-1]), x.dtype)
+    dx, *rest = _launch_bwd(ops, gc, eps)
+    return (dx.reshape(x.shape), *rest)
+
+
+fused_mlp_ln_bwd.launches = 0
+
+
+class FusedMlpLnFunction(torch.autograd.Function):
+    """K3 forward, K4 backward (the port of the JAX custom VJP
+    `_fused_mlp_ln_fwd` / `_fused_mlp_ln_bwd`). It takes the parameters in
+    their own dtype (float32 under autograd) and makes the copies in x's
+    dtype itself; it saves those copies and x, and returns each parameter's
+    gradient in that parameter's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, ls2, eps: float):
+        _check(x, gamma, beta, w1, b1, w2, b2, ls2)
+        ops = _operands(x, gamma, beta, w1, b1, w2, b2, ls2)
+        ctx.save_for_backward(*ops)
+        ctx.eps, ctx.x_shape = eps, x.shape
+        ctx.dtypes = [t.dtype for t in (gamma, beta, w1, b1, w2, b2, ls2)]
+        return _launch(ops, eps).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        ops = ctx.saved_tensors
+        xc = ops[0]
+        gc = _prep(g.reshape(xc.shape), xc.dtype)
+        dx, *rest = _launch_bwd(ops, gc, ctx.eps)
+        rest = [t.to(d) for t, d in zip(rest, ctx.dtypes)]
+        return (dx.reshape(ctx.x_shape), *rest, None)
 
 
 def fused_mlp_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -104,12 +243,13 @@ def fused_mlp_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
     """x + ls2 * MLP(LN(x)) over the last axis of x (..., C).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Pass ls2 = ones for a tail without LayerScale. `fused_mlp_ln.launches`
-    counts kernel launches."""
+    CPU tensors take the plain version (plain autograd); CUDA tensors go
+    through `FusedMlpLnFunction` (K3 forward, K4 backward). Pass ls2 = ones
+    for a tail without LayerScale. `fused_mlp_ln.launches` counts K3
+    launches."""
     if x.device.type == "cpu":
         return fused_mlp_ln_reference(x, gamma, beta, w1, b1, w2, b2, ls2, eps)
-    return _launch(x, gamma, beta, w1, b1, w2, b2, ls2, eps)
+    return FusedMlpLnFunction.apply(x, gamma, beta, w1, b1, w2, b2, ls2, eps)
 
 
 fused_mlp_ln.launches = 0

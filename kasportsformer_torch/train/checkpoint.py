@@ -1,14 +1,18 @@
-"""Checkpoints: reference `.pth` loading, and the weight carrier from the JAX
-package's `(params, state)` pytrees (port of parts of
-`kasportsformer_tpu/train/checkpoint.py`).
+"""Checkpoints: reference `.pth` loading, native training-state
+checkpoints, and the weight carrier from the JAX package's `(params, state)`
+pytrees (port of parts of `kasportsformer_tpu/train/checkpoint.py`).
 
 The port's modules use the reference state-dict names, so a reference
-state_dict loads with `model.load_state_dict(sd, strict=True)`. Native
-training-state checkpoints wait for the checkpoint slice.
+state_dict loads with `model.load_state_dict(sd, strict=True)`. A native
+checkpoint is a directory `step_<N>` holding `model.pth` (the model's
+state_dict in the reference layout, itself a loadable reference `.pth`) and
+`optimizer.pth` (the optimizer's state_dict); the trainer writes the JAX
+sidecar `meta.json` beside it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -122,3 +126,43 @@ def state_dict_from_jax(params: dict[str, Any], state: dict[str, Any]
                     np.zeros((), np.int64))
         put_lin(f"layers_with_bone.{i}.fusion_three_channel", lp["fusion"])
     return out
+
+
+# ------------------------------------------------------------ native
+
+
+def save_native(directory: str, step: int, payload: dict[str, Any]) -> None:
+    """Save {'model': state_dict, 'optimizer': state_dict} under
+    `directory/step_<step>`, each file written whole or not at all."""
+    out = os.path.join(os.path.abspath(directory), f"step_{step}")
+    os.makedirs(out, exist_ok=True)
+    for name, value in payload.items():
+        path = os.path.join(out, f"{name}.pth")
+        torch.save(value, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+
+def restore_native(directory: str, step: int | None = None) -> dict[str, Any]:
+    """Load a native checkpoint: `directory` is the parent (then `step`, or
+    the latest step when None) or a `step_<N>` directory itself. Returns
+    {'model': ..., 'optimizer': ...} (whichever were saved), loaded on the
+    CPU with `weights_only=True`."""
+    directory = os.path.abspath(directory)
+    if not os.path.basename(directory).startswith("step_"):
+        if step is None:
+            step = latest_native_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no step_* checkpoints under {directory}")
+        directory = os.path.join(directory, f"step_{step}")
+    return {name[:-len(".pth")]: torch.load(os.path.join(directory, name),
+                                            map_location="cpu",
+                                            weights_only=True)
+            for name in sorted(os.listdir(directory)) if name.endswith(".pth")}
+
+
+def latest_native_step(directory: str) -> int | None:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(d.split("_", 1)[1]) for d in os.listdir(directory)
+             if d.startswith("step_")]
+    return max(steps) if steps else None

@@ -1,10 +1,15 @@
-"""Small shared helpers: the device contract, the horizontal pose flip and a
-chunked batch apply (port of `kasportsformer_tpu/utils/common.py`)."""
+"""Small shared helpers: the device contract, the logger, seeding, the
+horizontal pose flip and a chunked batch apply (port of
+`kasportsformer_tpu/utils/common.py`)."""
 
 from __future__ import annotations
 
+import logging
+import os
+import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from kasportsformer_torch.skeleton import FLIP_PERM
@@ -41,3 +46,39 @@ def chunked_batch_apply(fn: Callable[[torch.Tensor], torch.Tensor],
     if chunk_size <= 0 or x.shape[0] <= chunk_size:
         return fn(x)
     return torch.cat([fn(xb) for xb in x.split(chunk_size)], dim=0)
+
+
+def get_logger(dir_path: str, file_name: str,
+               name: str = "kasportsformer_torch") -> logging.Logger:
+    """Stream + timestamped file logger (cf. `utils/utilities.py:67-88`); no
+    file when `dir_path` is empty."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    formatter = logging.Formatter(
+        fmt="[%(asctime)s|%(filename)s|%(levelname)s] %(message)s",
+        datefmt="%a %b %d %H:%M:%S %Y")
+    stream = logging.StreamHandler()
+    stream.setFormatter(formatter)
+    logger.addHandler(stream)
+    if dir_path:
+        os.makedirs(dir_path, exist_ok=True)
+        time_str = time.strftime("%Y-%m-%d-%H.%M", time.localtime())
+        fhandler = logging.FileHandler(
+            os.path.join(dir_path, time_str + file_name), mode="w")
+        fhandler.setLevel(logging.DEBUG)
+        fhandler.setFormatter(formatter)
+        logger.addHandler(fhandler)
+    logger.propagate = False
+    return logger
+
+
+def seed_everything(seed: int) -> None:
+    """Seed numpy's and torch's global generators (cf.
+    `utils/utilities.py:15-22`). The training path draws nothing from the
+    global state: its weights come from a generator seeded with the
+    config's seed (`models.build_model`), its shuffles from
+    `default_rng([seed, epoch])` and its flips from generators seeded per
+    step (`data/pipeline.py`)."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)

@@ -7,8 +7,18 @@ a machine that has only PyTorch: `python -m pytest tests/test_torch_cuda.py`.
 import pytest
 import torch
 
-from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_reference
-from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_reference
+from kasportsformer_torch.ops.attention import (
+    masked_sdpa,
+    masked_sdpa_bwd,
+    masked_sdpa_bwd_reference,
+    masked_sdpa_reference,
+)
+from kasportsformer_torch.ops.mlp import (
+    fused_mlp_ln,
+    fused_mlp_ln_bwd,
+    fused_mlp_ln_bwd_reference,
+    fused_mlp_ln_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -17,8 +27,13 @@ pytestmark = pytest.mark.cuda
 # K1 rounds only its output (half a unit in the last place, <= 3.9e-3); K3
 # also rounds the LayerNorm output and the hidden activations, the operands
 # of its tensor-core products.
+# K2 and K4 compute in f32 from either dtype and round only their
+# activation gradients (K4's parameter gradients are f32 sums over the rows,
+# held against their largest entry).
 TOL = {"masked_sdpa": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
-       "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
+       "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+       "masked_sdpa_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+       "fused_mlp_ln_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
 
 
 @pytest.fixture
@@ -32,6 +47,11 @@ def cuda():
 def _scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
     return ((g - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+def _sum_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -113,3 +133,99 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     w = torch.randn(256, 64, device="cuda", generator=cuda)
     with pytest.raises(ValueError, match="C=128"):
         fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_masked_sdpa_bwd_kernel_matches_plain(cuda, dtype, mode):
+    """Strided q/k/v from one qkv projection; in temporal mode the permuted
+    views and a transposed gradient, as autograd hands them over."""
+    qkv = torch.randn(4, 27, 17, 384, device="cuda", generator=cuda).to(dtype)
+    g = torch.randn(4, 27, 17, 128, device="cuda", generator=cuda).to(dtype)
+    q, k, v = qkv.split(128, dim=-1)
+    if mode == "temporal":
+        q, k, v, g = (z.transpose(1, 2) for z in (q, k, v, g))
+    before = masked_sdpa_bwd.launches
+    got = masked_sdpa_bwd(q, k, v, g, 0.25, 8)
+    want = masked_sdpa_bwd_reference(*(z.float() for z in (q, k, v, g)), 0.25, 8)
+    assert masked_sdpa_bwd.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.is_contiguous() and torch.isfinite(a).all()
+        assert _scaled_err(a, w) <= TOL["masked_sdpa_bwd"][dtype]
+
+
+def test_masked_sdpa_bwd_kernel_large_interhead_spread(cuda):
+    q, k, v, g = (torch.randn(2, 4, 17, 128, device="cuda", generator=cuda)
+                  for _ in range(4))
+    q[..., :16] *= 60.0
+    k[..., :16] *= 60.0
+    for a, w in zip(masked_sdpa_bwd(q, k, v, g, 0.25, 8),
+                    masked_sdpa_bwd_reference(q, k, v, g, 0.25, 8)):
+        assert torch.isfinite(a).all() and _scaled_err(a, w) <= 1e-4
+
+
+def _mlp_args(gen, m: int, dtype):
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    return (randn(m, 128).to(dtype), 1 + randn(128, scale=0.1), randn(128, scale=0.1),
+            randn(512, 128, scale=128 ** -0.5).to(dtype),
+            randn(512, scale=0.1).to(dtype),
+            randn(128, 512, scale=512 ** -0.5).to(dtype),
+            randn(128, scale=0.1).to(dtype),
+            torch.rand(128, device="cuda", generator=gen))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [14688, 1377, 5])
+def test_fused_mlp_ln_bwd_kernel_matches_plain(cuda, dtype, m):
+    args = _mlp_args(cuda, m, dtype)
+    g = torch.randn(m, 128, device="cuda", generator=cuda).to(dtype)
+    before = fused_mlp_ln_bwd.launches
+    got = fused_mlp_ln_bwd(*args, g, 1e-5)
+    assert fused_mlp_ln_bwd.launches == before + 1
+    want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), 1e-5)
+    tol = TOL["fused_mlp_ln_bwd"][dtype]
+    assert got[0].dtype == dtype and _scaled_err(got[0], want[0]) <= tol
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and _sum_err(a, w) <= tol
+    again = fused_mlp_ln_bwd(*args, g, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_functions_match_plain_autograd(cuda, dtype):
+    """Each Function's gradients (K2, K4) against autograd of its plain
+    version on the same inputs, in float32 parameters as the model holds
+    them; the outputs carry a grad_fn."""
+    qkv = torch.randn(2, 27, 17, 384, device="cuda", generator=cuda).to(dtype)
+    for fn, ref, tol in ((masked_sdpa, masked_sdpa_reference, "masked_sdpa_bwd"),):
+        leaf = qkv.detach().float().requires_grad_()
+        q, k, v = leaf.to(dtype).split(128, dim=-1)
+        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 0.25, 8)
+        assert out.grad_fn is not None
+        g = torch.randn_like(out)
+        (got,) = torch.autograd.grad(out, leaf, g)
+        leaf2 = qkv.detach().float().requires_grad_()
+        q2, k2, v2 = leaf2.split(128, dim=-1)
+        out2 = ref(q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2), 0.25, 8)
+        (want,) = torch.autograd.grad(out2, leaf2, g.float())
+        assert _scaled_err(got, want) <= TOL[tol][dtype]
+    args = _mlp_args(cuda, 1377, dtype)
+    params = [a.detach().float().requires_grad_() for a in args[1:]]
+    x = args[0].detach().float().requires_grad_()
+    out = fused_mlp_ln(x.to(dtype).reshape(3, 27, 17, 128), *params)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, [x, *params], g)
+    assert all(t.dtype == torch.float32 for t in got)
+    x2 = x.detach().requires_grad_()
+    p2 = [p.detach().requires_grad_() for p in params]
+    want_args = [x2.to(dtype).float()] + [p.to(dtype).float() if i in (2, 3, 4, 5)
+                                          else p for i, p in enumerate(p2)]
+    out2 = fused_mlp_ln_reference(want_args[0].reshape(3, 27, 17, 128), *want_args[1:])
+    want = torch.autograd.grad(out2, [x2, *p2], g.float())
+    tol = TOL["fused_mlp_ln_bwd"][dtype]
+    assert _scaled_err(got[0], want[0]) <= tol
+    for a, w in zip(got[1:], want[1:]):
+        assert _sum_err(a, w) <= tol

@@ -15,6 +15,9 @@ from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_referenc
 from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_reference
 
 RNG = np.random.default_rng(11)
+# small shapes gain nothing from intra-op threads: leave the cores to the
+# suite's other workers
+torch.set_num_threads(1)
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

@@ -22,6 +22,9 @@ from torch_parity import SMALL, jax_flagship, torch_flagship
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.default_rng(29)
+# small shapes gain nothing from intra-op threads: leave the cores to the
+# suite's other workers
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,353 @@
+"""The training path's kernel modules and numerics against the JAX package,
+on the CPU: the plain backward versions of K2 (masked attention) and K4
+(LN-folded MLP tail) and the port's autograd against `jax.vjp` of the XLA
+formulations and the Pallas backward kernels (interpret mode); the losses
+(with `_safe_norm`'s zero gradient and NaN propagation), the metrics, the
+epoch plan, the flip augmentation and the de-normalisation. The CUDA
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kasportsformer_tpu.data import pipeline as JP
+from kasportsformer_tpu.ops.attention import masked_sdpa_bwd_pallas, masked_sdpa_xla
+from kasportsformer_tpu.ops.mlp import _mlp_ln_xla, fused_mlp_ln_bwd_pallas
+from kasportsformer_tpu.train import losses as JLS
+from kasportsformer_tpu.train import metrics as JM
+from kasportsformer_tpu.train.evaluator import denormalize_device as jax_denorm
+from kasportsformer_tpu.utils.common import joint_flip as jax_joint_flip
+from kasportsformer_torch.data import pipeline as TP
+from kasportsformer_torch.ops.attention import (
+    masked_sdpa,
+    masked_sdpa_bwd,
+    masked_sdpa_bwd_reference,
+)
+from kasportsformer_torch.ops.mlp import (
+    fused_mlp_ln,
+    fused_mlp_ln_bwd,
+    fused_mlp_ln_bwd_reference,
+)
+from kasportsformer_torch.train import losses as TLS
+from kasportsformer_torch.train import metrics as TM
+from kasportsformer_torch.train.evaluator import denormalize_device
+
+RNG = np.random.default_rng(31)
+# small shapes gain nothing from intra-op threads: leave the cores to the
+# suite's other workers
+torch.set_num_threads(1)
+# float32 on the CPU, both sides: summation order only
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(a: np.ndarray, grad: bool = False) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+# ------------------------------------------------------------ K2
+
+
+def _jax_sdpa_vjp(q, k, v, g, scale, heads):
+    @jax.jit
+    def vjp(q, k, v, g):
+        return jax.vjp(lambda a, b, c: masked_sdpa_xla(a, b, c, scale, heads),
+                       q, k, v)[1](g)
+
+    return [np.asarray(z) for z in vjp(q, k, v, g)]
+
+
+def test_masked_sdpa_bwd_reference_matches_jax():
+    """The plain backward against `jax.vjp(masked_sdpa_xla)` and the Pallas
+    backward kernel (interpret mode), at 8 heads of 16 (the kernel's
+    width); the temporal length 27 is covered by the autograd test below."""
+    q, k, v, g = (RNG.standard_normal((1, 3, 17, 128)).astype(np.float32)
+                  for _ in range(4))
+    got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, 8)
+    want = _jax_sdpa_vjp(q, k, v, g, 0.25, 8)
+    kernel = masked_sdpa_bwd_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(g), 0.25, 8,
+                                    interpret=True)
+    for a, w, p in zip(got, want, kernel):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(a.numpy(), np.asarray(p), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_masked_sdpa_autograd_matches_jax_on_strided_views(mode):
+    """The port's autograd through column slices of one qkv projection and
+    (temporal) permuted views, as the model differentiates them."""
+    b, t, j, c = 1, 27, 17, 128
+    qkv = RNG.standard_normal((b, t, j, 3 * c)).astype(np.float32)
+    g = RNG.standard_normal((b, t, j, c)).astype(np.float32)
+    base = _t(qkv, grad=True)
+    q, k, v = base.split(c, dim=-1)
+    qn, kn, vn = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    gn = g
+    if mode == "temporal":
+        q, k, v = (z.transpose(1, 2) for z in (q, k, v))
+        qn, kn, vn, gn = (z.transpose(0, 2, 1, 3) for z in (qn, kn, vn, g))
+    out = masked_sdpa(q, k, v, 0.25, 8)
+    gt = _t(g).transpose(1, 2) if mode == "temporal" else _t(g)
+    (dqkv,) = torch.autograd.grad(out, base, gt)
+    want = _jax_sdpa_vjp(qn, kn, vn, gn, 0.25, 8)
+    if mode == "temporal":
+        want = [w.transpose(0, 2, 1, 3) for w in want]
+    np.testing.assert_allclose(dqkv.numpy(), np.concatenate(want, -1),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_masked_sdpa_bwd_large_interhead_spread():
+    """The x60 head-0 spread: the backward stays finite and matches."""
+    q, k, v, g = (RNG.standard_normal((1, 4, 17, 128)).astype(np.float32)
+                  for _ in range(4))
+    q[..., :16] *= 60.0
+    k[..., :16] *= 60.0
+    got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, 8)
+    for a, w in zip(got, _jax_sdpa_vjp(q, k, v, g, 0.25, 8)):
+        assert np.isfinite(a.numpy()).all()
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-3, rtol=1e-3)
+
+
+def test_masked_sdpa_bwd_refuses_cpu_tensors():
+    """K2's wrapper launches the kernel or raises: no plain fallback."""
+    q = torch.zeros(1, 1, 17, 128)
+    before = masked_sdpa_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        masked_sdpa_bwd(q, q, q, q, 0.25, 8)
+    assert masked_sdpa_bwd.launches == before
+
+
+# ------------------------------------------------------------ K4
+
+
+def _mlp_inputs(m: int, c: int = 128, hidden: int = 512):
+    f = np.float32
+    return dict(
+        x=RNG.standard_normal((m, c)).astype(f),
+        gamma=(1.0 + 0.1 * RNG.standard_normal(c)).astype(f),
+        beta=(0.1 * RNG.standard_normal(c)).astype(f),
+        w1=(RNG.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
+        b1=(RNG.standard_normal(hidden) * 0.05).astype(f),
+        w2=(RNG.standard_normal((hidden, c)) * 0.05).astype(f),
+        b2=(RNG.standard_normal(c) * 0.05).astype(f),
+        ls2=RNG.uniform(0.1, 1.0, c).astype(f),
+    )
+
+
+_ORDER = ("x", "gamma", "beta", "w1", "b1", "w2", "b2", "ls2")
+
+
+def _torch_mlp_args(a: dict, grad: bool = False):
+    """JAX-layout arrays -> the port's arguments (nn.Linear layout)."""
+    return tuple(_t(a[k].T if k in ("w1", "w2") else a[k], grad) for k in _ORDER)
+
+
+def _jax_mlp_grads(a: dict, g: np.ndarray) -> list[np.ndarray]:
+    """`jax.vjp(_mlp_ln_xla)`, weight gradients turned to the torch layout."""
+    vjp = jax.jit(lambda args, g: jax.vjp(_mlp_ln_xla, *args)[1](g))
+    out = [np.asarray(z) for z in vjp(tuple(a[k] for k in _ORDER), g)]
+    out[3], out[5] = out[3].T, out[5].T
+    return out
+
+
+def test_fused_mlp_ln_bwd_reference_matches_jax():
+    a = _mlp_inputs(256)
+    g = RNG.standard_normal((256, 128)).astype(np.float32)
+    got = fused_mlp_ln_bwd_reference(*_torch_mlp_args(a), _t(g))
+    want = _jax_mlp_grads(a, g)
+    kernel = [np.asarray(z) for z in fused_mlp_ln_bwd_pallas(
+        *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), interpret=True)]
+    kernel[3], kernel[5] = kernel[3].T, kernel[5].T
+    for name, x, w, p in zip(_ORDER, got, want, kernel):
+        # parameter gradients sum 256 rows: relative 1e-5 of their scale
+        np.testing.assert_allclose(x.numpy(), w, atol=1e-4, rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(x.numpy(), p, atol=1e-4, rtol=1e-5, err_msg=name)
+
+
+def test_fused_mlp_ln_autograd_matches_jax_ragged_rows():
+    """The port's autograd over (B, T, J, C) input at a row count no
+    8-row block divides (3 x 27 x 17 = 1,377)."""
+    a = _mlp_inputs(1377)
+    g = RNG.standard_normal((1377, 128)).astype(np.float32)
+    args = _torch_mlp_args(a, grad=True)
+    x4 = args[0].reshape(3, 27, 17, 128)
+    out = fused_mlp_ln(x4, *args[1:], 1e-5)
+    got = torch.autograd.grad(out, args, _t(g).reshape(out.shape))
+    for name, x, w in zip(_ORDER, got, _jax_mlp_grads(a, g)):
+        np.testing.assert_allclose(x.numpy(), w, atol=2e-4, rtol=1e-5, err_msg=name)
+
+
+def test_fused_mlp_ln_bwd_reference_bf16_within_rounding():
+    """bf16 plain backward against the JAX bf16 backward kernel (interpret
+    mode): both round LN(x), the hidden, do and dz to bf16 and sum in
+    float32. The TPU kernel's bf16 GELU and its derivative are the tanh form
+    (the value up to 4.8e-4 away), which moves some dz across a bf16
+    rounding boundary; the parameter gradients sum 256 such rows. Limit
+    5e-2, scaled by max(1, |y|)."""
+    a = _mlp_inputs(256)
+    g = RNG.standard_normal((256, 128)).astype(np.float32)
+    args = [t.to(torch.bfloat16) if i in (0, 3, 4, 5, 6) else t
+            for i, t in enumerate(_torch_mlp_args(a))]
+    got = fused_mlp_ln_bwd_reference(*args, _t(g).to(torch.bfloat16))
+    jargs = [jnp.asarray(a[k]) for k in _ORDER]
+    for i in (0, 3, 4, 5, 6):
+        jargs[i] = jargs[i].astype(jnp.bfloat16)
+    want = [np.asarray(z, np.float32) for z in fused_mlp_ln_bwd_pallas(
+        *jargs, jnp.asarray(g, jnp.bfloat16), interpret=True)]
+    want[3], want[5] = want[3].T, want[5].T
+    for name, x, w in zip(_ORDER, got, want):
+        err = np.abs(x.float().numpy() - w) / np.maximum(np.abs(w), 1.0)
+        assert float(err.max()) < 5e-2, (name, float(err.max()))
+
+
+def test_fused_mlp_ln_bwd_refuses_cpu_tensors():
+    args = _torch_mlp_args(_mlp_inputs(8))
+    before = fused_mlp_ln_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_ln_bwd(*args, args[0])
+    assert fused_mlp_ln_bwd.launches == before
+
+
+# ------------------------------------------------------------ losses
+
+
+def _poses(b: int = 3, t: int = 27) -> tuple[np.ndarray, np.ndarray]:
+    return (RNG.standard_normal((b, t, 17, 3)).astype(np.float32),
+            RNG.standard_normal((b, t, 17, 3)).astype(np.float32))
+
+
+_LOSSES = ["mpjpe_loss", "n_mpjpe_loss", "velocity_loss", "limb_length_loss",
+           "cos_similarity_loss", "cos_similarity_velocity_loss", "weighted_mpjpe"]
+
+
+@pytest.mark.parametrize("name", _LOSSES + ["limb_length_variance_loss"])
+def test_loss_and_gradient_match_jax(name):
+    p, t = _poses()
+    if name in ("mpjpe_loss", "velocity_loss", "weighted_mpjpe"):
+        # exact zeros under the norm; in the limb losses they would sit
+        # under an abs, whose subgradient at 0 the two frameworks choose
+        # differently
+        p[0, 3] = t[0, 3]  # a zero distance
+        p[1, 4] = p[1, 3]  # a zero velocity difference
+        t[1, 4] = t[1, 3]
+    jfn, tfn = getattr(JLS, name), getattr(TLS, name)
+    if name == "limb_length_variance_loss":
+        jfn1, tfn1 = jfn, tfn
+        jfn, tfn = (lambda a, b: jfn1(a)), (lambda a, b: tfn1(a))
+    want, jgrad = jax.jit(jax.value_and_grad(jfn))(jnp.asarray(p), jnp.asarray(t))
+    tp = _t(p, grad=True)
+    got = tfn(tp, _t(t))
+    (tgrad,) = torch.autograd.grad(got, tp)
+    assert got.item() == pytest.approx(float(want), rel=1e-5)
+    assert np.isfinite(tgrad.numpy()).all()
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), atol=1e-6, rtol=1e-4)
+
+
+def test_safe_norm_zero_gradient_and_nan_propagation():
+    x = torch.tensor([[0.0, 0.0, 0.0], [3.0, 4.0, 0.0], [float("nan"), 0.0, 0.0]],
+                     requires_grad=True)
+    n = TLS._safe_norm(x)
+    assert n[0].item() == 0.0 and n[1].item() == 5.0 and torch.isnan(n[2])
+    (g,) = torch.autograd.grad(n[:2].sum(), x)
+    np.testing.assert_array_equal(g[0].numpy(), 0.0)  # 0 at an exact zero
+    np.testing.assert_allclose(g[1].numpy(), [0.6, 0.8, 0.0])
+    want = np.asarray(JLS._safe_norm(jnp.asarray(x.detach().numpy())))
+    np.testing.assert_array_equal(n.detach().numpy(), want)
+
+
+@pytest.mark.parametrize("lambdas", [(0.5, 20.0, 0, 0, 0, 0), (0.5, 20.0, 1, 2, 3, 4)])
+def test_total_loss_matches_jax(lambdas):
+    p, t = _poses()
+    want_total, want = JLS.total_loss(jnp.asarray(p), jnp.asarray(t), *lambdas)
+    got_total, got = TLS.total_loss(_t(p), _t(t), *lambdas)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].item() == pytest.approx(float(want[key]), rel=1e-5), key
+
+
+# ------------------------------------------------------------ metrics
+
+
+@pytest.mark.parametrize("name", ["mpjpe", "jpe", "acceleration_error", "p_mpjpe"])
+def test_metric_matches_jax(name):
+    p, t = _poses(b=1)
+    want = np.asarray(getattr(JM, name)(jnp.asarray(p[0]), jnp.asarray(t[0])))
+    got = getattr(TM, name)(_t(p[0]), _t(t[0])).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_clip_metrics_batched_match_jax_and_fix_reflections():
+    """A batch of clips at once, one of them a mirrored copy of its target
+    (det R < 0 before the fix): P-MPJPE of a mirror image is not 0."""
+    p, t = _poses(b=4)
+    p[0] = t[0] * np.array([-1.0, 1.0, 1.0], np.float32)
+    want = JM.batched_clip_metrics(jnp.asarray(p), jnp.asarray(t))
+    got = TM.clip_metrics(_t(p), _t(t))
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=1e-4, rtol=1e-4, err_msg=key)
+    aligned = _t(t[1:2] * 2.0 + 1.0)  # scale + shift of the target
+    assert TM.p_mpjpe(aligned, _t(t[1:2])).abs().max().item() < 1e-4
+
+
+# ------------------------------------------------------------ data, eval
+
+
+@pytest.mark.parametrize("n,batch", [(45, 8), (64, 32), (7, 16)])
+def test_epoch_plan_identical_to_jax(n, batch):
+    for epoch in range(3):
+        want = JP.epoch_plan(n, batch, np.random.default_rng([114514, epoch]))
+        got = TP.epoch_plan(n, batch, np.random.default_rng([114514, epoch]))
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.weights, want.weights)
+        assert got.steps == want.steps
+    seq = TP.epoch_plan(n, batch)
+    np.testing.assert_array_equal(seq.indices, JP.epoch_plan(n, batch).indices)
+
+
+def test_random_flip_batch_matches_jax_for_a_given_mask():
+    x, y = _poses(b=6)
+    mask = np.array([True, False, True, True, False, False])
+    mj = jnp.asarray(mask)[:, None, None, None]
+    want_x = np.where(mask[:, None, None, None],
+                      np.asarray(jax_joint_flip(jnp.asarray(x))), x)
+    want_y = np.asarray(jnp.where(mj, jax_joint_flip(jnp.asarray(y)), y))
+    gx, gy = TP.random_flip_batch(_t(x), _t(y), mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(gx.numpy(), want_x)
+    np.testing.assert_array_equal(gy.numpy(), want_y)
+
+
+def test_flip_generator_replays_per_step():
+    """The mask of a step depends on (seed, epoch, step) alone, so a resumed
+    run draws the flips of an uninterrupted one; about half are flipped."""
+    def mask(seed, epoch, step):
+        return torch.rand(256, generator=TP.flip_generator(seed, epoch, step)) < 0.5
+
+    assert torch.equal(mask(1, 2, 3), mask(1, 2, 3))
+    assert not torch.equal(mask(1, 2, 3), mask(1, 2, 4))
+    assert not torch.equal(mask(1, 2, 3), mask(1, 3, 3))
+    assert 0.35 < mask(1, 2, 3).float().mean().item() < 0.65
+
+
+def test_take_batch_and_truncate_channels():
+    x, _ = _poses(b=5)
+    idx = np.array([4, 0, 4], np.int32)
+    got = TP.take_batch(_t(x), idx)
+    np.testing.assert_array_equal(got.numpy(), x[idx])
+    assert TP.truncate_channels(got, 2).shape[-1] == 2
+    assert TP.truncate_channels(got, 3) is got
+
+
+def test_denormalize_device_matches_jax_with_res_as_width_height():
+    p, _ = _poses(b=3)
+    res = np.array([[1920, 1080], [1280, 720], [1000, 1000]], np.float32)
+    want = np.asarray(jax_denorm(jnp.asarray(p), jnp.asarray(res)))
+    got = denormalize_device(_t(p), _t(res)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    # x is scaled by W/2 around W/2; y by W/2 around H/2
+    np.testing.assert_allclose(got[0, 0, 0, 0], (p[0, 0, 0, 0] + 1) * 960, rtol=1e-6)
+    np.testing.assert_allclose(got[0, 0, 0, 1], (p[0, 0, 0, 1] + 1080 / 1920) * 960,
+                               rtol=1e-6)
