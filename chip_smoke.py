@@ -5,7 +5,7 @@ Run from the repository root:  python3 chip_smoke.py [--out DIR]
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
-  1. build the four hand-written kernels from ops/csrc (K1-K4, one nvcc
+  1. build the five hand-written kernels from ops/csrc (K1-K5, one nvcc
      each, all started together).
   2. K1 masked_sdpa against its plain version at the serving shapes
      (spatial (128,27,17,128), temporal (128,17,27,128)), float32 and
@@ -15,6 +15,14 @@ Phases (any failure exits non-zero and prints no result line):
      In phases 2 and 3 the plain version runs in float32 on the kernel's
      own inputs (bfloat16 ones included), so a bfloat16 kernel is held to
      the exact value and not to a second set of bfloat16 roundings.
+  3b. K5 fused_mlp against its plain version at M = 58,752 (C/H 128/512 and
+     512/1024) and 1,377.
+  3c. K5's route: Mlp.forward(fused=True) at MixSTE's width, its launches
+     counted around it.
+  3d. K1 at the zoo's head widths and layouts (D = 8, 32, 64; flat streams,
+     DSTFormer's grouped temporal view) and K3 at C/H 512/1024 (eps 1e-6),
+     256/1024 and 64/256, with SDPA's time beside K1; shapes outside the
+     kernels' range (K1 at D = 128, K3 and K5 at C = 96) raise.
   4. the full-width 26-layer model with seeded, perturbed weights: the
      forward on the card through the kernels against the same weights on
      the CPU through the plain versions (B=4), 104 K1 and 156 K3 launches
@@ -25,6 +33,16 @@ Phases (any failure exits non-zero and prints no result line):
   5. serving, the main path: serve() on cuda at batch 128 answers /healthz
      and four /lift requests (40 frames, 405 frames, world space, 128 clips);
      the launch counts are read around this phase alone.
+  5b. the zoo at full width (MixSTE, DSTFormer, MotionAGFormer base,
+     use_tcn, hierarchical and graph_only), each on the card through the
+     kernels against the CPU through the plain versions (B=4, f32 within
+     1e-3; a model whose CPU f32 forward lies further than 1e-4 from its
+     float64 forward, graph_only, layer by layer within 1e-3 of each layer's
+     largest entry instead; the
+     bf16 forward held as in phase 4), its K1/K3 launches per forward, and
+     128-clip forward times.
+  5c. serving MixSTE, the zoo's main path: serve() on cuda answers /healthz
+     and a 405-frame /lift, against the CPU; launches read around it.
   6. K2 masked_sdpa_bwd against its plain version at the train shapes
      (spatial (32,27,17,128), temporal (32,17,27,128) with the gradient a
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
@@ -226,10 +244,9 @@ def check_k1(dev) -> dict:
     return rows
 
 
-def mlp_args(dev, gen, m: int, dt):
+def mlp_args(dev, gen, m: int, dt, c: int = 128, h: int = 512):
     import torch
 
-    c, h = 128, 512
     return (torch.randn(m, c, device=dev, generator=gen).to(dt),
             1 + 0.1 * torch.randn(c, device=dev, generator=gen),
             0.1 * torch.randn(c, device=dev, generator=gen),
@@ -276,17 +293,182 @@ def check_k3(dev) -> dict:
     return rows
 
 
-def perturbed_flagship():
-    """The full-width flagship on the CPU, every weight and batch-norm
-    statistic re-drawn at O(0.1-1) from a seeded generator (at init the layer
-    scales are 1e-5 and the fusion gate is constant)."""
+@phase("phase 3b: K5 fused_mlp vs plain")
+def check_k5(dev) -> dict:
     import torch
 
-    from kasportsformer_torch.config import Config
+    from kasportsformer_torch.ops.mlp import fused_mlp, fused_mlp_reference
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    # against the float32 plain version on the same inputs: bfloat16 rounds
+    # the hidden activations (fc2's tensor-core operand) and the output
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for m, c, h in ((58752, 128, 512), (58752, 512, 1024), (1377, 128, 512)):
+            x, _, _, w1, b1, w2, b2, _ = mlp_args(dev, gen, m, dt, c, h)
+            args = (x, w1, b1, w2, b2)
+            got = fused_mlp(*args)
+            want = fused_mlp_reference(*(a.float() for a in args))
+            err = scaled_err(got, want)
+            if not (torch.isfinite(got).all() and err <= tol[dt]):
+                raise AssertionError(f"K5 M={m} C/H={c}/{h} {dt}: err {err} > {tol[dt]}")
+            ms = time_ms(lambda: fused_mlp(*args), 10)
+            plain = time_ms(lambda: fused_mlp_reference(*args), 10)
+            dname = str(dt).split(".")[1]
+            it = x.element_size()
+            bms, by = bound_ms(2 * m * c * it + 2 * c * h * it, 4 * m * c * h, dname)
+            rows[(m, c, dname)] = dict(shape=[m, c, h], max_abs_err=(
+                got.float() - want).abs().max().item(), ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+            log(f"   K5 M={m:6d} C/H={c}/{h} {dname:8s} err {err:.2e} (limit "
+                f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"bound {bms:.4f} ({by})")
+    return rows
+
+
+@phase("phase 3c: K5's route, Mlp.forward(fused=True), on the card")
+def check_k5_route(dev) -> int:
+    """K5's only route is the layer function (no model of either package
+    passes fused=True): an Mlp of MixSTE's width on a 128-clip token stream,
+    its launches counted around the fused forward alone, held against the
+    same layer's unfused forward (cuBLAS linears)."""
+    import torch
+
+    from kasportsformer_torch.models.layers import Mlp
+    from kasportsformer_torch.ops.mlp import fused_mlp
+
+    gen = torch.Generator().manual_seed(14)
+    mlp = Mlp(512, 1024)
+    with torch.no_grad():
+        for t in mlp.parameters():
+            t.normal_(0.0, t.shape[-1] ** -0.5 if t.dim() == 2 else 0.1,
+                      generator=gen)
+    mlp = mlp.to(dev)
+    x = torch.randn(128 * 27, 17, 512, generator=gen).to(dev)
+    with torch.inference_mode():
+        fused_mlp.launches = 0
+        got = mlp(x, fused=True)
+        launches = fused_mlp.launches
+        err = scaled_err(got, mlp(x))
+    log(f"   Mlp(512, 1024) on {tuple(x.shape)}: K5 launches {launches}, "
+        f"fused vs unfused err {err:.2e} (limit 1e-4)")
+    if launches != 1 or not (torch.isfinite(got).all() and err <= 1e-4):
+        raise AssertionError(f"K5 route: launches {launches}, err {err}")
+    return launches
+
+
+def zoo_sdpa_views(dev, gen, dt):
+    """K1's operands as the zoo passes them at B = 128, 27 frames: strided
+    column slices of one qkv projection, in the layouts of MotionAGFormer
+    hierarchical (C 64 over 8 heads, (B,T,J,C) and its temporal permutation),
+    DSTFormer (C 256: a flat (B*F,J,C) stream and the grouped (B,J,F,C) view
+    of its temporal attention) and MixSTE (C 512: flat spatial and temporal
+    streams)."""
+    import torch
+
+    def split(shape, c):
+        qkv = torch.randn(*shape, 3 * c, device=dev, generator=gen).to(dt)
+        return qkv.split(c, dim=-1)
+
+    mag = split((128, 27, 17), 64)
+    dst = split((128 * 27, 17), 256)
+    return {
+        "MAG spatial D=8": (mag, 8),
+        "MAG temporal D=8": (tuple(z.transpose(1, 2) for z in mag), 8),
+        "DST spatial D=32": (dst, 8),
+        "DST temporal D=32": (tuple(z.reshape(128, 27, 17, 256).transpose(1, 2)
+                                    for z in dst), 8),
+        "MixSTE spatial D=64": (split((128 * 27, 17), 512), 8),
+        "MixSTE temporal D=64": (split((128 * 17, 27), 512), 8),
+    }
+
+
+@phase("phase 3d: K1 and K3 at the zoo's shapes vs plain")
+def check_zoo_kernels(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from kasportsformer_torch.ops.attention import (masked_sdpa,
+                                                    masked_sdpa_reference)
+    from kasportsformer_torch.ops.mlp import (fused_mlp, fused_mlp_ln,
+                                              fused_mlp_ln_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tol1 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    tol3 = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for name, ((qq, kk, vv), heads) in zoo_sdpa_views(dev, gen, dt).items():
+            c = qq.shape[-1]
+            scale = (c // heads) ** -0.5
+            got = masked_sdpa(qq, kk, vv, scale, heads)
+            want = masked_sdpa_reference(qq.float(), kk.float(), vv.float(),
+                                         scale, heads)
+            err = scaled_err(got, want)
+            if not (torch.isfinite(got).all() and err <= tol1[dt]):
+                raise AssertionError(f"K1 {name} {dt}: err {err} > {tol1[dt]}")
+            lead, n = qq.shape[:-2].numel(), qq.shape[-2]
+            qh, kh, vh = (z.reshape(lead, n, heads, c // heads)
+                          .transpose(1, 2).contiguous() for z in (qq, kk, vv))
+            ms = time_ms(lambda: masked_sdpa(qq, kk, vv, scale, heads), 20)
+            plain = time_ms(
+                lambda: masked_sdpa_reference(qq, kk, vv, scale, heads), 10)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), 20)
+            bms, by = bound_ms(4 * lead * n * c * qq.element_size(),
+                               4 * lead * n * n * c, dname)
+            rows[("K1", name, dname)] = dict(shape=list(qq.shape), max_abs_err=(
+                got.float() - want).abs().max().item(), ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            log(f"   K1 {name:21s} {dname:8s} {tuple(qq.shape)} err {err:.2e} "
+                f"kernel {ms:.4f} ms  plain {plain:.4f}  sdpa {lib:.4f}  "
+                f"bound {bms:.4f} ({by})")
+        for c, h, eps in ((512, 1024, 1e-6), (256, 1024, 1e-5), (64, 256, 1e-5)):
+            m = 58752
+            args = mlp_args(dev, gen, m, dt, c, h)
+            got = fused_mlp_ln(*args, eps)
+            want = fused_mlp_ln_reference(*(a.float() for a in args), eps)
+            err = scaled_err(got, want)
+            if not (torch.isfinite(got).all() and err <= tol3[dt]):
+                raise AssertionError(f"K3 C/H={c}/{h} {dt}: err {err} > {tol3[dt]}")
+            ms = time_ms(lambda: fused_mlp_ln(*args, eps), 10)
+            plain = time_ms(lambda: fused_mlp_ln_reference(*args, eps), 10)
+            it = args[0].element_size()
+            bms, by = bound_ms(2 * m * c * it + 2 * c * h * it, 4 * m * c * h, dname)
+            rows[("K3", c, dname)] = dict(shape=[m, c, h], max_abs_err=(
+                got.float() - want).abs().max().item(), ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+            log(f"   K3 M={m} C/H={c}/{h} eps {eps:.0e} {dname:8s} err {err:.2e} "
+                f"kernel {ms:.4f} ms  plain {plain:.4f}  bound {bms:.4f} ({by})")
+    # shapes outside the kernels' range raise on the card, with no fallback
+    q = torch.randn(2, 3, 17, 128, device=dev)
+    x, w = torch.randn(8, 96, device=dev), torch.randn(256, 96, device=dev)
+    refused = 0
+    for call in (lambda: masked_sdpa(q, q, q, 0.1, 1),  # D = 128
+                 lambda: fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0]),
+                 lambda: fused_mlp(x, w, w[:, 0], w.T, x[0])):  # C = 96
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    log(f"   K1 at D=128, K3 and K5 at C=96: {refused} of 3 refused")
+    if refused != 3:
+        raise AssertionError("a kernel took a shape outside its range")
+    return rows
+
+
+def perturbed(cfg, seed: int):
+    """The model of `cfg` on the CPU, every weight and batch-norm statistic
+    re-drawn at O(0.1-1) from a seeded generator (at init the layer scales
+    are 1e-5, the fusion gates constant and DSTFormer's weights 0.02 wide)."""
+    import torch
+
     from kasportsformer_torch.models import build_model
 
-    gen = torch.Generator().manual_seed(0)
-    model = build_model(Config(), device="cpu", generator=gen)
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(cfg, device="cpu", generator=gen)
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(
                 model.named_buffers()):
@@ -373,7 +555,9 @@ def check_model(dev, out_dir: str) -> dict:
     from kasportsformer_torch.ops.attention import masked_sdpa
     from kasportsformer_torch.ops.mlp import fused_mlp_ln
 
-    cpu_model = perturbed_flagship()
+    from kasportsformer_torch.config import Config
+
+    cpu_model = perturbed(Config(), seed=0)  # the flagship at full width
     model = copy.deepcopy(cpu_model).to(dev)
     log(f"   parameters: {model.parameter_count():,}")
     x = clip_batch(torch.Generator().manual_seed(3), 4)
@@ -617,6 +801,217 @@ def check_serving(dev, model) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the zoo
+
+# full width: each family's published widths (the JAX configs' defaults)
+# over the flagship's YAML, 27 frames, MotionAGFormer in all four variants
+_MAG = dict(model_name="MotionAGFormer", dim_feat=128, n_layers=16,
+            num_heads=8, mlp_ratio=4.0)
+ZOO = {"MixSTE": dict(model_name="MixSTE", dim_in=2, dim_feat=512, n_layers=8,
+                      num_heads=8, mlp_ratio=2.0),
+       "DSTFormer": dict(model_name="DSTFormer", dim_feat=256, n_layers=5,
+                         num_heads=8, mlp_ratio=4.0),
+       "MotionAGFormer": _MAG,
+       "MotionAGFormer use_tcn": dict(_MAG, use_tcn=True),
+       "MotionAGFormer hierarchical": dict(_MAG, hierarchical=True),
+       "MotionAGFormer graph_only": dict(_MAG, graph_only=True)}
+# K1 and K3 launches per forward: a block's attention core and MLP tail
+# (MixSTE 2 x 8 blocks; DSTFormer 4 half blocks x 5; MotionAGFormer 2
+# attention and 4 former modules x 16 layers, graph_only 2 graph modules)
+ZOO_LAUNCHES = {"MixSTE": (16, 16), "DSTFormer": (20, 20),
+                "MotionAGFormer": (32, 64), "MotionAGFormer use_tcn": (32, 64),
+                "MotionAGFormer hierarchical": (32, 64),
+                "MotionAGFormer graph_only": (32, 32)}
+
+
+def zoo_config(name: str):
+    from kasportsformer_torch.config import load_config
+
+    return load_config("configs/sportspose-gt-kasportsformer.yaml").replace(
+        **ZOO[name])
+
+
+def float64_copy(model):
+    """A float64 copy of the CPU `model`: activations, parameters and
+    statistics all float64, the yardstick of float32 rounding."""
+    import torch
+
+    m64 = copy.deepcopy(model).double()
+    m64.compute_dtype = torch.float64
+    return m64
+
+
+def tensor_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|): the error against the tensor's
+    scale, to which float32 rounding is relative where entries cancel."""
+    g, w = got.double(), want.double()
+    return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+
+def layerwise_deviation(model, cpu_model, x, adjacencies: list):
+    """Each of `model.layers` on the card against the same layer on the CPU
+    fed the card's input to it, the recorded top-k adjacencies replayed: the
+    largest tensor_err over the layers, and beside it the same for the CPU's
+    float32 layer against its float64 copy on that input (the rounding
+    level). No error is carried from one layer to the next, so none is
+    amplified."""
+    ins, outs = [], []
+
+    def keep(_, args, y):
+        ins.append(args[0].cpu())
+        outs.append(y.cpu())
+
+    hooks = [layer.register_forward_hook(keep) for layer in model.layers]
+    try:
+        with adjacency_tape(replay=adjacencies):
+            model(x.to(next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    with adjacency_tape(replay=adjacencies):
+        cpu = [layer(a) for layer, a in zip(cpu_model.layers, ins)]
+    with adjacency_tape(replay=adjacencies):
+        f64 = [layer(a.double())
+               for layer, a in zip(float64_copy(cpu_model).layers, ins)]
+    return (max(tensor_err(y, w) for y, w in zip(outs, cpu)),
+            max(tensor_err(c, w) for c, w in zip(cpu, f64)))
+
+
+@phase("phase 5b: zoo models on the card vs the CPU")
+def check_zoo_models(dev) -> dict:
+    """Each model's card forward (kernels, f32) against its CPU forward
+    (plain versions) on the same perturbed weights, within 1e-3, where
+    rounding alone moves the output little: the CPU's own f32 forward within
+    1e-4 of its float64 forward. graph_only's chain of 32 bare GCN layers,
+    with perturbed weights, amplifies rounding so far (CPU f32 6e-4 from
+    f64, bf16 O(1) from f32) that the end-to-end deviation says nothing of
+    the port; such a model is held layer by layer instead, each layer on
+    the card within 1e-3 of the CPU's on the same input, relative to the
+    layer's largest entry (its entries grow to ~1e5 and cancel)."""
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln
+
+    res = {}
+    for i, name in enumerate(ZOO):
+        cpu_model = perturbed(zoo_config(name), seed=20 + i)
+        model = copy.deepcopy(cpu_model).to(dev)
+        x = clip_batch(torch.Generator().manual_seed(21 + i), 4)
+        adjacencies: list = []
+        with torch.inference_mode():
+            with adjacency_tape(record=adjacencies):
+                want = cpu_model(x)
+            with adjacency_tape(replay=adjacencies):
+                want64 = float64_copy(cpu_model)(x.double())
+            k1, k3 = masked_sdpa.launches, fused_mlp_ln.launches
+            with adjacency_tape(replay=adjacencies) as flips:
+                got = model(x.to(dev))
+            torch.cuda.synchronize()
+            d = (masked_sdpa.launches - k1, fused_mlp_ln.launches - k3)
+            dev32 = (got.cpu() - want).abs().max().item()
+            cpu64 = (want - want64).abs().max().item()
+            card64 = (got.cpu() - want64).abs().max().item()
+            amplified = cpu64 > 1e-4
+            layers = (layerwise_deviation(model, cpu_model, x, adjacencies)
+                      if amplified else None)
+            for m in (model, cpu_model):
+                m.compute_dtype = torch.bfloat16
+            with adjacency_tape(replay=adjacencies):
+                gotb = model(x.to(dev))
+            with adjacency_tape(replay=adjacencies):
+                cpub = cpu_model(x)
+            devb = (gotb.cpu() - want).abs().max().item()
+            devb_cpu = (cpub - want).abs().max().item()
+            xb = clip_batch(torch.Generator().manual_seed(4), 128).to(dev)
+            times = {}
+            for dname, dt in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+                model.compute_dtype = dt
+                times[dname] = time_ms(lambda: model(xb), 3, warmup=1)
+        log(f"   {name}: {model.parameter_count():,} parameters; K1/K3 launches "
+            f"per forward {d} (expected {ZOO_LAUNCHES[name]}); B=4 f32 max abs "
+            f"deviation card vs CPU {dev32:.3e} (|y| max "
+            f"{want.abs().max().item():.3f}; top-k entries chosen differently: "
+            f"{flips[0]} of {flips[1]}); vs the CPU's f64 forward: card f32 "
+            f"{card64:.3e}, CPU f32 {cpu64:.3e}"
+            + (f" (amplified: layer by layer card vs CPU {layers[0]:.3e} of "
+               f"the layer's largest entry, limit 1e-3; CPU f32 vs f64 "
+               f"{layers[1]:.3e})" if amplified else "")
+            + f"; bf16 vs CPU f32: card {devb:.3e}, CPU "
+            f"bf16 {devb_cpu:.3e} (limit 2x); 128-clip forward f32 "
+            f"{times['float32']:.2f} ms, bf16 {times['bfloat16']:.2f} ms")
+        if d != ZOO_LAUNCHES[name]:
+            raise AssertionError(f"{name}: launches per forward {d}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite f32 forward on the card")
+        if amplified and layers[0] > 1e-3:
+            raise AssertionError(f"{name}: a layer on the card {layers[0]} "
+                                 "from the CPU's on the same input")
+        if not amplified and dev32 > 1e-3:
+            raise AssertionError(f"{name}: f32 card vs CPU deviation {dev32}")
+        if not (torch.isfinite(gotb).all() and devb <= 2 * devb_cpu):
+            raise AssertionError(f"{name}: bf16 forward {devb} from f32, more "
+                                 f"than twice the CPU's ({devb_cpu})")
+        res[name] = {"deviation_f32": dev32, "deviation_f32_f64": card64,
+                     "cpu_f32_f64": cpu64, "layerwise": layers,
+                     "deviation_bf16": devb, "forward_ms": times}
+        del model, cpu_model
+    return res
+
+
+@phase("phase 5c: serving MixSTE on the card (the zoo's main path)")
+def check_zoo_serving(dev) -> dict:
+    """serve() builds whatever model it is given: MixSTE at full width, f32,
+    batch 128, answers /healthz and a 405-frame /lift, and the served poses
+    agree with the plain versions on the CPU. The launch counts are read
+    around this phase alone."""
+    import numpy as np
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln
+    from kasportsformer_torch.serving import LiftService, serve
+
+    cpu_model = perturbed(zoo_config("MixSTE"), seed=30)
+    model = copy.deepcopy(cpu_model).to(dev)
+    req = {"keypoints": np.random.default_rng(31).uniform(
+        0, 1000, (405, 17, 2)).tolist(), "width": 1920, "height": 1080}
+    masked_sdpa.launches = 0
+    fused_mlp_ln.launches = 0
+    srv = serve(model, host="127.0.0.1", port=0, batch_size=128,
+                model_name="MixSTE", device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, data, lat = _request(srv.server_address[1], "GET", "/healthz")
+        assert status == 200 and data["model"] == "MixSTE", data
+        assert data["params"] == model.parameter_count(), data
+        log(f"   /healthz {status} {data} in {lat * 1e3:.1f} ms")
+        status, data, lat = _request(srv.server_address[1], "POST", "/lift", req)
+        assert status == 200, (status, data)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    launches = {"masked_sdpa": masked_sdpa.launches,
+                "fused_mlp_ln": fused_mlp_ln.launches}
+    poses = np.asarray(data["poses"], np.float32)
+    kpts = np.asarray(req["keypoints"], np.float32)
+    want = LiftService(cpu_model, batch_size=128, device="cpu").lift_sequence(
+        kpts, req["width"], req["height"])
+    dev405 = float(np.abs(poses - want).max())
+    log(f"   /lift 405 frames: {status}, 15 clips, {lat * 1e3:.1f} ms; served vs "
+        f"CPU plain versions {dev405:.3e}; kernel launches in this phase: "
+        f"{launches}")
+    if not (poses.shape == (405, 17, 3) and np.isfinite(poses).all()
+            and np.abs(poses[:, 0]).max() == 0.0 and dev405 <= 1e-3):
+        raise AssertionError(f"served MixSTE poses: {poses.shape}, {dev405}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
 # ------------------------------------------------------------ training path
 
 
@@ -780,7 +1175,7 @@ def check_grads(dev) -> dict:
     from kasportsformer_torch.train.loop import make_grads_fn
 
     cfg = Config(grad_microbatch=0)
-    cpu_model = perturbed_flagship()
+    cpu_model = perturbed(Config(), seed=0)
     model = copy.deepcopy(cpu_model).to(dev)
     x = clip_batch(torch.Generator().manual_seed(8), 4)
     y = label_batch(torch.Generator().manual_seed(9), 4)
@@ -1105,23 +1500,30 @@ def main() -> int:
     build(args.out)
     k1 = check_k1(dev)
     k3 = check_k3(dev)
+    k5 = check_k5(dev)
+    k5_launches = check_k5_route(dev)
+    zoo_k = check_zoo_kernels(dev)
     res = check_model(dev, args.out)
     launches = None
     if res is not None:
         launches = check_serving(dev, res["model"])
         del res
+    zoo = check_zoo_models(dev)
+    zoo_launches = check_zoo_serving(dev)
     k2 = check_k2(dev)
     k4 = check_k4(dev)
     check_grads(dev)
     check_train_step(dev, args.out)
     train_launches = check_train_cli(dev, args.out)
     log(f"== total {time.perf_counter() - t_start:.1f} s")
-    if FAILED or not (k1 and k3 and launches and k2 and k4 and train_launches):
+    if FAILED or not (k1 and k3 and k5 and k5_launches and zoo_k and launches
+                      and zoo and zoo_launches and k2 and k4 and train_launches):
         log(f"chip_smoke: FAILED phases: {FAILED}")
         return 1
 
-    # f32 rows at the main paths' shapes: serving (K1, K3) and the train
-    # step (K2, K4); launches from the serving and the training run
+    # f32 rows at the main paths' shapes: the flagship's serving (K1, K3),
+    # the train step (K2, K4), MixSTE's serving (K1, K3 at the zoo's widest
+    # shapes) and K5's layer route; launches from those runs
     kernels = [
         dict(name="masked_sdpa", route="cuda",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
@@ -1141,6 +1543,20 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=train_launches["fused_mlp_ln_bwd"],
              **k4[(14688, "float32")]),
+        dict(name="fused_mlp", route="cuda",
+             source="kasportsformer_torch/ops/csrc/mlp.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:137",
+             launches=k5_launches, **k5[(58752, 512, "float32")]),
+        dict(name="masked_sdpa[zoo]", route="cuda",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:227",
+             launches=zoo_launches["masked_sdpa"],
+             **zoo_k[("K1", "MixSTE spatial D=64", "float32")]),
+        dict(name="fused_mlp_ln[zoo]", route="cuda",
+             source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:202",
+             launches=zoo_launches["fused_mlp_ln"],
+             **zoo_k[("K3", 512, "float32")]),
     ]
     for row in kernels:
         row["dtype"] = "float32"

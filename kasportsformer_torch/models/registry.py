@@ -1,6 +1,6 @@
 """Model factory (port of `kasportsformer_tpu/models/registry.py`, ≙
-`model/model_tools.py:79-96`). KASportsFormer only; the zoo registers here as
-it lands."""
+`model/model_tools.py:79-96`). KASportsFormer registers here, the zoo
+(`models/zoo`) on its import, which `kasportsformer_torch.models` makes."""
 
 from __future__ import annotations
 

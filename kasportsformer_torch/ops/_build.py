@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels with `nvcc` and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and includes no PyTorch
-header, so it compiles in seconds. It is compiled for Hopper
+header (only the repository's own `csrc/*.cuh`), so it compiles in seconds.
+It is compiled for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`) into `build/kernels/` under the
 repository root (a directory `.gitignore` lists) the first time a kernel is
-needed. The library's file name carries a hash of its source and flags, so
-an edited source is rebuilt and a stale library is never loaded.
+needed. The library's file name carries a hash of its source, the shared
+headers and the flags, so an edited source is rebuilt and a stale library is
+never loaded.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("masked_sdpa", "masked_sdpa_bwd", "mlp_ln", "mlp_ln_bwd")
+KERNEL_SOURCES = ("masked_sdpa", "masked_sdpa_bwd", "mlp_ln", "mlp_ln_bwd", "mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +43,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,7 +2,8 @@
 and their plain PyTorch versions.
 
 `masked_sdpa(q, k, v, scale, num_heads)` computes, for every (B, G) of
-(B, G, N, C) inputs and every head h of width D = C / num_heads,
+(B, G, N, C) inputs (a flat (M, N, C) token stream enters as the view
+(1, M, N, C)) and every head h of width D = C / num_heads,
 `softmax(q_h k_h^T * scale) v_h` over the N axis. It is the port of
 `kasportsformer_tpu/ops/attention.py:masked_sdpa` (Pallas kernel
 `_attn_kernel`, plain formulation `masked_sdpa_xla`).
@@ -28,15 +29,19 @@ import torch
 from kasportsformer_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 16  # the only width built: the flagship's 128 channels / 8 heads
+# (head widths, largest C) each kernel is built for: K1 the flagship's 16
+# and the zoo's 8 (MotionAGFormer hierarchical), 32 (DSTFormer) and 64
+# (MixSTE); K2 the flagship's only
+_WIDTHS = {"masked_sdpa": ((8, 16, 32, 64), 512), "masked_sdpa_bwd": ((16,), 128)}
 _MAX_N = 32
 
 
 def masked_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, num_heads: int) -> torch.Tensor:
     """Plain per-head softmax attention on (..., N, C) inputs, numerically
-    `masked_sdpa_xla`: logits in the input dtype, softmax in float32, the
-    probabilities rounded back to the input dtype before the value product."""
+    `masked_sdpa_xla`: logits in the input dtype, softmax in float32 (float64
+    for float64 inputs), the probabilities rounded back to the input dtype
+    before the value product."""
     c = q.shape[-1]
     d = c // num_heads
 
@@ -44,7 +49,8 @@ def masked_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return z.unflatten(-1, (num_heads, d)).transpose(-3, -2)
 
     logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(logits.to(torch.promote_types(q.dtype, torch.float32)),
+                          dim=-1).to(q.dtype)
     return torch.matmul(probs, heads(v)).transpose(-3, -2).flatten(-2)
 
 
@@ -98,11 +104,18 @@ def _check_operands(what: str, num_heads: int, *ts: torch.Tensor) -> None:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{[t.dtype for t in ts]}")
     n, c = q.shape[2], q.shape[3]
-    if c != _HEAD_DIM * num_heads:
-        raise ValueError(f"{what} kernel takes heads of width "
-                         f"{_HEAD_DIM}, got C={c} over {num_heads} heads")
-    if n > _MAX_N or num_heads * n > 1024:
-        raise ValueError(f"{what} kernel takes N <= {_MAX_N}, got {n}")
+    widths, max_c = _WIDTHS[what]
+    if c % num_heads or c // num_heads not in widths or c > max_c:
+        raise ValueError(f"{what} kernel takes heads of width {widths} and "
+                         f"C <= {max_c}, got C={c} over {num_heads} heads")
+    # a thread per (head, query row) and at most 16 of its channels (K1
+    # shares a wider head among neighbouring lanes), in one block of at most
+    # 512 threads, or 1024 where a head is shared
+    d = c // num_heads
+    limit = 1024 if d > 16 else 512
+    if n > _MAX_N or c * n // min(d, 16) > limit:
+        raise ValueError(f"{what} kernel takes N <= {_MAX_N} and at most "
+                         f"{limit} threads a block, got N={n}, C={c}, D={d}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{what} kernel needs channel stride 1")
 
@@ -186,15 +199,19 @@ class MaskedSdpaFunction(torch.autograd.Function):
 
 def masked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, num_heads: int) -> torch.Tensor:
-    """Per-head attention over N of (B, G, N, C) q/k/v -> (B, G, N, C).
+    """Per-head attention over N of (B, G, N, C) q/k/v -> (B, G, N, C); a
+    flat (M, N, C) stream goes to the kernel as the view (1, M, N, C).
 
     CPU tensors take the plain version (plain autograd); CUDA tensors go
-    through `MaskedSdpaFunction`: K1 forward, which accepts strided views
-    (channel stride 1; an operand whose rows are not 16-byte aligned is
-    copied first) and returns a contiguous output, and K2 backward.
-    `masked_sdpa.launches` counts K1 launches."""
+    through `MaskedSdpaFunction`: K1 forward (head widths 8, 16, 32 and 64),
+    which accepts strided views (channel stride 1; an operand whose rows are
+    not 16-byte aligned is copied first) and returns a contiguous output, and
+    K2 backward (head width 16). `masked_sdpa.launches` counts K1 launches."""
     if q.device.type == "cpu":
         return masked_sdpa_reference(q, k, v, scale, num_heads)
+    if q.dim() == 3:
+        return MaskedSdpaFunction.apply(q[None], k[None], v[None], scale,
+                                        num_heads)[0]
     return MaskedSdpaFunction.apply(q, k, v, scale, num_heads)
 
 

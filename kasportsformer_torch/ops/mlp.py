@@ -1,5 +1,6 @@
-"""LayerNorm-folded MLP tail: forward (K3), backward (K4), autograd, and
-their plain PyTorch versions.
+"""The MLP kernels: the LayerNorm-folded MLP tail, forward (K3) and backward
+(K4), the plain fused MLP (K5), their autograd Functions and their plain
+PyTorch versions.
 
 `fused_mlp_ln(x, gamma, beta, w1, b1, w2, b2, ls2, eps)` computes the
 FormerModule tail `x + ls2 * (GELU(LN(x) W1^T + b1) W2^T + b2)` over the last
@@ -16,7 +17,15 @@ the JAX VJP `_fused_mlp_ln_bwd`); an input it cannot take raises. On a CPU
 tensor it runs `fused_mlp_ln_reference` under plain autograd. The kernel
 masks the tail rows of a ragged M, so any number of rows works. It evaluates
 GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
-up to 4.8e-4 away).
+up to 4.8e-4 away). K3 takes C in {64, 128, 256, 512} (the flagship's 128
+and the zoo's widths) and K4 the flagship's C = 128.
+
+`fused_mlp(x, w1, b1, w2, b2)` computes fc1 -> exact GELU -> fc2 over the last
+axis, the port of `kasportsformer_tpu/ops/mlp.py:fused_mlp` (Pallas kernel
+`_mlp_kernel`, plain formulation `_mlp_xla`). On a CUDA tensor it runs
+`FusedMlpFunction`, whose forward launches K5 (`csrc/mlp.cu`, the hidden-chunk
+tile of K3 with LayerNorm and the residual switched off) and whose backward,
+like the JAX VJP `_fused_mlp_bwd`, recomputes through the plain version.
 """
 
 from __future__ import annotations
@@ -30,18 +39,24 @@ import torch.nn.functional as F
 from kasportsformer_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WIDTH = 128
+# model widths each kernel is built for: K3 and K5 the flagship's 128 and the
+# zoo's 64 (MotionAGFormer hierarchical), 256 (DSTFormer) and 512 (MixSTE);
+# K4 the flagship's only
+_WIDTHS = {"mlp_ln": (64, 128, 256, 512), "mlp_ln_bwd": (128,),
+           "mlp": (64, 128, 256, 512)}
 _CHUNK = 64
+_MAX_HIDDEN = 2048
 
 
 def fused_mlp_ln_reference(x: torch.Tensor, gamma: torch.Tensor,
                            beta: torch.Tensor, w1: torch.Tensor,
                            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                            ls2: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Plain version, numerically `_mlp_ln_xla`: LN in float32, rounded to the
-    input dtype, then fc1 -> exact GELU -> fc2 in the input dtype."""
+    """Plain version, numerically `_mlp_ln_xla`: LN in float32 (float64 for
+    float64 inputs), rounded to the input dtype, then fc1 -> exact GELU -> fc2
+    in the input dtype."""
     dt = x.dtype
-    xf = x.float()
+    xf = x.to(torch.promote_types(dt, torch.float32))
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
     a = ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(dt)
@@ -50,6 +65,13 @@ def fused_mlp_ln_reference(x: torch.Tensor, gamma: torch.Tensor,
     return x + ls2.to(dt) * y
 
 
+def fused_mlp_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain version, numerically `_mlp_xla`: fc1 -> exact GELU -> fc2 in the
+    input dtype, weights in the torch (out, in) layout."""
+    dt = x.dtype
+    h = F.gelu(F.linear(x, w1.to(dt), b1.to(dt)))
+    return F.linear(h, w2.to(dt), b2.to(dt))
 
 
 def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
@@ -101,24 +123,35 @@ def _fn(name: str, n_ptrs: int, n_tail: list) -> tuple[ctypes.CDLL, ctypes._CFun
                        [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + n_tail)
 
 
-def _check(x, gamma, beta, w1, b1, w2, b2, ls2) -> None:
+def _check_linears(what: str, x, w1, b1, w2, b2) -> None:
     dt, dev = x.dtype, x.device
     if dev.type != "cuda":
-        raise ValueError("mlp_ln kernels take CUDA tensors")
+        raise ValueError(f"{what} kernels take CUDA tensors")
     if dt not in _DTYPE_CODE:
-        raise TypeError(f"mlp_ln kernels take float32 or bfloat16, got {dt}")
+        raise TypeError(f"{what} kernels take float32 or bfloat16, got {dt}")
     c = x.shape[-1]
     hidden = w1.shape[0]
-    if (c != _WIDTH or tuple(w1.shape) != (hidden, c)
-            or tuple(w2.shape) != (c, hidden) or hidden % _CHUNK):
-        raise ValueError(f"mlp_ln kernel takes C={_WIDTH} and a hidden width "
-                         f"that is a multiple of {_CHUNK}; got x {tuple(x.shape)}, "
+    if (c not in _WIDTHS[what] or tuple(w1.shape) != (hidden, c)
+            or tuple(w2.shape) != (c, hidden) or hidden % _CHUNK
+            or not 0 < hidden <= _MAX_HIDDEN):
+        raise ValueError(f"{what} kernel takes C in {_WIDTHS[what]} and a "
+                         f"hidden width that is a multiple of {_CHUNK} up to "
+                         f"{_MAX_HIDDEN}; got x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    if any(t.numel() != c for t in (gamma, beta, b2, ls2)) or b1.numel() != hidden:
-        raise ValueError("mlp_ln kernel: gamma, beta, b2, ls2 must have C "
-                         "elements and b1 the hidden width")
-    if any(t.device != dev for t in (gamma, beta, w1, b1, w2, b2, ls2)):
-        raise ValueError("mlp_ln kernel takes all tensors on one CUDA device")
+    if b1.numel() != hidden or b2.numel() != c:
+        raise ValueError(f"{what} kernel: b1 must have the hidden width and "
+                         "b2 C elements")
+    if any(t.device != dev for t in (w1, b1, w2, b2)):
+        raise ValueError(f"{what} kernel takes all tensors on one CUDA device")
+
+
+def _check(what: str, x, gamma, beta, w1, b1, w2, b2, ls2) -> None:
+    _check_linears(what, x, w1, b1, w2, b2)
+    c = x.shape[-1]
+    if any(t.numel() != c for t in (gamma, beta, ls2)):
+        raise ValueError(f"{what} kernel: gamma, beta, ls2 must have C elements")
+    if any(t.device != x.device for t in (gamma, beta, ls2)):
+        raise ValueError(f"{what} kernel takes all tensors on one CUDA device")
 
 
 def _prep(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,7 +234,7 @@ def fused_mlp_ln_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     tensors: dx like x, the rest float32. The kernel sums the parameter
     gradients over the rows in a fixed order, so reruns are bitwise equal.
     `fused_mlp_ln_bwd.launches` counts kernel launches."""
-    _check(x, gamma, beta, w1, b1, w2, b2, ls2)
+    _check("mlp_ln_bwd", x, gamma, beta, w1, b1, w2, b2, ls2)
     ops = _operands(x, gamma, beta, w1, b1, w2, b2, ls2)
     gc = _prep(g.reshape(-1, x.shape[-1]), x.dtype)
     dx, *rest = _launch_bwd(ops, gc, eps)
@@ -220,7 +253,7 @@ class FusedMlpLnFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, ls2, eps: float):
-        _check(x, gamma, beta, w1, b1, w2, b2, ls2)
+        _check("mlp_ln", x, gamma, beta, w1, b1, w2, b2, ls2)
         ops = _operands(x, gamma, beta, w1, b1, w2, b2, ls2)
         ctx.save_for_backward(*ops)
         ctx.eps, ctx.x_shape = eps, x.shape
@@ -230,6 +263,7 @@ class FusedMlpLnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ops = ctx.saved_tensors
+        _check("mlp_ln_bwd", *ops)  # K4 has the flagship's width only
         xc = ops[0]
         gc = _prep(g.reshape(xc.shape), xc.dtype)
         dx, *rest = _launch_bwd(ops, gc, ctx.eps)
@@ -244,12 +278,72 @@ def fused_mlp_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """x + ls2 * MLP(LN(x)) over the last axis of x (..., C).
 
     CPU tensors take the plain version (plain autograd); CUDA tensors go
-    through `FusedMlpLnFunction` (K3 forward, K4 backward). Pass ls2 = ones
-    for a tail without LayerScale. `fused_mlp_ln.launches` counts K3
-    launches."""
+    through `FusedMlpLnFunction` (K3 forward, K4 backward; K4 only at
+    C = 128, so a tail of another width under autograd raises in the
+    backward). Pass ls2 = ones for a tail without LayerScale.
+    `fused_mlp_ln.launches` counts K3 launches."""
     if x.device.type == "cpu":
         return fused_mlp_ln_reference(x, gamma, beta, w1, b1, w2, b2, ls2, eps)
     return FusedMlpLnFunction.apply(x, gamma, beta, w1, b1, w2, b2, ls2, eps)
 
 
 fused_mlp_ln.launches = 0
+
+
+# ------------------------------------------------------------ K5
+
+
+def _launch_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """K5 on (M, C) x and the linears, all in x's dtype, dense and aligned."""
+    m, c = x.shape
+    out = torch.empty_like(x)
+    if m == 0:
+        return out
+    lib, fn = _fn("mlp", 6, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+    dev = x.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(_DTYPE_CODE[x.dtype], *(t.data_ptr() for t in (x, w1, b1, w2, b2)),
+                  out.data_ptr(), m, c, w1.shape[0], stream)
+    _build.check(lib, code, "mlp kernel launch")
+    fused_mlp.launches += 1
+    return out
+
+
+class FusedMlpFunction(torch.autograd.Function):
+    """K5 forward; the backward recomputes through the plain version under
+    autograd, as the JAX VJP `_fused_mlp_bwd` recomputes through `_mlp_xla`
+    (the TPU has no backward kernel for it either). Parameters come in their
+    own dtype and their gradients leave in it."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        _check_linears("mlp", x, w1, b1, w2, b2)
+        dt = x.dtype
+        ops = [_prep(t, dt) for t in (x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)]
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _launch_mlp(*ops).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = fused_mlp_reference(*inputs)
+        return torch.autograd.grad(y, inputs, g)
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """fc1 -> exact GELU -> fc2 over the last axis of x (..., C), weights in
+    the torch (out, in) layout: w1 (H, C), w2 (C, H).
+
+    CPU tensors take the plain version (plain autograd); CUDA tensors go
+    through `FusedMlpFunction` (K5 forward, a plain recompute backward); an
+    input K5 cannot take raises. `fused_mlp.launches` counts K5 launches."""
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, w1, b1, w2, b2)
+    return FusedMlpFunction.apply(x, w1, b1, w2, b2)
+
+
+fused_mlp.launches = 0

@@ -13,9 +13,11 @@
   weighted mean as the full batch, with the GCN batch norm taking
   per-microbatch statistics and updating its running statistics once per
   microbatch, as in the JAX scan.
-* Shuffles come from `default_rng([seed, epoch])` and flips from a
-  generator seeded from (seed, epoch, step), so a kill-and-resume replays
-  the uninterrupted run exactly.
+* Shuffles come from `default_rng([seed, epoch])`; flips, and the
+  stochastic-depth masks of a model whose forward takes a `generator` (the
+  zoo's MixSTE and DSTFormer; the JAX step threads a key the same way),
+  come from a generator seeded from (seed, epoch, step), so a
+  kill-and-resume replays the uninterrupted run exactly.
 * The attention kernels subtract the exact per-head max, so the JAX train
   step's NaN guard (`guarded_grads_fn`: an unchecked run, then a stable
   re-run on a NaN loss) has nothing to guard and is not ported.
@@ -23,6 +25,7 @@
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -186,21 +189,29 @@ def make_grads_fn(model: nn.Module, config: Config):
     statistics updated). With `config.grad_microbatch = m` dividing B (and
     m < B) the batch runs as B/m forward+backward passes, each scaled by its
     real-sample weight sum over the batch's: algebraically the full-batch
-    gradient, with the live activations of an m-clip backward."""
+    gradient, with the live activations of an m-clip backward. A model whose
+    forward takes a `generator` gets `generator`, from which it draws its
+    stochastic-depth masks."""
+    takes_generator = "generator" in inspect.signature(model.forward).parameters
 
-    def compute(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor
+    def forward(x: torch.Tensor, generator: torch.Generator | None):
+        return model(x, generator=generator) if takes_generator else model(x)
+
+    def compute(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor,
+                generator: torch.Generator | None = None
                 ) -> dict[str, torch.Tensor]:
         model.train()
         m, b = config.grad_microbatch, x.shape[0]
         if not m or m >= b or b % m:
-            total, comps = _config_loss(config, model(x), y, weights)
+            total, comps = _config_loss(config, forward(x, generator), y, weights)
             total.backward()
             out = {k: v.detach() for k, v in comps.items()}
         else:
             denom = weights.sum().clamp(min=1.0)
             acc: dict[str, torch.Tensor] = {}
             for xc, yc, wc in zip(x.split(m), y.split(m), weights.split(m)):
-                total, comps = _config_loss(config, model(xc), yc, wc)
+                total, comps = _config_loss(config, forward(xc, generator),
+                                            yc, wc)
                 sw = wc.sum()
                 (total * (sw / denom)).backward()
                 for k, v in comps.items():
@@ -214,8 +225,9 @@ def make_grads_fn(model: nn.Module, config: Config):
 def make_train_step(model: nn.Module, config: Config,
                     optimizer: torch.optim.Optimizer):
     """`step(arrays, idx, weights, generator) -> comps`: gather -> flip
-    augmentation (mask from `generator`) -> forward -> loss -> backward ->
-    AdamW, on the device of `arrays`."""
+    augmentation (mask from `generator`) -> forward (stochastic-depth masks
+    from `generator` too, see `make_grads_fn`) -> loss -> backward -> AdamW,
+    on the device of `arrays`."""
     grads_fn = make_grads_fn(model, config)
 
     def step(arrays: dict[str, torch.Tensor], idx, weights: torch.Tensor,
@@ -226,7 +238,7 @@ def make_train_step(model: nn.Module, config: Config,
             x, y = random_flip_batch(x, y, generator)
         x = truncate_channels(x, config.input_channel_number)
         optimizer.zero_grad(set_to_none=True)
-        comps = grads_fn(x, y, weights)
+        comps = grads_fn(x, y, weights, generator)
         zero_unreached_grads(model)
         optimizer.step()
         return comps

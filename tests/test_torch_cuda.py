@@ -14,10 +14,12 @@ from kasportsformer_torch.ops.attention import (
     masked_sdpa_reference,
 )
 from kasportsformer_torch.ops.mlp import (
+    fused_mlp,
     fused_mlp_ln,
     fused_mlp_ln_bwd,
     fused_mlp_ln_bwd_reference,
     fused_mlp_ln_reference,
+    fused_mlp_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -26,14 +28,15 @@ pytestmark = pytest.mark.cuda
 # the error scaled by max(1, |y|). float32: summation order only. bfloat16:
 # K1 rounds only its output (half a unit in the last place, <= 3.9e-3); K3
 # also rounds the LayerNorm output and the hidden activations, the operands
-# of its tensor-core products.
+# of its tensor-core products, and K5 the hidden activations.
 # K2 and K4 compute in f32 from either dtype and round only their
 # activation gradients (K4's parameter gradients are f32 sums over the rows,
 # held against their largest entry).
 TOL = {"masked_sdpa": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
        "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
        "masked_sdpa_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
-       "fused_mlp_ln_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
+       "fused_mlp_ln_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+       "fused_mlp": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
 
 @pytest.fixture
@@ -99,6 +102,18 @@ def test_masked_sdpa_kernel_large_interhead_spread(cuda):
     assert _scaled_err(gotb, wantb) <= TOL["masked_sdpa"][torch.bfloat16]
 
 
+def _mlp_args(gen, m: int, dtype, c: int = 128, hidden: int = 512):
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    return (randn(m, c).to(dtype), 1 + randn(c, scale=0.1), randn(c, scale=0.1),
+            randn(hidden, c, scale=c ** -0.5).to(dtype),
+            randn(hidden, scale=0.1).to(dtype),
+            randn(c, hidden, scale=hidden ** -0.5).to(dtype),
+            randn(c, scale=0.1).to(dtype),
+            torch.rand(c, device="cuda", generator=gen))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [58752, 1377])
 def test_fused_mlp_ln_kernel_matches_plain(cuda, dtype, m):
@@ -125,14 +140,86 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.randn(2, 3, 40, 128, device="cuda", generator=cuda)  # N > 32
     with pytest.raises(ValueError, match="N <= 32"):
         masked_sdpa(q, q, q, 0.25, 8)
-    with pytest.raises(ValueError, match="width 16"):  # 4 heads of 32
-        masked_sdpa(q[:, :, :17], q[:, :, :17], q[:, :, :17], 0.25, 4)
+    with pytest.raises(ValueError, match="heads of width"):  # 1 head of 128
+        masked_sdpa(q[:, :, :17], q[:, :, :17], q[:, :, :17], 0.25, 1)
     with pytest.raises(TypeError):
         masked_sdpa(q.half(), q.half(), q.half(), 0.25, 8)
-    x = torch.randn(8, 64, device="cuda", generator=cuda)  # C != 128
-    w = torch.randn(256, 64, device="cuda", generator=cuda)
-    with pytest.raises(ValueError, match="C=128"):
+    x = torch.randn(8, 96, device="cuda", generator=cuda)  # C = 96
+    w = torch.randn(256, 96, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="C in"):
         fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0])
+    with pytest.raises(ValueError, match="C in"):
+        fused_mlp(x, w, w[:, 0], w.T, x[0])
+    x, w = x[:, :64], w[:, :64]  # K4 has the flagship's C = 128 only
+    with pytest.raises(ValueError, match="C in"):
+        fused_mlp_ln_bwd(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0], x)
+
+
+def _zoo_views(gen, dtype):
+    """Strided q/k/v at the zoo's head widths: D = 8 as (B,T,J,C) and its
+    temporal permutation, D = 32 as a flat (M,N,C) stream and DSTFormer's
+    grouped (B,J,F,C) view, D = 64 as a flat stream."""
+    def split(shape, c):
+        qkv = torch.randn(*shape, 3 * c, device="cuda", generator=gen).to(dtype)
+        return qkv.split(c, dim=-1)
+
+    mag, dst = split((4, 27, 17), 64), split((4 * 27, 17), 256)
+    return {"D8": mag, "D8 temporal": tuple(z.transpose(1, 2) for z in mag),
+            "D32": dst, "D32 grouped": tuple(z.reshape(4, 27, 17, 256).transpose(1, 2)
+                                             for z in dst),
+            "D64": split((4 * 17, 27), 512)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["D8", "D8 temporal", "D32", "D32 grouped", "D64"])
+def test_masked_sdpa_kernel_zoo_widths(cuda, dtype, name):
+    q, k, v = _zoo_views(cuda, dtype)[name]
+    before = masked_sdpa.launches
+    got = masked_sdpa(q, k, v, 0.2, 8)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), 0.2, 8)
+    assert masked_sdpa.launches == before + 1 and got.shape == q.shape
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hidden,eps", [(64, 256, 1e-5), (256, 1024, 1e-5),
+                                          (512, 1024, 1e-6)])
+def test_fused_mlp_ln_kernel_zoo_widths(cuda, dtype, c, hidden, eps):
+    args = _mlp_args(cuda, 1377, dtype, c, hidden)
+    before = fused_mlp_ln.launches
+    got = fused_mlp_ln(*args, eps)
+    want = fused_mlp_ln_reference(*(a.float() for a in args), eps)
+    assert fused_mlp_ln.launches == before + 1
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hidden", [(64, 256), (128, 512), (256, 1024), (512, 2048)])
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, c, hidden):
+    x, _, _, w1, b1, w2, b2, _ = _mlp_args(cuda, 1377, dtype, c, hidden)
+    before = fused_mlp.launches
+    got = fused_mlp(x.reshape(3, 459, c), w1, b1, w2, b2)
+    want = fused_mlp_reference(*(a.float() for a in (x, w1, b1, w2, b2)))
+    assert fused_mlp.launches == before + 1 and got.shape == (3, 459, c)
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got.reshape(-1, c), want) <= TOL["fused_mlp"][dtype])
+
+
+def test_fused_mlp_function_gradients_match_plain_autograd(cuda):
+    """K5's Function recomputes its backward through the plain version: the
+    gradients equal plain autograd's, in the parameters' float32."""
+    x, _, _, w1, b1, w2, b2, _ = _mlp_args(cuda, 1377, torch.float32)
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    out = fused_mlp(*leaves)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, g)
+    leaves2 = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    want = torch.autograd.grad(fused_mlp_reference(*leaves2), leaves2, g)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and _sum_err(a, w) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,16 +251,6 @@ def test_masked_sdpa_bwd_kernel_large_interhead_spread(cuda):
         assert torch.isfinite(a).all() and _scaled_err(a, w) <= 1e-4
 
 
-def _mlp_args(gen, m: int, dtype):
-    def randn(*shape, scale=1.0):
-        return scale * torch.randn(*shape, device="cuda", generator=gen)
-
-    return (randn(m, 128).to(dtype), 1 + randn(128, scale=0.1), randn(128, scale=0.1),
-            randn(512, 128, scale=128 ** -0.5).to(dtype),
-            randn(512, scale=0.1).to(dtype),
-            randn(128, 512, scale=512 ** -0.5).to(dtype),
-            randn(128, scale=0.1).to(dtype),
-            torch.rand(128, device="cuda", generator=gen))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

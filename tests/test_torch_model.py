@@ -106,7 +106,7 @@ def test_batch_norm_nodes_eval_matches_jax(small):
     want, _ = JL.batch_norm_nodes(p, s, jnp.asarray(x), False)
     bn = port.layers_with_bone[0].graph_temporal.mixer.batch_norm
     with torch.inference_mode():
-        got = TL.batch_norm_nodes(bn, torch.from_numpy(x), train=False)
+        got = TL.batch_norm(bn, torch.from_numpy(x), train=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -123,7 +123,7 @@ def test_batch_norm_nodes_train_matches_jax():
     x = RNG.standard_normal((6, 17, 32)).astype(np.float32)
     want, new_s = JL.batch_norm_nodes(p, s, jnp.asarray(x), True)
     with torch.no_grad():
-        got = TL.batch_norm_nodes(bn, torch.from_numpy(x), train=True)
+        got = TL.batch_norm(bn, torch.from_numpy(x), train=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(bn.running_mean.numpy(), new_s["mean"], **TOL)
     np.testing.assert_allclose(bn.running_var.numpy(), new_s["var"], **TOL)
@@ -275,7 +275,9 @@ def test_build_model_defaults_to_cuda():
             build_model(cfg)
     model = build_model(cfg, device="cpu")
     assert not model.training
-    with pytest.raises(ValueError, match="available: \\['kasportsformer'\\]"):
+    # the zoo registers with the package's import, so the error lists it too
+    with pytest.raises(ValueError, match="available: \\['dstformer', "
+                       "'kasportsformer', 'mixste', 'motionagformer'\\]"):
         build_model(cfg.replace(model_name="NoSuchModel"), device="cpu")
 
 

@@ -1,18 +1,23 @@
 """kasportsformer_torch's kernel modules against the JAX package: the plain
-versions of K1 (masked attention) and K3 (LN-folded MLP tail) against the
-JAX XLA formulations and Pallas kernels (interpret mode), and the wrappers'
-dispatch. On the CPU the wrappers run the plain versions; the CUDA kernels
+versions of K1 (masked attention), K3 (LN-folded MLP tail) and K5 (fused
+MLP) against the JAX XLA formulations and Pallas kernels (interpret mode),
+and the wrappers' dispatch. On the CPU the wrappers run the plain versions; the CUDA kernels
 themselves are held against them on the card by tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from kasportsformer_tpu.ops.attention import masked_sdpa_pallas, masked_sdpa_xla
-from kasportsformer_tpu.ops.mlp import _mlp_ln_xla, fused_mlp_ln_pallas
+from kasportsformer_tpu.ops.mlp import (_mlp_ln_xla, _mlp_xla, fused_mlp_ln_pallas,
+                                        fused_mlp_pallas)
+from kasportsformer_torch.models.layers import Mlp
 from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_reference
-from kasportsformer_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_reference
+from kasportsformer_torch.ops.mlp import (fused_mlp, fused_mlp_ln,
+                                          fused_mlp_ln_reference,
+                                          fused_mlp_reference)
 
 RNG = np.random.default_rng(11)
 # small shapes gain nothing from intra-op threads: leave the cores to the
@@ -157,3 +162,56 @@ def test_fused_mlp_ln_reference_bf16_within_rounding():
     want = np.asarray(_mlp_ln_xla(*jargs), np.float32)
     scale = np.maximum(np.abs(want), 1.0)
     assert float(np.max(np.abs(got - want) / scale)) < 2e-2
+
+
+_K5 = ("x", "w1", "b1", "w2", "b2")
+
+
+@pytest.mark.parametrize("c,hidden", [(128, 512), (64, 256)])
+def test_fused_mlp_reference_matches_jax(c, hidden):
+    """K5's plain version against `_mlp_xla` and the Pallas kernel in
+    interpret mode, as tests/test_ops.py holds the kernel."""
+    a = _mlp_inputs(512, c, hidden)
+    got = fused_mlp_reference(*(_torch_mlp_args(a)[i] for i in (0, 3, 4, 5, 6))).numpy()
+    jargs = [jnp.asarray(a[k]) for k in _K5]
+    np.testing.assert_allclose(got, np.asarray(_mlp_xla(*jargs)), atol=1e-5, rtol=1e-5)
+    kernel = np.asarray(fused_mlp_pallas(*jargs, interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_mlp_reference_bf16_within_rounding():
+    a = _mlp_inputs(256)
+    args = [t.to(torch.bfloat16) for t in (_torch_mlp_args(a)[i] for i in (0, 3, 4, 5, 6))]
+    got = fused_mlp_reference(*args).float().numpy()
+    want = np.asarray(_mlp_xla(*(jnp.asarray(a[k], jnp.bfloat16) for k in _K5)),
+                      np.float32)
+    scale = np.maximum(np.abs(want), 1.0)
+    assert float(np.max(np.abs(got - want) / scale)) < 2e-2
+
+
+def test_fused_mlp_gradients_match_jax_vjp():
+    """The gradients of K5's route (plain autograd on the CPU; the card's
+    FusedMlpFunction recomputes through the same plain version) against
+    `jax.vjp(_mlp_xla)`."""
+    a = _mlp_inputs(300)
+    g = RNG.standard_normal((300, 128)).astype(np.float32)
+    leaves = [t.requires_grad_() for t in (_torch_mlp_args(a)[i] for i in (0, 3, 4, 5, 6))]
+    got = torch.autograd.grad(fused_mlp(*leaves), leaves, _t(g))
+    _, vjp = jax.vjp(_mlp_xla, *(jnp.asarray(a[k]) for k in _K5))
+    want = vjp(jnp.asarray(g))
+    for name, gt, w in zip(_K5, got, want):
+        w = np.asarray(w)
+        if name.startswith("w"):  # the port's (out, in) layout
+            w = w.T
+        np.testing.assert_allclose(gt.numpy(), w, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_mlp_fused_forward_is_the_plain_version_on_cpu():
+    """`Mlp.forward(fused=True)` on a CPU tensor is the unfused forward, and
+    no K5 launch is counted."""
+    mlp = Mlp(32, 128)
+    x = _t(RNG.standard_normal((2, 27, 17, 32)).astype(np.float32))
+    before = fused_mlp.launches
+    with torch.inference_mode():
+        torch.testing.assert_close(mlp(x, fused=True), mlp(x), atol=0, rtol=0)
+    assert fused_mlp.launches == before

@@ -15,6 +15,9 @@ def perturb_tree(tree: dict, rng: np.random.Generator) -> dict:
         if isinstance(leaf, dict):
             out[name] = perturb_tree(leaf, rng)
             continue
+        if isinstance(leaf, list):  # e.g. the MS-TCN's branches
+            out[name] = [perturb_tree(t, rng) for t in leaf]
+            continue
         shape = np.shape(leaf)
         if name == "var":  # batch-norm running variance
             new = rng.uniform(0.5, 1.5, shape)
@@ -22,6 +25,8 @@ def perturb_tree(tree: dict, rng: np.random.Generator) -> dict:
             new = rng.uniform(0.1, 0.5, shape)
         elif name == "scale":  # LayerNorm / batch-norm weight
             new = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "w" and len(shape) >= 4:  # conv (.., O, I, kh, kw)
+            new = rng.standard_normal(shape) / np.sqrt(np.prod(shape[-3:]))
         elif name == "w" and len(shape) >= 2:  # linear (.., in, out)
             new = rng.standard_normal(shape) / np.sqrt(shape[-2])
         else:  # biases, running means, position embeddings, limb MLPs
