@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# the compiler's `-Xptxas -v` report of each source this process built
+PTXAS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -83,6 +85,7 @@ def build_all(names: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, dict]:
         for n, job in started.items():
             log = _finish(n, *job)
             report[n] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+            PTXAS[n] = log
         for n in names:
             if n not in _libs:
                 lib = ctypes.CDLL(str(library_path(n)))

@@ -29,11 +29,12 @@ import torch
 from kasportsformer_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (head widths, largest C) each kernel is built for: K1 the flagship's 16
-# and the zoo's 8 (MotionAGFormer hierarchical), 32 (DSTFormer) and 64
-# (MixSTE); K2 the flagship's only
-_WIDTHS = {"masked_sdpa": ((8, 16, 32, 64), 512), "masked_sdpa_bwd": ((16,), 128)}
-_MAX_N = 32
+# (head widths, largest C, largest N) each kernel takes, as its launcher
+# checks them: K1 the flagship's 16 and the zoo's 8 (MotionAGFormer
+# hierarchical), 32 (DSTFormer) and 64 (MixSTE), any number of heads up to
+# C = 512, N up to its 32-row stage; K2 the flagship's only
+LIMITS = {"masked_sdpa": ((8, 16, 32, 64), 512, 32),
+          "masked_sdpa_bwd": ((16,), 128, 32)}
 
 
 def masked_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,18 +105,12 @@ def _check_operands(what: str, num_heads: int, *ts: torch.Tensor) -> None:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{[t.dtype for t in ts]}")
     n, c = q.shape[2], q.shape[3]
-    widths, max_c = _WIDTHS[what]
+    widths, max_c, max_n = LIMITS[what]
     if c % num_heads or c // num_heads not in widths or c > max_c:
         raise ValueError(f"{what} kernel takes heads of width {widths} and "
                          f"C <= {max_c}, got C={c} over {num_heads} heads")
-    # a thread per (head, query row) and at most 16 of its channels (K1
-    # shares a wider head among neighbouring lanes), in one block of at most
-    # 512 threads, or 1024 where a head is shared
-    d = c // num_heads
-    limit = 1024 if d > 16 else 512
-    if n > _MAX_N or c * n // min(d, 16) > limit:
-        raise ValueError(f"{what} kernel takes N <= {_MAX_N} and at most "
-                         f"{limit} threads a block, got N={n}, C={c}, D={d}")
+    if n > max_n:
+        raise ValueError(f"{what} kernel takes N <= {max_n}, got N={n}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{what} kernel needs channel stride 1")
 
@@ -216,3 +211,18 @@ def masked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 masked_sdpa.launches = 0
+
+
+def masked_sdpa_kernel_info(dtype: torch.dtype, d: int) -> dict:
+    """K1's instantiation for `dtype` and head width `d` on the current CUDA
+    device, as the runtime reports it: threads a block, registers a thread,
+    dynamic shared memory a block, local memory (spills) a thread in bytes,
+    and blocks resident a SM. Builds the kernel if needed; launches nothing."""
+    lib = _build.library("masked_sdpa")
+    info = (ctypes.c_int * 5)(*([-1] * 5))
+    fn = lib.kasf_masked_sdpa_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    fn(_DTYPE_CODE[dtype], d, info)
+    return dict(zip(("threads", "registers", "smem_bytes", "spill_bytes",
+                     "blocks_per_sm"), info))

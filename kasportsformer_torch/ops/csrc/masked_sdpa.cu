@@ -4,214 +4,609 @@
 // (wrapper masked_sdpa_pallas). For every (b, g) sequence of (B, G, N, C)
 // inputs it computes, per head h of width D = C / H,
 //     out[b, g, :, h] = softmax(q_h k_h^T * scale) v_h      (softmax over N)
+// with the exact per-head max subtracted and the softmax statistics in f32.
 //
 // Bound on the H100: a sequence holds ~4*N*N*C FLOP against 4*N*C elements
 // moved; at N <= 32 that is at most ~8 FLOP per byte (f32), far below the
 // card's ridge point: bound by device-memory bytes (q, k, v read once, out
-// written once).
+// written once). So the design keeps loads in flight at all times.
 //
 // Design:
-//  * One block per (b, g) sequence. K and V (N x C) are staged once in shared
-//    memory as f32 (2*N*C*4 bytes: 110.6 KB at N = 27, C = 512, so above 48 KB
-//    the launcher raises the block's dynamic shared-memory limit).
-//  * Head widths D in {8, 16, 32, 64}, one template instantiation each; the
-//    flagship's D = 16 is one of them. A thread owns DS = min(D, 16) channels
-//    of one (head, query row) pair: for D <= 16 the whole head, for D = 32
-//    and 64 a slice, and the P = D / DS neighbouring lanes of the pair sum
-//    their partial logits with warp shuffles. So a thread keeps at most 16
-//    query values, 16 outputs and N logits in registers at every width.
-//  * The TPU kernel expanded K and V against a (C, H) head mask so both dots
-//    contracted over all 128 channels (the MXU's width), and subtracted the
-//    row-global max, re-running with an exact per-head max when a head
-//    underflowed. Here each thread contracts over its own head's channels
-//    only, so there is no expansion, and it subtracts the exact max of its own
-//    head's logits: no head can underflow to 0/0, nothing needs a guard.
-//  * Softmax and both products accumulate in f32 for f32 and bf16 inputs.
-//  * q, k, v may be strided views (column slices of a fused qkv projection,
-//    the temporal (B,T,J,C)->(B,J,T,C) permutation, DSTFormer's grouped
-//    (B*F,J,C)->(B,J,F,C) view, or a flat (M,N,C) stream as (1,M,N,C)); the
-//    launcher takes the four leading strides of each tensor in elements,
-//    channel stride 1.
-//  * Global loads stage through shared memory with neighbouring threads on
-//    neighbouring channels, four channels an access (16 bytes in f32, 8 in
-//    bf16); every row of q, k, v and out must start on such a boundary (the
-//    wrapper copies an operand that does not). Shared reads are float4 and
-//    broadcast across the threads of one head.
+//  * Unit of work: one (sequence, head group) tile. A head group is
+//    HG = min(8, 128 / D) heads, W = HG * D channels: 128 (64 at D = 8, the
+//    8 heads of MotionAGFormer's hierarchical C = 64). A stage holds q, k and
+//    v of one tile, 32 rows (N padded) x W channels: 48 KB in f32, 24 KB in
+//    bf16 (half that at D = 8), each row padded by 16 bytes so that rows start
+//    four banks apart. Rows N..31 are zeroed once and never written again,
+//    so padded keys and queries never see stale data; padded keys are also
+//    masked to -inf before the max, and padded query rows are not stored. A
+//    last group of fewer than HG heads (C not a multiple of W) loads and
+//    computes only its heads.
+//  * Persistent blocks (SMs x resident blocks a SM, at most one a tile) walk
+//    the tiles in order through a two-stage ring of 16-byte cp.async.cg
+//    copies: tile i+1 is in flight while tile i computes. q, k, v are read in
+//    place as strided views (column slices of one qkv projection, the
+//    (B,T,J,C)->(B,J,T,C) permutation, DSTFormer's grouped view, a flat
+//    (M,N,C) stream as (1,M,N,C)): the loader takes all four leading strides
+//    of each operand, channel stride 1, and every row must start on a
+//    16-byte boundary (the wrapper copies an operand that does not).
+//  * bf16 on the tensor cores: 4 warps, each one item at a time: a head's
+//    16-query m-tile, or at D <= 16 both of a head's m-tiles (they share
+//    the K and V fragments, and two dependency chains interleave). S = Q K^T with mma.sync m16n8k16 (m16n8k8 at D = 8),
+//    bf16 in, f32 accumulate; Q and K fragments by ldmatrix (K stored by key
+//    is already the "col" operand). The row max and sum reduce inside the
+//    quad by two shuffles, the exponential in f32. P, unnormalised and rounded to bf16
+//    as _attn_kernel rounds e, goes straight from the accumulator fragment
+//    into the A fragment of O = P V (V by ldmatrix.trans); O is divided by
+//    the f32 row sum at the end and rounded once. (wgmma's 64-row tiles
+//    would be mostly padding at 17-27 queries.)
+//  * f32 on the CUDA cores (TF32 would put ~5e-4 on each logit): 256 threads,
+//    P = max(1, D / 16) neighbouring lanes per (head, query row), the pairs
+//    packed over the tile's heads x N valid rows (no lane spent on a padded
+//    row; 8 N pairs of P lanes fill at most 256 threads). A lane takes every
+//    P-th key: it forms those logits in 16-channel chunks of the head (no
+//    shuffle per logit), the pair's max and sum take log2 P shuffles per
+//    row. In O = P V each lane takes DS / P channels of every chunk over
+//    all keys, a key's probability passed by one shuffle from the lane that
+//    holds it, and stores them. Shared-memory reads of K and V rows are
+//    16-byte broadcasts within a pair.
+//  * Both paths take the max of the raw dot products and the exponential as
+//    2^(s c - m c) with c = scale * log2(e) (one FMA and one MUFU.EX2 a
+//    key), and skip key tiles that are all padding. Per tile the
+//    indices are computed once (32-bit) and shared by the loader and the
+//    compute: at these sizes the integer work is a sizeable part of a tile.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxN = 32;
+constexpr int kMaxN = 32;   // rows a stage holds: N padded
+constexpr int kStages = 2;  // the cp.async ring
+constexpr int kMaxDevices = 64;
 
 struct SdpaStrides {
   long long q[4], k[4], v[4], o[4];
 };
 
-// four consecutive elements as floats, in one 16-byte (f32) or 8-byte
-// (bf16) access; kasf_masked_sdpa checks the alignment
-__device__ __forceinline__ void load4(const float* p, float (&d)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&d)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  d[0] = lo.x; d[1] = lo.y; d[2] = hi.x; d[3] = hi.y;
-}
-__device__ __forceinline__ void store4(float* p, const float (&d)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&d)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// DS channels a thread owns, the P lanes that share one (head, query row),
-// and the most threads a block may have: 1024 (so at most 64 registers a
-// thread) where a head is split, which MixSTE's 8 heads x 27 frames x 4 lanes
-// need; 512 otherwise, which leaves the flagship's D = 16 its registers
-template <int D>
-struct HeadSplit {
-  static constexpr int DS = D < 16 ? D : 16;
-  static constexpr int P = D / DS;
-  static constexpr int kMaxThreads = P > 1 ? 1024 : 512;
+template <typename T, int D>
+struct Tile {
+  static constexpr int HG = D < 16 ? 8 : 128 / D;  // heads a group
+  static constexpr int W = HG * D;                 // channels a group
+  static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // a cp.async
+  static constexpr int kPitch = W + kChunk;        // elements a stage row
+  static constexpr int kStage = 3 * kMaxN * kPitch;  // q, k, v
+  static constexpr int kSmem = kStages * kStage * static_cast<int>(sizeof(T));
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kThreads = kF32 ? 256 : 128;
+  static constexpr int kMinBlocks = kF32 ? 2 : 4;  // a SM, as shared memory allows
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(HeadSplit<D>::kMaxThreads)
-masked_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, SdpaStrides st,
-                   int G, int N, int C, int H, float scale) {
-  constexpr int DS = HeadSplit<D>::DS;
-  constexpr int P = HeadSplit<D>::P;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // N x C
-  float* vs = ks + N * C;                       // N x C
+// where a tile's operands start: element offsets of its head group's first
+// channel in row 0 of q, k, v and out, and the heads the group has
+struct TileBase {
+  long long q, k, v, o;
+  int heads;
+};
 
-  const long long seq = blockIdx.x;
+template <int HG, int W>
+__device__ __forceinline__ TileBase tile_base(int t, int groups, int G, int H,
+                                              const SdpaStrides& st) {
+  const int seq = t / groups;
+  const int grp = t - seq * groups;
   const long long b = seq / G;
   const long long g = seq - b * G;
-  const T* kb = k + b * st.k[0] + g * st.k[1];
-  const T* vb = v + b * st.v[0] + g * st.v[1];
-  for (int e = threadIdx.x; e < N * C / 4; e += blockDim.x) {
-    const int j = e / (C / 4);
-    const int c = 4 * (e - j * (C / 4));
-    float kk[4], vv[4];
-    load4(kb + j * st.k[2] + c, kk);
-    load4(vb + j * st.v[2] + c, vv);
-    store4(ks + j * C + c, kk);
-    store4(vs + j * C + c, vv);
-  }
-  __syncthreads();
+  const int c0 = grp * W;
+  TileBase tb;
+  tb.q = b * st.q[0] + g * st.q[1] + c0;
+  tb.k = b * st.k[0] + g * st.k[1] + c0;
+  tb.v = b * st.v[0] + g * st.v[1] + c0;
+  tb.o = b * st.o[0] + g * st.o[1] + c0;
+  tb.heads = min(HG, H - grp * HG);
+  return tb;
+}
 
-  // lanes past the last pair exit when a pair is one lane; when it is
-  // several they stay (on pair 0) for the shuffles and store nothing
-  int pair = threadIdx.x / P;
-  const bool valid = pair < H * N;
-  if constexpr (P == 1) {
-    if (!valid) return;
-  } else {
-    if (!valid) pair = 0;
-  }
-  const int h = pair / N;
-  const int i = pair - h * N;
-  const int c0 = h * D + (threadIdx.x % P) * DS;  // this thread's channels
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  const T* qrow = q + b * st.q[0] + g * st.q[1] + i * st.q[2] + c0;
-  float qr[DS];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// q, k and v rows 0..N-1 of a tile's head group into a stage. A thread keeps
+// one 16-byte chunk column of a row and steps down the rows, so the block
+// reads whole rows, neighbouring threads on neighbouring addresses
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* stage, const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          const SdpaStrides& st, const TileBase& tb,
+                                          int N) {
+  using Tl = Tile<T, D>;
+  constexpr int kRowChunks = Tl::W / Tl::kChunk;
+  constexpr int kRowStep = Tl::kThreads / kRowChunks;  // rows a pass
+  static_assert(Tl::kThreads % kRowChunks == 0, "whole rows a pass");
+  const int ch = threadIdx.x % kRowChunks;
+  if (ch >= tb.heads * D / Tl::kChunk) return;  // past a short last group
+  const int row = threadIdx.x / kRowChunks;
 #pragma unroll
-  for (int d4 = 0; d4 < DS / 4; ++d4) {
-    float q4[4];
-    load4(qrow + 4 * d4, q4);
+  for (int z = 0; z < 3; ++z) {
+    const long long rs = z == 0 ? st.q[2] : (z == 1 ? st.k[2] : st.v[2]);
+    const T* src = (z == 0 ? q + tb.q : (z == 1 ? k + tb.k : v + tb.v)) + row * rs +
+                   ch * Tl::kChunk;
+    T* dst = stage + (z * kMaxN + row) * Tl::kPitch + ch * Tl::kChunk;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) qr[4 * d4 + u] = q4[u];
+    for (int u = 0; u < kMaxN / kRowStep; ++u)
+      if (row + u * kRowStep < N)
+        cp_async16(dst + u * kRowStep * Tl::kPitch, src + u * kRowStep * rs);
+  }
+}
+
+// 2^x in one MUFU.EX2 (relative error ~2^-22; -inf -> 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// 1/x in one MUFU.RCP (1 ulp), for a softmax sum x >= 1
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------- f32 tile
+
+template <int D>
+__device__ __forceinline__ void compute_f32(const float* stage, float* __restrict__ out,
+                                            const TileBase& tb, long long ostride,
+                                            int N, float scale_log2) {
+  using Tl = Tile<float, D>;
+  constexpr int DS = D < 16 ? D : 16;  // channels a chunk
+  constexpr int P = D / DS;            // lanes a (head, query row)
+  constexpr int KJ = kMaxN / P;        // keys a lane in S: j = jj * P + r
+  const int pairs = tb.heads * N;
+  if (static_cast<int>(threadIdx.x & ~31u) / P >= pairs) return;  // the whole warp is idle
+  // lanes past the last pair compute pair 0 for the shuffles, store nothing
+  const bool valid = static_cast<int>(threadIdx.x) / P < pairs;
+  const int pair = valid ? threadIdx.x / P : 0;
+  const int hl = pair / N;  // head within the group
+  const int i = pair - hl * N;  // query row
+  const int r = threadIdx.x % P;
+
+  const float* qs = stage + i * Tl::kPitch + hl * D;
+  const float* ks = stage + kMaxN * Tl::kPitch + hl * D;
+  const float* vs = stage + 2 * kMaxN * Tl::kPitch + hl * D;
+
+  // keys in blocks of four (block b: keys 4b..4b+3, JB of them a lane), a
+  // block skipped when all padding; rows past N are zero, so a block's
+  // padded keys need no guard here. Each key's dot product runs as four
+  // partial chains (one a float4 component), so a lane has 16 / P chains in
+  // flight
+  constexpr int JB = 4 / P;
+  float s[KJ];
+#pragma unroll
+  for (int jj = 0; jj < KJ; ++jj) s[jj] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += DS) {
+    float4 qc[DS / 4];
+#pragma unroll
+    for (int d4 = 0; d4 < DS / 4; ++d4) qc[d4] = reinterpret_cast<const float4*>(qs + c)[d4];
+#pragma unroll
+    for (int blk = 0; blk < KJ / JB; ++blk) {
+      if (4 * blk < N) {
+        float4 part[JB];
+#pragma unroll
+        for (int u = 0; u < JB; ++u) part[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int d4 = 0; d4 < DS / 4; ++d4)
+#pragma unroll
+          for (int u = 0; u < JB; ++u) {
+            const float4 kk = reinterpret_cast<const float4*>(
+                ks + ((blk * JB + u) * P + r) * Tl::kPitch + c)[d4];
+            part[u].x = fmaf(qc[d4].x, kk.x, part[u].x);
+            part[u].y = fmaf(qc[d4].y, kk.y, part[u].y);
+            part[u].z = fmaf(qc[d4].z, kk.z, part[u].z);
+            part[u].w = fmaf(qc[d4].w, kk.w, part[u].w);
+          }
+#pragma unroll
+        for (int u = 0; u < JB; ++u)
+          s[blk * JB + u] += (part[u].x + part[u].y) + (part[u].z + part[u].w);
+      }
+    }
   }
 
-  // logits of this head's query row, and their exact max
-  float s[kMaxN];
+  // the exact max of this head's logits, then unnormalised probabilities
+  // 2^(s c - m c), c = scale log2(e) > 0: one FMA and one ex2 a key
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * C + c0);
-      float acc = 0.f;
+  for (int jj = 0; jj < KJ; ++jj)
+    if (jj * P + r < N) m = fmaxf(m, s[jj]);
 #pragma unroll
-      for (int d4 = 0; d4 < DS / 4; ++d4) {
-        const float4 kk = kr[d4];
-        acc = fmaf(qr[4 * d4 + 0], kk.x, acc);
-        acc = fmaf(qr[4 * d4 + 1], kk.y, acc);
-        acc = fmaf(qr[4 * d4 + 2], kk.z, acc);
-        acc = fmaf(qr[4 * d4 + 3], kk.w, acc);
-      }
-#pragma unroll
-      for (int off = 1; off < P; off <<= 1)  // the pair's lanes are neighbours
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      s[j] = acc * scale;
-      m = fmaxf(m, s[j]);
-    }
-  }
-
-  float o[DS];
-#pragma unroll
-  for (int d = 0; d < DS; ++d) o[d] = 0.f;
+  for (int off = 1; off < P; off <<= 1)  // the pair's lanes are neighbours
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float mc = m * scale_log2;
   float l = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      const float p = expf(s[j] - m);
-      l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * C + c0);
+  for (int jj = 0; jj < KJ; ++jj) {
+    s[jj] = jj * P + r < N ? fast_exp2(fmaf(s[jj], scale_log2, -mc)) : 0.f;
+    l += s[jj];
+  }
 #pragma unroll
-      for (int d4 = 0; d4 < DS / 4; ++d4) {
-        const float4 vv = vr[d4];
-        o[4 * d4 + 0] = fmaf(p, vv.x, o[4 * d4 + 0]);
-        o[4 * d4 + 1] = fmaf(p, vv.y, o[4 * d4 + 1]);
-        o[4 * d4 + 2] = fmaf(p, vv.z, o[4 * d4 + 2]);
-        o[4 * d4 + 3] = fmaf(p, vv.w, o[4 * d4 + 3]);
+  for (int off = 1; off < P; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+  const float inv = fast_rcp(l);  // l >= 1: the max logit contributes 2^0
+
+  // O = P V: lane r of a pair takes channels r * DS / P .. of every chunk
+  // over all keys, each key's probability fetched from the lane that holds
+  // it (one shuffle a key; none at P = 1)
+  constexpr int DL = DS / P;  // channels a lane a chunk
+  float o[D / DS][DL];
+#pragma unroll
+  for (int cc = 0; cc < D / DS; ++cc)
+#pragma unroll
+    for (int d = 0; d < DL; ++d) o[cc][d] = 0.f;
+  const int owner = threadIdx.x & ~(P - 1) & 31;  // lane r = 0 of the pair
+#pragma unroll
+  for (int blk = 0; blk < kMaxN / 4; ++blk) {
+    if (4 * blk < N) {  // a padded key's probability is 0, its row 0
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = 4 * blk + u;
+        const float p = P == 1 ? s[j] : __shfl_sync(0xffffffffu, s[j / P], owner | (j % P));
+        const float* vr = vs + j * Tl::kPitch + r * DL;
+#pragma unroll
+        for (int cc = 0; cc < D / DS; ++cc)
+#pragma unroll
+          for (int d4 = 0; d4 < DL / 4; ++d4) {
+            const float4 vv = reinterpret_cast<const float4*>(vr + cc * DS)[d4];
+            o[cc][4 * d4 + 0] = fmaf(p, vv.x, o[cc][4 * d4 + 0]);
+            o[cc][4 * d4 + 1] = fmaf(p, vv.y, o[cc][4 * d4 + 1]);
+            o[cc][4 * d4 + 2] = fmaf(p, vv.z, o[cc][4 * d4 + 2]);
+            o[cc][4 * d4 + 3] = fmaf(p, vv.w, o[cc][4 * d4 + 3]);
+          }
       }
     }
   }
-  if (!valid) return;
-
-  const float inv = 1.f / l;  // l >= 1: the max logit contributes exp(0)
-  T* orow = out + b * st.o[0] + g * st.o[1] + i * st.o[2] + c0;
+  if (valid) {
+    float* orow = out + tb.o + i * ostride + hl * D + r * DL;
 #pragma unroll
-  for (int d4 = 0; d4 < DS / 4; ++d4) {
-    const float o4[4] = {o[4 * d4] * inv, o[4 * d4 + 1] * inv,
-                         o[4 * d4 + 2] * inv, o[4 * d4 + 3] * inv};
-    store4(orow + 4 * d4, o4);
+    for (int cc = 0; cc < D / DS; ++cc)
+#pragma unroll
+      for (int d4 = 0; d4 < DL / 4; ++d4)
+        reinterpret_cast<float4*>(orow + cc * DS)[d4] =
+            make_float4(o[cc][4 * d4] * inv, o[cc][4 * d4 + 1] * inv,
+                        o[cc][4 * d4 + 2] * inv, o[cc][4 * d4 + 3] * inv);
   }
+}
+
+// --------------------------------------------------------------- bf16 tile
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a b: m16n8k8 (D = 8)
+__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2],
+                                       uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int D>
+__device__ __forceinline__ void compute_bf16(const __nv_bfloat16* stage,
+                                             __nv_bfloat16* __restrict__ out,
+                                             const TileBase& tb, long long ostride,
+                                             int N, float scale_log2) {
+  using Tl = Tile<__nv_bfloat16, D>;
+  constexpr int kWarps = Tl::kThreads / 32;
+  constexpr int NT = D / 8;  // output n-tiles of 8 channels
+  // m-tiles a warp item: at D <= 16 both of a head's (they share its K and V
+  // fragments and interleave two dependency chains), else one
+  constexpr int MG = D <= 16 ? 2 : 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qr = lane >> 2;  // the fragment's row (and row + 8)
+  const int qc = lane & 3;   // the fragment's column pair
+  const int mtiles = (N + 15) / 16;  // N <= 32: one or two
+  const int split = MG == 1 && mtiles == 2;  // a head's m-tiles in two items
+
+  for (int item = warp; item < tb.heads << split; item += kWarps) {
+    const int hl = item >> split;
+    const int mt0 = item & split;  // the item's first m-tile
+    const __nv_bfloat16* qs = stage + mt0 * 16 * Tl::kPitch + hl * D;
+    const __nv_bfloat16* ks = stage + kMaxN * Tl::kPitch + hl * D;
+    const __nv_bfloat16* vs = stage + 2 * kMaxN * Tl::kPitch + hl * D;
+
+    // S = Q K^T: 16 queries an m-tile x 32 keys as four n-tiles of 8 keys
+    float sc[MG][4][4];
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mg][nt][e] = 0.f;
+    if constexpr (D == 8) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + lane * Tl::kPitch);  // matrix m: keys 8m..8m+7
+#pragma unroll
+      for (int mg = 0; mg < MG; ++mg)
+        if (mt0 + mg < mtiles) {
+          uint32_t a[2];
+          ldsm_x2(a, qs + (mg * 16 + (lane & 15)) * Tl::kPitch);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            if (nt * 8 < N) mma_k8(sc[mg][nt], a, b[nt]);
+        }
+    } else {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[MG][4];
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg)
+          if (mt0 + mg < mtiles)
+            ldsm_x4(a[mg], qs + (mg * 16 + (lane & 15)) * Tl::kPitch + kd * 16 +
+                               (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          if (np * 16 < N) {
+            uint32_t b[4];  // b[0..1]: keys 16np..+7, b[2..3]: keys 16np+8..+15
+            ldsm_x4(b, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * Tl::kPitch +
+                           kd * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+            for (int mg = 0; mg < MG; ++mg)
+              if (mt0 + mg < mtiles) {
+                mma_k16(sc[mg][2 * np], a[mg], b[0], b[1]);
+                if (np * 16 + 8 < N) mma_k16(sc[mg][2 * np + 1], a[mg], b[2], b[3]);
+              }
+          }
+        }
+      }
+    }
+
+    // exact per-row max over the valid keys (quad shuffles), then
+    // p = 2^(s c - m c), c = scale log2(e) > 0: one FMA and one ex2 a key.
+    // Key tiles past N are all padding and skipped; only a tile that N cuts
+    // is masked to -inf. Rows 0..7 and 8..15 of an m-tile: l[mg][0..1]
+    float l[MG][2];
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg) {
+      l[mg][0] = l[mg][1] = 1.f;
+      if (mt0 + mg >= mtiles) continue;
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt * 8 < N) {
+          if (nt * 8 + 8 > N) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (nt * 8 + 2 * qc + e >= N) sc[mg][nt][e] = sc[mg][nt][2 + e] = -INFINITY;
+          }
+          m0 = fmaxf(m0, fmaxf(sc[mg][nt][0], sc[mg][nt][1]));
+          m1 = fmaxf(m1, fmaxf(sc[mg][nt][2], sc[mg][nt][3]));
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+      const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt * 8 < N) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[mg][nt][e] = fast_exp2(fmaf(sc[mg][nt][e], scale_log2, -mc0));  // -inf -> 0
+            sc[mg][nt][2 + e] = fast_exp2(fmaf(sc[mg][nt][2 + e], scale_log2, -mc1));
+            l0 += sc[mg][nt][e];
+            l1 += sc[mg][nt][2 + e];
+          }
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      l[mg][0] = l0;
+      l[mg][1] = l1;
+    }
+
+    // O = P V: P's accumulator fragments are the A fragments of this product
+    float o[MG][NT][4];
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mg][nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (kk * 16 < N) {
+        uint32_t a[MG][4];
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg) {
+          a[mg][0] = pack_bf16(sc[mg][2 * kk][0], sc[mg][2 * kk][1]);
+          a[mg][1] = pack_bf16(sc[mg][2 * kk][2], sc[mg][2 * kk][3]);
+          a[mg][2] = pack_bf16(sc[mg][2 * kk + 1][0], sc[mg][2 * kk + 1][1]);
+          a[mg][3] = pack_bf16(sc[mg][2 * kk + 1][2], sc[mg][2 * kk + 1][3]);
+        }
+        if constexpr (D == 8) {
+          uint32_t b[2];
+          ldsm_x2_trans(b, vs + (kk * 16 + (lane & 15)) * Tl::kPitch);
+#pragma unroll
+          for (int mg = 0; mg < MG; ++mg)
+            if (mt0 + mg < mtiles) mma_k16(o[mg][0], a[mg], b[0], b[1]);
+        } else {
+#pragma unroll
+          for (int dp = 0; dp < D / 16; ++dp) {
+            uint32_t b[4];  // b[0..1]: channels 16dp..+7, b[2..3]: 16dp+8..+15
+            ldsm_x4_trans(b, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                      Tl::kPitch +
+                                  dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int mg = 0; mg < MG; ++mg)
+              if (mt0 + mg < mtiles) {
+                mma_k16(o[mg][2 * dp], a[mg], b[0], b[1]);
+                mma_k16(o[mg][2 * dp + 1], a[mg], b[2], b[3]);
+              }
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg) {
+      if (mt0 + mg >= mtiles) continue;
+      const float inv0 = fast_rcp(l[mg][0]), inv1 = fast_rcp(l[mg][1]);
+      const int row0 = (mt0 + mg) * 16 + qr, row1 = row0 + 8;
+      __nv_bfloat16* o0 = out + tb.o + row0 * ostride + hl * D + 2 * qc;
+      __nv_bfloat16* o1 = o0 + 8 * ostride;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (row0 < N)
+          *reinterpret_cast<uint32_t*>(o0 + nt * 8) =
+              pack_bf16(o[mg][nt][0] * inv0, o[mg][nt][1] * inv0);
+        if (row1 < N)
+          *reinterpret_cast<uint32_t*>(o1 + nt * 8) =
+              pack_bf16(o[mg][nt][2] * inv1, o[mg][nt][3] * inv1);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ kernel
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Tile<T, D>::kThreads, Tile<T, D>::kMinBlocks)
+masked_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ out, SdpaStrides st,
+                   int tiles, int groups, int G, int N, int H, float scale_log2) {
+  using Tl = Tile<T, D>;
+  extern __shared__ uint4 smem[];
+  T* stages = reinterpret_cast<T*>(smem);
+
+  // zero both stages once: rows N..31 stay zero, cp.async writes rows < N
+  for (int e = threadIdx.x; e < Tl::kSmem / 16; e += Tl::kThreads)
+    smem[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  int t = blockIdx.x;  // the grid has at most one block a tile
+  TileBase cur = tile_base<Tl::HG, Tl::W>(t, groups, G, H, st);
+  load_tile<T, D>(stages, q, k, v, st, cur, N);
+  cp_async_commit();
+  for (int i = 0;; ++i) {
+    const int next = t + gridDim.x;
+    TileBase nb = cur;
+    if (next < tiles) {
+      nb = tile_base<Tl::HG, Tl::W>(next, groups, G, H, st);
+      load_tile<T, D>(stages + ((i + 1) % kStages) * Tl::kStage, q, k, v, st, nb, N);
+    }
+    cp_async_commit();  // possibly empty: wait_group 1 then still means tile t
+    cp_async_wait_one();
+    __syncthreads();
+    const T* stage = stages + (i % kStages) * Tl::kStage;
+    if constexpr (Tl::kF32)
+      compute_f32<D>(stage, out, cur, st.o[2], N, scale_log2);
+    else
+      compute_bf16<D>(stage, out, cur, st.o[2], N, scale_log2);
+    __syncthreads();  // every warp is done with this stage before it refills
+    if (next >= tiles) break;
+    t = next;
+    cur = nb;
+  }
+}
+
+// blocks of one instantiation resident at once on a device (SMs x blocks a
+// SM), found once per device; the dynamic shared-memory limit is raised
+// there first
+template <typename T, int D>
+cudaError_t resident_blocks(int* blocks) {
+  using Tl = Tile<T, D>;
+  static int cached[kMaxDevices];  // one array per instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaFuncSetAttribute(masked_sdpa_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, masked_sdpa_kernel<T, D>, Tl::kThreads, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const SdpaStrides& st, int B, int G, int N, int C, int H,
-                   float scale, cudaStream_t stream) {
-  const int threads = ((H * N * HeadSplit<D>::P + 31) / 32) * 32;
-  if (threads > HeadSplit<D>::kMaxThreads) return cudaErrorInvalidValue;
-  const size_t smem = 2 * static_cast<size_t>(N) * C * sizeof(float);
-  static size_t configured = 48 * 1024;  // the limit every kernel has
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        masked_sdpa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = smem;
-  }
-  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(B) * G);
-  masked_sdpa_kernel<T, D><<<blocks, threads, smem, stream>>>(
+                   const SdpaStrides& st, int B, int G, int N, int H, float scale,
+                   cudaStream_t stream) {
+  using Tl = Tile<T, D>;
+  int resident = 0;
+  cudaError_t err = resident_blocks<T, D>(&resident);
+  if (err != cudaSuccess) return err;
+  const int groups = (H + Tl::HG - 1) / Tl::HG;
+  const long long tiles = static_cast<long long>(B) * G * groups;
+  if (tiles > INT32_MAX - resident) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles : resident);
+  constexpr float kLog2e = 1.4426950408889634f;
+  masked_sdpa_kernel<T, D><<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), st, G, N, C, H, scale);
+      static_cast<T*>(out), st, static_cast<int>(tiles), groups, G, N, H,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -219,20 +614,38 @@ template <typename T>
 cudaError_t launch_width(const void* q, const void* k, const void* v, void* out,
                          const SdpaStrides& st, int B, int G, int N, int C, int H,
                          float scale, cudaStream_t stream) {
-  // every row of q, k, v and out starts on a 4-element boundary
-  const std::uintptr_t align = 4 * sizeof(T);
+  // every row of q, k, v and out starts on a 16-byte boundary
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
-    if (reinterpret_cast<std::uintptr_t>(p) % align != 0) return cudaErrorMisalignedAddress;
+    if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  const long long chunk = 16 / sizeof(T);
   for (int a = 0; a < 3; ++a)
-    if (st.q[a] % 4 || st.k[a] % 4 || st.v[a] % 4 || st.o[a] % 4)
+    if (st.q[a] % chunk || st.k[a] % chunk || st.v[a] % chunk || st.o[a] % chunk)
       return cudaErrorMisalignedAddress;
   switch (C / H) {
-    case 8: return launch<T, 8>(q, k, v, out, st, B, G, N, C, H, scale, stream);
-    case 16: return launch<T, 16>(q, k, v, out, st, B, G, N, C, H, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, st, B, G, N, C, H, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, st, B, G, N, C, H, scale, stream);
+    case 8: return launch<T, 8>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, st, B, G, N, H, scale, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, int D>
+void describe(int* info) {
+  using Tl = Tile<T, D>;
+  cudaFuncAttributes attr{};
+  int resident = 0;
+  if (cudaFuncGetAttributes(&attr, masked_sdpa_kernel<T, D>) != cudaSuccess ||
+      resident_blocks<T, D>(&resident) != cudaSuccess)
+    return;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  info[0] = Tl::kThreads;
+  info[1] = attr.numRegs;
+  info[2] = Tl::kSmem;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = resident / sms;
 }
 
 }  // namespace
@@ -240,11 +653,10 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. C = D H with a head width D of 8, 16,
-// 32 or 64, C <= 512, and H N <= 512 for D <= 16, C N / 16 <= 1024 for wider
-// heads (one thread per 16 channels of a query row). strides: 16 int64 in elements,
+// 32 or 64, C <= 512, 1 <= N <= 32, any B G. strides: 16 int64 in elements,
 // the four leading strides of q, k, v and out in that order (channel stride
-// is 1); the three outer ones and every pointer 4-element aligned. Returns
-// cudaGetLastError() after the launch (0 on success).
+// is 1); every pointer and the three outer strides of each operand 16-byte
+// aligned. Returns cudaGetLastError() after the launch (0 on success).
 int kasf_masked_sdpa(int dtype, const void* q, const void* k, const void* v, void* out,
                      const long long* strides, int B, int G, int N, int C, int H,
                      float scale, void* stream) {
@@ -262,6 +674,24 @@ int kasf_masked_sdpa(int dtype, const void* q, const void* k, const void* v, voi
   if (dtype == 1)
     return launch_width<__nv_bfloat16>(q, k, v, out, st, B, G, N, C, H, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// The instantiation for (dtype, head width d) on the current device, for
+// reports: info = {threads a block, registers a thread, dynamic shared
+// memory a block in bytes, local memory (spills) a thread in bytes, blocks
+// resident a SM}. Left untouched for a width or dtype there is none of.
+void kasf_masked_sdpa_info(int dtype, int d, int* info) {
+  switch (dtype * 100 + d) {
+    case 8: describe<float, 8>(info); break;
+    case 16: describe<float, 16>(info); break;
+    case 32: describe<float, 32>(info); break;
+    case 64: describe<float, 64>(info); break;
+    case 108: describe<__nv_bfloat16, 8>(info); break;
+    case 116: describe<__nv_bfloat16, 16>(info); break;
+    case 132: describe<__nv_bfloat16, 32>(info); break;
+    case 164: describe<__nv_bfloat16, 64>(info); break;
+    default: break;
+  }
 }
 
 const char* kasf_error_string(int code) {

@@ -26,7 +26,8 @@ pytestmark = pytest.mark.cuda
 
 # Each kernel is held to its plain version run in float32 on the same inputs,
 # the error scaled by max(1, |y|). float32: summation order only. bfloat16:
-# K1 rounds only its output (half a unit in the last place, <= 3.9e-3); K3
+# K1 rounds its unnormalised probabilities (a tensor-core operand) and its
+# output, half a unit in the last place each (<= 6e-3); K3
 # also rounds the LayerNorm output and the hidden activations, the operands
 # of its tensor-core products, and K5 the hidden activations.
 # K2 and K4 compute in f32 from either dtype and round only their
@@ -100,6 +101,61 @@ def test_masked_sdpa_kernel_large_interhead_spread(cuda):
     wantb = masked_sdpa_reference(qb.float(), kb.float(), vb.float(), 0.25, 8)
     assert torch.isfinite(gotb).all()
     assert _scaled_err(gotb, wantb) <= TOL["masked_sdpa"][torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 27, 32])
+def test_masked_sdpa_kernel_rows_and_widths(cuda, dtype, d, n):
+    """Every N the 32-row stage pads (one m-tile or two, a ragged last key
+    tile) at every head width, on strided views: column slices of one qkv
+    projection, permuted (B,T,J,C)->(B,J,T,C)."""
+    c = 128
+    qkv = torch.randn(3, n, 5, 3 * c, device="cuda", generator=cuda).to(dtype)
+    q, k, v = (z.transpose(1, 2) for z in qkv.split(c, dim=-1))
+    before = masked_sdpa.launches
+    got = masked_sdpa(q, k, v, d ** -0.5, c // d)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), d ** -0.5, c // d)
+    assert masked_sdpa.launches == before + 1 and got.shape == q.shape
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,c,heads", [(1, 1, 128, 8), (133, 3, 512, 8),
+                                         (7, 5, 192, 3), (2, 9, 40, 5)])
+def test_masked_sdpa_kernel_tiles_off_the_grid(cuda, dtype, b, g, c, heads):
+    """Tile counts that are no multiple of the persistent grid (one tile;
+    133 x 3 sequences of four head groups), and a last head group with fewer
+    heads than the others (3 heads of 64, 5 of 8)."""
+    q, k, v = (torch.randn(b, g, 27, c, device="cuda", generator=cuda).to(dtype)
+               for _ in range(3))
+    d = c // heads
+    got = masked_sdpa(q, k, v, d ** -0.5, heads)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), d ** -0.5, heads)
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_masked_sdpa_kernel_one_hot_probabilities(cuda, dtype, d):
+    """One key dominates each head (key 3h+1 of head h), so every query row
+    of head h is that key's value row: a permutation of the fragments' rows,
+    keys or channels shows as a wrong row, not as a small error."""
+    n, c = 27, 128
+    heads = c // d
+    q = torch.rand(4, 3, n, c, device="cuda", generator=cuda) + 0.5
+    k = 0.01 * torch.randn(4, 3, n, c, device="cuda", generator=cuda)
+    v = torch.randn(4, 3, n, c, device="cuda", generator=cuda)
+    keys = [(3 * h + 1) % n for h in range(heads)]
+    for h, j in enumerate(keys):
+        k[:, :, j, h * d:(h + 1) * d] = 20.0  # its logit >= 10 sqrt(D) above
+    q, k, v = (z.to(dtype) for z in (q, k, v))
+    got = masked_sdpa(q, k, v, d ** -0.5, heads).float()
+    for h, j in enumerate(keys):
+        want = v[:, :, j:j + 1, h * d:(h + 1) * d].float().expand(-1, -1, n, -1)
+        assert _scaled_err(got[..., h * d:(h + 1) * d], want) <= TOL["masked_sdpa"][dtype]
 
 
 def _mlp_args(gen, m: int, dtype, c: int = 128, hidden: int = 512):

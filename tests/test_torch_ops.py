@@ -76,13 +76,46 @@ def test_masked_sdpa_reference_large_interhead_spread():
         atol=1e-4, rtol=1e-4)
 
 
-def test_masked_sdpa_reference_matches_pallas_interpret():
-    q, k, v = _sdpa_inputs((2, 3, 27, 128))
+# (N, D) at 8 heads: the flagship's (27, 16), MotionAGFormer hierarchical's
+# D = 8, DSTFormer's 32, MixSTE's 64, and the edges of the kernel's 32-row
+# stage (a full stage, a single row)
+_SDPA_ROWS_WIDTHS = [(27, 16), (17, 8), (27, 32), (27, 64), (32, 16), (1, 16)]
+
+
+@pytest.mark.parametrize("n,d", _SDPA_ROWS_WIDTHS)
+def test_masked_sdpa_reference_matches_pallas_interpret(n, d):
+    """The plain version, the card kernel's yardstick, against the Pallas
+    kernel at every head width K1 takes and at the N its stage pads."""
+    q, k, v = _sdpa_inputs((2, 3, n, 8 * d))
     want = np.asarray(masked_sdpa_pallas(jnp.asarray(q), jnp.asarray(k),
-                                         jnp.asarray(v), 0.25, 8,
+                                         jnp.asarray(v), d ** -0.5, 8,
                                          interpret=True))
-    got = masked_sdpa_reference(_t(q), _t(k), _t(v), 0.25, 8).numpy()
+    got = masked_sdpa_reference(_t(q), _t(k), _t(v), d ** -0.5, 8).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d", [(27, 16), (17, 8), (27, 64)])
+def test_masked_sdpa_reference_bf16_against_pallas(n, d):
+    """bf16 inputs through the port's plain version and `_attn_kernel`
+    (Pallas, interpret mode). They round at different points: the plain
+    version rounds the logits (its bf16 matmul) and the normalised P, the
+    kernel keeps f32 logits and rounds the unnormalised e, dividing by the
+    sum of the rounded e. So they lie within a few bf16 units of a logit
+    (2^-9 of |s| <= ~5, ~1 % of a probability) and the output's rounding
+    apart: 1.9e-2 at most over 4 seeds of these shapes, held to 3e-2 here,
+    error scaled by max(1, |y|). The plain version run in f32 on the same
+    bf16 inputs, the yardstick of the card's bf16 check (within 1e-2), lies
+    within 6e-3 of the kernel, held to 1e-2."""
+    q, k, v = _sdpa_inputs((2, 3, n, 8 * d))
+    jq, jk, jv = (jnp.asarray(z, jnp.bfloat16) for z in (q, k, v))
+    want = np.asarray(masked_sdpa_pallas(jq, jk, jv, d ** -0.5, 8, interpret=True),
+                      np.float32)
+    tq, tk, tv = (_t(z).bfloat16() for z in (q, k, v))
+    scale = np.maximum(np.abs(want), 1.0)
+    got = masked_sdpa_reference(tq, tk, tv, d ** -0.5, 8).float().numpy()
+    assert float(np.max(np.abs(got - want) / scale)) < 3e-2
+    got32 = masked_sdpa_reference(tq.float(), tk.float(), tv.float(), d ** -0.5, 8).numpy()
+    assert float(np.max(np.abs(got32 - want) / scale)) < 1e-2
 
 
 def test_masked_sdpa_dispatches_plain_version_on_cpu():
