@@ -2,6 +2,7 @@
 """Drive kasportsformer_torch on one NVIDIA GPU and check it, end to end.
 
 Run from the repository root:  python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3d]
+(the short loops for kernel work: 0,1,2,3d for K1, 0,1,3,3b,3d for K3/K5)
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
@@ -14,7 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
      (kernel and SDPA in turns), each row's share of its bound and its time
      over SDPA's; K1's registers, shared memory and spills an instantiation
      to --out (also in 3d).
-  3. K3 fused_mlp_ln against its plain version at M = 58,752 and 1,377.
+  3. K3 fused_mlp_ln against its plain version at M = 58,752 and 1,377,
+     each row with its tile (rows a block, blocks, L2 weight reads a
+     launch) and share of the bound; K3's and K5's registers, shared
+     memory and spills an instantiation to --out (also in 3d); a spill fails
+     the phase.
      In phases 2 and 3 the plain version runs in float32 on the kernel's
      own inputs (bfloat16 ones included), so a bfloat16 kernel is held to
      the exact value and not to a second set of bfloat16 roundings.
@@ -25,7 +30,7 @@ Phases (any failure exits non-zero and prints no result line):
   3d. K1 at the zoo's head widths and layouts (D = 8, 32, 64; flat streams,
      DSTFormer's grouped temporal view) and K3 at C/H 512/1024 (eps 1e-6),
      256/1024 and 64/256, with SDPA's time, share and ratio beside K1 as in
-     phase 2; shapes outside the
+     phase 2 and the tile and share beside K3 as in phase 3; shapes outside the
      kernels' range (K1 at D = 128, K3 and K5 at C = 96) raise.
   4. the full-width 26-layer model with seeded, perturbed weights: the
      forward on the card through the kernels against the same weights on
@@ -33,10 +38,11 @@ Phases (any failure exits non-zero and prints no result line):
      per forward; the bfloat16 forward no further from the float32 one than
      twice the CPU's bfloat16 forward is; 128-clip forward times (bfloat16
      also with the weights converted on every call, interleaved) and a
-     profiler breakdown in both dtypes.
+     profiler breakdown in both dtypes, K3's and K1's device time in it.
   5. serving, the main path: serve() on cuda at batch 128 answers /healthz
      and four /lift requests (40 frames, 405 frames, world space, 128 clips);
-     the launch counts are read around this phase alone.
+     then, with the model in bfloat16, the 40-frame and 128-clip requests;
+     the launch counts are read around each dtype's serving alone.
   5b. the zoo at full width (MixSTE, DSTFormer, MotionAGFormer base,
      use_tcn, hierarchical and graph_only), each on the card through the
      kernels against the CPU through the plain versions (B=4, f32 within
@@ -59,7 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
      weights, B=4, the CPU's top-k adjacencies replayed; the batch-norm
      running statistics; 104 K2 and 156 K4 launches per backward.
   9. the train step at the config's batch 32, float32 and bfloat16: median
-     ms/step, clips/s, peak memory, device busy share and a profiler table;
+     ms/step, clips/s, peak memory, device busy share and a profiler table
+     (the profiles of phases 4 and 9 with the SM clock they ran at);
      then 50 steps on one batch, whose loss must fall.
  10. training, the second main path: `train` through the CLI's entry point
      on a seeded synthetic .npz clip store (256 train, 64 test clips) for 2
@@ -127,6 +134,43 @@ def card_line() -> str:
         return f"nvidia-smi not available ({e})"
 
 
+@contextlib.contextmanager
+def sm_clock():
+    """The card's SM clock, read by nvidia-smi about every 0.2 s on a thread
+    while the body runs, so that a device time stands beside the clock it
+    ran at. Yields a list that holds the readings (MHz) once the body ends;
+    it stays empty where nvidia-smi cannot be run."""
+    readings: list[float] = []
+    stop = threading.Event()
+
+    def poll() -> None:
+        while not stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10)
+                readings.append(float(out.stdout.splitlines()[0]))
+            except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+                return
+            stop.wait(0.2)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield readings
+    finally:
+        stop.set()
+        thread.join(timeout=15)
+
+
+def clock_text(readings: list[float]) -> str:
+    if not readings:
+        return "SM clock not measured"
+    return (f"SM clock median {statistics.median(readings):.0f} MHz "
+            f"({min(readings):.0f}-{max(readings):.0f}, {len(readings)} readings)")
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Device ms per call of fn. The device first spins for ~2 ms a call
     (`torch.cuda._sleep`), so the host has queued every call before the
@@ -186,6 +230,51 @@ def write_k1_report(out_dir: str) -> None:
     with open(os.path.join(out_dir, "chip_smoke_k1_kernel.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, masked_sdpa.cu\n"
                 + ptxas + "\n")
+
+
+def k3_tile_line(dt, m: int, c: int, h: int, ms: float, bms: float) -> str:
+    """A K3 row's tile (rows a block, blocks, the weight bytes its blocks
+    read from L2 in a launch) and its share of the bound."""
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_kernel_info
+
+    rows = fused_mlp_ln_kernel_info(dt, c)["rows"]
+    blocks = -(-m // rows)
+    l2 = blocks * 2 * c * h * dt.itemsize
+    return (f"tile {rows} rows x {blocks} blocks, L2 weight reads "
+            f"{l2 / 1e6:.1f} MB; share of bound {bms / ms:.1%}")
+
+
+def write_k3_report(out_dir: str) -> None:
+    """K3's and K5's compiler reports (`-Xptxas -v`: registers, spills) and
+    each instantiation's tile, registers, shared memory, spills and blocks a
+    SM as the runtime reports them, to --out/chip_smoke_k3_kernel.txt; one
+    summary line an instantiation to the log. Raises if one spills."""
+    import torch
+
+    from kasportsformer_torch.ops import _build
+    from kasportsformer_torch.ops.mlp import (fused_mlp_kernel_info,
+                                              fused_mlp_ln_kernel_info)
+
+    lines, spills = [], []
+    for kname, info_fn in (("K3", fused_mlp_ln_kernel_info),
+                           ("K5", fused_mlp_kernel_info)):
+        for dt in (torch.float32, torch.bfloat16):
+            for c in (64, 128, 256, 512):
+                info = info_fn(dt, c)
+                line = (f"{kname} {str(dt).split('.')[1]:8s} C={c:3d}: " + ", ".join(
+                    f"{k} {v}" for k, v in info.items()))
+                lines.append(line)
+                if info["spill_bytes"] != 0:
+                    spills.append(line)
+                log(f"   {line}")
+    log(f"   K3/K5 instantiations with local memory (spills): {spills or 'none'}")
+    with open(os.path.join(out_dir, "chip_smoke_k3_kernel.txt"), "w") as f:
+        f.write("\n".join(lines))
+        for name in ("mlp_ln", "mlp"):
+            ptxas = _build.PTXAS.get(name, "(built before this process)")
+            f.write(f"\n\n== nvcc -Xptxas -v, {name}.cu\n{ptxas}\n")
+    if spills:
+        raise AssertionError(f"K3/K5 instantiations spill: {spills}")
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -306,7 +395,7 @@ def mlp_args(dev, gen, m: int, dt, c: int = 128, h: int = 512):
 
 
 @phase("phase 3: K3 fused_mlp_ln vs plain")
-def check_k3(dev) -> dict:
+def check_k3(dev, out_dir: str) -> dict:
     import torch
 
     from kasportsformer_torch.ops.mlp import (fused_mlp_ln,
@@ -337,7 +426,9 @@ def check_k3(dev) -> dict:
                 plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
             log(f"   K3 M={m:6d} {dname:8s} err {err:.2e} (limit "
                 f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
-                f"bound {bms:.4f} ({by})")
+                f"bound {bms:.4f} ({by})  "
+                + k3_tile_line(dt, m, 128, 512, ms, bms))
+    write_k3_report(out_dir)
     return rows
 
 
@@ -489,7 +580,8 @@ def check_zoo_kernels(dev, out_dir: str) -> dict:
                 got.float() - want).abs().max().item(), ms=ms,
                 plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
             log(f"   K3 M={m} C/H={c}/{h} eps {eps:.0e} {dname:8s} err {err:.2e} "
-                f"kernel {ms:.4f} ms  plain {plain:.4f}  bound {bms:.4f} ({by})")
+                f"kernel {ms:.4f} ms  plain {plain:.4f}  bound {bms:.4f} ({by})  "
+                + k3_tile_line(dt, m, c, h, ms, bms))
     # shapes outside the kernels' range raise on the card, with no fallback
     q = torch.randn(2, 3, 17, 128, device=dev)
     x, w = torch.randn(8, 96, device=dev), torch.randn(256, 96, device=dev)
@@ -505,6 +597,7 @@ def check_zoo_kernels(dev, out_dir: str) -> dict:
     if refused != 3:
         raise AssertionError("a kernel took a shape outside its range")
     write_k1_report(out_dir)
+    write_k3_report(out_dir)
     return rows
 
 
@@ -723,8 +816,9 @@ def profile(model, xb, dtype, out_dir: str) -> None:
             model.compute_dtype = dtype
             model(xb)
             torch.cuda.synchronize()
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
+            with sm_clock() as clock, tprofile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 model(xb)
                 torch.cuda.synchronize()
@@ -742,7 +836,14 @@ def profile(model, xb, dtype, out_dir: str) -> None:
                     f"kernels\n" + "\n".join(lines))
         log(f"   profile of one 128-clip {dname} forward: wall "
             f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-            f"({100 * busy / wall_us:.1f}%), {launches} device kernels")
+            f"({100 * busy / wall_us:.1f}%), {launches} device kernels; "
+            + clock_text(clock))
+        for group in ("K3", "K1"):
+            mine = [e for e in events if kernel_group(e.key) == group]
+            t = sum(e.self_device_time_total for e in mine)
+            log(f"     of which {group}: {t / 1e3:.3f} ms in "
+                f"{sum(e.count for e in mine)} launches "
+                f"({100 * t / busy:.1f}% of device busy)")
         for line in lines[:10]:
             log(f"     {line[:110]}")
     except Exception as e:  # measurement only: report, do not fail the run
@@ -786,47 +887,70 @@ def check_serving(dev, model) -> dict:
             0, 1000, (128 * 27, 17, 2)).tolist(), "width": 1280,
             "height": 720}),
     ]
-    masked_sdpa.launches = 0
-    fused_mlp_ln.launches = 0
-    srv = serve(model, host="127.0.0.1", port=0, batch_size=128, device=dev)
-    port = srv.server_address[1]
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    answers = {}
-    try:
-        status, data, lat = _request(port, "GET", "/healthz")
-        assert status == 200 and data["params"] == 29_365_668, data
-        log(f"   /healthz {status} {data} in {lat * 1e3:.1f} ms")
-        for name, req in requests:
-            status, data, lat = _request(port, "POST", "/lift", req)
-            assert status == 200, (name, status, data)
-            poses = np.asarray(data["poses"], np.float32)
-            frames = len(req["keypoints"])
-            assert poses.shape == (frames, 17, 3), (name, poses.shape)
-            assert np.isfinite(poses).all(), name
-            if req.get("world"):
-                np.testing.assert_allclose(poses[..., 2].min(-1), 0, atol=1e-5)
-                np.testing.assert_allclose(
-                    poses.reshape(frames, -1).max(1), 1, atol=1e-5)
-            else:
-                assert np.abs(poses[:, 0]).max() == 0.0, name  # root-zeroed
-            clips = -(-frames // 27)
-            log(f"   /lift {name:10s}: {status}, {clips:3d} clips, "
-                f"{lat * 1e3:8.1f} ms, {clips / lat:8.1f} clips/s")
-            answers[name] = poses
-        status, _, _ = _request(port, "GET", "/nope")
-        assert status == 404
-        status, _, _ = _request(port, "POST", "/lift", {"width": 1})
-        assert status == 400
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=60)
-    launches = {"masked_sdpa": masked_sdpa.launches,
-                "fused_mlp_ln": fused_mlp_ln.launches}
-    log(f"   kernel launches in this phase: {launches}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+
+    def served(reqs) -> dict:
+        """serve() on the card answers /healthz, reqs (one finite pose a
+        frame), an unknown path (404) and a malformed request (400)."""
+        srv = serve(model, host="127.0.0.1", port=0, batch_size=128, device=dev)
+        port = srv.server_address[1]
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        answers = {}
+        try:
+            status, data, lat = _request(port, "GET", "/healthz")
+            assert status == 200 and data["params"] == 29_365_668, data
+            log(f"   /healthz {status} {data} in {lat * 1e3:.1f} ms")
+            for name, req in reqs:
+                status, data, lat = _request(port, "POST", "/lift", req)
+                assert status == 200, (name, status, data)
+                poses = np.asarray(data["poses"], np.float32)
+                frames = len(req["keypoints"])
+                assert poses.shape == (frames, 17, 3), (name, poses.shape)
+                assert np.isfinite(poses).all(), name
+                if req.get("world"):
+                    np.testing.assert_allclose(poses[..., 2].min(-1), 0, atol=1e-5)
+                    np.testing.assert_allclose(
+                        poses.reshape(frames, -1).max(1), 1, atol=1e-5)
+                else:
+                    assert np.abs(poses[:, 0]).max() == 0.0, name  # root-zeroed
+                clips = -(-frames // 27)
+                log(f"   /lift {name:10s}: {status}, {clips:3d} clips, "
+                    f"{lat * 1e3:8.1f} ms, {clips / lat:8.1f} clips/s")
+                answers[name] = poses
+            status, _, _ = _request(port, "GET", "/nope")
+            assert status == 404
+            status, _, _ = _request(port, "POST", "/lift", {"width": 1})
+            assert status == 400
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        return answers
+
+    # float32, then bfloat16 (the model as build_model gives it for a
+    # config with compute_dtype: bfloat16); the counts are read around each
+    launches = {}
+    for dname, dt, reqs in (("float32", torch.float32, requests),
+                            ("bfloat16", torch.bfloat16,
+                             [requests[0], requests[3]])):
+        masked_sdpa.launches = 0
+        fused_mlp_ln.launches = 0
+        model.compute_dtype = dt
+        try:
+            got = served(reqs)
+        finally:
+            model.compute_dtype = torch.float32
+        launches[dname] = {"masked_sdpa": masked_sdpa.launches,
+                           "fused_mlp_ln": fused_mlp_ln.launches}
+        log(f"   kernel launches serving {dname}: {launches[dname]}")
+        if min(launches[dname].values()) == 0:
+            raise AssertionError(f"a kernel was not launched: {launches}")
+        if dname == "float32":
+            answers = got
+        else:
+            log("   bf16 served poses vs f32 served poses, max abs: " + ", ".join(
+                f"{k} {float(np.abs(v - answers[k]).max()):.3e}"
+                for k, v in got.items()))
     # the served poses: the same service called directly gives them back, and
     # agrees with the plain versions on the CPU (same weights, the CPU's top-k
     # adjacencies replayed; see adjacency_tape)
@@ -1337,7 +1461,8 @@ def synthetic_clipsets(seed: int, n_train: int, n_test: int):
     return train, test
 
 
-_GROUPS = (("K4", ("mlp_ln_bwd",)), ("K3", ("mlp_ln_",)), ("K2", ("masked_sdpa_bwd",)),
+_GROUPS = (("K4", ("mlp_ln_bwd",)), ("K3", ("mlp_bf16_tc_kernel", "mlp_f32_kernel")),
+           ("K2", ("masked_sdpa_bwd",)),
            ("K1", ("masked_sdpa",)), ("GEMM", ("gemm", "nvjet", "splitK", "cutlass")),
            ("LayerNorm", ("layer_norm", "GammaBeta")), ("reduction", ("reduce_kernel",)),
            ("AdamW", ("multi_tensor", "adam", "Adam")), ("copy/cast", ("copy",)))
@@ -1360,8 +1485,8 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
     try:
         step()
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with sm_clock() as clock, tprofile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 step()
@@ -1383,7 +1508,8 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
             acc[1] += e.count / n
         log(f"   profile {name}: wall {wall_us / 1e3 / n:.2f} ms/step, device "
             f"busy {busy / 1e3 / n:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
-            f"{sum(e.count for e in events) / n:.0f} device kernels a step")
+            f"{sum(e.count for e in events) / n:.0f} device kernels a step; "
+            + clock_text(clock))
         log("     by group, ms/step (kernels a step): " + "; ".join(
             f"{g} {t:.1f} ({c:.0f})" for g, (t, c) in
             sorted(groups.items(), key=lambda kv: -kv[1][0])))
@@ -1568,7 +1694,7 @@ def main() -> int:
 
     run("1", build, args.out)
     k1 = run("2", check_k1, dev, args.out)
-    k3 = run("3", check_k3, dev)
+    k3 = run("3", check_k3, dev, args.out)
     k5 = run("3b", check_k5, dev)
     k5_launches = run("3c", check_k5_route, dev)
     zoo_k = run("3d", check_zoo_kernels, dev, args.out)
@@ -1595,45 +1721,51 @@ def main() -> int:
         log(f"chip_smoke: FAILED phases: {FAILED}")
         return 1
 
-    # f32 rows at the main paths' shapes: the flagship's serving (K1, K3),
-    # the train step (K2, K4), MixSTE's serving (K1, K3 at the zoo's widest
-    # shapes) and K5's layer route; launches from those runs
+    # rows at the main paths' shapes, f32 (and K3's bf16 flagship row): the
+    # flagship's serving (K1, K3; the bf16 row's launches from its bf16
+    # serving), the train step (K2, K4), MixSTE's serving (K1, K3 at the
+    # zoo's widest shapes) and K5's layer route; launches from those runs
     kernels = [
-        dict(name="masked_sdpa", route="cuda",
+        dict(name="masked_sdpa", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
              replaces="kasportsformer_tpu/ops/attention.py:227",
-             launches=launches["masked_sdpa"], **k1[("spatial", "float32")]),
-        dict(name="masked_sdpa_bwd", route="cuda",
+             launches=launches["float32"]["masked_sdpa"],
+             **k1[("spatial", "float32")]),
+        dict(name="masked_sdpa_bwd", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
              replaces="kasportsformer_tpu/ops/attention.py:365",
              launches=train_launches["masked_sdpa_bwd"],
              **k2[("spatial", "float32")]),
-        dict(name="fused_mlp_ln", route="cuda",
+        dict(name="fused_mlp_ln", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:202",
-             launches=launches["fused_mlp_ln"], **k3[(58752, "float32")]),
-        dict(name="fused_mlp_ln_bwd", route="cuda",
+             launches=launches["float32"]["fused_mlp_ln"],
+             **k3[(58752, "float32")]),
+        dict(name="fused_mlp_ln", route="cuda", dtype="bfloat16",
+             source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:202",
+             launches=launches["bfloat16"]["fused_mlp_ln"],
+             **k3[(58752, "bfloat16")]),
+        dict(name="fused_mlp_ln_bwd", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=train_launches["fused_mlp_ln_bwd"],
              **k4[(14688, "float32")]),
-        dict(name="fused_mlp", route="cuda",
+        dict(name="fused_mlp", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:137",
              launches=k5_launches, **k5[(58752, 512, "float32")]),
-        dict(name="masked_sdpa[zoo]", route="cuda",
+        dict(name="masked_sdpa[zoo]", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
              replaces="kasportsformer_tpu/ops/attention.py:227",
              launches=zoo_launches["masked_sdpa"],
              **zoo_k[("K1", "MixSTE spatial D=64", "float32")]),
-        dict(name="fused_mlp_ln[zoo]", route="cuda",
+        dict(name="fused_mlp_ln[zoo]", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:202",
              launches=zoo_launches["fused_mlp_ln"],
              **zoo_k[("K3", 512, "float32")]),
     ]
-    for row in kernels:
-        row["dtype"] = "float32"
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -30,6 +30,14 @@ int kasf_mlp(int dtype, const void* x, const void* w1, const void* b1, const voi
                                  C, H, 0.f, stream);
 }
 
+// The instantiation for (dtype, C) on the current device, for reports:
+// info = {threads a block, rows a block, registers a thread, dynamic shared
+// memory a block in bytes, local memory (spills) a thread in bytes, blocks
+// resident a SM}. Left untouched for a width or dtype there is none of.
+void kasf_mlp_info(int dtype, int C, int* info) {
+  kasf_tile::describe_width<false>(dtype, C, info);
+}
+
 const char* kasf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

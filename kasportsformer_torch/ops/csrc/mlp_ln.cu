@@ -13,7 +13,9 @@
 // cores in f32, ~16 us on the tensor cores in bf16).
 //
 // The kernels are the hidden-chunk tile of csrc/mlp_tile.cuh with LayerNorm
-// and the residual switched on; its header says how the tile is laid out.
+// and the residual switched on; its header says how the tile is laid out
+// (bf16: mma.sync with the hidden kept in registers at C <= 128, weight
+// chunks through a cp.async ring, 128 rows a block, 64 at C = 512).
 #include "mlp_tile.cuh"
 
 extern "C" {
@@ -28,6 +30,14 @@ int kasf_mlp_ln(int dtype, const void* x, const void* gamma, const void* beta,
                 void* stream) {
   return kasf_tile::launch<true>(dtype, x, gamma, beta, w1, b1, w2, b2, ls2, out, M, C, H,
                                 eps, stream);
+}
+
+// The instantiation for (dtype, C) on the current device, for reports:
+// info = {threads a block, rows a block, registers a thread, dynamic shared
+// memory a block in bytes, local memory (spills) a thread in bytes, blocks
+// resident a SM}. Left untouched for a width or dtype there is none of.
+void kasf_mlp_ln_info(int dtype, int C, int* info) {
+  kasf_tile::describe_width<true>(dtype, C, info);
 }
 
 const char* kasf_error_string(int code) {

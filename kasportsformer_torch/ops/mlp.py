@@ -10,8 +10,8 @@ port of `kasportsformer_tpu/ops/mlp.py:fused_mlp_ln` (Pallas kernel
 `_mlp_ln_kernel`, plain formulation `_mlp_ln_xla`).
 
 On a CUDA tensor the wrapper runs `FusedMlpLnFunction`, an autograd
-Function whose forward launches the hand-written kernel K3 (`csrc/mlp_ln.cu`:
-float32 on the CUDA cores, bfloat16 on the tensor cores) and whose backward
+Function whose forward launches the hand-written kernel K3 (`csrc/mlp_ln.cu`
+on the tile of `csrc/mlp_tile.cuh`) and whose backward
 launches K4 (`csrc/mlp_ln_bwd.cu`, the port of `_mlp_ln_bwd_kernel` behind
 the JAX VJP `_fused_mlp_ln_bwd`); an input it cannot take raises. On a CPU
 tensor it runs `fused_mlp_ln_reference` under plain autograd. The kernel
@@ -19,6 +19,25 @@ masks the tail rows of a ragged M, so any number of rows works. It evaluates
 GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
 up to 4.8e-4 away). K3 takes C in {64, 128, 256, 512} (the flagship's 128
 and the zoo's widths) and K4 the flagship's C = 128.
+
+K3's tile: a block takes R token rows, normalises them once into shared
+memory, and walks the hidden width in chunks of 64 columns, so the hidden
+never reaches device memory. Every block streams all of W1 and W2 from L2,
+so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
+- bfloat16: `mma.sync` m16n8k16 with f32 accumulators; R = 128 at
+  C <= 256 and 64 at C = 512. At C <= 128 four warps each own 32 rows and
+  every output channel, and fc1's accumulators (16 hidden columns at a
+  time), after b1, GELU and the bf16 pack, go straight into fc2 as A
+  fragments: the hidden stays in registers. At C >= 256 eight warps split
+  fc1's hidden columns and fc2's output channels and exchange the bf16
+  hidden once through shared memory. The weight chunks come through a ring
+  of 16-byte `cp.async` copies, chunk j+1 in flight while chunk j is
+  multiplied. L2 reads at M = 58,752: 30 MB at C/H 64/256, 120 MB at
+  128/512, 481 MB at 256/1024, 1.93 GB at 512/1024.
+- float32 on the CUDA cores (`fmaf`, exact): R = 128 at C <= 128, 64 at
+  256, 32 at 512.
+`fused_mlp_ln_kernel_info` reports each instantiation's tile, registers,
+shared memory and spills as the runtime sees them.
 
 `fused_mlp(x, w1, b1, w2, b2)` computes fc1 -> exact GELU -> fc2 over the last
 axis, the port of `kasportsformer_tpu/ops/mlp.py:fused_mlp` (Pallas kernel
@@ -187,6 +206,32 @@ def _launch(ops: tuple[torch.Tensor, ...], eps: float) -> torch.Tensor:
     _build.check(lib, code, "mlp_ln kernel launch")
     fused_mlp_ln.launches += 1
     return out
+
+
+def _kernel_info(name: str, dtype: torch.dtype, c: int) -> dict:
+    lib = _build.library(name)
+    info = (ctypes.c_int * 6)(*([-1] * 6))
+    fn = getattr(lib, f"kasf_{name}_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    fn(_DTYPE_CODE[dtype], c, info)
+    return dict(zip(("threads", "rows", "registers", "smem_bytes",
+                     "spill_bytes", "blocks_per_sm"), info))
+
+
+def fused_mlp_ln_kernel_info(dtype: torch.dtype, c: int) -> dict:
+    """K3's instantiation for `dtype` and width `c` on the current CUDA
+    device, as the runtime reports it: threads and token rows a block,
+    registers a thread, dynamic shared memory a block, local memory (spills)
+    a thread in bytes, and blocks resident a SM. Builds the kernel if
+    needed; launches nothing."""
+    return _kernel_info("mlp_ln", dtype, c)
+
+
+def fused_mlp_kernel_info(dtype: torch.dtype, c: int) -> dict:
+    """K5's instantiation, reported as `fused_mlp_ln_kernel_info` reports
+    K3's."""
+    return _kernel_info("mlp", dtype, c)
 
 
 _SMS = 132  # the H100's SMs: the weight pass aims at one block each

@@ -15,9 +15,11 @@ from kasportsformer_torch.ops.attention import (
 )
 from kasportsformer_torch.ops.mlp import (
     fused_mlp,
+    fused_mlp_kernel_info,
     fused_mlp_ln,
     fused_mlp_ln_bwd,
     fused_mlp_ln_bwd_reference,
+    fused_mlp_ln_kernel_info,
     fused_mlp_ln_reference,
     fused_mlp_reference,
 )
@@ -249,6 +251,85 @@ def test_fused_mlp_ln_kernel_zoo_widths(cuda, dtype, c, hidden, eps):
     assert fused_mlp_ln.launches == before + 1
     assert (torch.isfinite(got).all()
             and _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype])
+
+
+# the models' hidden width at each of K3's widths
+_HIDDEN = {64: 256, 128: 512, 256: 1024, 512: 1024}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("rows", ["1", "R-1", "R+1"])
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_fused_mlp_kernels_tile_edges(cuda, dtype, c, rows, kernel):
+    """M = 1 and one row either side of the tile's R rows: the tail rows of
+    the last tile are masked, never stored."""
+    info = fused_mlp_ln_kernel_info if kernel == "K3" else fused_mlp_kernel_info
+    r = info(dtype, c)["rows"]
+    assert r > 1
+    m = {"1": 1, "R-1": r - 1, "R+1": r + 1}[rows]
+    args = _mlp_args(cuda, m, dtype, c, _HIDDEN[c])
+    if kernel == "K3":
+        got = fused_mlp_ln(*args, 1e-5)
+        want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
+    else:
+        x, _, _, w1, b1, w2, b2, _ = args
+        got = fused_mlp(x, w1, b1, w2, b2)
+        want = fused_mlp_reference(*(a.float() for a in (x, w1, b1, w2, b2)))
+    name = "fused_mlp_ln" if kernel == "K3" else "fused_mlp"
+    assert got.shape == (m, c)
+    assert torch.isfinite(got).all() and _scaled_err(got, want) <= TOL[name][dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("hidden", [64, 2048])
+def test_fused_mlp_ln_kernel_hidden_extremes(cuda, dtype, c, hidden):
+    """One hidden chunk, and the most the launcher takes (32 chunks: the
+    ring wraps many times)."""
+    args = _mlp_args(cuda, 1377, dtype, c, hidden)
+    got = fused_mlp_ln(*args, 1e-5)
+    want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_fused_mlp_ln_kernel_one_hot_hidden(cuda, dtype, c):
+    """Row i is 0.5 at channel k(i) and 0 elsewhere, so LN(x) peaks at
+    k(i); W1 sends channel k to hidden unit u(k) alone and b1 = -3 keeps
+    every other unit near GELU(-3) ~ -0.004; W2 sends unit u to output
+    channel o(u). So one hidden unit dominates each row (~8 at C = 128)
+    and lands on a known channel: a permuted accumulator -> A-fragment
+    mapping or a misplaced hidden exchange shows as a wrong channel."""
+    hidden, m = _HIDDEN[c], 777
+    rows = torch.arange(m, device="cuda")
+    k = (7 * rows) % c
+    unit = (3 * torch.arange(c, device="cuda") + 1) % hidden  # distinct
+    out_ch = (5 * torch.arange(hidden, device="cuda") + 2) % c
+    x = torch.zeros(m, c, device="cuda")
+    x[rows, k] = 0.5
+    w1 = torch.zeros(hidden, c, device="cuda")
+    w1[unit, torch.arange(c, device="cuda")] = 1.0
+    w2 = torch.zeros(c, hidden, device="cuda")
+    w2[out_ch, torch.arange(hidden, device="cuda")] = 1.0
+    b1 = torch.full((hidden,), -3.0, device="cuda")
+    ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    args = (x.to(dtype), ones, zeros, w1.to(dtype), b1.to(dtype), w2.to(dtype),
+            zeros.to(dtype), ones)
+    got = fused_mlp_ln(*args, 1e-5)
+    want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
+    assert torch.equal(got.float().argmax(-1), out_ch[unit[k]])
+    assert _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_fused_mlp_ln_kernel_reruns_bitwise_equal(cuda, dtype, c):
+    args = _mlp_args(cuda, 1377, dtype, c, _HIDDEN[c])
+    first = fused_mlp_ln(*args, 1e-5)
+    assert torch.equal(fused_mlp_ln(*args, 1e-5), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

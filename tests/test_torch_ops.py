@@ -127,17 +127,17 @@ def test_masked_sdpa_dispatches_plain_version_on_cpu():
     assert masked_sdpa.launches == before
 
 
-def _mlp_inputs(m: int, c: int = 128, hidden: int = 512):
+def _mlp_inputs(m: int, c: int = 128, hidden: int = 512, rng=RNG):
     f = np.float32
     return dict(
-        x=RNG.standard_normal((m, c)).astype(f),
-        gamma=(1.0 + 0.1 * RNG.standard_normal(c)).astype(f),
-        beta=(0.1 * RNG.standard_normal(c)).astype(f),
-        w1=(RNG.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
-        b1=(RNG.standard_normal(hidden) * 0.05).astype(f),
-        w2=(RNG.standard_normal((hidden, c)) * 0.05).astype(f),
-        b2=(RNG.standard_normal(c) * 0.05).astype(f),
-        ls2=RNG.uniform(0.1, 1.0, c).astype(f),
+        x=rng.standard_normal((m, c)).astype(f),
+        gamma=(1.0 + 0.1 * rng.standard_normal(c)).astype(f),
+        beta=(0.1 * rng.standard_normal(c)).astype(f),
+        w1=(rng.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
+        b1=(rng.standard_normal(hidden) * 0.05).astype(f),
+        w2=(rng.standard_normal((hidden, c)) * 0.05).astype(f),
+        b2=(rng.standard_normal(c) * 0.05).astype(f),
+        ls2=rng.uniform(0.1, 1.0, c).astype(f),
     )
 
 
@@ -155,6 +155,20 @@ def _jax_mlp_args(a: dict):
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
 def test_fused_mlp_ln_reference_matches_jax(eps):
     a = _mlp_inputs(512)
+    got = fused_mlp_ln_reference(*_torch_mlp_args(a), eps=eps).numpy()
+    want = np.asarray(_mlp_ln_xla(*_jax_mlp_args(a), eps=eps))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    kernel = np.asarray(fused_mlp_ln_pallas(*_jax_mlp_args(a), eps=eps,
+                                            interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c,hidden,eps", [(64, 256, 1e-5), (256, 1024, 1e-5),
+                                          (512, 1024, 1e-6)])
+def test_fused_mlp_ln_reference_matches_jax_at_zoo_widths(c, hidden, eps):
+    """K3's other widths (MotionAGFormer hierarchical, DSTFormer, MixSTE with
+    its eps) against `_mlp_ln_xla` and the Pallas kernel in interpret mode."""
+    a = _mlp_inputs(256, c, hidden, np.random.default_rng(c + hidden))
     got = fused_mlp_ln_reference(*_torch_mlp_args(a), eps=eps).numpy()
     want = np.asarray(_mlp_ln_xla(*_jax_mlp_args(a), eps=eps))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
