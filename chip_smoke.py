@@ -2,7 +2,8 @@
 """Drive kasportsformer_torch on one NVIDIA GPU and check it, end to end.
 
 Run from the repository root:  python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3d]
-(the short loops for kernel work: 0,1,2,3d for K1, 0,1,3,3b,3d for K3/K5)
+(the short loops for kernel work: 0,1,2,3d for K1, 0,1,3,3b,3d for K3/K5,
+0,1,7 for K4)
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
@@ -58,7 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
      plain and scaled_dot_product_attention-backward times.
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
-     all eight gradients, and a rerun bitwise equal. In phases 6 and 7 the
+     all eight gradients, and a rerun bitwise equal; the whole call's time,
+     and each of its three launches' device time (dx pass, weight pass,
+     reduce; torch.profiler over the timed calls) with the dx pass's bound
+     and share; the dx pass's registers, shared memory and spills an
+     instantiation to --out (a spill fails the phase). In phases 6 and 7 the
      plain version runs in float32 on the kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
@@ -275,6 +280,61 @@ def write_k3_report(out_dir: str) -> None:
             f.write(f"\n\n== nvcc -Xptxas -v, {name}.cu\n{ptxas}\n")
     if spills:
         raise AssertionError(f"K3/K5 instantiations spill: {spills}")
+
+
+def write_k4_report(out_dir: str) -> None:
+    """The compiler's report of mlp_ln_bwd.cu (`-Xptxas -v`: registers and
+    spills of K4's three kernels in both dtypes) and each dx-pass
+    instantiation's tile, registers, shared memory, spills and blocks a SM
+    as the runtime reports them, to --out/chip_smoke_k4_kernel.txt; one
+    summary line an instantiation to the log. Raises if one spills."""
+    import torch
+
+    from kasportsformer_torch.ops import _build
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd_kernel_info
+
+    lines, spills = [], []
+    for dt in (torch.float32, torch.bfloat16):
+        info = fused_mlp_ln_bwd_kernel_info(dt)
+        line = (f"K4 dx pass {str(dt).split('.')[1]:8s} C=128: " + ", ".join(
+            f"{k} {v}" for k, v in info.items()))
+        lines.append(line)
+        if info["spill_bytes"] != 0:
+            spills.append(line)
+        log(f"   {line}")
+    log(f"   K4 dx-pass instantiations with local memory (spills): {spills or 'none'}")
+    ptxas = _build.PTXAS.get("mlp_ln_bwd", "(built before this process)")
+    with open(os.path.join(out_dir, "chip_smoke_k4_kernel.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, mlp_ln_bwd.cu\n"
+                + ptxas + "\n")
+    if spills:
+        raise AssertionError(f"K4 dx-pass instantiations spill: {spills}")
+
+
+# K4's three launches, by the kernel names the profiler reports
+K4_LAUNCHES = (("dx pass", "mlp_ln_bwd_dx_kernel"), ("weight pass", "mlp_ln_bwd_w_kernel"),
+               ("reduce", "mlp_ln_bwd_reduce_kernel"))
+
+
+def k4_launch_ms(call, iters: int) -> dict:
+    """Device ms per launch of each of K4's three kernels over `iters`
+    calls of `call` (torch.profiler; a kernel it does not see is absent)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    call()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    acc: dict = {}
+    for e in device_events(prof):
+        for label, name in K4_LAUNCHES:
+            if name in e.key:
+                t, n = acc.get(label, (0.0, 0))
+                acc[label] = (t + e.self_device_time_total, n + e.count)
+    return {label: t / 1e3 / n for label, (t, n) in acc.items()}
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -1278,7 +1338,7 @@ _MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
 
 
 @phase("phase 7: K4 fused_mlp_ln_bwd vs plain")
-def check_k4(dev) -> dict:
+def check_k4(dev, out_dir: str) -> dict:
     import torch
 
     from kasportsformer_torch.ops.mlp import (fused_mlp_ln_bwd,
@@ -1327,6 +1387,18 @@ def check_k4(dev) -> dict:
                 f"{max(errs):.2e} ({_MLP_GRADS[errs.index(max(errs))]}; limit "
                 f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
                 f"bound {bms:.4f} ({by}); rerun bitwise equal")
+            # each launch's device time; the dx pass does fc1 recomputed,
+            # dh = do W2 and da = dz W1 (6*M*C*H) and moves x, g in, dx out
+            per = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
+            dx_bms, dx_by = bound_ms(3 * m * 128 * it + 2 * 128 * 512 * it,
+                                     6 * m * 128 * 512, dname)
+            dx_ms = per.get("dx pass", float("nan"))
+            log("     by launch (profiler, ms a launch): " + "; ".join(
+                f"{label} {per.get(label, float('nan')):.4f}"
+                for label, _ in K4_LAUNCHES)
+                + f"; dx pass bound {dx_bms:.4f} ({dx_by}), share "
+                f"{dx_bms / dx_ms:.1%}")
+    write_k4_report(out_dir)
     return rows
 
 
@@ -1513,6 +1585,10 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
         log("     by group, ms/step (kernels a step): " + "; ".join(
             f"{g} {t:.1f} ({c:.0f})" for g, (t, c) in
             sorted(groups.items(), key=lambda kv: -kv[1][0])))
+        k4 = {label: [e for e in events if name in e.key] for label, name in K4_LAUNCHES}
+        log("     K4 by launch, ms/step (kernels a step): " + "; ".join(
+            f"{label} {sum(e.self_device_time_total for e in es) / 1e3 / n:.2f} "
+            f"({sum(e.count for e in es) / n:.0f})" for label, es in k4.items()))
         for line in lines[:8]:
             log(f"     {line[:110]}")
         return f"{100 * busy / wall_us:.1f}%"
@@ -1706,7 +1782,7 @@ def main() -> int:
     zoo = run("5b", check_zoo_models, dev)
     zoo_launches = run("5c", check_zoo_serving, dev)
     k2 = run("6", check_k2, dev)
-    k4 = run("7", check_k4, dev)
+    k4 = run("7", check_k4, dev, args.out)
     run("8", check_grads, dev)
     run("9", check_train_step, dev, args.out)
     train_launches = run("10", check_train_cli, dev, args.out)

@@ -39,6 +39,12 @@ so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 `fused_mlp_ln_kernel_info` reports each instantiation's tile, registers,
 shared memory and spills as the runtime sees them.
 
+K4 is three launches: a dx pass (112-row tiles, exact f32 on the CUDA cores
+from either dtype, the weights through a cp.async ring), a weight pass
+(64-row tiles within row splits) and a reduce that sums both passes' partials
+in a fixed order; `fused_mlp_ln_bwd_kernel_info` reports the dx pass's
+instantiation.
+
 `fused_mlp(x, w1, b1, w2, b2)` computes fc1 -> exact GELU -> fc2 over the last
 axis, the port of `kasportsformer_tpu/ops/mlp.py:fused_mlp` (Pallas kernel
 `_mlp_kernel`, plain formulation `_mlp_xla`). On a CUDA tensor it runs
@@ -234,6 +240,14 @@ def fused_mlp_kernel_info(dtype: torch.dtype, c: int) -> dict:
     return _kernel_info("mlp", dtype, c)
 
 
+def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype) -> dict:
+    """The instantiation of K4's dx pass (`mlp_ln_bwd_dx_kernel`, the first
+    of its three launches) for `dtype` at C = 128, reported as
+    `fused_mlp_ln_kernel_info` reports K3's: `rows` is the dx pass's tile,
+    so a launch over M rows runs ceil(M / rows) blocks."""
+    return _kernel_info("mlp_ln_bwd", dtype, 128)
+
+
 _SMS = 132  # the H100's SMs: the weight pass aims at one block each
 
 
@@ -257,7 +271,7 @@ def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
     size = lib.kasf_mlp_ln_bwd_workspace
     size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     size.restype = ctypes.c_longlong
-    tiles = -(-m // 64)
+    tiles = -(-m // 64)  # the weight pass's 64-row tiles
     splits = max(1, min(tiles, _SMS // (hidden // _CHUNK)))
     work = torch.empty(size(m, hidden, splits), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xc, g, *ops[1:], dx, *grads, work)]
