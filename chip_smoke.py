@@ -61,10 +61,11 @@ Phases (any failure exits non-zero and prints no result line):
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
-     reduce; torch.profiler over the timed calls) with the dx pass's bound
-     and share; the dx pass's registers, shared memory and spills an
-     instantiation to --out (a spill fails the phase). In phases 6 and 7 the
-     plain version runs in float32 on the kernel's own inputs.
+     reduce; torch.profiler over the timed calls) with each launch's own
+     bound and share; both passes' tiles, registers, shared memory and
+     spills an instantiation to --out (a spill in either fails the phase).
+     In phases 6 and 7 the plain version runs in float32 on the kernel's own
+     inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies replayed; the batch-norm
@@ -284,10 +285,11 @@ def write_k3_report(out_dir: str) -> None:
 
 def write_k4_report(out_dir: str) -> None:
     """The compiler's report of mlp_ln_bwd.cu (`-Xptxas -v`: registers and
-    spills of K4's three kernels in both dtypes) and each dx-pass
-    instantiation's tile, registers, shared memory, spills and blocks a SM
-    as the runtime reports them, to --out/chip_smoke_k4_kernel.txt; one
-    summary line an instantiation to the log. Raises if one spills."""
+    spills of K4's three kernels in both dtypes) and the dx pass's and the
+    weight pass's instantiations (tile, the weight pass's chunk and row
+    splits at M = 14,688, registers, shared memory, spills, blocks a SM) as
+    the runtime reports them, to --out/chip_smoke_k4_kernel.txt; one summary
+    line an instantiation to the log. Raises if either pass spills."""
     import torch
 
     from kasportsformer_torch.ops import _build
@@ -295,20 +297,20 @@ def write_k4_report(out_dir: str) -> None:
 
     lines, spills = [], []
     for dt in (torch.float32, torch.bfloat16):
-        info = fused_mlp_ln_bwd_kernel_info(dt)
-        line = (f"K4 dx pass {str(dt).split('.')[1]:8s} C=128: " + ", ".join(
-            f"{k} {v}" for k, v in info.items()))
-        lines.append(line)
-        if info["spill_bytes"] != 0:
-            spills.append(line)
-        log(f"   {line}")
-    log(f"   K4 dx-pass instantiations with local memory (spills): {spills or 'none'}")
+        for label, info in fused_mlp_ln_bwd_kernel_info(dt, 14688, 512).items():
+            line = (f"K4 {label.replace('_', ' '):11s} {str(dt).split('.')[1]:8s} "
+                    "C=128 M=14688: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+            lines.append(line)
+            if info["spill_bytes"] != 0:
+                spills.append(line)
+            log(f"   {line}")
+    log(f"   K4 instantiations with local memory (spills): {spills or 'none'}")
     ptxas = _build.PTXAS.get("mlp_ln_bwd", "(built before this process)")
     with open(os.path.join(out_dir, "chip_smoke_k4_kernel.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, mlp_ln_bwd.cu\n"
                 + ptxas + "\n")
     if spills:
-        raise AssertionError(f"K4 dx-pass instantiations spill: {spills}")
+        raise AssertionError(f"K4 instantiations spill: {spills}")
 
 
 # K4's three launches, by the kernel names the profiler reports
@@ -1342,6 +1344,7 @@ def check_k4(dev, out_dir: str) -> dict:
     import torch
 
     from kasportsformer_torch.ops.mlp import (fused_mlp_ln_bwd,
+                                              fused_mlp_ln_bwd_kernel_info,
                                               fused_mlp_ln_bwd_reference)
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1349,7 +1352,7 @@ def check_k4(dev, out_dir: str) -> dict:
     # kernel computes in float32 from either dtype and rounds only dx (half
     # a unit in the last place, <= 3.9e-3 in bfloat16)
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    rows = {}
+    rows, per = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         for m in (14688, 1377):
             args = mlp_args(dev, gen, m, dt)
@@ -1387,17 +1390,33 @@ def check_k4(dev, out_dir: str) -> dict:
                 f"{max(errs):.2e} ({_MLP_GRADS[errs.index(max(errs))]}; limit "
                 f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
                 f"bound {bms:.4f} ({by}); rerun bitwise equal")
-            # each launch's device time; the dx pass does fc1 recomputed,
-            # dh = do W2 and da = dz W1 (6*M*C*H) and moves x, g in, dx out
-            per = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
-            dx_bms, dx_by = bound_ms(3 * m * 128 * it + 2 * 128 * 512 * it,
-                                     6 * m * 128 * 512, dname)
-            dx_ms = per.get("dx pass", float("nan"))
+            per[(m, dname)] = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
             log("     by launch (profiler, ms a launch): " + "; ".join(
-                f"{label} {per.get(label, float('nan')):.4f}"
-                for label, _ in K4_LAUNCHES)
-                + f"; dx pass bound {dx_bms:.4f} ({dx_by}), share "
-                f"{dx_bms / dx_ms:.1%}")
+                f"{label} {per[(m, dname)].get(label, float('nan')):.4f}"
+                for label, _ in K4_LAUNCHES))
+    # each launch against the bound of its own work: the dx pass recomputes
+    # fc1 and takes dh = do W2 and da = dz W1 (6*M*C*H) from x, g and the
+    # weights, and writes dx; the weight pass recomputes fc1 and dh and takes
+    # dW1 = dz^T a and G = g^T h (8*M*C*H) from the same inputs, and writes
+    # one copy of dW1, G and db1 (its row-split partials are the design's, not
+    # the function's, and count in the reduce's bound); the reduce reads both
+    # passes' partials and W2 and writes the parameter gradients (bytes)
+    for (m, dname), ms in per.items():
+        info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, 512)
+        it = 4 if dname == "float32" else 2
+        wts = 2 * 128 * 512 * it
+        part_dx = -(-m // info["dx_pass"]["rows"]) * 3 * 128 * 4
+        w_out = (2 * 512 * 128 + 512) * 4
+        part_w = info["weight_pass"]["splits"] * w_out
+        grads = 4 * (2 * 128 * 512 + 512 + 5 * 128)
+        bounds = {"dx pass": bound_ms(3 * m * 128 * it + wts, 6 * m * 128 * 512, dname),
+                  "weight pass": bound_ms(2 * m * 128 * it + wts + w_out,
+                                          8 * m * 128 * 512, dname),
+                  "reduce": bound_ms(part_dx + part_w + wts // 2 + grads, 0, dname)}
+        log(f"   K4 M={m:6d} {dname:8s} by launch, bound (share): " + "; ".join(
+            f"{label} {bounds[label][0]:.4f} ({bounds[label][1]}; "
+            f"{bounds[label][0] / ms.get(label, float('nan')):.1%})"
+            for label, _ in K4_LAUNCHES))
     write_k4_report(out_dir)
     return rows
 

@@ -68,11 +68,62 @@
 //       the tile's 16 row groups are added in a fixed order.
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info, and
 //     chip_smoke.py phase 7's report (no spill in either dtype).
-//  2. weight pass, one block per (hidden chunk of 64, row split): keep the
-//     chunk's weights (W1 rows, ls2 * W2 columns) in shared memory, walk
-//     the split's 64-row tiles, recompute z, dh, dz and h for the chunk, and
-//     accumulate dW1c = dz^T a, G_c = g^T h and db1c in registers; write
-//     them to the workspace.
+//  2. weight pass (mlp_ln_bwd_w_kernel): one block per (hidden chunk of 64,
+//     row split); the split's 40-row tiles in order; per tile a = LN(x) *
+//     gamma + beta, z = a W1c^T + b1c, dh = g (ls2 * W2c), dz = dh * GELU'(z)
+//     and h = GELU(z) recomputed, and dW1c += dz^T a, G_c += g^T h and db1c
+//     += dz accumulated in registers over all of the split's tiles, then
+//     written to the workspace as the split's partial. 8*M*C*H FLOP: 7.70
+//     GFLOP at M = 14,688, H = 512, bound 0.1149 ms at 67 TFLOP/s.
+//     - Grid: H / 64 chunks x splits, splits = min(tiles, 132 / chunks): 8 x
+//       16 = 128 blocks at H = 512 on the 132 SMs, one block a SM (4 SMs
+//       idle, 3 %: 132 blocks need a chunk count that divides 132, and a
+//       chunk of 128 needs 128 accumulators a thread). A split takes
+//       ceil(tiles / splits) consecutive tiles (trailing splits may be empty
+//       and write zeros). 40-row tiles: 368 at M = 14,688, exactly 23 a
+//       split, 920 rows a block against the ideal 918 (48-row tiles give 20
+//       of 960; 64-row ones do not fit beside the stage).
+//     - Shared memory (floats): aS = LN(x) * gamma + beta and gS = g,
+//       row-major at a stride of C + 4 (2 x 21,120 B); zS, hS and the second
+//       channel half's zS2, hS2, 40 x (64 + 8) (4 x 11,520 B); the chunk's
+//       W1^T and ls2 * W2, both channel-major [c][j] (2 x 32,768 B), and b1,
+//       staged and widened once a block; a raw stage of the next tile's x
+//       and g rows in the input dtype (40,960 B in f32, 20,480 in bf16) and
+//       its mbarrier: 195,080 B in f32, 174,600 in bf16.
+//     - Row staging off the critical path: one thread copies tile t+1's x
+//       and g rows (two contiguous runs) into the stage with two bulk copies
+//       (cp.async.bulk on the TMA engine, completing on an mbarrier) while
+//       tile t is multiplied. 16-byte cp.async (2,560 a tile in f32) cost
+//       ~600 cycles a tile in whichever phase issued them, and 20-36 more
+//       registers a thread. At the top of a tile each warp normalises five
+//       rows from the stage (lane l holds channels 4l..4l+3, gamma and beta
+//       in registers; the five rows' shuffle sums interleaved, rsqrtf) into
+//       aS and widens g into gS; rows >= M are zeros (a = beta, g = 0), so
+//       their dz and g vanish. Each of a split's 8 chunk blocks reads its
+//       rows once, from L2.
+//     - fc1 and dh each split their 128 channels over two warp pairs
+//       (warps 0-1 | 2-3 fc1, 4-5 | 6-7 dh), so a thread holds 5 rows x 8
+//       hidden columns: 8 weight and 5 a (or g) float4s per 160 FMAs (12.3
+//       FMAs a load; 5 x 4 over all channels gave 8.9 and took ~9.4k cycles
+//       a tile where this takes ~8.1k). W1 is staged transposed, like ls2 *
+//       W2, so one function serves both (fc1 reading W1 row-major paired
+//       a.k with w.k, both from float4s in one register bank, and ran ~15 %
+//       behind dh). A four-way split with 8 x 8 tiles at 32 rows (16 FMAs a
+//       load) gave the same cycles a row: the products issue FMAs at 63-75 %
+//       of the pipe's rate, not bound by shared loads.
+//       z = zS + zS2 + b1 and dh = hS + hS2; then every thread takes 10
+//       elements, h and dz from one erff and one expf each (gelu_and_grad),
+//       and sums its dz into db1; then warps 0-3 accumulate dW1c (8 hidden x
+//       8 channels a thread) and warps 4-7 G_c (8 channels x 8 hidden), each
+//       reading 4 float4s per row for 64 FMAs (16) into 64 registers kept
+//       over the whole split. Four barriers a tile; float4 loads touch 4 or
+//       8 distinct rows, or neighbouring float4s of one row, so no shared
+//       bank conflicts and no transposed store.
+//     - Epilogue: float4 stores of dW1c and G_c; db1c summed over the 8 row
+//       groups in order.
+//     Registers, spills and blocks a SM of both passes: kasf_mlp_ln_bwd_info
+//     and chip_smoke.py phase 7's report (a spill in either fails it); a
+//     tile's split by phase: scripts/k4_weight_pass_probe.py.
 //  3. reduce pass: sum the partials in a fixed order (the dx pass's per
 //     tile, the weight pass's per split) and finish dgamma, dbeta, dW1, db1,
 //     dW2, db2 and dls2.
@@ -86,27 +137,12 @@
 
 namespace {
 
-constexpr int kC = 128;        // model width
-constexpr int kChunk = 64;     // hidden columns per chunk
-constexpr int kRows = 64;      // token rows per tile of the weight pass
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kLdT = kRows + 4;    // aT, gT rows (channel-major)
-constexpr int kLdW1 = kC + 1;      // w1s rows: W1 chunk rows as in memory
-constexpr int kLdW2 = kChunk;      // w2s rows: ls2 * W2[:, chunk]
-constexpr int kLdJ = kChunk + 4;   // dzS, hS rows (row-major)
+constexpr int kC = 128;  // model width
 constexpr int kReduceThreads = 256;
-
-constexpr size_t kSmemW = sizeof(float) * (2 * kC * kLdT + kChunk * kLdW1 +
-                                           kC * kLdW2 + 2 * kRows * kLdJ);
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ float gelu_erf(float z) {
-  return 0.5f * z * (1.0f + erff(z * 0.70710678118654752f));
-}
 __device__ __forceinline__ float gelu_erf_grad(float z) {
   return 0.5f * (1.0f + erff(z * 0.70710678118654752f)) +
          z * expf(-0.5f * z * z) * 0.39894228040143268f;
@@ -116,91 +152,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// LayerNorm statistics of one row by one warp (lane holds channels
-// lane + 32u): xv becomes xhat
-__device__ __forceinline__ float warp_normalise(float (&xv)[kC / 32], float eps) {
-  float sum = 0.f;
-#pragma unroll
-  for (int u = 0; u < kC / 32; ++u) sum += xv[u];
-  const float mean = warp_sum(sum) * (1.0f / kC);
-  float sq = 0.f;
-#pragma unroll
-  for (int u = 0; u < kC / 32; ++u) {
-    xv[u] -= mean;
-    sq += xv[u] * xv[u];
-  }
-  const float rstd = 1.0f / sqrtf(warp_sum(sq) * (1.0f / kC) + eps);
-#pragma unroll
-  for (int u = 0; u < kC / 32; ++u) xv[u] *= rstd;
-  return rstd;
-}
-
-// Stage a 64-row tile: aT[c][r] = LN(x) * gamma + beta, gT[c][r] = g.
-template <typename T>
-__device__ void stage_tile(const T* __restrict__ x, const T* __restrict__ g,
-                           const float* __restrict__ gamma,
-                           const float* __restrict__ beta, float* aT, float* gT,
-                           long long row0, long long M, float eps, int warp, int lane) {
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const long long row = row0 + r;
-    const bool valid = row < M;
-    float xv[kC / 32];
-#pragma unroll
-    for (int u = 0; u < kC / 32; ++u)
-      xv[u] = valid ? to_f(x[row * kC + lane + 32 * u]) : 0.f;
-    warp_normalise(xv, eps);
-#pragma unroll
-    for (int u = 0; u < kC / 32; ++u) {
-      const int c = lane + 32 * u;
-      aT[c * kLdT + r] = xv[u] * gamma[c] + beta[c];
-      gT[c * kLdT + r] = valid ? to_f(g[row * kC + c]) : 0.f;
-    }
-  }
-}
-
-// Stage hidden chunk j0: w1s[j][c] = W1[j0 + j][c], w2s[c][j] = ls2[c] * W2[c][j0 + j].
-template <typename T>
-__device__ void stage_weights(const T* __restrict__ w1, const T* __restrict__ w2,
-                              const float* __restrict__ ls2, float* w1s, float* w2s,
-                              int j0, int H, int tid) {
-  for (int e = tid; e < kChunk * kC; e += kThreads) {
-    const int j = e / kC, c = e % kC;
-    w1s[j * kLdW1 + c] = to_f(w1[static_cast<long long>(j0 + j) * kC + c]);
-  }
-  for (int e = tid; e < kC * kChunk; e += kThreads) {
-    const int c = e / kChunk, j = e % kChunk;
-    w2s[c * kLdW2 + j] = to_f(w2[static_cast<long long>(c) * H + j0 + j]) * ls2[c];
-  }
-}
-
-// Thread (ty, tx) of 16 x 16: rows ty*4 + i (i < 4), chunk columns
-// tx + 16u (u < 4). z = a W1c^T (no bias), dh = g (ls2 * W2c), K = C.
-__device__ __forceinline__ void fc1_and_dh(const float* aT, const float* gT,
-                                           const float* w1s, const float* w2s, int ty,
-                                           int tx, float (&z)[4][4], float (&dh)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) z[i][u] = dh[i][u] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < kC; ++c) {
-    const float4 a4 = *reinterpret_cast<const float4*>(aT + c * kLdT + ty * 4);
-    const float4 g4 = *reinterpret_cast<const float4*>(gT + c * kLdT + ty * 4);
-    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float w1v = w1s[(tx + 16 * u) * kLdW1 + c];
-      const float w2v = w2s[c * kLdW2 + tx + 16 * u];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        z[i][u] = fmaf(av[i], w1v, z[i][u]);
-        dh[i][u] = fmaf(gv[i], w2v, dh[i][u]);
-      }
-    }
-  }
 }
 
 // ---- 1. dx pass: its own tile (the helpers above belong to the weight pass)
@@ -633,118 +584,377 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// ---- 2. weight pass: block (hidden chunk, row split)
+// ---- 2. weight pass: its own tile and helpers
+namespace wp {
+
+using bf16 = __nv_bfloat16;
+using dxp::ld4;
+using dxp::load4;
+using dxp::st4;
+
+constexpr int kR = 40;           // rows a tile: 368 tiles at M = 14,688, 23 a split
+constexpr int kJ = 64;           // hidden columns a block (its chunk)
+constexpr int kT = 256;          // threads a block: 8 warps
+constexpr int kRG = kT / 32;     // row groups: group q owns rows q + 8 i
+constexpr int kRT = kR / kRG;    // 5 rows a thread
+constexpr int kSMs = 132;        // the H100's: splits = min(tiles, 132 / chunks)
+constexpr int kLdA = kC + 4;     // aS, gS rows: LN(x) * gamma + beta, g
+constexpr int kLdZ = kJ + 8;     // zS, hS rows: z (then h), dh (then dz)
+constexpr int kLdW = kJ;         // W1 chunk transposed and ls2 * W2 chunk,
+                                 // channel-major: [c][j]
+constexpr int kKH = kC / 2;      // channels a half of fc1 or dh
+// shared memory in floats: aS, gS | zS, hS, then their second halves' sums
+// zS2, hS2 | W1^T, ls2 * W2, b1 of the chunk | the raw stage of the next
+// tile's x and g rows, in the input dtype
+constexpr int kOffZ = 2 * kR * kLdA;
+constexpr int kOffW1 = kOffZ + 4 * kR * kLdZ;
+constexpr int kOffW2 = kOffW1 + kC * kLdW;
+constexpr int kOffB1 = kOffW2 + kC * kLdW;
+constexpr int kOffRaw = kOffB1 + kJ;
+static_assert(kR % kRG == 0 && kRG == 8 && kJ == 64 && kC == 128,
+              "the thread layouts below assume 8 warps, 64 columns and C = 128");
+static_assert(kOffZ % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kOffRaw % 4 == 0 &&
+                  kLdA % 4 == 0 && kLdZ % 4 == 0,
+              "16-byte alignment of the shared buffers");
+static_assert(kRG * kJ <= kR * kLdA, "the epilogue's db1 sums fit in aS");
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t smem_bytes() {
+  return sizeof(float) * kOffRaw + sizeof(T) * 2 * kR * kC + sizeof(unsigned long long);
+}
+static_assert(smem_bytes<float>() <= 232448 && smem_bytes<bf16>() <= 232448,
+              "a block fits the H100's 227 KB");
+
+__host__ __device__ inline long long tiles(long long M) { return (M + kR - 1) / kR; }
+inline int splits(long long M, int H) {
+  const long long s = kSMs / (H / kJ), t = tiles(M);
+  return static_cast<int>(s < 1 ? 1 : s < t ? s : t);
+}
+
+// GELU(z) and GELU'(z) = Phi(z) + z phi(z) from one erff and one expf
+__device__ __forceinline__ float2 gelu_and_grad(float z) {
+  const float cdf = 0.5f * (1.0f + erff(z * 0.70710678118654752f));
+  return make_float2(z * cdf, cdf + z * expf(-0.5f * z * z) * 0.39894228040143268f);
+}
+
+// The stage's mbarrier: one arrival (the copying thread's) and the bytes
+// of a tile's two bulk copies complete a phase
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(kasf_mma::smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// wait until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(kasf_mma::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One thread: copy the tile's rows row0.. (those < M) of x and of g, each a
+// contiguous run in device memory, raw into the stage by two bulk copies
+// (the TMA engine; no per-thread copy instructions) that complete on bar.
+// The fence orders the block's earlier reads of the stage before them.
+template <typename T>
+__device__ __forceinline__ void fetch_rows(T* raw, const T* __restrict__ x,
+                                           const T* __restrict__ g, long long row0,
+                                           long long M, unsigned long long* bar) {
+  const long long n = M - row0 < kR ? M - row0 : kR;
+  const unsigned bytes = static_cast<unsigned>(n * kC * sizeof(T));
+  const unsigned b = kasf_mma::smem_addr(bar);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(2 * bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(kasf_mma::smem_addr(raw)), "l"(x + row0 * kC), "r"(bytes), "r"(b)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(kasf_mma::smem_addr(raw + kR * kC)), "l"(g + row0 * kC), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Stage the chunk's weights once, widened and channel-major: w1t[c][j] =
+// W1[j0 + j][c], w2s[c][j] = ls2[c] * W2[c][j0 + j], and b1[j0..]
+template <typename T>
+__device__ __forceinline__ void stage_weights(float* w1t, float* w2s, float* b1s,
+                                              const T* __restrict__ w1,
+                                              const T* __restrict__ w2,
+                                              const T* __restrict__ b1,
+                                              const float* __restrict__ ls2, int j0, int H,
+                                              int tid) {
+  constexpr int kN = kJ * kC / 4 / kT;  // float4s a thread, of each matrix
+  float4 v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {  // a warp's lanes on neighbouring j
+    const int e = tid + i * kT, j = e % kJ, c4 = e / kJ;
+    v[i] = load4(w1 + static_cast<long long>(j0 + j) * kC + 4 * c4);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int e = tid + i * kT, j = e % kJ, c4 = e / kJ;
+    float* col = w1t + 4 * c4 * kLdW + j;
+    col[0] = v[i].x;
+    col[kLdW] = v[i].y;
+    col[2 * kLdW] = v[i].z;
+    col[3 * kLdW] = v[i].w;
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int e = tid + i * kT, c = e / (kJ / 4), j4 = e % (kJ / 4);
+    v[i] = load4(w2 + static_cast<long long>(c) * H + j0 + 4 * j4);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int e = tid + i * kT, c = e / (kJ / 4), j4 = e % (kJ / 4);
+    const float s = ls2[c];
+    st4(w2s + c * kLdW + 4 * j4, make_float4(v[i].x * s, v[i].y * s, v[i].z * s, v[i].w * s));
+  }
+  if (tid < kJ) b1s[tid] = to_f(b1[j0 + tid]);
+}
+
+// four neighbouring elements of a staged row, as f32
+__device__ __forceinline__ float4 raw4(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 raw4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(kasf_mma::bf16_lo(v.x), kasf_mma::bf16_hi(v.x), kasf_mma::bf16_lo(v.y),
+                     kasf_mma::bf16_hi(v.y));
+}
+
+// each of the warp's row sums over its 32 lanes (warp_sum's order)
+__device__ __forceinline__ void rows_sum(float (&s)[kRT]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+}
+
+// aS = LN(x) * gamma + beta and gS = g from the raw stage. Warp w takes rows
+// w + 8i; lane l holds channels 4l..4l+3. Rows >= M are zeros.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS, float4 gm,
+                                           float4 bt, long long row0, long long M, float eps,
+                                           int warp, int lane) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 xv[kRT], gv[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int r = warp + kRG * i;
+    const bool valid = row0 + r < M;
+    xv[i] = valid ? raw4(raw + r * kC + 4 * lane) : zero;
+    gv[i] = valid ? raw4(raw + (kR + r) * kC + 4 * lane) : zero;
+  }
+  // the rows' statistics reduce together, one shuffle of each row a step,
+  // so their latencies overlap; rsqrtf has no branch to serialise them
+  float s[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) s[i] = (xv[i].x + xv[i].y) + (xv[i].z + xv[i].w);
+  rows_sum(s);
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const float mean = s[i] * (1.0f / kC);
+    xv[i] = make_float4(xv[i].x - mean, xv[i].y - mean, xv[i].z - mean, xv[i].w - mean);
+    s[i] = (xv[i].x * xv[i].x + xv[i].y * xv[i].y) + (xv[i].z * xv[i].z + xv[i].w * xv[i].w);
+  }
+  rows_sum(s);
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int r = warp + kRG * i;
+    const float4 xc = xv[i];
+    const float rstd = rsqrtf(s[i] * (1.0f / kC) + eps);
+    st4(aS + r * kLdA + 4 * lane,
+        make_float4(fmaf(xc.x * rstd, gm.x, bt.x), fmaf(xc.y * rstd, gm.y, bt.y),
+                    fmaf(xc.z * rstd, gm.z, bt.z), fmaf(xc.w * rstd, gm.w, bt.w)));
+    st4(gS + r * kLdA + 4 * lane, gv[i]);
+  }
+}
+
+// out = X Wc over the channel half kh, for fc1 (X = a, Wc = W1c^T: z
+// without b1) and dh (X = g, Wc = ls2 * W2c). Thread (row group q, column
+// group p of 8): rows q + 8i, hidden columns 4p..4p+3 and 32 + 4p..; each
+// step of four channels reads 8 Wc and 5 X float4s for 160 FMAs.
+__device__ __forceinline__ void half_product(const float* X, const float* Wc, float* out,
+                                             int kh, int q, int p) {
+  float acc[kRT][8];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[i][v] = 0.f;
+#pragma unroll 2
+  for (int c = kh * kKH; c < kh * kKH + kKH; c += 4) {
+    float4 w[8];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      w[u] = ld4(Wc + (c + u) * kLdW + 4 * p);
+      w[4 + u] = ld4(Wc + (c + u) * kLdW + kJ / 2 + 4 * p);
+    }
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      const float4 d = ld4(X + (q + kRG * i) * kLdA + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          float& o = acc[i][4 * h + v];
+          o = fmaf(d.x, dxp::lane4(w[4 * h], v), o);
+          o = fmaf(d.y, dxp::lane4(w[4 * h + 1], v), o);
+          o = fmaf(d.z, dxp::lane4(w[4 * h + 2], v), o);
+          o = fmaf(d.w, dxp::lane4(w[4 * h + 3], v), o);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    float* row = out + (q + kRG * i) * kLdZ + 4 * p;
+    st4(row, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    st4(row + kJ / 2, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+  }
+}
+
+// acc[a][b] += P[r][a] Q[r][b] over the tile's rows, where the thread's a
+// are 4 neighbours at P and 4 at P + kHalfP, its b likewise at Q: dW1c
+// (P = dz, Q = a) or G_c (P = g, Q = h). 4 float4s a row for 64 FMAs.
+template <int kLdP, int kHalfP, int kLdQ, int kHalfQ>
+__device__ __forceinline__ void outer_tile(const float* P, const float* Q,
+                                           float (&acc)[8][8]) {
+#pragma unroll 4
+  for (int r = 0; r < kR; ++r) {
+    const float4 p0 = ld4(P + r * kLdP), p1 = ld4(P + r * kLdP + kHalfP);
+    const float4 q0 = ld4(Q + r * kLdQ), q1 = ld4(Q + r * kLdQ + kHalfQ);
+    const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const float qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(pv[a], qv[b], acc[a][b]);
+  }
+}
+
+}  // namespace wp
+
+// One block per (hidden chunk of 64, row split); the split's 40-row tiles
+// through a raw stage that one thread fills by bulk copies; warps 0-3 run
+// fc1 and warps 4-7 dh, each over two channel halves, all take GELU and dz,
+// then warps 0-3 accumulate dW1c and warps 4-7 G_c in registers; the
+// split's partial at the end.
+template <typename T>
+__global__ void __launch_bounds__(wp::kT, 1)
 mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
                     const T* __restrict__ w1, const T* __restrict__ b1,
                     const T* __restrict__ w2, const float* __restrict__ ls2,
                     float* __restrict__ part, long long M, int H, float eps) {
+  using namespace wp;
   extern __shared__ float4 smem4[];
-  float* aT = reinterpret_cast<float*>(smem4);
-  float* gT = aT + kC * kLdT;
-  float* w1s = gT + kC * kLdT;
-  float* w2s = w1s + kChunk * kLdW1;
-  float* dzS = w2s + kC * kLdW2;  // rows x chunk
-  float* hS = dzS + kRows * kLdJ;
+  float* aS = reinterpret_cast<float*>(smem4);
+  float* gS = aS + kR * kLdA;
+  float* zS = aS + kOffZ;
+  float* hS = zS + kR * kLdZ;
+  float* zS2 = hS + kR * kLdZ;
+  float* hS2 = zS2 + kR * kLdZ;
+  float* w1t = aS + kOffW1;
+  float* w2s = aS + kOffW2;
+  float* b1s = aS + kOffB1;
+  T* raw = reinterpret_cast<T*>(aS + kOffRaw);
+  auto* bar = reinterpret_cast<unsigned long long*>(raw + 2 * kR * kC);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int j0 = blockIdx.x * kChunk;
-  const long long tiles = (M + kRows - 1) / kRows;
-  const long long per = (tiles + gridDim.y - 1) / gridDim.y;
+  const int j0 = blockIdx.x * kJ;
+  const long long n_tiles = tiles(M);
+  const long long per = (n_tiles + gridDim.y - 1) / gridDim.y;
   const long long t_begin = blockIdx.y * per;
-  const long long t_end = t_begin + per < tiles ? t_begin + per : tiles;
-  stage_weights(w1, w2, ls2, w1s, w2s, j0, H, tid);
+  const long long t_end = t_begin + per < n_tiles ? t_begin + per : n_tiles;
+  if (tid == 0) mbar_init(bar);
+  __syncthreads();  // the barrier is initialised
+  if (tid == 0 && t_begin < t_end) fetch_rows(raw, x, g, t_begin * kR, M, bar);
+  stage_weights(w1t, w2s, b1s, w1, w2, b1, ls2, j0, H, tid);
+  __syncthreads();  // the weights are staged
+  const float4 gm = ld4(gamma + 4 * lane), bt = ld4(beta + 4 * lane);
+  const float2 b1p = *reinterpret_cast<const float2*>(b1s + 2 * lane);  // GELU's columns
 
-  // dW1[j0 + ty*4 + i][tx + 16u]; G[c(v)][j0 + tx + 16u] with
-  // c(v) = ty*4 + v (v < 4) or 64 + ty*4 + v - 4; db1[j0 + ty*4 + i]
-  float dw1[4][8], gacc[8][4], db1[4];
+  // fc1 / dh: channel half w4 / 2, row group 4 (w4 & 1) + lane / 8 (= g8),
+  // column group lane % 8. Products: g16 = 8 (w4 / 2) + lane % 8; warps 0-3
+  // hold dW1c[4 g8 + v (+32)][4 g16 + v (+64)], warps 4-7
+  // G_c[4 g16 + v (+64)][4 g8 + v (+32)]
+  const int w4 = warp & 3, kh = w4 >> 1;
+  const int g8 = 4 * (w4 & 1) + (lane >> 3), g16 = 8 * kh + (lane & 7);
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    db1[i] = 0.f;
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-    for (int u = 0; u < 8; ++u) dw1[i][u] = 0.f;
-  }
-#pragma unroll
-  for (int v = 0; v < 8; ++v)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) gacc[v][u] = 0.f;
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  float db1a[2] = {0.f, 0.f};  // columns 2 lane, 2 lane + 1 over rows warp + 8i
 
   for (long long t = t_begin; t < t_end; ++t) {
-    __syncthreads();  // the previous tile is consumed (and the weights staged)
-    stage_tile(x, g, gamma, beta, aT, gT, t * kRows, M, eps, warp, lane);
-    __syncthreads();
-    float z[4][4], dh[4][4];
-    fc1_and_dh(aT, gT, w1s, w2s, ty, tx, z, dh);
+    mbar_wait(bar, static_cast<unsigned>((t - t_begin) & 1));
+    __syncthreads();  // tile t's rows landed; the last tile's products are done
+    stage_rows(raw, aS, gS, gm, bt, t * kR, M, eps, warp, lane);
+    __syncthreads();  // a and g in; the stage is free
+    if (tid == 0 && t + 1 < t_end) fetch_rows(raw, x, g, (t + 1) * kR, M, bar);
+    if (warp < 4)
+      half_product(aS, w1t, kh ? zS2 : zS, kh, g8, lane & 7);
+    else
+      half_product(gS, w2s, kh ? hS2 : hS, kh, g8, lane & 7);
+    __syncthreads();  // both halves of z and of dh in
+    // z + b1 and dh from their halves; h = GELU(z) in place of z, dz = dh *
+    // GELU'(z) in place of dh, 5 pairs a thread
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = tx + 16 * u;
-      const float bias = to_f(b1[j0 + j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float zz = z[i][u] + bias;
-        dzS[(ty * 4 + i) * kLdJ + j] = dh[i][u] * gelu_erf_grad(zz);
-        hS[(ty * 4 + i) * kLdJ + j] = gelu_erf(zz);
-      }
+    for (int i = 0; i < kRT; ++i) {
+      const int o = (warp + kRG * i) * kLdZ + 2 * lane;
+      float* zp = zS + o;
+      float* hp = hS + o;
+      const float2 z0 = *reinterpret_cast<const float2*>(zp);
+      const float2 z1 = *reinterpret_cast<const float2*>(zS2 + o);
+      const float2 d0 = *reinterpret_cast<const float2*>(hp);
+      const float2 d1 = *reinterpret_cast<const float2*>(hS2 + o);
+      const float2 z = make_float2(z0.x + z1.x + b1p.x, z0.y + z1.y + b1p.y);
+      const float2 d = make_float2(d0.x + d1.x, d0.y + d1.y);
+      const float2 e0 = gelu_and_grad(z.x), e1 = gelu_and_grad(z.y);
+      const float2 dz = make_float2(d.x * e0.y, d.y * e1.y);
+      *reinterpret_cast<float2*>(zp) = make_float2(e0.x, e1.x);
+      *reinterpret_cast<float2*>(hp) = dz;
+      db1a[0] += dz.x;
+      db1a[1] += dz.y;
     }
-    __syncthreads();
-    for (int r = 0; r < kRows; r += 4) {
-      // dW1 += dz^T a and db1 += dz over rows r..r+3
-      float dzv[4][4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const float4 d4 = *reinterpret_cast<const float4*>(dzS + (r + v) * kLdJ + ty * 4);
-        dzv[v][0] = d4.x; dzv[v][1] = d4.y; dzv[v][2] = d4.z; dzv[v][3] = d4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) db1[i] += dzv[0][i] + dzv[1][i] + dzv[2][i] + dzv[3][i];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float4 a4 = *reinterpret_cast<const float4*>(aT + (tx + 16 * u) * kLdT + r);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dw1[i][u] = fmaf(dzv[v][i], av[v], dw1[i][u]);
-      }
-      // G += g^T h over rows r..r+3
-      float hv[4][4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) hv[v][u] = hS[(r + v) * kLdJ + tx + 16 * u];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        const int c = (w < 4 ? 0 : 64) + ty * 4 + (w & 3);
-        const float4 g4 = *reinterpret_cast<const float4*>(gT + c * kLdT + r);
-        const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-#pragma unroll
-          for (int u = 0; u < 4; ++u) gacc[w][u] = fmaf(gv[v], hv[v][u], gacc[w][u]);
-      }
-    }
+    __syncthreads();  // h and dz in
+    if (warp < 4)
+      outer_tile<kLdZ, kJ / 2, kLdA, kC / 2>(hS + 4 * g8, aS + 4 * g16, acc);
+    else
+      outer_tile<kLdA, kC / 2, kLdZ, kJ / 2>(gS + 4 * g16, zS + 4 * g8, acc);
   }
 
+  // the split's partial: dW1c rows, G_c columns, db1c
   float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * kC + H);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      base[static_cast<long long>(j0 + ty * 4 + i) * kC + tx + 16 * u] = dw1[i][u];
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const int c = (w < 4 ? 0 : 64) + ty * 4 + (w & 3);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      base[static_cast<long long>(H) * kC + static_cast<long long>(c) * H + j0 + tx +
-           16 * u] = gacc[w][u];
+  for (int a = 0; a < 8; ++a) {
+    const float4 lo = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    const float4 hi = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
+    if (warp < 4) {
+      const int j = 4 * g8 + (a & 3) + (a < 4 ? 0 : kJ / 2);
+      float* row = base + static_cast<long long>(j0 + j) * kC + 4 * g16;
+      st4(row, lo);
+      st4(row + kC / 2, hi);
+    } else {
+      const int c = 4 * g16 + (a & 3) + (a < 4 ? 0 : kC / 2);
+      float* row = base + static_cast<long long>(H) * kC + static_cast<long long>(c) * H +
+                   j0 + 4 * g8;
+      st4(row, lo);
+      st4(row + kJ / 2, hi);
+    }
   }
-  if (tx == 0)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) base[2LL * H * kC + j0 + ty * 4 + i] = db1[i];
+  __syncthreads();  // aS is free
+  float* red = aS;  // [row group][kJ]
+  *reinterpret_cast<float2*>(red + warp * kJ + 2 * lane) = make_float2(db1a[0], db1a[1]);
+  __syncthreads();
+  if (tid < kJ) {
+    float s = 0.f;
+    for (int q = 0; q < kRG; ++q) s += red[q * kJ + tid];
+    base[2LL * H * kC + j0 + tid] = s;
+  }
 }
 
 // ---- 3. reduce pass: blocks 0..C-1 take channel c (G row, dW2, dls2, db2,
@@ -813,17 +1023,17 @@ struct Args {
 };
 
 template <typename T>
-cudaError_t launch(const Args& a, long long M, int H, int splits, float eps,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(dxp::smem_bytes<T>()));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemW));
+                             static_cast<int>(wp::smem_bytes<T>()));
   if (err != cudaSuccess) return err;
   const long long tiles = (M + dxp::kR - 1) / dxp::kR;  // the dx pass's tiles
+  const int splits = wp::splits(M, H);
   float* part_dx = a.work;
   float* part_w = a.work + tiles * 3 * kC;
   const T* x = static_cast<const T*>(a.x);
@@ -836,7 +1046,7 @@ cudaError_t launch(const Args& a, long long M, int H, int splits, float eps,
       x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), part_dx, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlp_ln_bwd_w_kernel<T><<<dim3(H / kChunk, splits), kThreads, kSmemW, stream>>>(
+  mlp_ln_bwd_w_kernel<T><<<dim3(H / wp::kJ, splits), wp::kT, wp::smem_bytes<T>(), stream>>>(
       x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, part_w, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -846,34 +1056,54 @@ cudaError_t launch(const Args& a, long long M, int H, int splits, float eps,
   return cudaGetLastError();
 }
 
-template <typename T>
-void describe_dx(int* info) {
+// A kernel's threads a block, registers and local memory (spills) a thread,
+// and blocks resident a SM at `smem` bytes of dynamic shared memory, into
+// info[0], info[1], info[2], info[3]; false where the runtime refuses
+template <typename K>
+bool describe(K kernel, int threads, int smem, int* info) {
   cudaFuncAttributes attr{};
   int per_sm = 0;
-  const int smem = static_cast<int>(dxp::smem_bytes<T>());
-  if (cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, mlp_ln_bwd_dx_kernel<T>) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_ln_bwd_dx_kernel<T>, dxp::kT,
-                                                    smem) != cudaSuccess)
-    return;
-  info[0] = dxp::kT;
-  info[1] = dxp::kR;
-  info[2] = attr.numRegs;
-  info[3] = smem;
-  info[4] = static_cast<int>(attr.localSizeBytes);
-  info[5] = per_sm;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
+    return false;
+  info[0] = threads;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(attr.localSizeBytes);
+  info[3] = per_sm;
+  return true;
+}
+
+// info[0..5]: the dx pass as {threads, rows a block, registers, shared
+// memory bytes, spill bytes, blocks a SM}; info[6..13]: the weight pass as
+// {threads, rows a tile, hidden columns a block, row splits for M rows and
+// hidden H, registers, shared memory bytes, spill bytes, blocks a SM}
+template <typename T>
+void describe_both(long long M, int H, int* info) {
+  int d[4];
+  const int smem_dx = static_cast<int>(dxp::smem_bytes<T>());
+  if (describe(mlp_ln_bwd_dx_kernel<T>, dxp::kT, smem_dx, d)) {
+    const int v[6] = {d[0], dxp::kR, d[1], smem_dx, d[2], d[3]};
+    for (int i = 0; i < 6; ++i) info[i] = v[i];
+  }
+  const int smem_w = static_cast<int>(wp::smem_bytes<T>());
+  if (describe(mlp_ln_bwd_w_kernel<T>, wp::kT, smem_w, d)) {
+    const int v[8] = {d[0], wp::kR, wp::kJ, wp::splits(M, H), d[1], smem_w, d[2], d[3]};
+    for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace kasf_mlp_ln_bwd needs for M rows, hidden H and
-// `splits` row splits of the weight pass.
-long long kasf_mlp_ln_bwd_workspace(long long M, int H, int splits) {
-  const long long tiles = (M + dxp::kR - 1) / dxp::kR;  // the dx pass's partials
-  return tiles * 3 * kC + static_cast<long long>(splits) * (2LL * H * kC + H);
+// Floats of workspace kasf_mlp_ln_bwd needs for M rows and hidden H: the dx
+// pass's partials, one a tile, then the weight pass's, one a row split.
+long long kasf_mlp_ln_bwd_workspace(long long M, int H) {
+  const long long tiles = (M + dxp::kR - 1) / dxp::kR;
+  return tiles * 3 * kC + static_cast<long long>(wp::splits(M, H)) * (2LL * H * kC + H);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, w1, b1, w2, b2, dx); gamma, beta,
@@ -885,9 +1115,8 @@ int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
                     const void* beta, const void* w1, const void* b1, const void* w2,
                     const void* b2, const void* ls2, void* dx, void* dgamma, void* dbeta,
                     void* dw1, void* db1, void* dw2, void* db2, void* dls2, void* work,
-                    long long M, int C, int H, int splits, float eps, void* stream) {
-  if (M < 1 || C != kC || H < kChunk || H % kChunk != 0 || splits < 1 || splits > 65535)
-    return cudaErrorInvalidValue;
+                    long long M, int C, int H, float eps, void* stream) {
+  if (M < 1 || C != kC || H < wp::kJ || H % wp::kJ != 0) return cudaErrorInvalidValue;
   Args a{x, g, w1, b1, w2, b2,
          static_cast<const float*>(gamma), static_cast<const float*>(beta),
          static_cast<const float*>(ls2), dx,
@@ -895,20 +1124,19 @@ int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
          static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2),
          static_cast<float*>(dls2), static_cast<float*>(work)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, M, H, splits, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, M, H, splits, eps, s);
+  if (dtype == 0) return launch<float>(a, M, H, eps, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, M, H, eps, s);
   return cudaErrorInvalidValue;
 }
 
-// The dx pass's instantiation for (dtype, C) on the current device, for
-// reports: info = {threads a block, rows a block, registers a thread, dynamic
-// shared memory a block in bytes, local memory (spills) a thread in bytes,
-// blocks resident a SM}. Left untouched for a width or dtype there is none
-// of (C = 128 only), or where the runtime refuses the query.
-void kasf_mlp_ln_bwd_info(int dtype, int C, int* info) {
-  if (C != kC) return;
-  if (dtype == 0) describe_dx<float>(info);
-  if (dtype == 1) describe_dx<__nv_bfloat16>(info);
+// Both passes' instantiations for (dtype, C) on the current device at M rows
+// and hidden H, for reports, into info[14] as describe_both lays it out.
+// Left untouched for a width or dtype there is none of (C = 128 only), or
+// where the runtime refuses the query.
+void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {
+  if (C != kC || M < 1 || H < wp::kJ || H % wp::kJ != 0) return;
+  if (dtype == 0) describe_both<float>(M, H, info);
+  if (dtype == 1) describe_both<__nv_bfloat16>(M, H, info);
 }
 
 const char* kasf_error_string(int code) {

@@ -40,10 +40,13 @@ so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 shared memory and spills as the runtime sees them.
 
 K4 is three launches: a dx pass (112-row tiles, exact f32 on the CUDA cores
-from either dtype, the weights through a cp.async ring), a weight pass
-(64-row tiles within row splits) and a reduce that sums both passes' partials
-in a fixed order; `fused_mlp_ln_bwd_kernel_info` reports the dx pass's
-instantiation.
+from either dtype, the weights through a cp.async ring), a weight pass (one
+block per hidden chunk of 64 and row split, walking the split's 40-row tiles
+with the next tile's rows in flight by a bulk copy and dW1, G = g^T h and
+db1 kept in registers, exact f32 too) and a reduce that sums both passes'
+partials in a fixed order. The library chooses both passes' tiles and the
+weight pass's row splits; `fused_mlp_ln_bwd_kernel_info` reports both
+passes' instantiations.
 
 `fused_mlp(x, w1, b1, w2, b2)` computes fc1 -> exact GELU -> fc2 over the last
 axis, the port of `kasportsformer_tpu/ops/mlp.py:fused_mlp` (Pallas kernel
@@ -240,15 +243,32 @@ def fused_mlp_kernel_info(dtype: torch.dtype, c: int) -> dict:
     return _kernel_info("mlp", dtype, c)
 
 
-def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype) -> dict:
-    """The instantiation of K4's dx pass (`mlp_ln_bwd_dx_kernel`, the first
-    of its three launches) for `dtype` at C = 128, reported as
-    `fused_mlp_ln_kernel_info` reports K3's: `rows` is the dx pass's tile,
-    so a launch over M rows runs ceil(M / rows) blocks."""
-    return _kernel_info("mlp_ln_bwd", dtype, 128)
+_BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
+                "blocks_per_sm")
+_BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
+               "spill_bytes", "blocks_per_sm")
 
 
-_SMS = 132  # the H100's SMs: the weight pass aims at one block each
+def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
+                                 hidden: int = 512) -> dict:
+    """The instantiations of K4's first two launches for `dtype` at C = 128,
+    as the runtime reports them: {"dx_pass": ..., "weight_pass": ...}. Each
+    has threads a block, registers a thread, dynamic shared memory a block,
+    local memory (spills) a thread in bytes and blocks resident a SM; `rows`
+    is the pass's row tile (the dx pass runs ceil(m / rows) blocks), the
+    weight pass also has `chunk`, its hidden columns a block, and `splits`,
+    its row splits for m rows and this hidden width (a grid of
+    hidden / chunk x splits blocks). Builds the kernel if needed; launches
+    nothing."""
+    lib = _build.library("mlp_ln_bwd")
+    info = (ctypes.c_int * 14)(*([-1] * 14))
+    fn = lib.kasf_mlp_ln_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    fn(_DTYPE_CODE[dtype], 128, m, hidden, info)
+    return {"dx_pass": dict(zip(_BWD_DX_KEYS, info[:6])),
+            "weight_pass": dict(zip(_BWD_W_KEYS, info[6:]))}
 
 
 def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
@@ -266,19 +286,17 @@ def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
             t.zero_()
         return (dx, *grads)
     lib, fn = _fn("mlp_ln_bwd", 18, [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p])
     size = lib.kasf_mlp_ln_bwd_workspace
-    size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    size.argtypes = [ctypes.c_longlong, ctypes.c_int]
     size.restype = ctypes.c_longlong
-    tiles = -(-m // 64)  # the weight pass's 64-row tiles
-    splits = max(1, min(tiles, _SMS // (hidden // _CHUNK)))
-    work = torch.empty(size(m, hidden, splits), dtype=f32, device=dev)
+    work = torch.empty(size(m, hidden), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xc, g, *ops[1:], dx, *grads, work)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(_DTYPE_CODE[xc.dtype], *ptrs, m, c, hidden, splits,
-                  float(eps), stream)
+        code = fn(_DTYPE_CODE[xc.dtype], *ptrs, m, c, hidden, float(eps),
+                  stream)
     _build.check(lib, code, "mlp_ln_bwd kernel launch")
     fused_mlp_ln_bwd.launches += 1
     return (dx, *grads)

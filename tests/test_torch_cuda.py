@@ -424,9 +424,28 @@ def test_fused_mlp_ln_bwd_kernel_tile_edges(cuda, dtype, rows):
     """M = 1, and the dx pass's tile of R rows and one row either side: the
     tail rows of the last tile are masked, and the reduce sums one partial
     a tile."""
-    r = fused_mlp_ln_bwd_kernel_info(dtype)["rows"]
+    r = fused_mlp_ln_bwd_kernel_info(dtype)["dx_pass"]["rows"]
     assert r > 1
     m = {"1": 1, "R-1": r - 1, "R": r, "R+1": r + 1}[rows]
+    args = _mlp_args(cuda, m, dtype)
+    g = torch.randn(m, 128, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["1", "R-1", "R", "R+1", "empty splits"])
+def test_fused_mlp_ln_bwd_weight_pass_tile_edges(cuda, dtype, rows):
+    """M = 1, the weight pass's tile of R rows and one row either side (its
+    tail rows masked), and M = 17 R: 17 tiles over 16 row splits of
+    ceil(17 / 16) = 2 tiles leave the last splits empty, and their zero
+    partials enter the reduce."""
+    r = fused_mlp_ln_bwd_kernel_info(dtype)["weight_pass"]["rows"]
+    assert r > 1
+    m = {"1": 1, "R-1": r - 1, "R": r, "R+1": r + 1, "empty splits": 17 * r}[rows]
+    if rows == "empty splits":
+        splits = fused_mlp_ln_bwd_kernel_info(dtype, m, 512)["weight_pass"]["splits"]
+        tiles = -(-m // r)
+        assert (splits - 1) * -(-tiles // splits) >= tiles
     args = _mlp_args(cuda, m, dtype)
     g = torch.randn(m, 128, device="cuda", generator=cuda).to(dtype)
     _bwd_matches_plain(args, g, dtype)
@@ -489,6 +508,55 @@ def test_fused_mlp_ln_bwd_kernel_one_hot_hidden(cuda, dtype):
     got = _bwd_matches_plain(args, torch.ones(m, c, device=dev).to(dtype), dtype)
     expect = torch.bincount(k, minlength=c).float() * scale[unit]
     assert (got[2] - expect).abs().max() <= 1e-3 * expect.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_ln_bwd_weight_pass_one_hot(cuda, dtype):
+    """Row i reaches one hidden unit through one channel: x is 0.5 at
+    channel k(i) and beta cancels LN(x) elsewhere, so a is A = 0.5 rstd at
+    k(i) alone; W1 sends channel k to unit u(k) alone and b1 = -6 keeps
+    every other unit's GELU and GELU' below 4e-8; g is one hot at channel
+    m(i), with k and m different functions of the row, and W2 (exact in
+    bfloat16) has an entry of its own at each (channel, unit). So dW1 is
+    nonzero only at (u(k), k), sum over the rows with k(i) = k of
+    A GELU'(A - 6) W2[m(i), u(k)], and G = dW2 (ls2 = 1) only at
+    (m(i), u(k(i))), GELU(A - 6) per row: a permuted hidden chunk, row or
+    channel in the weight pass moves an entry."""
+    c, hidden, m = 128, 512, 1377
+    dev = "cuda"
+    rows, chans = torch.arange(m, device=dev), torch.arange(c, device=dev)
+    k, mi = (7 * rows) % c, (5 * rows + 3) % c
+    unit = (3 * chans + 1) % hidden  # distinct
+    w2 = 1 + ((5 * chans[:, None] + 3 * torch.arange(hidden, device=dev)) % 16) / 16
+    x = torch.zeros(m, c, device=dev)
+    x[rows, k] = 0.5
+    # LayerNorm of a one-hot row in float64: xhat at k and elsewhere
+    row = x[0].double()
+    xhat = (row - row.mean()) / torch.sqrt(row.var(unbiased=False) + 1e-5)
+    big, rest = xhat[k[0]].item(), xhat[(k[0] + 1) % c].item()
+    w1 = torch.zeros(hidden, c, device=dev)
+    w1[unit, chans] = 1.0
+    ones = torch.ones(c, device=dev)
+    args = (x.to(dtype), ones, torch.full((c,), -rest, device=dev), w1.to(dtype),
+            torch.full((hidden,), -6.0, device=dev).to(dtype), w2.to(dtype),
+            torch.zeros(c, device=dev).to(dtype), ones)
+    g = torch.zeros(m, c, device=dev)
+    g[rows, mi] = 1.0
+    got = _bwd_matches_plain(args, g.to(dtype), dtype)
+    z = torch.tensor(big - rest - 6.0, dtype=torch.float64)
+    cdf = 0.5 * (1 + torch.erf(z / 2 ** 0.5))
+    gelu, grad = (z * cdf).item(), (cdf + z * torch.exp(-z * z / 2) / (2 * torch.pi) ** 0.5).item()
+    dz = w2.double()[mi, unit[k]] * grad  # a row's dz at its unit
+    dw1 = torch.zeros(hidden, c, dtype=torch.float64, device=dev)
+    dw1.index_put_((unit[k], k), dz * (big - rest), accumulate=True)
+    gg = torch.zeros(c, hidden, dtype=torch.float64, device=dev)
+    gg.index_put_((mi, unit[k]), torch.full((m,), gelu, dtype=torch.float64, device=dev),
+                  accumulate=True)
+    db1 = torch.zeros(hidden, dtype=torch.float64, device=dev)
+    db1.index_put_((unit[k],), dz, accumulate=True)
+    for name, a, want in (("dw1", got[3], dw1), ("db1", got[4], db1), ("dw2", got[5], gg)):
+        err = (a.double() - want).abs().max() / want.abs().max()
+        assert err <= 1e-3, f"{name}: {err.item():.2e}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
