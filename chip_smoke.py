@@ -16,11 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
      (kernel and SDPA in turns), each row's share of its bound and its time
      over SDPA's; K1's registers, shared memory and spills an instantiation
      to --out (also in 3d).
-  3. K3 fused_mlp_ln against its plain version at M = 58,752 and 1,377,
-     each row with its tile (rows a block, blocks, L2 weight reads a
-     launch) and share of the bound; K3's and K5's registers, shared
-     memory and spills an instantiation to --out (also in 3d); a spill fails
-     the phase.
+  3. K3 fused_mlp_ln against its plain version at M = 58,752 (serving),
+     14,688 (the train step) and 1,377, each row with its tile (rows a tile,
+     tiles, blocks, waves, L2 weight reads a launch) and share of the bound;
+     K3's and K5's registers, shared memory and spills an instantiation to
+     --out (also in 3d); a spill fails the phase.
      In phases 2 and 3 the plain version runs in float32 on the kernel's
      own inputs (bfloat16 ones included), so a bfloat16 kernel is held to
      the exact value and not to a second set of bfloat16 roundings.
@@ -68,8 +68,9 @@ Phases (any failure exits non-zero and prints no result line):
      inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
-     weights, B=4, the CPU's top-k adjacencies replayed; the batch-norm
-     running statistics; 104 K2 and 156 K4 launches per backward.
+     weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
+     batch-norm running statistics; 104 K2 and 156 K4 launches per
+     backward.
   9. the train step at the config's batch 32, float32 and bfloat16: median
      ms/step, clips/s, peak memory, device busy share and a profiler table
      (the profiles of phases 4 and 9 with the SM clock they ran at);
@@ -239,15 +240,28 @@ def write_k1_report(out_dir: str) -> None:
 
 
 def k3_tile_line(dt, m: int, c: int, h: int, ms: float, bms: float) -> str:
-    """A K3 row's tile (rows a block, blocks, the weight bytes its blocks
-    read from L2 in a launch) and its share of the bound."""
+    """A K3 row's tiles (rows a tile), grid (blocks of the launch: a tile
+    each, or a persistent block walking several), waves (tiles over the
+    blocks the card holds at once), the weight bytes its tiles read from L2
+    in a launch (every tile streams all of W1 and W2) and its share of the
+    bound."""
+    import torch
+
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_kernel_info
 
-    rows = fused_mlp_ln_kernel_info(dt, c)["rows"]
-    blocks = -(-m // rows)
-    l2 = blocks * 2 * c * h * dt.itemsize
-    return (f"tile {rows} rows x {blocks} blocks, L2 weight reads "
-            f"{l2 / 1e6:.1f} MB; share of bound {bms / ms:.1%}")
+    try:
+        info = fused_mlp_ln_kernel_info(dt, c, m)
+    except TypeError:  # a library that reports no grid: a block a tile
+        info = fused_mlp_ln_kernel_info(dt, c)
+        info["grid"] = -(-m // info["rows"])
+    rows = info["rows"]
+    tiles = -(-m // rows)
+    resident = (torch.cuda.get_device_properties(0).multi_processor_count
+                * info["blocks_per_sm"])
+    l2 = tiles * 2 * c * h * dt.itemsize
+    return (f"tile {rows} rows: {tiles} tiles on {info['grid']} blocks, "
+            f"{tiles / resident:.2f} waves, L2 weight reads {l2 / 1e6:.1f} MB; "
+            f"share of bound {bms / ms:.1%}")
 
 
 def write_k3_report(out_dir: str) -> None:
@@ -469,7 +483,7 @@ def check_k3(dev, out_dir: str) -> dict:
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
-        for m in (58752, 1377):
+        for m in (58752, 14688, 1377):
             args = mlp_args(dev, gen, m, dt)
             got = fused_mlp_ln(*args, 1e-5)
             want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
@@ -726,6 +740,43 @@ def adjacency_tape(record: list | None = None, replay: list | None = None):
         yield flips
     finally:
         L.topk_adjacency = orig
+
+
+@contextlib.contextmanager
+def relu_gate_tape(record: list | None = None, replay: list | None = None):
+    """Within the block, the gates of `torch.nn.functional.relu` (the GCNs'
+    relu(x + BN(...))) are appended to `record`, or replaced in call order
+    by those of `replay`.
+
+    A gate is a threshold too: a pre-activation within float32 rounding of
+    zero (one of the flagship's 12 million at B=4 is enough) may fall on the
+    other side on the card, and its whole gradient with it: the GCN's
+    batch-norm weight, whose gradient sums over that gate's channel, then
+    moves far beyond rounding. Replayed, the comparison holds the arithmetic alone, as the
+    adjacency tape does for the top-k; the yielded list counts the gates
+    the card would have set otherwise."""
+    import torch
+    import torch.nn.functional as F
+
+    orig = F.relu
+    tape = iter(replay) if replay is not None else None
+    flips = [0, 0]  # differing gates, gates
+
+    def taped(x, inplace: bool = False):
+        if record is not None:
+            record.append((x > 0).cpu())
+        if tape is None:
+            return orig(x, inplace=inplace)
+        ref = next(tape)
+        flips[0] += int((ref != (x > 0).cpu()).sum())
+        flips[1] += ref.numel()
+        return torch.where(ref.to(x.device), x, torch.zeros_like(x))
+
+    F.relu = taped
+    try:
+        yield flips
+    finally:
+        F.relu = orig
 
 
 @contextlib.contextmanager
@@ -1445,12 +1496,14 @@ def check_grads(dev) -> dict:
     y = label_batch(torch.Generator().manual_seed(9), 4)
     w = torch.ones(4)
     adjacencies: list = []
+    gates: list = []
     t0 = time.perf_counter()
-    with adjacency_tape(record=adjacencies):
+    with adjacency_tape(record=adjacencies), relu_gate_tape(record=gates):
         want = make_grads_fn(cpu_model, cfg)(x, y, w)
     cpu_s = time.perf_counter() - t0
     k2, k4 = masked_sdpa_bwd.launches, fused_mlp_ln_bwd.launches
-    with adjacency_tape(replay=adjacencies) as flips:
+    with adjacency_tape(replay=adjacencies) as flips, \
+            relu_gate_tape(replay=gates) as gate_flips:
         got = make_grads_fn(model, cfg)(x.to(dev), y.to(dev), w.to(dev))
     torch.cuda.synchronize()
     d2, d4 = masked_sdpa_bwd.launches - k2, fused_mlp_ln_bwd.launches - k4
@@ -1505,8 +1558,9 @@ def check_grads(dev) -> dict:
         f"{len(rows)} parameters with a gradient, {len(missing)} without on "
         f"both (the unreached limb norms); batch-norm running stats max abs "
         f"diff {bn:.3e} (limit {bn_tol:.0e}); top-k entries chosen "
-        f"differently: {flips[0]} of {flips[1]}; CPU forward+backward "
-        f"{cpu_s:.2f} s")
+        f"differently: {flips[0]} of {flips[1]}, ReLU gates set differently: "
+        f"{gate_flips[0]} of {gate_flips[1]} (both replayed from the CPU); "
+        f"CPU forward+backward {cpu_s:.2f} s")
     errs = sorted(r[0] for r in rows)
     log(f"   per-parameter error over its module's largest CPU gradient (limit "
         f"{grad_tol:.0e}): median {errs[len(errs) // 2]:.2e}, 99th percentile "
@@ -1552,7 +1606,7 @@ def synthetic_clipsets(seed: int, n_train: int, n_test: int):
     return train, test
 
 
-_GROUPS = (("K4", ("mlp_ln_bwd",)), ("K3", ("mlp_bf16_tc_kernel", "mlp_f32_kernel")),
+_GROUPS = (("K4", ("mlp_ln_bwd",)), ("K3", ("mlp_bf16_tc_kernel", "mlp_f32_")),
            ("K2", ("masked_sdpa_bwd",)),
            ("K1", ("masked_sdpa",)), ("GEMM", ("gemm", "nvjet", "splitK", "cutlass")),
            ("LayerNorm", ("layer_norm", "GammaBeta")), ("reduction", ("reduce_kernel",)),

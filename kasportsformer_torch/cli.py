@@ -40,6 +40,19 @@ def _load_train_checkpoint(config, model, log) -> dict:
     raise FileNotFoundError(f"checkpoint path is wrong: {path}")
 
 
+def _model_weights(path: str, error: str) -> dict:
+    """The model state_dict of a reference `.pth` file or of a native
+    checkpoint directory (the trainer's); anything else raises
+    FileNotFoundError with `error` and the path."""
+    from kasportsformer_torch.train import checkpoint as ckpt
+
+    if path.endswith(".pth") and os.path.exists(path):
+        return ckpt.load_torch_checkpoint(path)
+    if os.path.isdir(path):
+        return ckpt.restore_native(path)["model"]
+    raise FileNotFoundError(f"{error}: {path}")
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     """Train on `--device` (≙ `train_and_evaluate_sp.py` / `_wp.py`)."""
     from kasportsformer_torch.config import load_config
@@ -75,7 +88,6 @@ def cmd_evaluate(args: argparse.Namespace) -> int:
     from kasportsformer_torch.config import load_config
     from kasportsformer_torch.data.clips import load_split
     from kasportsformer_torch.models import build_model
-    from kasportsformer_torch.train import checkpoint as ckpt
     from kasportsformer_torch.train.evaluator import Evaluator, format_eval_report
     from kasportsformer_torch.utils.common import get_logger, seed_everything
 
@@ -86,14 +98,9 @@ def cmd_evaluate(args: argparse.Namespace) -> int:
     model = build_model(config, device=args.device)
     path = getattr(args, "checkpoint", None) or os.path.join(
         config.evaluate_checkpoint_file_dir, config.evaluate_checkpoint_file)
-    if path.endswith(".pth") and os.path.exists(path):
-        sd = ckpt.load_torch_checkpoint(path)
-    elif os.path.isdir(path):
-        sd = ckpt.restore_native(path)["model"]
-    else:
-        raise FileNotFoundError(
-            f"evaluation checkpoint is wrong, check your configuration: {path}")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(_model_weights(
+        path, "evaluation checkpoint is wrong, check your configuration"),
+        strict=True)
     log.info(f"model {config.model_name}: {model.parameter_count():,} params")
     result = Evaluator(model, test_set,
                        batch_size=config.eval_batch_size or config.batch_size,
@@ -106,15 +113,16 @@ def cmd_evaluate(args: argparse.Namespace) -> int:
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
-    """HTTP lifting service on `--device` (default cuda; see serving.py)."""
+    """HTTP lifting service on `--device` (default cuda; see serving.py) for
+    the weights of `--checkpoint`: a reference `.pth` or a native directory."""
     from kasportsformer_torch.config import load_config
     from kasportsformer_torch.models import build_model
     from kasportsformer_torch.serving import serve
-    from kasportsformer_torch.train.checkpoint import load_torch_checkpoint
 
     config = load_config(args.config_path)
     model = build_model(config, device="cpu")
-    model.load_state_dict(load_torch_checkpoint(args.checkpoint), strict=True)
+    model.load_state_dict(_model_weights(args.checkpoint, "checkpoint path is wrong"),
+                          strict=True)
     server = serve(model, host=args.host, port=args.port,
                    n_frames=config.n_frames, batch_size=args.batch_size,
                    flip=config.flip, model_name=config.model_name,
@@ -145,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve = sub.add_parser("serve", help="HTTP lifting service")
     p_serve.add_argument("--config-path", required=True)
     p_serve.add_argument("--checkpoint", required=True,
-                         help="reference .pth checkpoint")
+                         help="reference .pth or native checkpoint directory")
     p_serve.add_argument("--host", default="127.0.0.1")
     p_serve.add_argument("--port", type=int, default=8000)
     p_serve.add_argument("--batch-size", type=int, default=128,

@@ -17,25 +17,34 @@
 // The kernels are the hidden-chunk tile of csrc/mlp_tile.cuh that K3 runs,
 // with LayerNorm and the residual switched off: the rows enter the tile as
 // they are, the hidden never reaches device memory, and the epilogue adds b2.
+// In f32 at C <= 128 a launch is two kernels (the weights transposed into
+// kasf_mlp_workspace floats of scratch, then the persistent tile).
 #include "mlp_tile.cuh"
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor). All tensors contiguous and
-// 16-byte aligned; x and out are (M, C), w1 is (H, C), w2 is (C, H). Returns
+// 16-byte aligned; x and out are (M, C), w1 is (H, C), w2 is (C, H); work
+// holds kasf_mlp_workspace floats (null where that is 0). Returns
 // cudaGetLastError() after the launch (0 on success).
 int kasf_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-             const void* b2, void* out, long long M, int C, int H, void* stream) {
-  return kasf_tile::launch<false>(dtype, x, nullptr, nullptr, w1, b1, w2, b2, nullptr, out, M,
-                                 C, H, 0.f, stream);
+             const void* b2, void* out, void* work, long long M, int C, int H, void* stream) {
+  return kasf_tile::launch<false>(dtype, x, nullptr, nullptr, w1, b1, w2, b2, nullptr, out,
+                                 work, M, C, H, 0.f, stream);
+}
+
+// floats of workspace kasf_mlp needs for (dtype, C, H)
+long long kasf_mlp_workspace(int dtype, int C, int H) {
+  return kasf_tile::workspace(dtype, C, H);
 }
 
 // The instantiation for (dtype, C) on the current device, for reports:
-// info = {threads a block, rows a block, registers a thread, dynamic shared
+// info = {threads a block, rows a tile, registers a thread, dynamic shared
 // memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM}. Left untouched for a width or dtype there is none of.
-void kasf_mlp_info(int dtype, int C, int* info) {
-  kasf_tile::describe_width<false>(dtype, C, info);
+// resident a SM, blocks of a launch over M rows}. Left untouched for a
+// width or dtype there is none of.
+void kasf_mlp_info(int dtype, int C, long long M, int* info) {
+  kasf_tile::describe_width<false>(dtype, C, M, info);
 }
 
 const char* kasf_error_string(int code) {

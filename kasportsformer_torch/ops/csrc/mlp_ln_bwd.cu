@@ -637,45 +637,21 @@ __device__ __forceinline__ float2 gelu_and_grad(float z) {
   return make_float2(z * cdf, cdf + z * expf(-0.5f * z * z) * 0.39894228040143268f);
 }
 
-// The stage's mbarrier: one arrival (the copying thread's) and the bytes
-// of a tile's two bulk copies complete a phase
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(kasf_mma::smem_addr(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// wait until the phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(kasf_mma::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
+using kasf_mma::mbar_init;
+using kasf_mma::mbar_wait;
 
 // One thread: copy the tile's rows row0.. (those < M) of x and of g, each a
 // contiguous run in device memory, raw into the stage by two bulk copies
 // (the TMA engine; no per-thread copy instructions) that complete on bar.
-// The fence orders the block's earlier reads of the stage before them.
 template <typename T>
 __device__ __forceinline__ void fetch_rows(T* raw, const T* __restrict__ x,
                                            const T* __restrict__ g, long long row0,
                                            long long M, unsigned long long* bar) {
   const long long n = M - row0 < kR ? M - row0 : kR;
   const unsigned bytes = static_cast<unsigned>(n * kC * sizeof(T));
-  const unsigned b = kasf_mma::smem_addr(bar);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-               "r"(2 * bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(kasf_mma::smem_addr(raw)), "l"(x + row0 * kC), "r"(bytes), "r"(b)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(kasf_mma::smem_addr(raw + kR * kC)), "l"(g + row0 * kC), "r"(bytes), "r"(b)
-      : "memory");
+  kasf_mma::mbar_expect(bar, 2 * bytes);
+  kasf_mma::bulk_load(raw, x + row0 * kC, bytes, bar);
+  kasf_mma::bulk_load(raw + kR * kC, g + row0 * kC, bytes, bar);
 }
 
 // Stage the chunk's weights once, widened and channel-major: w1t[c][j] =

@@ -13,16 +13,16 @@
 // models use. In f32 that is the CUDA cores' 67 TFLOP/s; in bf16 the tensor
 // cores' 989 TFLOP/s.
 //
-// Design. A block takes a tile of R rows; tail rows of a ragged M are masked
-// (loaded as zeros, never stored), so any M works. It loads its rows once
-// (LN on: f32 statistics, rounded to the compute dtype as the plain version
-// does) into shared memory and keeps them there for the whole tile. It then
-// walks the hidden width in chunks of 64 columns: h = GELU(a W1c^T + b1c),
-// rounded to the compute dtype, and out += h W2c^T in registers. The hidden
-// never reaches device memory. Epilogue: out + b2, and with LN on
+// Design. A block takes tiles of R rows; tail rows of a ragged M are masked
+// (loaded as zeros, never stored), so any M works. It loads a tile's rows
+// once (LN on: f32 statistics, rounded to the compute dtype as the plain
+// version does) into shared memory and keeps them there for the whole tile.
+// It then walks the hidden width in chunks of 64 columns: h = GELU(a W1c^T +
+// b1c), rounded to the compute dtype, and out += h W2c^T in registers. The
+// hidden never reaches device memory. Epilogue: out + b2, and with LN on
 // x + ls2 * (out + b2), x re-read (an L2 hit). Each width is one
-// instantiation. Every block streams all of W1 and W2 from L2, so the rows
-// a block set the L2 reads of a launch: ceil(M / R) * 2*C*H*itemsize.
+// instantiation. Every tile streams all of W1 and W2 from L2, so the rows a
+// tile set the L2 reads of a launch: ceil(M / R) * 2*C*H*itemsize.
 //
 //  * bfloat16 (mlp_bf16_tc_kernel): mma.sync m16n8k16 (bf16 in, f32
 //    accumulate) with ldmatrix fragments (csrc/mma_sm90.cuh).
@@ -49,12 +49,50 @@
 //    L2 weight reads a launch at M = 58,752 (459 tiles of 128 rows, 918 of
 //    64): C/H 64/256 30 MB, 128/512 120 MB, 256/1024 481 MB, 512/1024
 //    1.93 GB.
-//  * float32 (mlp_f32_kernel) on the CUDA cores (TF32 would put ~1e-3 on
-//    each output): 256 threads as TY x TX, each owning 4*RG rows (row groups
-//    of 4, 4*TY apart) and C/TX output channels; fmaf, operands read as
-//    float4s; each weight chunk is copied with cp.async while the other
-//    product runs. R = 128 at C <= 128, 64 at 256, 32 at 512 (L2 weight
-//    reads a launch at M = 58,752: 60 MB, 241 MB, 1.93 GB, 7.7 GB).
+//  * float32 on the CUDA cores (TF32 would put ~1e-3 on each output), fmaf
+//    on float4 operands.
+//    - C <= 128 (mlp_f32_persistent_kernel): persistent blocks, at most one
+//      wave (132 on the H100, one a SM: 212,504 B of shared memory at
+//      C = 128), each walking the tiles blockIdx.x, + gridDim.x, ... 112-row
+//      tiles fill whole waves at both main-path Ms: 525 tiles at M = 58,752
+//      (3.98 waves; 128-row tiles gave 3.48, the last wave with 63 of 132
+//      SMs busy) and 132 at 14,688 (one).
+//      Rows: one thread copies the block's next tile (a contiguous run of x)
+//      into a raw stage by one bulk copy (cp.async.bulk, the TMA engine, on
+//      an mbarrier) while the tile is multiplied. LN once a tile, from the
+//      stage into aS (row-major, stride C + 4): a lane holds 4 neighbouring
+//      channels (gamma, beta in registers), the 14 rows of a warp reduce
+//      together (their shuffles interleave) and rsqrtf has no branch.
+//      Weights: mlp_f32_stage_weights_kernel first writes W1 and W2
+//      transposed into a workspace, W1 as [H/64][C][64] and W2 as (H, C), so
+//      each 64-column chunk of either is one contiguous run of 32 KB (at
+//      C = 128) that one thread brings in by one bulk copy. (4-byte cp.async
+//      copies that transposed in flight cost ~21k of a tile's ~212k cycles
+//      in issue alone.) One buffer each: the barrier that opens chunk j
+//      starts W2t(j), the one after fc1 starts W1t(j + 1), and the last
+//      chunk starts the next tile's first, so the weights stream across
+//      tiles without a break and no tile starts cold.
+//      Products: fc1 and fc2 are one function, X row-major (a, then the
+//      hidden) times W k-major (W1t, W2t), a thread 7 rows x 8 columns: 15
+//      float4 loads per 224 FMAs, none with a bank conflict. fc1 splits the
+//      channels over two warp groups (over all of them a thread's 7 x 4
+//      tile read a float4 per 10 FMAs: ~103k cycles a tile against ~97k);
+//      each group hands the other the partial sums of the other's 32
+//      columns through hS and finishes its own (+ b1, GELU) in place. fc2
+//      keeps out over the whole hidden width in 56 registers (C = 128).
+//      Epilogue: the loads of x all issued before the first store (~3k
+//      cycles a tile fewer).
+//      Sums run in a fixed order, without atomics: reruns are bitwise equal.
+//      A tile at M = 58,752, C/H 128/512 (scripts/k3_tile_stamps.py on an
+//      H100 80GB HBM3 at 700 W): ~186k cycles, of which fc1 with GELU
+//      ~95k (exact GELU ~11k of them), fc2 ~75k, against 114.7k of FMA issue
+//      at the pipe's full rate.
+//    - C >= 256 (mlp_f32_kernel): 256 threads as TY x TX, each owning 4*RG
+//      rows (row groups of 4, 4*TY apart) and C/TX output channels; each
+//      weight chunk is copied with cp.async while the other product runs.
+//      R = 64 at 256, 32 at 512.
+//    L2 weight reads a launch at M = 58,752: 69 MB at 64/256, 275 MB at
+//    128/512, 1.93 GB at 256/1024, 7.7 GB at 512/1024.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,6 +117,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// the sums over groups of L neighbouring lanes of N values at once: their
+// shuffles interleave
+template <int L, int N>
+__device__ __forceinline__ void group_sums(float (&v)[N]) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
 }
 
 // LayerNorm of one row by one warp, f32 statistics: lane holds channels
@@ -106,11 +154,9 @@ __device__ __forceinline__ void warp_layer_norm(float (&xv)[C / 32], int lane,
   }
 }
 
-// ---- float32 on the CUDA cores
+// ---- float32 on the CUDA cores, C >= 256
 
 template <int C> struct F32Tile;  // TY thread rows, RG row groups, KCH chunk
-template <> struct F32Tile<64> { static constexpr int TY = 16, RG = 2, KCH = 64; };
-template <> struct F32Tile<128> { static constexpr int TY = 16, RG = 2, KCH = 64; };
 template <> struct F32Tile<256> { static constexpr int TY = 16, RG = 1, KCH = 64; };
 template <> struct F32Tile<512> { static constexpr int TY = 8, RG = 1, KCH = 32; };
 
@@ -311,6 +357,313 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// ---- float32 on the CUDA cores, C <= 128: persistent row tiles
+
+template <int C>
+struct F32Rows {
+  static constexpr int R = 112;       // rows a tile: 525 at M = 58,752, 132 at 14,688
+  static constexpr int J = 64;        // hidden columns a chunk
+  static constexpr int kThreads = 256;
+  static constexpr int RS = 16;       // row sets: set q holds rows q + 16 i
+  static constexpr int RT = R / RS;   // 7 rows a thread
+  static constexpr int CG = J / 4;    // column groups: group p, columns 4p + 64 h + v
+  static constexpr int NH = C / 64;   // fc2: float4s of output channels a thread
+  static constexpr int LdA = C + 4;   // aS rows: LN(x) * gamma + beta (K5: x)
+  static constexpr int LdH = J + 4;   // hS rows: GELU(z) of the chunk
+  // the chunk's W1t [c][j] (stride J) and W2t [j][c] (stride C), each one
+  // contiguous run of the transposed copies, as they lie there
+  static constexpr int kOffH = R * LdA;  // floats: aS | hS | W1t | W2t | raw | mbarriers
+  static constexpr int kOffW1 = kOffH + R * LdH;
+  static constexpr int kOffW2 = kOffW1 + C * J;
+  static constexpr int kOffRaw = kOffW2 + J * C;
+  static constexpr int kOffBar = kOffRaw + R * C;
+  static constexpr unsigned kChunkBytes = sizeof(float) * C * J;  // a matrix's chunk
+  // mbarriers: the raw stage's, W1t's and W2t's
+  static constexpr size_t kSmem = sizeof(float) * kOffBar + 3 * sizeof(unsigned long long);
+  static constexpr int kRowsW = R / (kThreads / 32);  // the LN step: 14 rows a warp
+  static constexpr int L = C / 4;                     // ... L lanes a row, 4 channels a lane
+  static_assert(C == 64 || C == 128, "the unsplit widths");
+  static_assert(RS * CG == kThreads && R % RS == 0 && kRowsW % (32 / L) == 0,
+                "the thread layouts cover the tile");
+  static_assert(kOffH % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kOffRaw % 4 == 0 &&
+                    kOffBar % 2 == 0 && LdA % 4 == 0 && LdH % 4 == 0,
+                "16-byte alignment of the copies' targets and float4s, 8 of the mbarriers");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// One thread: the tile's rows row0.. (those < M), one contiguous run of x,
+// into the raw stage by one bulk copy completing on bar
+template <int C>
+__device__ __forceinline__ void fetch_rows_f32(float* raw, const float* __restrict__ x,
+                                               long long row0, long long M,
+                                               unsigned long long* bar) {
+  const long long n = M - row0 < F32Rows<C>::R ? M - row0 : F32Rows<C>::R;
+  const unsigned bytes = static_cast<unsigned>(n * C * sizeof(float));
+  kasf_mma::mbar_expect(bar, bytes);
+  kasf_mma::bulk_load(raw, x + row0 * C, bytes, bar);
+}
+
+// The transposed weights a launch reads its chunks from, written once a
+// launch into the workspace: w1t [H/64][C][64] (each hidden chunk's W1
+// transposed) and w2t (H, C) = W2^T, so each chunk of each matrix is one
+// contiguous run of C * 64 floats. A block a 32 x 32 tile, through shared
+// memory (both its reads and its writes in 128-byte rows).
+__global__ void __launch_bounds__(256)
+mlp_f32_stage_weights_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                             float* __restrict__ w1t, float* __restrict__ w2t, int C, int H) {
+  __shared__ float tile[32][33];
+  const int tiles1 = H / 32 * (C / 32);  // W1's tiles, then W2's
+  int b = blockIdx.x;
+  const float* src;
+  float* dst;
+  int ld_src, ld_dst;
+  if (b < tiles1) {  // W1 rows j.., channels c..: to w1t[j / 64][c][j % 64]
+    const int jt = b / (C / 32), ct = b % (C / 32);
+    src = w1 + static_cast<long long>(jt) * 32 * C + ct * 32;
+    dst = w1t + static_cast<long long>(jt / 2) * C * 64 + ct * 32 * 64 + jt % 2 * 32;
+    ld_src = C;
+    ld_dst = 64;
+  } else {  // W2 rows c.., hidden columns j..: to w2t[j][c]
+    b -= tiles1;
+    const int ct = b / (H / 32), jt = b % (H / 32);
+    src = w2 + static_cast<long long>(ct) * 32 * H + jt * 32;
+    dst = w2t + static_cast<long long>(jt) * 32 * C + ct * 32;
+    ld_src = H;
+    ld_dst = C;
+  }
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) tile[r][tx] = src[static_cast<long long>(r) * ld_src + tx];
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) dst[static_cast<long long>(r) * ld_dst + tx] = tile[tx][r];
+}
+
+// One thread: a chunk of a transposed matrix (C * 64 floats, contiguous)
+// into its buffer by one bulk copy completing on bar
+template <int C>
+__device__ __forceinline__ void fetch_chunk(float* buf, const float* __restrict__ wt, int chunk,
+                                            unsigned long long* bar) {
+  constexpr unsigned kBytes = F32Rows<C>::kChunkBytes;
+  kasf_mma::mbar_expect(bar, kBytes);
+  kasf_mma::bulk_load(buf, wt + static_cast<long long>(chunk) * C * F32Rows<C>::J, kBytes, bar);
+}
+
+// aS from the raw stage: LN(x) * gamma + beta with f32 statistics (LN on) or
+// x. Warp w takes rows 14w..14w+13, 32 / L of them a pass; a lane holds 4
+// neighbouring channels (gamma, beta in gm, bt). All the warp's rows reduce
+// together (their shuffles interleave) and rsqrtf has no branch, so the
+// step is not a chain of latencies. Rows >= M are zeros (LN: beta).
+template <int C, bool LN>
+__device__ __forceinline__ void stage_rows_f32(const float* raw, float* aS, float4 gm, float4 bt,
+                                               long long row0, long long M, float eps,
+                                               int warp, int lane) {
+  using S = F32Rows<C>;
+  constexpr int L = S::L, P = 32 / L, kPass = S::kRowsW / P;
+  const int ch = 4 * (lane % L);
+  const int r0 = warp * S::kRowsW + lane / L;
+  float4 xv[kPass];
+#pragma unroll
+  for (int i = 0; i < kPass; ++i) {
+    const int r = r0 + i * P;
+    xv[i] = row0 + r < M ? ld4(raw + r * C + ch) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if constexpr (LN) {
+    float s[kPass];
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) s[i] = (xv[i].x + xv[i].y) + (xv[i].z + xv[i].w);
+    group_sums<L>(s);
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) {
+      const float mean = s[i] * (1.0f / C);
+      xv[i] = make_float4(xv[i].x - mean, xv[i].y - mean, xv[i].z - mean, xv[i].w - mean);
+      s[i] = (xv[i].x * xv[i].x + xv[i].y * xv[i].y) + (xv[i].z * xv[i].z + xv[i].w * xv[i].w);
+    }
+    group_sums<L>(s);
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) {
+      const float rstd = rsqrtf(s[i] * (1.0f / C) + eps);
+      const float4 v = xv[i];
+      xv[i] = make_float4(fmaf(v.x * rstd, gm.x, bt.x), fmaf(v.y * rstd, gm.y, bt.y),
+                          fmaf(v.z * rstd, gm.z, bt.z), fmaf(v.w * rstd, gm.w, bt.w));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPass; ++i) st4(aS + (r0 + i * P) * S::LdA + ch, xv[i]);
+}
+
+// acc[i][4h + v] += sum_{k < K} X[16 i][k] W[k][G h + v]: X is the thread's
+// first row (row-major, stride LdX), W its first column (k-major, stride
+// LdW). A step of four k reads RT X and 4 NH W float4s for 16 RT NH FMAs; a
+// warp's X loads touch 2 or 4 rows and its W loads 8 or 16 neighbouring
+// float4s of a row, so no load has a bank conflict. fc1 (X = aS, W = W1t,
+// over half the channels) and fc2 (X = hS, W = W2t) both run it; every sum
+// runs over k in order.
+template <int K, int NH, int G, int LdX, int LdW, int RT>
+__device__ __forceinline__ void row_product(const float* X, const float* W,
+                                            float (&acc)[RT][4 * NH]) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 w[4][NH];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) w[u][h] = ld4(W + (k + u) * LdW + G * h);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 d = ld4(X + i * 16 * LdX + k);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          float& o = acc[i][4 * h + v];
+          o = fmaf(d.x, lane4(w[0][h], v), o);
+          o = fmaf(d.y, lane4(w[1][h], v), o);
+          o = fmaf(d.z, lane4(w[2][h], v), o);
+          o = fmaf(d.w, lane4(w[3][h], v), o);
+        }
+    }
+  }
+}
+
+// Blocks walk the tiles blockIdx.x, + gridDim.x, ... (a grid of at most one
+// wave). Per tile: the rows from the raw stage into aS, then per hidden
+// chunk fc1 (+ b1, GELU) into hS and fc2 into the registers, then out. The
+// weight chunks come from the transposed copies w1t, w2t by bulk copies,
+// one buffer each: the barrier that opens chunk j (W1t(j) landed, hS and
+// W2t free) starts W2t(j), the one after fc1 (hS complete, W1t free) starts
+// W1t of the next chunk, the next tile's chunk 0 after the last: the
+// weights stream across tiles without a break. The first barrier of a tile
+// also starts the bulk copy of the block's next tile into the raw stage.
+// The n-th copy into a buffer completes its mbarrier's phase n: parity n & 1.
+template <int C, bool LN>
+__global__ void __launch_bounds__(F32Rows<C>::kThreads, 1)
+mlp_f32_persistent_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, const float* __restrict__ w1t,
+                          const float* __restrict__ b1, const float* __restrict__ w2t,
+                          const float* __restrict__ b2, const float* __restrict__ ls2,
+                          float* __restrict__ out, long long M, int H, float eps) {
+  using S = F32Rows<C>;
+  extern __shared__ float4 smem4[];
+  float* aS = reinterpret_cast<float*>(smem4);
+  float* hS = aS + S::kOffH;
+  float* w1s = aS + S::kOffW1;
+  float* w2s = aS + S::kOffW2;
+  float* raw = aS + S::kOffRaw;
+  auto* bar = reinterpret_cast<unsigned long long*>(aS + S::kOffBar);  // rows, W1t, W2t
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // fc2: rows q + 16 i, channels 4p + 64 h + v. fc1: warps 4kh.. take the
+  // channel half kh, rows q1 + 16 i and hidden columns 4 p1 + v, 32 + 4 p1 + v
+  const int p = tid % S::CG, q = tid / S::CG;
+  const int kh = warp >> 2, p1 = tid % 8, q1 = (tid & 127) >> 3;
+  const long long tiles = (M + S::R - 1) / S::R;
+  const long long step = gridDim.x;
+  const int chunks = H / S::J;
+  long long t = blockIdx.x;
+
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) kasf_mma::mbar_init(bar + k);
+  }
+  __syncthreads();  // the barriers are initialised
+  if (tid == 0) {
+    fetch_rows_f32<C>(raw, x, t * S::R, M, bar);
+    fetch_chunk<C>(w1s, w1t, 0, bar + 1);
+  }
+  float4 gm = make_float4(0.f, 0.f, 0.f, 0.f), bt = gm;
+  if constexpr (LN) {
+    gm = ld4(gamma + 4 * (lane % S::L));
+    bt = ld4(beta + 4 * (lane % S::L));
+  }
+
+  unsigned n = 0;  // the block's chunks so far, over its tiles
+  for (unsigned parity = 0; t < tiles; t += step, parity ^= 1u) {
+    const long long row0 = t * S::R;
+    const bool next_tile = t + step < tiles;
+    kasf_mma::mbar_wait(bar, parity);  // the tile's rows have landed
+    stage_rows_f32<C, LN>(raw, aS, gm, bt, row0, M, eps, warp, lane);
+    float oacc[S::RT][4 * S::NH];
+#pragma unroll
+    for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+      for (int v = 0; v < 4 * S::NH; ++v) oacc[i][v] = 0.f;
+
+    for (int j = 0; j < chunks; ++j, ++n) {
+      const float4 bias = ld4(b1 + j * S::J + 32 * kh + 4 * p1);
+      kasf_mma::mbar_wait(bar + 1, n & 1);  // W1t(j) has landed
+      __syncthreads();  // aS staged; hS, W2t and the stage free
+      if (tid == 0) {
+        if (j == 0 && next_tile) fetch_rows_f32<C>(raw, x, row0 + step * S::R, M, bar);
+        fetch_chunk<C>(w2s, w2t, j, bar + 2);
+      }
+      float z[S::RT][8];
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) z[i][v] = 0.f;
+      row_product<C / 2, 2, 32, S::LdA, S::J>(aS + q1 * S::LdA + kh * (C / 2),
+                                              w1s + kh * (C / 2) * S::J + 4 * p1, z);
+      // each half hands the other the partial sums of the other's 32
+      // columns through hS, then finishes its own: z + b1, GELU, in place
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i)
+        st4(hS + (q1 + S::RS * i) * S::LdH + 32 * (1 - kh) + 4 * p1,
+            kh ? make_float4(z[i][0], z[i][1], z[i][2], z[i][3])
+               : make_float4(z[i][4], z[i][5], z[i][6], z[i][7]));
+      __syncthreads();  // the partial sums exchanged
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i) {
+        float* hp = hS + (q1 + S::RS * i) * S::LdH + 32 * kh + 4 * p1;
+        const float4 o = ld4(hp);
+        const float4 m = kh ? make_float4(z[i][4], z[i][5], z[i][6], z[i][7])
+                            : make_float4(z[i][0], z[i][1], z[i][2], z[i][3]);
+        st4(hp, make_float4(gelu_erf(m.x + o.x + bias.x), gelu_erf(m.y + o.y + bias.y),
+                            gelu_erf(m.z + o.z + bias.z), gelu_erf(m.w + o.w + bias.w)));
+      }
+      kasf_mma::mbar_wait(bar + 2, n & 1);  // W2t(j) has landed
+      __syncthreads();  // hS complete; W1t free
+      if (tid == 0 && (j + 1 < chunks || next_tile))
+        fetch_chunk<C>(w1s, w1t, j + 1 < chunks ? j + 1 : 0, bar + 1);
+      row_product<S::J, S::NH, 64, S::LdH, C>(hS + q * S::LdH, w2s + 4 * p, oacc);
+    }
+
+    // out + b2 (LN on: x + ls2 * (out + b2), x re-read), tail rows masked
+    float4 xr[S::RT][S::NH];
+    if constexpr (LN) {
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+        for (int h = 0; h < S::NH; ++h) {
+          const long long row = row0 + q + S::RS * i;
+          xr[i][h] = row < M ? ld4(x + row * C + 4 * p + 64 * h) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < S::NH; ++h) {
+      const int c = 4 * p + 64 * h;
+      const float4 bb = ld4(b2 + c);
+      float4 ls = bb;
+      if constexpr (LN) ls = ld4(ls2 + c);
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i) {
+        const long long row = row0 + q + S::RS * i;
+        if (row >= M) continue;
+        float4 y = make_float4(oacc[i][4 * h] + bb.x, oacc[i][4 * h + 1] + bb.y,
+                               oacc[i][4 * h + 2] + bb.z, oacc[i][4 * h + 3] + bb.w);
+        if constexpr (LN) {
+          const float4 xv = xr[i][h];
+          y = make_float4(xv.x + ls.x * y.x, xv.y + ls.y * y.y, xv.z + ls.z * y.z,
+                          xv.w + ls.w * y.w);
+        }
+        st4(out + row * C + c, y);
+      }
+    }
+  }
+}
+
 // ---- bfloat16 on the tensor cores
 using bf16 = __nv_bfloat16;
 
@@ -464,16 +817,6 @@ __device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
     const float2 f = *reinterpret_cast<const float2*>(p);
     v[0] = f.x; v[1] = f.y;
   }
-}
-
-// the sums over groups of L neighbouring lanes of N values at once: their
-// shuffles interleave
-template <int L, int N>
-__device__ __forceinline__ void group_sums(float (&v)[N]) {
-#pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
 }
 
 // fc1 over K = C for MW 16-row m-tiles and NT n8 tiles of hidden columns:
@@ -779,52 +1122,93 @@ mlp_bf16_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 
 constexpr int kMaxDevices = 64;
 
-// threads, rows and dynamic shared memory of a block of each instantiation
+// threads, rows and dynamic shared memory of a block of each instantiation;
+// f32 at C <= 128 runs persistent blocks (a grid of at most one wave)
+template <int C, bool kBf16>
+constexpr int rows_of() {
+  if constexpr (kBf16) return TcShape<C>::R;
+  else if constexpr (C <= 128) return F32Rows<C>::R;
+  else return F32Shape<C>::R;
+}
+template <int C, bool kBf16>
+constexpr size_t smem_of() {
+  if constexpr (kBf16) return TcShape<C>::kSmem;
+  else if constexpr (C <= 128) return F32Rows<C>::kSmem;
+  else return F32Shape<C>::kSmem;
+}
 template <int C, bool kBf16>
 struct Cfg {
+  static constexpr bool kPersistent = !kBf16 && C <= 128;
   static constexpr int kThreads = kBf16 ? TcShape<C>::kThreads : kThreadsF;
-  static constexpr int kRows = kBf16 ? TcShape<C>::R : F32Shape<C>::R;
-  static constexpr size_t kSmem = kBf16 ? TcShape<C>::kSmem : F32Shape<C>::kSmem;
+  static constexpr int kRows = rows_of<C, kBf16>();
+  static constexpr size_t kSmem = smem_of<C, kBf16>();
 };
 
 template <int C, bool LN, bool kBf16>
 auto kernel_of() {
   if constexpr (kBf16) {
     return &mlp_bf16_tc_kernel<C, LN>;
+  } else if constexpr (C <= 128) {
+    return &mlp_f32_persistent_kernel<C, LN>;
   } else {
     return &mlp_f32_kernel<C, LN>;
   }
 }
 
-// raise the instantiation's dynamic shared-memory limit, once per device
+// raise the instantiation's dynamic shared-memory limit and count the
+// blocks the device holds at once (SMs x blocks a SM), once per device
 template <int C, bool LN, bool kBf16>
-cudaError_t configure() {
-  static bool done[kMaxDevices];  // one array per instantiation
+cudaError_t configure(int* resident) {
+  using K = Cfg<C, kBf16>;
+  static int blocks[kMaxDevices];  // one array per instantiation; 0: not yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel_of<C, LN, kBf16>(),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Cfg<C, kBf16>::kSmem));
+  if (blocks[dev] == 0) {
+    const auto kernel = kernel_of<C, LN, kBf16>();
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(K::kSmem));
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::kThreads, K::kSmem);
     if (err != cudaSuccess) return err;
-    done[dev] = true;
+    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks[dev] = sms * per_sm;
   }
+  *resident = blocks[dev];
   return cudaSuccess;
+}
+
+// blocks of a launch over M rows: a tile each, or for persistent blocks at
+// most one wave of them, each walking its tiles
+template <int C, bool kBf16>
+long long grid_of(long long M, int resident) {
+  using K = Cfg<C, kBf16>;
+  const long long tiles = (M + K::kRows - 1) / K::kRows;
+  return K::kPersistent && tiles > resident ? resident : tiles;
 }
 
 template <int C, bool LN, bool kBf16>
 cudaError_t launch_tile(const void* x, const float* gamma, const float* beta,
                         const void* w1, const void* b1, const void* w2, const void* b2,
-                        const float* ls2, void* out, long long M, int H, float eps,
-                        cudaStream_t stream) {
+                        const float* ls2, void* out, float* work, long long M, int H,
+                        float eps, cudaStream_t stream) {
   using K = Cfg<C, kBf16>;
   using T = typename std::conditional<kBf16, bf16, float>::type;
-  cudaError_t err = configure<C, LN, kBf16>();
+  int resident = 0;
+  cudaError_t err = configure<C, LN, kBf16>(&resident);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((M + K::kRows - 1) / K::kRows);
+  const unsigned blocks = static_cast<unsigned>(grid_of<C, kBf16>(M, resident));
   const auto kernel = kernel_of<C, LN, kBf16>();
+  if constexpr (K::kPersistent) {  // the chunks come from the transposed copies
+    if (work == nullptr) return cudaErrorInvalidValue;
+    mlp_f32_stage_weights_kernel<<<H / 32 * (C / 32) * 2, 256, 0, stream>>>(
+        static_cast<const float*>(w1), static_cast<const float*>(w2), work, work + C * H, C, H);
+    w1 = work;
+    w2 = work + C * H;
+  }
   kernel<<<blocks, K::kThreads, K::kSmem, stream>>>(
       static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(b2),
@@ -832,26 +1216,34 @@ cudaError_t launch_tile(const void* x, const float* gamma, const float* beta,
   return cudaGetLastError();
 }
 
+// floats of workspace a launch needs: the transposed weights of the
+// persistent tile (f32 at C <= 128), else none
+inline long long workspace(int dtype, int C, int H) {
+  return dtype == 0 && (C == 64 || C == 128) ? 2LL * C * H : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, b1, w2, b2, out); gamma, beta and
 // ls2 are float32 (read only with LN on). All tensors contiguous and 16-byte
 // aligned; x and out are (M, C), w1 is (H, C), w2 is (C, H), with C in
-// {64, 128, 256, 512} and H a multiple of 64 up to 2048.
+// {64, 128, 256, 512} and H a multiple of 64 up to 2048; work holds
+// workspace(dtype, C, H) floats (null where that is 0).
 template <bool LN>
 cudaError_t launch(int dtype, const void* x, const void* gamma, const void* beta,
                    const void* w1, const void* b1, const void* w2, const void* b2,
-                   const void* ls2, void* out, long long M, int C, int H, float eps,
-                   void* stream) {
+                   const void* ls2, void* out, void* work, long long M, int C, int H,
+                   float eps, void* stream) {
   if (M < 1 || H < kChunkTc || H > 2048 || H % kChunkTc != 0) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   const float* ls = static_cast<const float*>(ls2);
-#define KASF_TILE_CASE(CC)                                                              \
-  case CC:                                                                              \
-    return dtype == 0                                                                   \
-               ? launch_tile<CC, LN, false>(x, g, be, w1, b1, w2, b2, ls, out, M, H, eps, s) \
-               : launch_tile<CC, LN, true>(x, g, be, w1, b1, w2, b2, ls, out, M, H, eps, s);
+  float* wk = static_cast<float*>(work);
+#define KASF_TILE_CASE(CC)                                                                 \
+  case CC:                                                                                 \
+    return dtype == 0                                                                      \
+               ? launch_tile<CC, LN, false>(x, g, be, w1, b1, w2, b2, ls, out, wk, M, H, eps, s) \
+               : launch_tile<CC, LN, true>(x, g, be, w1, b1, w2, b2, ls, out, wk, M, H, eps, s);
   switch (C) {
     KASF_TILE_CASE(64)
     KASF_TILE_CASE(128)
@@ -863,38 +1255,42 @@ cudaError_t launch(int dtype, const void* x, const void* gamma, const void* beta
 }
 
 template <int C, bool LN, bool kBf16>
-void describe(int* info) {
+void describe(long long M, int* info) {
   using K = Cfg<C, kBf16>;
   cudaFuncAttributes attr{};
-  int per_sm = 0;
-  if (configure<C, LN, kBf16>() != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, kernel_of<C, LN, kBf16>()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of<C, LN, kBf16>(),
-                                                    K::kThreads, K::kSmem) != cudaSuccess)
+  int resident = 0;
+  if (configure<C, LN, kBf16>(&resident) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel_of<C, LN, kBf16>()) != cudaSuccess)
+    return;
+  int sms = 0, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return;
   info[0] = K::kThreads;
   info[1] = K::kRows;
   info[2] = attr.numRegs;
   info[3] = static_cast<int>(K::kSmem);
   info[4] = static_cast<int>(attr.localSizeBytes);
-  info[5] = per_sm;
+  info[5] = resident / sms;
+  info[6] = static_cast<int>(grid_of<C, kBf16>(M, resident));
 }
 
 // The instantiation for (dtype, C) on the current device, for reports:
-// info = {threads a block, rows a block, registers a thread, dynamic shared
+// info = {threads a block, rows a tile, registers a thread, dynamic shared
 // memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM}. Left untouched for a width or dtype there is none of.
+// resident a SM, blocks of a launch over M rows}. Left untouched for a
+// width or dtype there is none of.
 template <bool LN>
-void describe_width(int dtype, int C, int* info) {
+void describe_width(int dtype, int C, long long M, int* info) {
   switch (dtype * 1000 + C) {
-    case 64: describe<64, LN, false>(info); break;
-    case 128: describe<128, LN, false>(info); break;
-    case 256: describe<256, LN, false>(info); break;
-    case 512: describe<512, LN, false>(info); break;
-    case 1064: describe<64, LN, true>(info); break;
-    case 1128: describe<128, LN, true>(info); break;
-    case 1256: describe<256, LN, true>(info); break;
-    case 1512: describe<512, LN, true>(info); break;
+    case 64: describe<64, LN, false>(M, info); break;
+    case 128: describe<128, LN, false>(M, info); break;
+    case 256: describe<256, LN, false>(M, info); break;
+    case 512: describe<512, LN, false>(M, info); break;
+    case 1064: describe<64, LN, true>(M, info); break;
+    case 1128: describe<128, LN, true>(M, info); break;
+    case 1256: describe<256, LN, true>(M, info); break;
+    case 1512: describe<512, LN, true>(M, info); break;
     default: break;
   }
 }

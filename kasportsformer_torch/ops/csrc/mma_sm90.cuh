@@ -1,6 +1,7 @@
 // Warp-level tensor-core and copy primitives for Hopper (sm_90a) kernels:
-// 16-byte cp.async copies into shared memory, ldmatrix fragment loads and
-// the m16n8k16 bf16 mma.sync with f32 accumulators.
+// 16-byte cp.async copies into shared memory, bulk copies on the TMA
+// engine completing on an mbarrier, ldmatrix fragment loads and the
+// m16n8k16 bf16 mma.sync with f32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row): a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k),
@@ -36,6 +37,40 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// An mbarrier in shared memory whose phase completes on one arrival (the
+// copying thread's) and the bytes that arrival announced
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// wait until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One thread: arrive on bar, announcing the bytes of the bulk copies that
+// complete its phase. The fence first orders the block's earlier accesses
+// to shared memory (made visible to this thread by a barrier) before them.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// bytes (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory by the TMA engine, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -20,10 +20,10 @@ GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
 up to 4.8e-4 away). K3 takes C in {64, 128, 256, 512} (the flagship's 128
 and the zoo's widths) and K4 the flagship's C = 128.
 
-K3's tile: a block takes R token rows, normalises them once into shared
-memory, and walks the hidden width in chunks of 64 columns, so the hidden
-never reaches device memory. Every block streams all of W1 and W2 from L2,
-so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
+K3's tile: a block takes tiles of R token rows, normalises each once into
+shared memory, and walks the hidden width in chunks of 64 columns, so the
+hidden never reaches device memory. Every tile streams all of W1 and W2
+from L2, so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 - bfloat16: `mma.sync` m16n8k16 with f32 accumulators; R = 128 at
   C <= 256 and 64 at C = 512. At C <= 128 four warps each own 32 rows and
   every output channel, and fc1's accumulators (16 hidden columns at a
@@ -34,10 +34,19 @@ so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
   of 16-byte `cp.async` copies, chunk j+1 in flight while chunk j is
   multiplied. L2 reads at M = 58,752: 30 MB at C/H 64/256, 120 MB at
   128/512, 481 MB at 256/1024, 1.93 GB at 512/1024.
-- float32 on the CUDA cores (`fmaf`, exact): R = 128 at C <= 128, 64 at
-  256, 32 at 512.
+- float32 on the CUDA cores (`fmaf`, exact). At C <= 128: persistent
+  blocks, at most one wave, walk 112-row tiles (whole waves at the main
+  path's M = 58,752 and 14,688). One thread brings the next tile's rows in
+  by a bulk copy while the tile is multiplied, and LayerNorm runs once a
+  tile from that stage. A first small kernel writes the weights transposed
+  into a workspace the wrapper allocates, so each 64-column chunk of W1 or
+  W2 arrives by one bulk copy, the next chunk (the next tile's first after
+  the last) in flight while one is multiplied; fc1 and fc2 run 7 x 8
+  register tiles, fc1 over two channel halves. At C = 256 and 512 a block
+  takes one tile of 64 or 32 rows.
 `fused_mlp_ln_kernel_info` reports each instantiation's tile, registers,
-shared memory and spills as the runtime sees them.
+shared memory and spills as the runtime sees them, and the blocks of a
+launch over m rows.
 
 K4 is three launches: a dx pass (112-row tiles, exact f32 on the CUDA cores
 from either dtype, the weights through a cp.async ring), a weight pass (one
@@ -197,6 +206,19 @@ def _operands(x, gamma, beta, w1, b1, w2, b2, ls2) -> tuple[torch.Tensor, ...]:
             _prep(w2, dt), _prep(b2, dt), _prep(ls2, torch.float32))
 
 
+def _workspace(lib: ctypes.CDLL, name: str, x: torch.Tensor,
+               hidden: int) -> torch.Tensor | None:
+    """The scratch a K3/K5 launch needs (the persistent float32 tile's
+    transposed weights), as the library sizes it; None where it needs
+    none."""
+    size = getattr(lib, f"kasf_{name}_workspace")
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        size.restype = ctypes.c_longlong
+    n = size(_DTYPE_CODE[x.dtype], x.shape[-1], hidden)
+    return torch.empty(n, dtype=torch.float32, device=x.device) if n else None
+
+
 def _launch(ops: tuple[torch.Tensor, ...], eps: float) -> torch.Tensor:
     """K3 on `_operands`; returns (M, C)."""
     xc = ops[0]
@@ -205,42 +227,49 @@ def _launch(ops: tuple[torch.Tensor, ...], eps: float) -> torch.Tensor:
     out = torch.empty_like(xc)
     if m == 0:
         return out
-    lib, fn = _fn("mlp_ln", 9, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_float, ctypes.c_void_p])
+    lib, fn = _fn("mlp_ln", 10, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_void_p])
+    work = _workspace(lib, "mlp_ln", xc, hidden)
     dev = xc.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(_DTYPE_CODE[xc.dtype], *(t.data_ptr() for t in ops),
-                  out.data_ptr(), m, c, hidden, float(eps), stream)
+                  out.data_ptr(), None if work is None else work.data_ptr(),
+                  m, c, hidden, float(eps), stream)
     _build.check(lib, code, "mlp_ln kernel launch")
     fused_mlp_ln.launches += 1
     return out
 
 
-def _kernel_info(name: str, dtype: torch.dtype, c: int) -> dict:
+def _kernel_info(name: str, dtype: torch.dtype, c: int, m: int) -> dict:
     lib = _build.library(name)
-    info = (ctypes.c_int * 6)(*([-1] * 6))
+    info = (ctypes.c_int * 7)(*([-1] * 7))
     fn = getattr(lib, f"kasf_{name}_info")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    fn(_DTYPE_CODE[dtype], c, info)
+    fn(_DTYPE_CODE[dtype], c, m, info)
     return dict(zip(("threads", "rows", "registers", "smem_bytes",
-                     "spill_bytes", "blocks_per_sm"), info))
+                     "spill_bytes", "blocks_per_sm", "grid"), info))
 
 
-def fused_mlp_ln_kernel_info(dtype: torch.dtype, c: int) -> dict:
+def fused_mlp_ln_kernel_info(dtype: torch.dtype, c: int,
+                             m: int = 58752) -> dict:
     """K3's instantiation for `dtype` and width `c` on the current CUDA
-    device, as the runtime reports it: threads and token rows a block,
-    registers a thread, dynamic shared memory a block, local memory (spills)
-    a thread in bytes, and blocks resident a SM. Builds the kernel if
-    needed; launches nothing."""
-    return _kernel_info("mlp_ln", dtype, c)
+    device, as the runtime reports it: threads a block and token rows a
+    tile, registers a thread, dynamic shared memory a block, local memory
+    (spills) a thread in bytes, blocks resident a SM, and `grid`, the blocks
+    of a launch over `m` rows (a tile each, or, for the persistent float32
+    tile at C <= 128, at most one wave of blocks, each walking tiles
+    blockIdx, + grid, ...). Builds the kernel if needed; launches
+    nothing."""
+    return _kernel_info("mlp_ln", dtype, c, m)
 
 
-def fused_mlp_kernel_info(dtype: torch.dtype, c: int) -> dict:
+def fused_mlp_kernel_info(dtype: torch.dtype, c: int, m: int = 58752) -> dict:
     """K5's instantiation, reported as `fused_mlp_ln_kernel_info` reports
     K3's."""
-    return _kernel_info("mlp", dtype, c)
+    return _kernel_info("mlp", dtype, c, m)
 
 
 _BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
@@ -376,13 +405,15 @@ def _launch_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     out = torch.empty_like(x)
     if m == 0:
         return out
-    lib, fn = _fn("mlp", 6, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    lib, fn = _fn("mlp", 7, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p])
+    work = _workspace(lib, "mlp", x, w1.shape[0])
     dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(_DTYPE_CODE[x.dtype], *(t.data_ptr() for t in (x, w1, b1, w2, b2)),
-                  out.data_ptr(), m, c, w1.shape[0], stream)
+                  out.data_ptr(), None if work is None else work.data_ptr(),
+                  m, c, w1.shape[0], stream)
     _build.check(lib, code, "mlp kernel launch")
     fused_mlp.launches += 1
     return out

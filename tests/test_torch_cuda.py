@@ -282,13 +282,56 @@ def test_fused_mlp_kernels_tile_edges(cuda, dtype, c, rows, kernel):
     assert torch.isfinite(got).all() and _scaled_err(got, want) <= TOL[name][dtype]
 
 
+def _walk_rows(info, dtype, c: int, walk: str) -> int:
+    """M for a walk of K3's or K5's tiles, from the tile and blocks a SM the
+    library reports: "three tiles a block" is three waves of tiles less half
+    a tile (a persistent block walks exactly three, the last of them
+    ragged), "a wave and a row" one wave of full tiles and a tile of one
+    row (a persistent block walks it second). Checks the reported grid:
+    persistent blocks (float32 at C <= 128) are at most one wave, the other
+    tiles a block each."""
+    r = info(dtype, c)["rows"]
+    wave = (torch.cuda.get_device_properties(0).multi_processor_count
+            * info(dtype, c)["blocks_per_sm"])
+    m = 3 * wave * r - r // 2 if walk == "three tiles a block" else wave * r + 1
+    tiles = -(-m // r)
+    persistent = dtype == torch.float32 and c <= 128
+    assert info(dtype, c, m)["grid"] == (min(tiles, wave) if persistent else tiles)
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("walk", ["three tiles a block", "a wave and a row"])
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_fused_mlp_kernels_walk_the_tiles(cuda, dtype, c, walk, kernel):
+    """Persistent blocks that walk several tiles (the raw stage refilled,
+    the weight ring carried from one tile into the next, the last tile
+    ragged or one row): every row right."""
+    info = fused_mlp_ln_kernel_info if kernel == "K3" else fused_mlp_kernel_info
+    m = _walk_rows(info, dtype, c, walk)
+    args = _mlp_args(cuda, m, dtype, c, _HIDDEN[c])
+    if kernel == "K3":
+        got = fused_mlp_ln(*args, 1e-5)
+        want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
+    else:
+        x, _, _, w1, b1, w2, b2, _ = args
+        got = fused_mlp(x, w1, b1, w2, b2)
+        want = fused_mlp_reference(*(a.float() for a in (x, w1, b1, w2, b2)))
+    name = "fused_mlp_ln" if kernel == "K3" else "fused_mlp"
+    assert got.shape == (m, c)
+    assert torch.isfinite(got).all() and _scaled_err(got, want) <= TOL[name][dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [64, 128, 256, 512])
 @pytest.mark.parametrize("hidden", [64, 2048])
 def test_fused_mlp_ln_kernel_hidden_extremes(cuda, dtype, c, hidden):
     """One hidden chunk, and the most the launcher takes (32 chunks: the
-    ring wraps many times)."""
-    args = _mlp_args(cuda, 1377, dtype, c, hidden)
+    ring wraps many times), where every persistent block walks three
+    tiles."""
+    m = _walk_rows(fused_mlp_ln_kernel_info, dtype, c, "three tiles a block")
+    args = _mlp_args(cuda, m, dtype, c, hidden)
     got = fused_mlp_ln(*args, 1e-5)
     want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
     assert (torch.isfinite(got).all()

@@ -3,6 +3,7 @@
 tests/test_serving.py (health, round trip, 400/404, world space,
 concurrency), on the CPU."""
 
+import contextlib
 import http.client
 import json
 import os
@@ -17,7 +18,9 @@ import torch
 
 from kasportsformer_tpu.serving import LiftService as JaxLiftService
 from kasportsformer_torch.cli import build_parser
+from kasportsformer_torch.cli import main as cli_main
 from kasportsformer_torch.serving import LiftService, serve
+from kasportsformer_torch.train.checkpoint import save_native
 from torch_parity import SMALL, jax_flagship, torch_flagship
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,17 +154,13 @@ def test_service_defaults_to_cuda(port_model):
         LiftService(port_model)
 
 
-def test_cli_serve_end_to_end(port_model, tmp_path):
-    """`python -m kasportsformer_torch serve` on the CPU with a reference-style
-    `.pth` ({'model': ...}, 'module.' prefix) and a YAML config."""
-    cfg = tmp_path / "small.yaml"
-    cfg.write_text("n_layers: 3\ndim_feat: 32\nnum_heads: 4\ndim_rep: 64\n")
-    ckpt = tmp_path / "small.pth"
-    torch.save({"model": {f"module.{k}": v
-                          for k, v in port_model.state_dict().items()}}, ckpt)
+@contextlib.contextmanager
+def _cli_server(cfg, checkpoint):
+    """`python -m kasportsformer_torch serve` on the CPU at batch 2; yields
+    its port once it prints its address, and stops it after."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "kasportsformer_torch", "serve",
-         "--config-path", str(cfg), "--checkpoint", str(ckpt),
+         "--config-path", str(cfg), "--checkpoint", str(checkpoint),
          "--device", "cpu", "--port", "0", "--batch-size", "2"],
         cwd=REPO, stderr=subprocess.PIPE, text=True)
     try:
@@ -171,21 +170,73 @@ def test_cli_serve_end_to_end(port_model, tmp_path):
             assert ready, "server did not start"
             line = proc.stderr.readline()
             assert line, "server exited"
-        port = int(line.split(":")[-1].split()[0])
+        yield int(line.split(":")[-1].split()[0])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+_SMALL_YAML = "n_layers: 3\ndim_feat: 32\nnum_heads: 4\ndim_rep: 64\n"
+
+
+def _lift(port, kpts):
+    status, data = _request(port, "POST", "/lift", {
+        "keypoints": kpts.tolist(), "width": 1280, "height": 720})
+    assert status == 200
+    return np.asarray(data["poses"])
+
+
+def test_cli_serve_end_to_end(port_model, tmp_path):
+    """`python -m kasportsformer_torch serve` on the CPU with a reference-style
+    `.pth` ({'model': ...}, 'module.' prefix) and a YAML config."""
+    cfg = tmp_path / "small.yaml"
+    cfg.write_text(_SMALL_YAML)
+    ckpt = tmp_path / "small.pth"
+    torch.save({"model": {f"module.{k}": v
+                          for k, v in port_model.state_dict().items()}}, ckpt)
+    with _cli_server(cfg, ckpt) as port:
         status, data = _request(port, "GET", "/healthz")
         assert status == 200
         assert data["params"] == port_model.parameter_count()
         kpts = RNG.uniform(0, 1000, (27, 17, 2)).astype(np.float32)
-        status, data = _request(port, "POST", "/lift", {
-            "keypoints": kpts.tolist(), "width": 1280, "height": 720})
-        assert status == 200
         want = LiftService(port_model, batch_size=2, device="cpu").lift_sequence(
             kpts, 1280, 720)
-        np.testing.assert_allclose(np.asarray(data["poses"]), want,
-                                   atol=1e-6, rtol=1e-6)
-    finally:
-        proc.terminate()
-        proc.wait(timeout=30)
+        np.testing.assert_allclose(_lift(port, kpts), want, atol=1e-6, rtol=1e-6)
+
+
+def test_cli_serve_native_checkpoint(port_model, tmp_path):
+    """`serve` on a native checkpoint directory as the port's trainer writes
+    it (`save_native`: <dir>/step_0/{model,optimizer}.pth) answers /lift
+    with the poses of `serve` on a `.pth` of the same weights."""
+    cfg = tmp_path / "small.yaml"
+    cfg.write_text(_SMALL_YAML)
+    state = port_model.state_dict()
+    torch.save({"model": state}, tmp_path / "small.pth")
+    native = tmp_path / "small_best"
+    save_native(str(native), 0, {"model": state, "optimizer": {"state": {}}})
+    kpts = RNG.uniform(0, 1000, (27, 17, 2)).astype(np.float32)
+    with _cli_server(cfg, tmp_path / "small.pth") as port:
+        want = _lift(port, kpts)
+    with _cli_server(cfg, native) as port:
+        status, data = _request(port, "GET", "/healthz")
+        assert status == 200 and data["params"] == port_model.parameter_count()
+        got = _lift(port, kpts)
+    assert got.shape == (27, 17, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["missing.pth", "weights.npz"])
+def test_cli_serve_refuses_what_is_no_checkpoint(tmp_path, name):
+    """A path that is neither an existing `.pth` nor a directory (a missing
+    file, a file of another kind) fails before anything is served."""
+    cfg = tmp_path / "small.yaml"
+    cfg.write_text(_SMALL_YAML)
+    path = tmp_path / name
+    if name.endswith(".npz"):
+        path.write_bytes(b"not a checkpoint")
+    with pytest.raises(FileNotFoundError, match=name):
+        cli_main(["serve", "--config-path", str(cfg), "--checkpoint",
+                  str(path), "--device", "cpu"])
 
 
 def test_cli_serve_arguments():
