@@ -18,7 +18,8 @@ Phases (any failure exits non-zero and prints no result line):
      to --out (also in 3d).
   3. K3 fused_mlp_ln against its plain version at M = 58,752 (serving),
      14,688 (the train step) and 1,377, each row with its tile (rows a tile,
-     tiles, blocks, waves, L2 weight reads a launch) and share of the bound;
+     blocks a tile, tiles, blocks, waves, registers, shared memory, L2
+     weight reads a launch) and share of the bound;
      K3's and K5's registers, shared memory and spills an instantiation to
      --out (also in 3d); a spill fails the phase.
      In phases 2 and 3 the plain version runs in float32 on the kernel's
@@ -51,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
      float64 forward, graph_only, layer by layer within 1e-3 of each layer's
      largest entry instead; the
      bf16 forward held as in phase 4), its K1/K3 launches per forward, and
-     128-clip forward times.
+     128-clip forward times; a profiler breakdown of MixSTE's and
+     DSTFormer's f32 128-clip forward (device time, K3's and K1's group).
   5c. serving MixSTE, the zoo's main path: serve() on cuda answers /healthz
      and a 405-frame /lift, against the CPU; launches read around it.
   6. K2 masked_sdpa_bwd against its plain version at the train shapes
@@ -240,28 +242,28 @@ def write_k1_report(out_dir: str) -> None:
 
 
 def k3_tile_line(dt, m: int, c: int, h: int, ms: float, bms: float) -> str:
-    """A K3 row's tiles (rows a tile), grid (blocks of the launch: a tile
-    each, or a persistent block walking several), waves (tiles over the
-    blocks the card holds at once), the weight bytes its tiles read from L2
-    in a launch (every tile streams all of W1 and W2) and its share of the
-    bound."""
+    """A K3 row's tile (rows a tile, blocks a tile: a cluster of two in
+    float32 at C >= 256), tiles, grid (blocks of the launch: a tile a block,
+    or persistent blocks or clusters walking several), waves (tiles over the
+    tiles the card takes at once), registers, shared memory a block, the
+    weight bytes its tiles read from L2 in a launch (every tile streams all
+    of W1 and W2) and its share of the bound."""
     import torch
 
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_kernel_info
 
-    try:
-        info = fused_mlp_ln_kernel_info(dt, c, m)
-    except TypeError:  # a library that reports no grid: a block a tile
-        info = fused_mlp_ln_kernel_info(dt, c)
-        info["grid"] = -(-m // info["rows"])
-    rows = info["rows"]
+    info = fused_mlp_ln_kernel_info(dt, c, m)
+    rows, cluster = info["rows"], info.get("cluster", 1)
     tiles = -(-m // rows)
-    resident = (torch.cuda.get_device_properties(0).multi_processor_count
-                * info["blocks_per_sm"])
+    resident = info.get("resident", -1)
+    if resident < 0:  # a library that reports no clusters: blocks a SM
+        resident = (torch.cuda.get_device_properties(0).multi_processor_count
+                    * info["blocks_per_sm"])
     l2 = tiles * 2 * c * h * dt.itemsize
-    return (f"tile {rows} rows: {tiles} tiles on {info['grid']} blocks, "
-            f"{tiles / resident:.2f} waves, L2 weight reads {l2 / 1e6:.1f} MB; "
-            f"share of bound {bms / ms:.1%}")
+    return (f"tile {rows} rows, cluster {cluster}: {tiles} tiles on "
+            f"{info['grid']} blocks, {tiles / (resident // cluster):.2f} waves, "
+            f"{info['registers']} registers, {info['smem_bytes']} B shared, "
+            f"L2 weight reads {l2 / 1e6:.1f} MB; share of bound {bms / ms:.1%}")
 
 
 def write_k3_report(out_dir: str) -> None:
@@ -916,10 +918,10 @@ def device_events(prof) -> list:
             and not ("#" in e.key and "(" not in e.key)]
 
 
-def profile(model, xb, dtype, out_dir: str) -> None:
+def profile(model, xb, dtype, out_dir: str, label: str = "") -> None:
     """Device time by kernel over one 128-clip forward in `dtype`, and the
     device's busy share of the wall time (torch.profiler; reported, never
-    fatal)."""
+    fatal). `label` names a model other than the flagship."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -942,12 +944,13 @@ def profile(model, xb, dtype, out_dir: str) -> None:
         lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
                  f"{e.key}" for e in events]
         launches = sum(e.count for e in events)
-        path = os.path.join(out_dir, f"chip_smoke_profile_{dname}.txt")
+        what = f"{label} {dname}" if label else dname
+        path = os.path.join(out_dir, f"chip_smoke_profile_{what.replace(' ', '_')}.txt")
         with open(path, "w") as f:
-            f.write(f"one 128-clip {dname} forward, wall {wall_us / 1e3:.3f} "
+            f.write(f"one 128-clip {what} forward, wall {wall_us / 1e3:.3f} "
                     f"ms, device busy {busy / 1e3:.3f} ms, {launches} device "
                     f"kernels\n" + "\n".join(lines))
-        log(f"   profile of one 128-clip {dname} forward: wall "
+        log(f"   profile of one 128-clip {what} forward: wall "
             f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
             f"({100 * busy / wall_us:.1f}%), {launches} device kernels; "
             + clock_text(clock))
@@ -960,7 +963,7 @@ def profile(model, xb, dtype, out_dir: str) -> None:
         for line in lines[:10]:
             log(f"     {line[:110]}")
     except Exception as e:  # measurement only: report, do not fail the run
-        log(f"   profile {dname}: not measured ({type(e).__name__}: {e})")
+        log(f"   profile {label} {dname}: not measured ({type(e).__name__}: {e})")
     finally:
         model.compute_dtype = torch.float32
 
@@ -1164,7 +1167,7 @@ def layerwise_deviation(model, cpu_model, x, adjacencies: list):
 
 
 @phase("phase 5b: zoo models on the card vs the CPU")
-def check_zoo_models(dev) -> dict:
+def check_zoo_models(dev, out_dir: str) -> dict:
     """Each model's card forward (kernels, f32) against its CPU forward
     (plain versions) on the same perturbed weights, within 1e-3, where
     rounding alone moves the output little: the CPU's own f32 forward within
@@ -1227,6 +1230,8 @@ def check_zoo_models(dev) -> dict:
             + f"; bf16 vs CPU f32: card {devb:.3e}, CPU "
             f"bf16 {devb_cpu:.3e} (limit 2x); 128-clip forward f32 "
             f"{times['float32']:.2f} ms, bf16 {times['bfloat16']:.2f} ms")
+        if name in ("MixSTE", "DSTFormer"):  # the f32 tile at C = 512, 256
+            profile(model, xb, torch.float32, out_dir, label=name)
         if d != ZOO_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches per forward {d}")
         if not torch.isfinite(got).all():
@@ -1852,7 +1857,7 @@ def main() -> int:
     if res is not None:
         launches = run("5", check_serving, dev, res["model"])
         del res
-    zoo = run("5b", check_zoo_models, dev)
+    zoo = run("5b", check_zoo_models, dev, args.out)
     zoo_launches = run("5c", check_zoo_serving, dev)
     k2 = run("6", check_k2, dev)
     k4 = run("7", check_k4, dev, args.out)

@@ -17,8 +17,9 @@
 // The kernels are the hidden-chunk tile of csrc/mlp_tile.cuh that K3 runs,
 // with LayerNorm and the residual switched off: the rows enter the tile as
 // they are, the hidden never reaches device memory, and the epilogue adds b2.
-// In f32 at C <= 128 a launch is two kernels (the weights transposed into
-// kasf_mlp_workspace floats of scratch, then the persistent tile).
+// In f32 a launch is two kernels (the weights transposed into
+// kasf_mlp_workspace floats of scratch, then the persistent tile: blocks at
+// C <= 128, clusters of two blocks at C = 256 and 512).
 #include "mlp_tile.cuh"
 
 extern "C" {
@@ -41,8 +42,9 @@ long long kasf_mlp_workspace(int dtype, int C, int H) {
 // The instantiation for (dtype, C) on the current device, for reports:
 // info = {threads a block, rows a tile, registers a thread, dynamic shared
 // memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM, blocks of a launch over M rows}. Left untouched for a
-// width or dtype there is none of.
+// a SM holds, blocks of a launch over M rows, blocks a cluster (a tile),
+// blocks the device holds at once}. Left untouched for a width or dtype
+// there is none of.
 void kasf_mlp_info(int dtype, int C, long long M, int* info) {
   kasf_tile::describe_width<false>(dtype, C, M, info);
 }

@@ -18,9 +18,11 @@
 // chunks through a cp.async ring, 128 rows a block, 64 at C = 512; f32 at
 // C <= 128: persistent blocks over 112-row tiles, rows and weight chunks by
 // bulk copies from a transposed copy of the weights written first, LN once
-// a tile, 7 x 8 register tiles; f32 at C >= 256: a tile of 64 or 32 rows a
-// block). An f32 launch at C <= 128 is two kernels and needs
-// kasf_mlp_ln_workspace floats of scratch.
+// a tile, 7 x 8 register tiles; f32 at C = 256 and 512: a thread-block
+// cluster of two blocks a tile, each over half the channels, LN's
+// statistics and fc1's partial sums exchanged through distributed shared
+// memory). An f32 launch is two kernels and needs kasf_mlp_ln_workspace
+// floats of scratch.
 #include "mlp_tile.cuh"
 
 extern "C" {
@@ -46,8 +48,9 @@ long long kasf_mlp_ln_workspace(int dtype, int C, int H) {
 // The instantiation for (dtype, C) on the current device, for reports:
 // info = {threads a block, rows a tile, registers a thread, dynamic shared
 // memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM, blocks of a launch over M rows}. Left untouched for a
-// width or dtype there is none of.
+// a SM holds, blocks of a launch over M rows, blocks a cluster (a tile),
+// blocks the device holds at once}. Left untouched for a width or dtype
+// there is none of.
 void kasf_mlp_ln_info(int dtype, int C, long long M, int* info) {
   kasf_tile::describe_width<true>(dtype, C, M, info);
 }

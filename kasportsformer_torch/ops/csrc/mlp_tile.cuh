@@ -13,8 +13,9 @@
 // models use. In f32 that is the CUDA cores' 67 TFLOP/s; in bf16 the tensor
 // cores' 989 TFLOP/s.
 //
-// Design. A block takes tiles of R rows; tail rows of a ragged M are masked
-// (loaded as zeros, never stored), so any M works. It loads a tile's rows
+// Design. A block (f32 at C >= 256: a cluster of two) takes tiles of R
+// rows; tail rows of a ragged M are masked (loaded as zeros, never
+// stored), so any M works. It loads a tile's rows
 // once (LN on: f32 statistics, rounded to the compute dtype as the plain
 // version does) into shared memory and keeps them there for the whole tile.
 // It then walks the hidden width in chunks of 64 columns: h = GELU(a W1c^T +
@@ -87,12 +88,64 @@
 //      H100 80GB HBM3 at 700 W): ~186k cycles, of which fc1 with GELU
 //      ~95k (exact GELU ~11k of them), fc2 ~75k, against 114.7k of FMA issue
 //      at the pipe's full rate.
-//    - C >= 256 (mlp_f32_kernel): 256 threads as TY x TX, each owning 4*RG
-//      rows (row groups of 4, 4*TY apart) and C/TX output channels; each
-//      weight chunk is copied with cp.async while the other product runs.
-//      R = 64 at 256, 32 at 512.
-//    L2 weight reads a launch at M = 58,752: 69 MB at 64/256, 275 MB at
-//    128/512, 1.93 GB at 256/1024, 7.7 GB at 512/1024.
+//    - C = 256 and 512 (mlp_f32_cluster_kernel): a thread-block cluster of
+//      two blocks takes a tile, block b the channels CS b .. CS b + CS - 1
+//      (CS = C/2): 112-row tiles of 128 channels a block at C = 256 (the
+//      C = 128 block's shape), 56-row tiles of 256 channels at C = 512. A
+//      block's rows x channels (14,336) are the C = 128 block's at both,
+//      so are aS, the 7 x 8 register tiles and the 56 accumulators of out.
+//      Clusters are persistent: at most as many as the card holds at once
+//      (cudaOccupancyMaxActiveClusters: 66 of two, every SM), each walking
+//      the tiles clusterid, + nclusterid, ...
+//      Why two blocks of C/2 at C = 512 and not four of 128: a first
+//      version used four 128-channel blocks of 112 rows; the card held
+//      only 30 clusters of four (120 SMs: a cluster lives in one GPC), 525
+//      tiles made 17.5 waves, a block sent 43 KB a chunk through DSMEM,
+//      and it ran 3.57-3.96 ms against 2.93 for this layout (same M, an
+//      H100 80GB HBM3 at 700 W): 1,050 tiles of 56 rows on 66 clusters
+//      make 15.9 waves on all 132 SMs, a block sends 14 KB a chunk.
+//      Rows: each block loads its slice of the tile straight from x (the
+//      previous tile prefetched the rows into L2 with cp.async.bulk.
+//      prefetch, a share a block). LN's statistics span the cluster: each
+//      block sums its slice of each row and stores the sums into both
+//      blocks' shared memory (DSMEM); after a cluster barrier each sums the
+//      two in rank order, so both get the same bits. The squared
+//      deviations from that mean go the same way (two exchanges, as the
+//      plain version forms the variance).
+//      fc1 is split over the channels: a block's partial sums of a chunk's
+//      64 columns over its CS channels, the lanes splitting those in groups
+//      of 64 (7 x 8 register tiles) and a fixed tree of shuffles summing
+//      the groups, go to the block that finishes their columns (32 a
+//      block), which adds the two partials in rank order, adds b1, applies
+//      exact GELU and stores the finished columns into both blocks' hS: a
+//      reduce-scatter and an all-gather, each an st.async store into the
+//      other block's shared memory that completes bytes on its mbarrier,
+//      so a block waits on its own mbarrier for its data and no cluster
+//      barrier or release fence sits in the chunk loop (cluster barriers
+//      there, the first design, cost ~1k cycles an arrive). fc1 of the next
+//      chunk runs while the hidden travels. fc2 then runs over the whole
+//      chunk into the block's own CS output channels, and the epilogue
+//      writes those channels. Exact GELU runs once per hidden value in the
+//      cluster, not once per block.
+//      Weights: the staging kernel writes W2 as [C/CS][H][CS], so a block's
+//      slice of a chunk of either transposed copy is one bulk copy (32 KB
+//      at C = 256, 64 KB at 512), one buffer each; the block barrier of
+//      chunk g (after which no thread reads W1t(g) or W2t(g - 1)) starts
+//      W1t(g + 1) and W2t(g), the last chunk of a tile the next tile's
+//      first.
+//      Shared memory a block: aS 60,928 B (rows of CS + 4 CS/64 floats),
+//      hS 112 or 56 rows of 68 floats, the partial sums' receive buffer
+//      (two slots of R x 32), W1t and W2t, the LN exchange: 187,424 B at
+//      C = 256, 222,496 at 512 (of 232,448; the C <= 128 tile's raw stage
+//      of rows does not fit beside them, hence the loads from L2).
+//      Sums run in a fixed order, without atomics: reruns are bitwise equal.
+//      A tile at M = 58,752 (scripts/k3_tile_stamps.py --c 512, the same
+//      card): ~371k cycles a block at 512/1024, of which fc1 ~163k, fc2
+//      ~158k, the exchanges and their waits ~25k, against 229k of FMA issue
+//      at the pipe's full rate.
+//    L2 weight reads a launch at M = 58,752 (each cluster reads the weights
+//    once a tile, each block its slice): 69 MB at 64/256, 275 MB at 128/512,
+//    1.10 GB at 256/1024, 4.40 GB at 512/1024 (56-row tiles).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,12 +166,6 @@ __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.0f + erff(z * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // the sums over groups of L neighbouring lanes of N values at once: their
 // shuffles interleave
 template <int L, int N>
@@ -127,234 +174,6 @@ __device__ __forceinline__ void group_sums(float (&v)[N]) {
   for (int off = L / 2; off > 0; off >>= 1)
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-}
-
-// LayerNorm of one row by one warp, f32 statistics: lane holds channels
-// lane + 32u in xv on entry and LN(x) * gamma + beta on exit
-template <int C>
-__device__ __forceinline__ void warp_layer_norm(float (&xv)[C / 32], int lane,
-                                                const float* __restrict__ gamma,
-                                                const float* __restrict__ beta,
-                                                float eps) {
-  float sum = 0.f;
-#pragma unroll
-  for (int u = 0; u < C / 32; ++u) sum += xv[u];
-  const float mean = warp_sum(sum) * (1.0f / C);
-  float sq = 0.f;
-#pragma unroll
-  for (int u = 0; u < C / 32; ++u) {
-    xv[u] -= mean;
-    sq += xv[u] * xv[u];
-  }
-  const float rstd = 1.0f / sqrtf(warp_sum(sq) * (1.0f / C) + eps);
-#pragma unroll
-  for (int u = 0; u < C / 32; ++u) {
-    const int c = lane + 32 * u;
-    xv[u] = xv[u] * rstd * gamma[c] + beta[c];
-  }
-}
-
-// ---- float32 on the CUDA cores, C >= 256
-
-template <int C> struct F32Tile;  // TY thread rows, RG row groups, KCH chunk
-template <> struct F32Tile<256> { static constexpr int TY = 16, RG = 1, KCH = 64; };
-template <> struct F32Tile<512> { static constexpr int TY = 8, RG = 1, KCH = 32; };
-
-constexpr int kThreadsF = 256;
-
-template <int C>
-struct F32Shape {
-  static constexpr int TY = F32Tile<C>::TY, RG = F32Tile<C>::RG, KCH = F32Tile<C>::KCH;
-  static constexpr int TX = kThreadsF / TY;
-  static constexpr int R = 4 * TY * RG;  // rows a block
-  static constexpr int RT = 4 * RG;      // rows a thread
-  static constexpr int JJ = KCH / TX;    // fc1 hidden columns a thread
-  static constexpr int U = C / TX;       // fc2 output channels a thread
-  static constexpr int LdT = R + 4;      // aT, hT row stride (floats)
-  static constexpr int LdW1 = C + 4;     // w1s row stride: W1 chunk rows as in memory
-  static constexpr int LdW2 = KCH + 4;   // w2s row stride: W2 rows, chunk columns
-  static constexpr size_t kSmem =
-      sizeof(float) * (C * LdT +      // aT: the rows' inputs^T, C x rows
-                       KCH * LdW1 +   // w1s: W1[j0:j0+KCH, :]
-                       KCH * LdT +    // hT: hidden tile^T, chunk x rows
-                       C * LdW2);     // w2s: W2[:, j0:j0+KCH]
-};
-
-// Start copying W1 rows j0..j0+KCH-1 (all C channels) into w1s; one group.
-template <int C>
-__device__ __forceinline__ void fetch_w1(float* w1s, const float* __restrict__ w1,
-                                         int j0, int H, int tid) {
-  using S = F32Shape<C>;
-  if (j0 < H) {
-#pragma unroll
-    for (int i = 0; i < S::KCH * C / 4 / kThreadsF; ++i) {
-      const int e = tid + i * kThreadsF;
-      const int j = e / (C / 4), c4 = e % (C / 4);
-      cp_async16(w1s + j * S::LdW1 + c4 * 4,
-                 w1 + static_cast<long long>(j0 + j) * C + c4 * 4);
-    }
-  }
-  cp_async_commit();  // an empty group past the last chunk keeps the count
-}
-
-// Start copying W2[:, j0:j0+KCH] (all C rows) into w2s; one group.
-template <int C>
-__device__ __forceinline__ void fetch_w2(float* w2s, const float* __restrict__ w2,
-                                         int j0, int H, int tid) {
-  using S = F32Shape<C>;
-  if (j0 < H) {
-#pragma unroll
-    for (int i = 0; i < C * S::KCH / 4 / kThreadsF; ++i) {
-      const int e = tid + i * kThreadsF;
-      const int c = e / (S::KCH / 4), j4 = e % (S::KCH / 4);
-      cp_async16(w2s + c * S::LdW2 + j4 * 4,
-                 w2 + static_cast<long long>(c) * H + j0 + j4 * 4);
-    }
-  }
-  cp_async_commit();
-}
-
-__device__ __forceinline__ float lane4(const float4& w, int u) {
-  return u == 0 ? w.x : u == 1 ? w.y : u == 2 ? w.z : w.w;
-}
-
-// Thread (ty, tx) owns rows g*4*TY + ty*4 + {0..3} (g < RG) of the tile,
-// hidden columns tx + TX*{0..JJ-1} in fc1 and channels tx + TX*{0..U-1} in
-// fc2. The weight chunks sit in shared memory as they lie in device memory,
-// copied with cp.async while the other product runs: W1's chunk loads during
-// fc2, W2's during fc1.
-template <int C, bool LN>
-__global__ void __launch_bounds__(kThreadsF)
-mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ ls2,
-               float* __restrict__ out, long long M, int H, float eps) {
-  using S = F32Shape<C>;
-  constexpr int TY = S::TY, TX = S::TX, RT = S::RT, RG = S::RG;
-  extern __shared__ float4 smem4[];
-  float* aT = reinterpret_cast<float*>(smem4);
-  float* w1s = aT + C * S::LdT;
-  float* hT = w1s + S::KCH * S::LdW1;
-  float* w2s = hT + S::KCH * S::LdT;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long row0 = static_cast<long long>(blockIdx.x) * S::R;
-
-  fetch_w1<C>(w1s, w1, 0, H, tid);
-  fetch_w2<C>(w2s, w2, 0, H, tid);
-
-  // ---- the rows' inputs (LN on: normalised), transposed: warp w takes
-  // rows w, w+8, ...
-  for (int r = warp; r < S::R; r += kThreadsF / 32) {
-    const long long row = row0 + r;
-    float xv[C / 32];
-#pragma unroll
-    for (int u = 0; u < C / 32; ++u)
-      xv[u] = row < M ? x[row * C + lane + 32 * u] : 0.f;
-    if constexpr (LN) warp_layer_norm<C>(xv, lane, gamma, beta, eps);
-#pragma unroll
-    for (int u = 0; u < C / 32; ++u) aT[(lane + 32 * u) * S::LdT + r] = xv[u];
-  }
-
-  const int ty = tid / TX;
-  const int tx = tid % TX;
-  float acc2[RT][S::U];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < S::U; ++c) acc2[r][c] = 0.f;
-
-  for (int j0 = 0; j0 < H; j0 += S::KCH) {
-    kasf_mma::cp_async_wait<1>();  // W1's chunk has landed (W2's may not)
-    __syncthreads();
-
-    // fc1: h = a W1c^T, four channels of W1 a step
-    float acc[RT][S::JJ];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int jj = 0; jj < S::JJ; ++jj) acc[r][jj] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < C; c += 4) {
-      float4 w[S::JJ];
-#pragma unroll
-      for (int jj = 0; jj < S::JJ; ++jj)
-        w[jj] = *reinterpret_cast<const float4*>(w1s + (tx + TX * jj) * S::LdW1 + c);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float av[RT];
-#pragma unroll
-        for (int g = 0; g < RG; ++g) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              aT + (c + u) * S::LdT + g * 4 * TY + ty * 4);
-          av[4 * g] = a.x; av[4 * g + 1] = a.y; av[4 * g + 2] = a.z; av[4 * g + 3] = a.w;
-        }
-#pragma unroll
-        for (int jj = 0; jj < S::JJ; ++jj) {
-          const float wv = lane4(w[jj], u);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) acc[r][jj] = fmaf(av[r], wv, acc[r][jj]);
-        }
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < S::JJ; ++jj) {
-      const int j = tx + TX * jj;
-      const float bias = b1[j0 + j];
-#pragma unroll
-      for (int g = 0; g < RG; ++g)
-        *reinterpret_cast<float4*>(hT + j * S::LdT + g * 4 * TY + ty * 4) = make_float4(
-            gelu_erf(acc[4 * g][jj] + bias), gelu_erf(acc[4 * g + 1][jj] + bias),
-            gelu_erf(acc[4 * g + 2][jj] + bias), gelu_erf(acc[4 * g + 3][jj] + bias));
-    }
-    __syncthreads();  // hT complete; w1s free
-    fetch_w1<C>(w1s, w1, j0 + S::KCH, H, tid);
-    kasf_mma::cp_async_wait<1>();  // W2's chunk has landed
-    __syncthreads();
-
-    // fc2: out += h W2c^T, four hidden columns a step
-#pragma unroll 2
-    for (int j = 0; j < S::KCH; j += 4) {
-      float4 w[S::U];
-#pragma unroll
-      for (int u = 0; u < S::U; ++u)
-        w[u] = *reinterpret_cast<const float4*>(w2s + (tx + TX * u) * S::LdW2 + j);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        float hv[RT];
-#pragma unroll
-        for (int g = 0; g < RG; ++g) {
-          const float4 h = *reinterpret_cast<const float4*>(
-              hT + (j + v) * S::LdT + g * 4 * TY + ty * 4);
-          hv[4 * g] = h.x; hv[4 * g + 1] = h.y; hv[4 * g + 2] = h.z; hv[4 * g + 3] = h.w;
-        }
-#pragma unroll
-        for (int u = 0; u < S::U; ++u) {
-          const float wv = lane4(w[u], v);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) acc2[r][u] = fmaf(hv[r], wv, acc2[r][u]);
-        }
-      }
-    }
-    __syncthreads();  // w2s and hT free
-    fetch_w2<C>(w2s, w2, j0 + S::KCH, H, tid);
-  }
-
-  // ---- epilogue: out + b2 (LN on: x + ls2 * (out + b2)), tail rows masked
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const long long row = row0 + (r >> 2) * 4 * TY + ty * 4 + (r & 3);
-    if (row >= M) continue;
-#pragma unroll
-    for (int u = 0; u < S::U; ++u) {
-      const int c = tx + TX * u;
-      const float y = acc2[r][u] + b2[c];
-      out[row * C + c] = LN ? x[row * C + c] + ls2[c] * y : y;
-    }
-  }
 }
 
 // ---- float32 on the CUDA cores, C <= 128: persistent row tiles
@@ -391,6 +210,9 @@ struct F32Rows {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
+__device__ __forceinline__ float lane4(const float4& w, int u) {
+  return u == 0 ? w.x : u == 1 ? w.y : u == 2 ? w.z : w.w;
+}
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
@@ -408,12 +230,16 @@ __device__ __forceinline__ void fetch_rows_f32(float* raw, const float* __restri
 
 // The transposed weights a launch reads its chunks from, written once a
 // launch into the workspace: w1t [H/64][C][64] (each hidden chunk's W1
-// transposed) and w2t (H, C) = W2^T, so each chunk of each matrix is one
-// contiguous run of C * 64 floats. A block a 32 x 32 tile, through shared
-// memory (both its reads and its writes in 128-byte rows).
+// transposed) and w2t [C/S][H][S] (W2^T, cut into slices of S = slice
+// channels, the channels a block multiplies: C at C <= 128, where the one
+// slice is (H, C) = W2^T, and C/2 at 256 and 512), so the chunk of either
+// matrix that a block multiplies is one contiguous run of S * 64 floats. A
+// block a 32 x 32 tile, through shared memory (both its reads and its
+// writes in 128-byte rows).
 __global__ void __launch_bounds__(256)
 mlp_f32_stage_weights_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
-                             float* __restrict__ w1t, float* __restrict__ w2t, int C, int H) {
+                             float* __restrict__ w1t, float* __restrict__ w2t, int C, int H,
+                             int slice) {
   __shared__ float tile[32][33];
   const int tiles1 = H / 32 * (C / 32);  // W1's tiles, then W2's
   int b = blockIdx.x;
@@ -426,13 +252,14 @@ mlp_f32_stage_weights_kernel(const float* __restrict__ w1, const float* __restri
     dst = w1t + static_cast<long long>(jt / 2) * C * 64 + ct * 32 * 64 + jt % 2 * 32;
     ld_src = C;
     ld_dst = 64;
-  } else {  // W2 rows c.., hidden columns j..: to w2t[j][c]
+  } else {  // W2 rows c.., hidden columns j..: to w2t[c / S][j][c % S]
     b -= tiles1;
     const int ct = b / (H / 32), jt = b % (H / 32);
     src = w2 + static_cast<long long>(ct) * 32 * H + jt * 32;
-    dst = w2t + static_cast<long long>(jt) * 32 * C + ct * 32;
+    dst = w2t + static_cast<long long>(ct * 32 / slice) * H * slice +
+          static_cast<long long>(jt) * 32 * slice + ct * 32 % slice;
     ld_src = H;
-    ld_dst = C;
+    ld_dst = slice;
   }
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
 #pragma unroll
@@ -495,14 +322,14 @@ __device__ __forceinline__ void stage_rows_f32(const float* raw, float* aS, floa
   for (int i = 0; i < kPass; ++i) st4(aS + (r0 + i * P) * S::LdA + ch, xv[i]);
 }
 
-// acc[i][4h + v] += sum_{k < K} X[16 i][k] W[k][G h + v]: X is the thread's
-// first row (row-major, stride LdX), W its first column (k-major, stride
-// LdW). A step of four k reads RT X and 4 NH W float4s for 16 RT NH FMAs; a
+// acc[i][4h + v] += sum_{k < K} X[RS i][k] W[k][G h + v]: X is the thread's
+// first row (row-major, stride LdX; its rows RS apart), W its first column
+// (k-major, stride LdW). A step of four k reads RT X and 4 NH W float4s for 16 RT NH FMAs; a
 // warp's X loads touch 2 or 4 rows and its W loads 8 or 16 neighbouring
 // float4s of a row, so no load has a bank conflict. fc1 (X = aS, W = W1t,
 // over half the channels) and fc2 (X = hS, W = W2t) both run it; every sum
 // runs over k in order.
-template <int K, int NH, int G, int LdX, int LdW, int RT>
+template <int K, int NH, int G, int LdX, int LdW, int RT, int RS = 16>
 __device__ __forceinline__ void row_product(const float* X, const float* W,
                                             float (&acc)[RT][4 * NH]) {
 #pragma unroll 2
@@ -514,7 +341,7 @@ __device__ __forceinline__ void row_product(const float* X, const float* W,
       for (int h = 0; h < NH; ++h) w[u][h] = ld4(W + (k + u) * LdW + G * h);
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const float4 d = ld4(X + i * 16 * LdX + k);
+      const float4 d = ld4(X + i * RS * LdX + k);
 #pragma unroll
       for (int h = 0; h < NH; ++h)
 #pragma unroll
@@ -655,6 +482,470 @@ mlp_f32_persistent_kernel(const float* __restrict__ x, const float* __restrict__
                                oacc[i][4 * h + 2] + bb.z, oacc[i][4 * h + 3] + bb.w);
         if constexpr (LN) {
           const float4 xv = xr[i][h];
+          y = make_float4(xv.x + ls.x * y.x, xv.y + ls.y * y.y, xv.z + ls.z * y.z,
+                          xv.w + ls.w * y.w);
+        }
+        st4(out + row * C + c, y);
+      }
+    }
+  }
+}
+
+// ---- float32 on the CUDA cores, C = 256 and 512: a cluster of two blocks a
+// tile, each over half the channels
+
+template <int C>
+struct F32Cluster {
+  static constexpr int NB = 2;                   // blocks a cluster; block b holds
+  static constexpr int CS = C / NB;              // channels CS b .. CS b + CS - 1
+  static constexpr int R = 14336 / CS;           // rows a tile: 112 at C = 256, 56 at 512
+  static constexpr int J = 64;                   // hidden columns a chunk
+  static constexpr int kThreads = 256;
+  static constexpr int RT = 7;                   // rows a thread
+  static constexpr int RS = R / RT;              // row sets: set q holds rows q + RS i
+  static constexpr int CG = CS / 8;              // fc2: column groups, channels 4p + CS/2 h + v
+  static constexpr int KS = CS / 64;             // fc1: channel groups of 64 (lanes split K)
+  static constexpr int LPK = 32 / KS;            // ... lanes a group in a warp
+  static constexpr int FW = 8 / KS;              // fc1's columns a thread finishes
+  static constexpr int W = J / NB;               // a chunk's columns block b finishes: W b..
+  static constexpr int NV = CS / 128;            // LN: float4s of a row a lane
+  // aS rows: the slice of LN(x) * gamma + beta, each group of 64 channels 68
+  // floats on from the last, so fc1's channel groups read distinct banks
+  static constexpr int LdA = CS + 4 * KS;
+  static constexpr int LdH = J + 4;              // hS rows: GELU(z) of the chunk, all columns
+  static constexpr int LdR = W;                  // recv rows: fc1's partial sums of W columns
+  // floats: aS | hS | recv [NB][R][LdR] (slot s: block s's partial sums) |
+  // W1t [CS][J] | W2t [J][CS] | stats [2][NB][R] (the rows' sums, then their
+  // squared deviations, slot s from block s) | mbarriers
+  static constexpr int kOffH = R * LdA;
+  static constexpr int kOffRecv = kOffH + R * LdH;
+  static constexpr int kOffW1 = kOffRecv + NB * R * LdR;
+  static constexpr int kOffW2 = kOffW1 + CS * J;
+  static constexpr int kOffStats = kOffW2 + J * CS;
+  static constexpr int kOffBar = kOffStats + 2 * NB * R;
+  static constexpr unsigned kChunkBytes = sizeof(float) * CS * J;  // a block's slice of a chunk
+  // bytes a chunk's exchanges bring in: into recv from the other block (a
+  // block writes its own slot itself), into hS from both
+  static constexpr unsigned kRecvBytes = sizeof(float) * (NB - 1) * R * W;
+  static constexpr unsigned kHsBytes = sizeof(float) * R * J;
+  // mbarriers: W1t's, W2t's, recv's, hS's
+  static constexpr int kBars = 4;
+  static constexpr size_t kSmem = sizeof(float) * kOffBar + kBars * sizeof(unsigned long long);
+  static constexpr int kRowsW = R / (kThreads / 32);  // LN: rows a warp
+  static constexpr int kTasks = R * W / 4;            // float4s of hidden a block finishes a chunk
+  static constexpr int kTasksT = (kTasks + kThreads - 1) / kThreads;  // ... a thread, at most
+  static_assert(C == 256 || C == 512, "the cluster widths");
+  static_assert(RS * CG == kThreads && RS * 8 * KS == kThreads && R % (kThreads / 32) == 0 &&
+                    CG % 16 == 0 && W == 32,
+                "the thread layouts cover the tile");
+  static_assert(kOffH % 4 == 0 && kOffRecv % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 &&
+                    kOffBar % 2 == 0 && LdA % 4 == 0,
+                "16-byte alignment of the copies' targets and float4s, 8 of the mbarriers");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// Lane b < NB of a warp writes the warp's N row sums into block b's dst
+// (slot rank of stats, the warp's rows)
+template <int NB, int N>
+__device__ __forceinline__ void send_row_sums(const float (&s)[N], const float* dst, int lane) {
+  if (lane < NB) {
+    const unsigned a = kasf_mma::map_rank(dst, lane);
+#pragma unroll
+    for (int i = 0; i < N; ++i) kasf_mma::st_cluster(a + 4 * i, s[i]);
+  }
+}
+
+// aS from x: the block's slice of the tile's rows, loaded straight from
+// global memory (L2 hits: the previous tile prefetched them), as LN(x) *
+// gamma + beta with f32 statistics over all C channels (LN on) or as x.
+// Warp w takes rows kRowsW w.., a lane channels 4 lane + 128 u, all the
+// warp's rows reducing together. Each block sums its slice of a row and
+// sends the sum to both blocks of the cluster; after a cluster barrier each
+// sums the two in rank order, so both get the same bits. The squared
+// deviations from that mean go the same way (two exchanges, as the plain
+// version forms the variance: a one-pass sum of squares loses digits on
+// nearly constant rows). Rows >= M are zeros (LN: beta).
+template <int C, bool LN>
+__device__ __forceinline__ void stage_rows_cluster(const float* __restrict__ x, float* aS,
+                                                   const float* stats,
+                                                   const float4 (&gm)[F32Cluster<C>::NV],
+                                                   const float4 (&bt)[F32Cluster<C>::NV],
+                                                   long long row0, long long M, float eps,
+                                                   unsigned rank, int warp, int lane) {
+  using S = F32Cluster<C>;
+  constexpr int N = S::kRowsW, NV = S::NV;
+  const int r0 = warp * N;
+  float4 xv[N][NV];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const long long row = row0 + r0 + i;
+      xv[i][u] = row < M ? ld4(x + row * C + rank * S::CS + 4 * lane + 128 * u)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  if constexpr (LN) {
+    float s[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = 0.f;
+#pragma unroll
+      for (int u = 0; u < NV; ++u) s[i] += (xv[i][u].x + xv[i][u].y) + (xv[i][u].z + xv[i][u].w);
+    }
+    group_sums<32>(s);
+    send_row_sums<S::NB>(s, stats + rank * S::R + r0, lane);
+    kasf_mma::cluster_sync();  // both blocks' row sums are in
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float sum = stats[r0 + i];
+#pragma unroll
+      for (int b = 1; b < S::NB; ++b) sum += stats[b * S::R + r0 + i];
+      const float mean = sum * (1.0f / C);
+      s[i] = 0.f;
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        float4& v = xv[i][u];
+        v = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
+        s[i] += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+      }
+    }
+    group_sums<32>(s);
+    const float* sq = stats + S::NB * S::R;
+    send_row_sums<S::NB>(s, sq + rank * S::R + r0, lane);
+    kasf_mma::cluster_sync();  // both blocks' squared deviations are in
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float sum = sq[r0 + i];
+#pragma unroll
+      for (int b = 1; b < S::NB; ++b) sum += sq[b * S::R + r0 + i];
+      const float rstd = rsqrtf(sum * (1.0f / C) + eps);
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        const float4 v = xv[i][u];
+        xv[i][u] = make_float4(
+            fmaf(v.x * rstd, gm[u].x, bt[u].x), fmaf(v.y * rstd, gm[u].y, bt[u].y),
+            fmaf(v.z * rstd, gm[u].z, bt[u].z), fmaf(v.w * rstd, gm[u].w, bt[u].w));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int ch = 4 * lane + 128 * u;
+#pragma unroll
+    for (int i = 0; i < N; ++i) st4(aS + (r0 + i) * S::LdA + ch + 4 * (ch >> 6), xv[i][u]);
+  }
+}
+
+// fc1's partial sums of a chunk (W1t in w1s) over one group of 64 of the
+// block's channels, kg: a thread's 7 rows (q1 + RS i) x 8 columns (4 p1 + v,
+// 32 + 4 p1 + v); the KS lanes that hold the same rows and columns over the
+// KS groups are summed by combine_groups.
+template <int C>
+__device__ __forceinline__ void cluster_fc1(float (&z)[F32Cluster<C>::RT][8], const float* aS,
+                                            const float* w1s, int kg, int p1, int q1) {
+  using S = F32Cluster<C>;
+#pragma unroll
+  for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) z[i][v] = 0.f;
+  row_product<64, 2, 32, S::LdA, S::J, S::RT, S::RS>(aS + q1 * S::LdA + 68 * kg,
+                                                  w1s + kg * 64 * S::J + 4 * p1, z);
+}
+
+// fc2 over a chunk (the hidden in hS, W2t in w2s) into out: rows q + RS i,
+// channels 4p + CS/2 h + v of the block's
+template <int C>
+__device__ __forceinline__ void cluster_fc2(float (&oacc)[F32Cluster<C>::RT][8], const float* hS,
+                                            const float* w2s, int p, int q) {
+  using S = F32Cluster<C>;
+  row_product<S::J, 2, S::CS / 2, S::LdH, S::CS, S::RT, S::RS>(hS + q * S::LdH, w2s + 4 * p, oacc);
+}
+
+// The KS lanes lane ^ LPK ... hold the same 7 x 8 partial sums over the KS
+// channel groups: a fixed tree of shuffles leaves each with the block's sum
+// over all its channels for FW = 8 / KS columns: group kg keeps columns
+// 32 (kg / (KS / 2)) + 4 p1 + FW (kg % (KS / 2)) + v, v < FW.
+template <int KS, int RT>
+__device__ __forceinline__ void combine_groups(float (&zf)[RT][8 / KS], const float (&z)[RT][8],
+                                               int kg) {
+  constexpr int LPK = 32 / KS;
+  // level 1 (the top bit of kg): the halves of the 8 columns
+  const bool hi = kg >= KS / 2;
+  float h4[RT][4];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float other = __shfl_xor_sync(0xffffffffu, hi ? z[i][v] : z[i][4 + v], LPK * KS / 2);
+      h4[i][v] = (hi ? z[i][4 + v] : z[i][v]) + other;
+    }
+  if constexpr (KS == 2) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) zf[i][v] = h4[i][v];
+  } else {  // level 2 (the low bit of kg): the halves of those 4
+    static_assert(KS == 4, "two or four channel groups");
+    const bool odd = kg & 1;
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float other = __shfl_xor_sync(0xffffffffu, odd ? h4[i][v] : h4[i][2 + v], LPK);
+        zf[i][v] = (odd ? h4[i][2 + v] : h4[i][v]) + other;
+      }
+  }
+}
+
+// FW (4 or 2) floats into shared memory, of this block or (st.async) of a
+// block of the cluster
+template <int FW>
+__device__ __forceinline__ void st_local(float* p, const float* v) {
+  if constexpr (FW == 4) st4(p, make_float4(v[0], v[1], v[2], v[3]));
+  else *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+template <int FW>
+__device__ __forceinline__ void st_remote(unsigned addr, const float* v, unsigned bar) {
+  if constexpr (FW == 4) kasf_mma::st_async4(addr, make_float4(v[0], v[1], v[2], v[3]), bar);
+  else kasf_mma::st_async2(addr, make_float2(v[0], v[1]), bar);
+}
+
+// Clusters of two blocks walk the tiles clusterid, + nclusterid, ... (a grid
+// of at most as many clusters as the card holds at once); block b of a
+// cluster takes the tile's channels CS b .. CS b + CS - 1 (CS = C / 2). Per
+// tile: the rows (LN's statistics summed across the cluster), then per
+// hidden chunk g:
+//  * fc1 over the block's channels: the lanes split them in groups of 64
+//    and a fixed tree of shuffles sums the groups, leaving partial sums of
+//    all 64 columns over the block's channels; a thread's all belong to one
+//    block's W = 32 columns and go to slot rank of that block's recv.
+//  * reduce-scatter: block b waits for its recv to fill, sums its W
+//    columns' two partial sums in rank order, adds b1, applies exact GELU
+//    and stores the finished columns into both blocks' hS (all-gather).
+//  * fc1 of chunk g + 1 (it reads only aS and W1t) while the other block's
+//    columns arrive; then fc2 of chunk g over the whole chunk into the
+//    block's own CS output channels, 56 registers a thread.
+// Both exchanges are st.async stores into the other block's shared memory
+// that complete bytes on its mbarrier (recv's, hS's), so a block waits on
+// its own mbarrier for its data and no cluster barrier or release fence
+// sits in the chunk loop; a block writes its own slot of recv with plain
+// stores before a block barrier. Thread 0 arms each phase
+// (arrive.expect_tx) once the last has completed for it; bytes may land
+// before it. The write-after-read hazards follow from the data flow: a
+// block sends its partial sums of chunk g + 1 only after its hS of chunk g
+// is complete, which needs both blocks' finished columns of chunk g, which
+// each block computed from its recv (so it has read recv); and a block
+// sends partial sums only after a block barrier that each of its threads
+// reaches after its fc2 of the previous chunk, so no block finishes
+// columns into an hS that is still being read.
+// Every sum runs in a fixed order, without atomics: reruns are bitwise equal.
+// Weights: the block's slice of each chunk of the transposed copies is one
+// bulk copy into one buffer each. The block barrier of chunk g (no thread
+// reads W1t(g) or W2t(g - 1) after it) starts W1t(g + 1) and W2t(g); the
+// last chunk of a tile starts the next tile's first, so the weights stream
+// across tiles. The n-th copy into a buffer, the n-th chunk's exchange,
+// completes its mbarrier's phase n: parity n & 1.
+template <int C, bool LN>
+__global__ void __launch_bounds__(F32Cluster<C>::kThreads, 1)
+mlp_f32_cluster_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, const float* __restrict__ w1t,
+                       const float* __restrict__ b1, const float* __restrict__ w2t,
+                       const float* __restrict__ b2, const float* __restrict__ ls2,
+                       float* __restrict__ out, long long M, int H, float eps) {
+  using S = F32Cluster<C>;
+  using namespace kasf_mma;
+  extern __shared__ float4 smem4[];
+  float* aS = reinterpret_cast<float*>(smem4);
+  float* hS = aS + S::kOffH;
+  float* recv = aS + S::kOffRecv;
+  float* w1s = aS + S::kOffW1;
+  float* w2s = aS + S::kOffW2;
+  float* stats = aS + S::kOffStats;
+  auto* bar = reinterpret_cast<unsigned long long*>(aS + S::kOffBar);  // W1t, W2t, recv, hS
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // fc2: rows q + RS i, channels CS rank + 4p + CS/2 h + v (a warp: 2 row
+  // sets x 16 column groups). fc1: channel group kg, rows q1 + RS i,
+  // columns 4 p1 + v and 32 + 4 p1 + v (a warp: KS groups x 32/KS/8 row
+  // sets x 8 column groups)
+  const int p = tid % 16 + 16 * (warp % (S::CG / 16));
+  const int q = 2 * (warp / (S::CG / 16)) + (tid / 16) % 2;
+  const int kg = lane / S::LPK, p1 = lane % 8, q1 = warp * (S::LPK / 8) + (lane % S::LPK) / 8;
+  const unsigned rank = cluster_rank();
+  const long long cid = cluster_index(), ncl = cluster_count();
+  const long long tiles = (M + S::R - 1) / S::R;
+  const int chunks = H / S::J;
+  const long long my_tiles = cid < tiles ? (tiles - 1 - cid) / ncl + 1 : 0;
+  const long long total = my_tiles * chunks;  // chunks the block multiplies
+  // the block's slice of each chunk: W1t [H/64][C][64] rows CS rank..,
+  // W2t [C/CS][H][CS] slice rank
+  const float* w1b = w1t + rank * S::CS * S::J;
+  const float* w2b = w2t + static_cast<long long>(rank) * H * S::CS;
+
+  if (tid == 0) {
+    for (int k = 0; k < S::kBars; ++k) mbar_init(bar + k);
+    mbar_arm(bar + 2, S::kRecvBytes);  // chunk 0's exchanges
+    mbar_arm(bar + 3, S::kHsBytes);
+  }
+  cluster_sync();  // both blocks of the cluster run, their mbarriers initialised
+  if (tid == 0 && total > 0) {
+    mbar_expect(bar, S::kChunkBytes);
+    bulk_load(w1s, w1b, S::kChunkBytes, bar);
+  }
+  float4 gm[S::NV], bt[S::NV];
+#pragma unroll
+  for (int u = 0; u < S::NV; ++u) {
+    gm[u] = bt[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (LN) {
+      gm[u] = ld4(gamma + rank * S::CS + 4 * lane + 128 * u);
+      bt[u] = ld4(beta + rank * S::CS + 4 * lane + 128 * u);
+    }
+  }
+  // where this thread's partial sums go (the block that finishes their
+  // columns, slot rank, and that block's recv mbarrier), and both blocks'
+  // hS at this block's columns and hS mbarrier
+  const int col = 32 * (kg / (S::KS / 2)) + 4 * p1 + S::FW * (kg % (S::KS / 2));
+  const int owner = col / S::W;
+  float* const recv_own = recv + (rank * S::R + q1) * S::LdR + col - owner * S::W;
+  const unsigned recv_at = map_rank(recv_own, owner);
+  const unsigned recv_bar = map_rank(bar + 2, owner);
+  unsigned hs_at[S::NB], hs_bar[S::NB];
+#pragma unroll
+  for (int b = 0; b < S::NB; ++b) {
+    hs_at[b] = map_rank(hS + rank * S::W, b);
+    hs_bar[b] = map_rank(bar + 3, b);
+  }
+  // the reduce step's tasks: tr, tr + 256, ... (warp 0, which starts the
+  // weight copies, gets the fewest)
+  const int tr = S::kThreads - 1 - tid;
+
+  long long g = 0;  // the block's chunks so far, over its tiles
+  for (long long k = 0; k < my_tiles; ++k) {
+    const long long row0 = (cid + k * ncl) * S::R;
+    if (tid == 0 && k + 1 < my_tiles) {  // the next tile's rows into L2, a share a block
+      const long long next0 = row0 + ncl * S::R;
+      const long long n = M - next0 < S::R ? M - next0 : S::R;
+      const long long per = (n + S::NB - 1) / S::NB;
+      const long long first = rank * per, rows = n - first < per ? n - first : per;
+      if (rows > 0)
+        bulk_prefetch_l2(x + (next0 + first) * C, static_cast<unsigned>(rows * C * sizeof(float)));
+    }
+    stage_rows_cluster<C, LN>(x, aS, stats, gm, bt, row0, M, eps, rank, warp, lane);
+    __syncthreads();  // aS staged
+    float oacc[S::RT][8];
+#pragma unroll
+    for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) oacc[i][v] = 0.f;
+    float z[S::RT][8], zf[S::RT][S::FW];
+    mbar_wait(bar, static_cast<unsigned>(g) & 1u);  // W1t(g) has landed
+    cluster_fc1<C>(z, aS, w1s, kg, p1, q1);
+    combine_groups<S::KS>(zf, z, kg);
+
+    for (int j = 0; j < chunks; ++j, ++g) {
+      float4 bias[S::kTasksT];  // b1 of the thread's tasks: tr + 256 u
+#pragma unroll
+      for (int u = 0; u < S::kTasksT; ++u) {
+        const int task = tr + u * S::kThreads;
+        bias[u] = task < S::kTasks
+                      ? ld4(b1 + j * S::J + rank * S::W + 4 * (task % (S::W / 4)))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (j > 0) {
+        mbar_wait(bar + 1, static_cast<unsigned>(g - 1) & 1u);  // W2t(g - 1) has landed
+        cluster_fc2<C>(oacc, hS, w2s, p, q);
+      }
+      if (owner == static_cast<int>(rank)) {  // the block's own slot, by plain stores
+#pragma unroll
+        for (int i = 0; i < S::RT; ++i) st_local<S::FW>(recv_own + i * S::RS * S::LdR, zf[i]);
+      }
+      __syncthreads();  // the block is past fc2(g - 1) and fc1(g): hS, W2t, W1t free
+      // (each thread's reads of them have returned, so the copies need no
+      // proxy fence); its own slot of recv is in
+      if (tid == 0) {
+        if (g + 1 < total) {
+          mbar_arm(bar, S::kChunkBytes);
+          bulk_load(w1s, w1b + ((j + 1) % chunks) * static_cast<long long>(C) * S::J,
+                    S::kChunkBytes, bar);
+        }
+        mbar_arm(bar + 1, S::kChunkBytes);
+        bulk_load(w2s, w2b + static_cast<long long>(j) * S::J * S::CS, S::kChunkBytes, bar + 1);
+      }
+      if (owner != static_cast<int>(rank)) {
+#pragma unroll
+        for (int i = 0; i < S::RT; ++i)
+          st_remote<S::FW>(recv_at + sizeof(float) * i * S::RS * S::LdR, zf[i], recv_bar);
+      }
+      mbar_wait_cluster(bar + 2, static_cast<unsigned>(g) & 1u);  // every partial sum is in
+      if (tid == 0) mbar_arm(bar + 2, S::kRecvBytes);  // the next chunk's
+      // this block's W columns: the two partial sums in rank order, + b1,
+      // exact GELU, into both blocks' hS (all the thread's loads first, then
+      // its GELUs, then its stores)
+      float4 h[S::kTasksT];
+#pragma unroll
+      for (int u = 0; u < S::kTasksT; ++u) {
+        const int task = tr + u * S::kThreads;
+        h[u] = bias[u];
+        if (task < S::kTasks) {
+          const float* pr = recv + task / (S::W / 4) * S::LdR + 4 * (task % (S::W / 4));
+          float4 s = ld4(pr);
+#pragma unroll
+          for (int b = 1; b < S::NB; ++b) {
+            const float4 o = ld4(pr + b * S::R * S::LdR);
+            s = make_float4(s.x + o.x, s.y + o.y, s.z + o.z, s.w + o.w);
+          }
+          h[u] = make_float4(gelu_erf(s.x + h[u].x), gelu_erf(s.y + h[u].y),
+                             gelu_erf(s.z + h[u].z), gelu_erf(s.w + h[u].w));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < S::kTasksT; ++u) {
+        const int task = tr + u * S::kThreads;
+        if (task < S::kTasks) {
+          const unsigned off =
+              sizeof(float) * (task / (S::W / 4) * S::LdH + 4 * (task % (S::W / 4)));
+#pragma unroll
+          for (int b = 0; b < S::NB; ++b) st_async4(hs_at[b] + off, h[u], hs_bar[b]);
+        }
+      }
+      if (j + 1 < chunks) {  // fc1 of chunk g + 1 while the hidden arrives
+        mbar_wait(bar, static_cast<unsigned>(g + 1) & 1u);  // W1t(g + 1) has landed
+        cluster_fc1<C>(z, aS, w1s, kg, p1, q1);
+        combine_groups<S::KS>(zf, z, kg);
+      }
+      mbar_wait_cluster(bar + 3, static_cast<unsigned>(g) & 1u);  // every column is in hS
+      if (tid == 0) mbar_arm(bar + 3, S::kHsBytes);  // the next chunk's
+    }
+    mbar_wait(bar + 1, static_cast<unsigned>(g - 1) & 1u);  // the tile's last W2t
+    cluster_fc2<C>(oacc, hS, w2s, p, q);
+
+    // out + b2 (LN on: x + ls2 * (out + b2), x re-read), the block's
+    // channels, tail rows masked
+    float4 xr[S::RT][2];
+    if constexpr (LN) {
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const long long row = row0 + q + S::RS * i;
+          xr[i][h2] = row < M ? ld4(x + row * C + rank * S::CS + 4 * p + S::CS / 2 * h2)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int c = rank * S::CS + 4 * p + S::CS / 2 * h2;
+      const float4 bb = ld4(b2 + c);
+      float4 ls = bb;
+      if constexpr (LN) ls = ld4(ls2 + c);
+#pragma unroll
+      for (int i = 0; i < S::RT; ++i) {
+        const long long row = row0 + q + S::RS * i;
+        if (row >= M) continue;
+        float4 y = make_float4(oacc[i][4 * h2] + bb.x, oacc[i][4 * h2 + 1] + bb.y,
+                               oacc[i][4 * h2 + 2] + bb.z, oacc[i][4 * h2 + 3] + bb.w);
+        if constexpr (LN) {
+          const float4 xv = xr[i][h2];
           y = make_float4(xv.x + ls.x * y.x, xv.y + ls.y * y.y, xv.z + ls.z * y.z,
                           xv.w + ls.w * y.w);
         }
@@ -1122,24 +1413,28 @@ mlp_bf16_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 
 constexpr int kMaxDevices = 64;
 
-// threads, rows and dynamic shared memory of a block of each instantiation;
-// f32 at C <= 128 runs persistent blocks (a grid of at most one wave)
+// threads, rows and dynamic shared memory of a block of each instantiation,
+// and its blocks a tile: f32 runs persistent blocks (C <= 128) or clusters
+// of two blocks (C >= 256), a grid of at most one wave, each walking its
+// tiles; bf16 a block a tile
 template <int C, bool kBf16>
 constexpr int rows_of() {
   if constexpr (kBf16) return TcShape<C>::R;
   else if constexpr (C <= 128) return F32Rows<C>::R;
-  else return F32Shape<C>::R;
+  else return F32Cluster<C>::R;
 }
 template <int C, bool kBf16>
 constexpr size_t smem_of() {
   if constexpr (kBf16) return TcShape<C>::kSmem;
   else if constexpr (C <= 128) return F32Rows<C>::kSmem;
-  else return F32Shape<C>::kSmem;
+  else return F32Cluster<C>::kSmem;
 }
 template <int C, bool kBf16>
 struct Cfg {
-  static constexpr bool kPersistent = !kBf16 && C <= 128;
-  static constexpr int kThreads = kBf16 ? TcShape<C>::kThreads : kThreadsF;
+  static constexpr bool kPersistent = !kBf16;
+  static constexpr int kCluster = !kBf16 && C >= 256 ? 2 : 1;
+  static constexpr int kSlice = kCluster > 1 ? C / 2 : C;  // channels a block (f32)
+  static constexpr int kThreads = kBf16 ? TcShape<C>::kThreads : 256;
   static constexpr int kRows = rows_of<C, kBf16>();
   static constexpr size_t kSmem = smem_of<C, kBf16>();
 };
@@ -1151,12 +1446,34 @@ auto kernel_of() {
   } else if constexpr (C <= 128) {
     return &mlp_f32_persistent_kernel<C, LN>;
   } else {
-    return &mlp_f32_kernel<C, LN>;
+    return &mlp_f32_cluster_kernel<C, LN>;
   }
 }
 
+// a launch of the instantiation: grid blocks (a multiple of its cluster)
+template <int C, bool kBf16>
+struct Launch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  Launch(unsigned blocks, cudaStream_t stream) : attr{}, cfg{} {
+    using K = Cfg<C, kBf16>;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = K::kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(K::kThreads);
+    cfg.dynamicSmemBytes = K::kSmem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = K::kCluster > 1 ? 1 : 0;
+  }
+};
+
 // raise the instantiation's dynamic shared-memory limit and count the
-// blocks the device holds at once (SMs x blocks a SM), once per device
+// blocks the device holds at once, once per device: SMs x blocks a SM, or
+// for clusters the clusters the device holds at once x blocks a cluster
+// (the clusters must each fit on one GPC, so some SMs may stay idle)
 template <int C, bool LN, bool kBf16>
 cudaError_t configure(int* resident) {
   using K = Cfg<C, kBf16>;
@@ -1169,25 +1486,36 @@ cudaError_t configure(int* resident) {
     const auto kernel = kernel_of<C, LN, kBf16>();
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(K::kSmem));
-    int sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::kThreads, K::kSmem);
+    int n = 0;
+    if constexpr (K::kCluster > 1) {
+      Launch<C, kBf16> one(K::kCluster, nullptr);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &one.cfg);
+      n *= K::kCluster;
+    } else {
+      int sms = 0, per_sm = 0;
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::kThreads, K::kSmem);
+      n = sms * per_sm;
+    }
     if (err != cudaSuccess) return err;
-    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks[dev] = sms * per_sm;
+    if (n < K::kCluster) return cudaErrorInvalidConfiguration;
+    blocks[dev] = n;
   }
   *resident = blocks[dev];
   return cudaSuccess;
 }
 
-// blocks of a launch over M rows: a tile each, or for persistent blocks at
-// most one wave of them, each walking its tiles
+// blocks of a launch over M rows: a tile each, or for persistent blocks and
+// clusters at most one wave of them, each walking its tiles
 template <int C, bool kBf16>
 long long grid_of(long long M, int resident) {
   using K = Cfg<C, kBf16>;
   const long long tiles = (M + K::kRows - 1) / K::kRows;
-  return K::kPersistent && tiles > resident ? resident : tiles;
+  const long long at_once = resident / K::kCluster;  // tiles the device takes at once
+  return K::kPersistent && tiles > at_once ? at_once * K::kCluster : tiles * K::kCluster;
 }
 
 template <int C, bool LN, bool kBf16>
@@ -1201,25 +1529,26 @@ cudaError_t launch_tile(const void* x, const float* gamma, const float* beta,
   cudaError_t err = configure<C, LN, kBf16>(&resident);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(grid_of<C, kBf16>(M, resident));
-  const auto kernel = kernel_of<C, LN, kBf16>();
   if constexpr (K::kPersistent) {  // the chunks come from the transposed copies
     if (work == nullptr) return cudaErrorInvalidValue;
     mlp_f32_stage_weights_kernel<<<H / 32 * (C / 32) * 2, 256, 0, stream>>>(
-        static_cast<const float*>(w1), static_cast<const float*>(w2), work, work + C * H, C, H);
+        static_cast<const float*>(w1), static_cast<const float*>(w2), work, work + C * H, C, H,
+        K::kSlice);
     w1 = work;
     w2 = work + C * H;
   }
-  kernel<<<blocks, K::kThreads, K::kSmem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(b2),
-      ls2, static_cast<T*>(out), M, H, eps);
+  Launch<C, kBf16> l(blocks, stream);
+  cudaLaunchKernelEx(&l.cfg, kernel_of<C, LN, kBf16>(), static_cast<const T*>(x), gamma, beta,
+                     static_cast<const T*>(w1), static_cast<const T*>(b1),
+                     static_cast<const T*>(w2), static_cast<const T*>(b2), ls2,
+                     static_cast<T*>(out), M, H, eps);
   return cudaGetLastError();
 }
 
-// floats of workspace a launch needs: the transposed weights of the
-// persistent tile (f32 at C <= 128), else none
+// floats of workspace a launch needs: the transposed weights of the f32
+// tiles, else none
 inline long long workspace(int dtype, int C, int H) {
-  return dtype == 0 && (C == 64 || C == 128) ? 2LL * C * H : 0;
+  return dtype == 0 && (C == 64 || C == 128 || C == 256 || C == 512) ? 2LL * C * H : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, b1, w2, b2, out); gamma, beta and
@@ -1258,28 +1587,30 @@ template <int C, bool LN, bool kBf16>
 void describe(long long M, int* info) {
   using K = Cfg<C, kBf16>;
   cudaFuncAttributes attr{};
-  int resident = 0;
+  int resident = 0, per_sm = 0;
+  const auto kernel = kernel_of<C, LN, kBf16>();
   if (configure<C, LN, kBf16>(&resident) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, kernel_of<C, LN, kBf16>()) != cudaSuccess)
-    return;
-  int sms = 0, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::kThreads, K::kSmem) !=
+          cudaSuccess)
     return;
   info[0] = K::kThreads;
   info[1] = K::kRows;
   info[2] = attr.numRegs;
   info[3] = static_cast<int>(K::kSmem);
   info[4] = static_cast<int>(attr.localSizeBytes);
-  info[5] = resident / sms;
+  info[5] = per_sm;
   info[6] = static_cast<int>(grid_of<C, kBf16>(M, resident));
+  info[7] = K::kCluster;
+  info[8] = resident;
 }
 
 // The instantiation for (dtype, C) on the current device, for reports:
 // info = {threads a block, rows a tile, registers a thread, dynamic shared
 // memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM, blocks of a launch over M rows}. Left untouched for a
-// width or dtype there is none of.
+// a SM holds, blocks of a launch over M rows, blocks a cluster (a tile),
+// blocks the device holds at once}. Left untouched for a width or dtype
+// there is none of.
 template <bool LN>
 void describe_width(int dtype, int C, long long M, int* info) {
   switch (dtype * 1000 + C) {

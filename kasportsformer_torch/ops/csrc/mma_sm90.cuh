@@ -1,7 +1,9 @@
 // Warp-level tensor-core and copy primitives for Hopper (sm_90a) kernels:
 // 16-byte cp.async copies into shared memory, bulk copies on the TMA
-// engine completing on an mbarrier, ldmatrix fragment loads and the
-// m16n8k16 bf16 mma.sync with f32 accumulators.
+// engine completing on an mbarrier (and L2 prefetches), thread-block
+// cluster barriers and stores into a cluster peer's shared memory,
+// ldmatrix fragment loads and the m16n8k16 bf16 mma.sync with f32
+// accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row): a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k),
@@ -54,14 +56,19 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
       "r"(parity)
       : "memory");
 }
+// One thread: arrive on bar, announcing the bytes that complete its phase
+// (bulk copies, st.async stores); they may land before or after it
+__device__ __forceinline__ void mbar_arm(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
 // One thread: arrive on bar, announcing the bytes of the bulk copies that
 // complete its phase. The fence first orders the block's earlier accesses
 // to shared memory (made visible to this thread by a barrier) before them.
 __device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
+  mbar_arm(bar, bytes);
 }
 // bytes (a multiple of 16; both addresses 16-byte aligned) from global to
 // shared memory by the TMA engine, completing on bar
@@ -70,6 +77,74 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// L2 prefetch of bytes (a multiple of 16) of global memory by the TMA
+// engine; nothing lands in shared memory and nothing is waited for
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+// ---- thread-block clusters: the block's rank, the cluster's index and
+// count (one-dimensional grids), the cluster barrier (every thread of every
+// block of the cluster; arrive releases this thread's earlier memory
+// accesses, wait acquires the others'), and stores into the shared memory
+// of a block of the cluster (DSMEM) at an address map_rank gives
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of p (this block's shared memory) in block rank
+__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+// 16 (8) bytes into the shared memory of a block of the cluster (addr from
+// map_rank), completing bytes on that block's mbarrier at bar (from
+// map_rank too): the receiver learns by its mbarrier that the data is in,
+// with no barrier or fence on the sending side
+__device__ __forceinline__ void st_async4(unsigned addr, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async2(unsigned addr, float2 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+// wait until the phase of this parity has completed, acquiring at cluster
+// scope what other blocks' stores released into it
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
       : "memory");
 }
 

@@ -42,11 +42,17 @@ from L2, so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
   into a workspace the wrapper allocates, so each 64-column chunk of W1 or
   W2 arrives by one bulk copy, the next chunk (the next tile's first after
   the last) in flight while one is multiplied; fc1 and fc2 run 7 x 8
-  register tiles, fc1 over two channel halves. At C = 256 and 512 a block
-  takes one tile of 64 or 32 rows.
-`fused_mlp_ln_kernel_info` reports each instantiation's tile, registers,
-shared memory and spills as the runtime sees them, and the blocks of a
-launch over m rows.
+  register tiles, fc1 over two channel halves. At C = 256 and 512 a
+  thread-block cluster of two blocks takes each tile, block b half the
+  channels (112 rows of 128 channels a block at C = 256, 56 rows of 256 at
+  512): LayerNorm's row statistics and fc1's partial sums over each block's
+  channels are summed across the cluster through distributed shared memory
+  in rank order (a reduce-scatter, then the finished hidden gathered into
+  both blocks), and each block runs fc2 into its own output channels. The
+  clusters are persistent too, at most as many as the card holds at once.
+`fused_mlp_ln_kernel_info` reports each instantiation's tile, cluster,
+registers, shared memory and spills as the runtime sees them, and the blocks
+of a launch over m rows.
 
 K4 is three launches: a dx pass (112-row tiles, exact f32 on the CUDA cores
 from either dtype, the weights through a cp.async ring), a weight pass (one
@@ -208,9 +214,8 @@ def _operands(x, gamma, beta, w1, b1, w2, b2, ls2) -> tuple[torch.Tensor, ...]:
 
 def _workspace(lib: ctypes.CDLL, name: str, x: torch.Tensor,
                hidden: int) -> torch.Tensor | None:
-    """The scratch a K3/K5 launch needs (the persistent float32 tile's
-    transposed weights), as the library sizes it; None where it needs
-    none."""
+    """The scratch a K3/K5 launch needs (the float32 tiles' transposed
+    weights), as the library sizes it; None where it needs none."""
     size = getattr(lib, f"kasf_{name}_workspace")
     if size.argtypes is None:
         size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -241,16 +246,19 @@ def _launch(ops: tuple[torch.Tensor, ...], eps: float) -> torch.Tensor:
     return out
 
 
+_INFO_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
+              "blocks_per_sm", "grid", "cluster", "resident")
+
+
 def _kernel_info(name: str, dtype: torch.dtype, c: int, m: int) -> dict:
     lib = _build.library(name)
-    info = (ctypes.c_int * 7)(*([-1] * 7))
+    info = (ctypes.c_int * len(_INFO_KEYS))(*([-1] * len(_INFO_KEYS)))
     fn = getattr(lib, f"kasf_{name}_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], c, m, info)
-    return dict(zip(("threads", "rows", "registers", "smem_bytes",
-                     "spill_bytes", "blocks_per_sm", "grid"), info))
+    return dict(zip(_INFO_KEYS, info))
 
 
 def fused_mlp_ln_kernel_info(dtype: torch.dtype, c: int,
@@ -258,11 +266,12 @@ def fused_mlp_ln_kernel_info(dtype: torch.dtype, c: int,
     """K3's instantiation for `dtype` and width `c` on the current CUDA
     device, as the runtime reports it: threads a block and token rows a
     tile, registers a thread, dynamic shared memory a block, local memory
-    (spills) a thread in bytes, blocks resident a SM, and `grid`, the blocks
-    of a launch over `m` rows (a tile each, or, for the persistent float32
-    tile at C <= 128, at most one wave of blocks, each walking tiles
-    blockIdx, + grid, ...). Builds the kernel if needed; launches
-    nothing."""
+    (spills) a thread in bytes, blocks a SM holds, `cluster`, the blocks
+    that share a tile (2 for float32 at C >= 256, else 1), `resident`,
+    the blocks the card holds at once (whole clusters, each within one GPC),
+    and `grid`, the blocks of a launch over `m` rows (a tile each in
+    bfloat16; in float32 at most `resident` blocks, each block or cluster
+    walking tiles). Builds the kernel if needed; launches nothing."""
     return _kernel_info("mlp_ln", dtype, c, m)
 
 

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Where a tile of K3's float32 kernel at C <= 128 spends its cycles.
+"""Where a tile of K3's float32 kernel spends its cycles.
 
 Run on the card from the repository root:
 
     python3 scripts/k3_tile_stamps.py [--m 58752 14688] [--c 128]
 
 It copies `kasportsformer_torch/ops/csrc` to `build/stamps/csrc`, puts
-`clock64` stamps into the copy of `mlp_f32_persistent_kernel`
-(`csrc/mlp_tile.cuh`) after each of a tile's phases, builds the copy with
-`ops/_build.py` into `build/stamps/kernels` and launches it through
-`fused_mlp_ln`. For each M it prints the card, the shipped and the stamped
-kernel's times (CUDA events) and each phase's cycles a tile for threads 0
-and 128 (sums over every block, over the tiles of the launch). The chunk
-phases are summed over a tile's H / 64 chunks. The repository's own
-sources and libraries stay untouched; an anchor that is not found in the
-source stops the script.
+`clock64` stamps into the copy of the float32 kernel of that width
+(`csrc/mlp_tile.cuh`: `mlp_f32_persistent_kernel` at C <= 128,
+`mlp_f32_cluster_kernel` at C = 256 and 512, at H = 4C and 1024) after each
+of a tile's phases, builds the copy with `ops/_build.py` into
+`build/stamps/kernels` and launches it through `fused_mlp_ln`. For each M it
+prints the card, the shipped and the stamped kernel's times (CUDA events)
+and each phase's cycles a tile for threads 0 and 128 (sums over every
+block, over the tiles of the launch; at C >= 256 a tile is a cluster's, and
+the mean is a block's share of it). The chunk phases are summed over a
+tile's H / 64 chunks. The repository's own sources and libraries stay
+untouched; an anchor that is not found in the source stops the script.
 """
 
 from __future__ import annotations
@@ -28,20 +30,37 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-PHASES = ("wait for the rows", "LayerNorm", "wait for W1t(j)", "barrier opening chunk j",
-          "start copying W2t(j)", "fc1 + GELU", "wait for W2t(j)", "barrier after fc1",
-          "start copying W1t(j + 1)", "fc2", "epilogue (first tile: prologue)")
-N = len(PHASES)
 
+def _clock(n: int, anchor: str) -> tuple[str, str]:
+    """The stamp declarations, after `anchor` (once per kernel)."""
+    return (anchor, anchor + "  long long kasf_t0 = clock64();\n"
+            f"  unsigned long long kasf_st[{n}] = {{}};\n"
+            "#define KASF_STAMP(k) { const long long n_ = clock64(); "
+            "kasf_st[k] += n_ - kasf_t0; kasf_t0 = n_; }\n")
+
+
+def _sums(n: int, end: str, after: str) -> tuple[str, str]:
+    """The per-thread stamps added into kasf_stamp_sums at the kernel's
+    end (`end`, followed in the file by `after`)."""
+    return (end + after, end[:-2] + "  if (tid == 0 || tid == 128)\n"
+            f"    for (int k = 0; k < {n}; ++k) "
+            "atomicAdd(&kasf_stamp_sums[tid >> 7][k], kasf_st[k]);\n"
+            "#undef KASF_STAMP\n}\n" + after)
+
+
+_DECL = ("// Blocks walk the tiles blockIdx.x",
+         "__device__ unsigned long long kasf_stamp_sums[2][16];\n\n"
+         "// Blocks walk the tiles blockIdx.x")
+
+# the persistent kernel (C <= 128)
+PHASES_ROWS = ("wait for the rows", "LayerNorm", "wait for W1t(j)", "barrier opening chunk j",
+               "start copying W2t(j)", "fc1 + GELU", "wait for W2t(j)", "barrier after fc1",
+               "start copying W1t(j + 1)", "fc2", "epilogue (first tile: prologue)")
+_N = len(PHASES_ROWS)
 # (anchor in mlp_tile.cuh, its replacement); every anchor is in the
 # persistent kernel and occurs once in the file
-_EDITS = [(a, a + add) for a, add in (
-    ("  long long t = blockIdx.x;\n",
-     "  long long kasf_t0 = clock64();\n"
-     f"  unsigned long long kasf_st[{N}] = {{}};\n"
-     "#define KASF_STAMP(k) { const long long n_ = clock64(); "
-     "kasf_st[k] += n_ - kasf_t0; kasf_t0 = n_; }\n"),
-    ("    const bool next_tile = t + step < tiles;\n", f"    KASF_STAMP({N - 1})\n"),
+EDITS_ROWS = [_clock(_N, "  long long t = blockIdx.x;\n")] + [(a, a + add) for a, add in (
+    ("    const bool next_tile = t + step < tiles;\n", f"    KASF_STAMP({_N - 1})\n"),
     ("    kasf_mma::mbar_wait(bar, parity);  // the tile's rows have landed\n",
      "    KASF_STAMP(0)\n"),
     ("    stage_rows_f32<C, LN>(raw, aS, gm, bt, row0, M, eps, warp, lane);\n",
@@ -59,13 +78,60 @@ _EDITS = [(a, a + add) for a, add in (
     # fc1 + GELU: everything between the copy of W2t(j) and the wait for it
     ("      kasf_mma::mbar_wait(bar + 2, n & 1);  // W2t(j) has landed\n",
      "      KASF_STAMP(5)\n      kasf_mma::mbar_wait(bar + 2, n & 1);  // W2t(j) has landed\n"),
-    ("// Blocks walk the tiles blockIdx.x",
-     "__device__ unsigned long long kasf_stamp_sums[2][16];\n\n"
-     "// Blocks walk the tiles blockIdx.x"),
-    ("  }\n}\n\n// ---- bfloat16 on the tensor cores",
-     "  }\n  if (tid == 0 || tid == 128)\n"
-     f"    for (int k = 0; k < {N}; ++k) atomicAdd(&kasf_stamp_sums[tid >> 7][k], kasf_st[k]);\n"
-     "#undef KASF_STAMP\n}\n\n// ---- bfloat16 on the tensor cores"),
+    _DECL,
+    _sums(_N, "        st4(out + row * C + c, y);\n      }\n    }\n  }\n}\n",
+          "\n// ---- float32 on the CUDA cores, C = 256 and 512"),
+]
+
+# the cluster kernel (C = 256 and 512)
+PHASES_CLUSTER = ("rows + LayerNorm (two exchanges)", "barrier after LayerNorm, W1t wait",
+                  "fc1, channel groups summed", "b1 loaded", "wait for W2t", "fc2",
+                  "own slot stored, block barrier", "weight copies started",
+                  "partial sums sent (st.async)", "wait for the partial sums",
+                  "reduce-scatter, GELU, all-gather", "wait for W1t(g + 1)",
+                  "wait for the hidden (hS)", "epilogue (first tile: prologue)")
+_NC = len(PHASES_CLUSTER)
+
+
+def _at(anchor: str, k: int, before: bool = False, indent: int = 6) -> tuple[str, str]:
+    """Stamp phase k just after (or before) `anchor`."""
+    stamp = " " * indent + f"KASF_STAMP({k})\n"
+    return anchor, stamp + anchor if before else anchor + stamp
+
+
+_COMBINE = "combine_groups<S::KS>(zf, z, kg);\n"
+_FC2 = "cluster_fc2<C>(oacc, hS, w2s, p, q);\n"
+_W2T = "mbar_wait(bar + 1, static_cast<unsigned>(g - 1) & 1u);  // "
+_RECV = ("      mbar_wait_cluster(bar + 2, static_cast<unsigned>(g) & 1u);  "
+         "// every partial sum is in\n")
+EDITS_CLUSTER = [
+    _clock(_NC, "  long long g = 0;  // the block's chunks so far, over its tiles\n"),
+    _at("    const long long row0 = (cid + k * ncl) * S::R;\n", 13, indent=4),
+    _at("    stage_rows_cluster<C, LN>(x, aS, stats, gm, bt, row0, M, eps, rank, warp, "
+        "lane);\n", 0, indent=4),
+    _at("    mbar_wait(bar, static_cast<unsigned>(g) & 1u);  // W1t(g) has landed\n", 1,
+        indent=4),
+    _at("    " + _COMBINE + "\n", 2, indent=4),
+    _at("      if (j > 0) {\n", 3, before=True),
+    _at("        " + _W2T + "W2t(g - 1) has landed\n", 4, indent=8),
+    _at("        " + _FC2 + "      }\n", 5),
+    _at("      // proxy fence); its own slot of recv is in\n", 6),
+    _at("        bulk_load(w2s, w2b + static_cast<long long>(j) * S::J * S::CS, "
+        "S::kChunkBytes, bar + 1);\n      }\n", 7),
+    _at(_RECV, 8, before=True),
+    _at(_RECV, 9),
+    _at("      if (j + 1 < chunks) {  // fc1 of chunk g + 1 while the hidden arrives\n", 10,
+        before=True),
+    _at("        mbar_wait(bar, static_cast<unsigned>(g + 1) & 1u);  // W1t(g + 1) has "
+        "landed\n", 11, indent=8),
+    _at("        " + _COMBINE + "      }\n", 2),
+    _at("      mbar_wait_cluster(bar + 3, static_cast<unsigned>(g) & 1u);  // every column is "
+        "in hS\n", 12),
+    _at("    " + _W2T + "the tile's last W2t\n", 4, indent=4),
+    _at("    " + _FC2 + "\n", 5, indent=4),
+    _DECL,
+    _sums(_NC, "        st4(out + row * C + c, y);\n      }\n    }\n  }\n}\n",
+          "\n// ---- bfloat16 on the tensor cores"),
 ]
 _READER = """
 extern "C" int kasf_stamps(unsigned long long* host, int reset) {
@@ -78,13 +144,13 @@ extern "C" int kasf_stamps(unsigned long long* host, int reset) {
 """
 
 
-def stamped_sources(out: Path) -> None:
-    """The repository's csrc with the stamps in the persistent kernel."""
+def stamped_sources(out: Path, edits: list) -> None:
+    """The repository's csrc with the stamps of `edits` in one kernel."""
     src = ROOT / "kasportsformer_torch" / "ops" / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(src, out)
     text = (src / "mlp_tile.cuh").read_text()
-    for anchor, replacement in _EDITS:
+    for anchor, replacement in edits:
         if text.count(anchor) != 1:
             raise SystemExit(f"anchor not found once in mlp_tile.cuh: {anchor!r}")
         text = text.replace(anchor, replacement)
@@ -101,8 +167,11 @@ def stamped_sources(out: Path) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--m", type=int, nargs="+", default=[58752, 14688])
-    parser.add_argument("--c", type=int, default=128, choices=(64, 128))
+    parser.add_argument("--c", type=int, default=128, choices=(64, 128, 256, 512))
     args = parser.parse_args()
+    cluster = args.c >= 256
+    phases, edits = ((PHASES_CLUSTER, EDITS_CLUSTER) if cluster
+                     else (PHASES_ROWS, EDITS_ROWS))
 
     import torch
 
@@ -114,16 +183,17 @@ def main() -> int:
         print("k3_tile_stamps: needs a CUDA device")
         return 1
     dev = torch.device("cuda", 0)
-    hidden = 4 * args.c
+    hidden = 1024 if cluster else 4 * args.c
     gen = torch.Generator(device=dev).manual_seed(2)
     inputs = {m: mlp_args(dev, gen, m, torch.float32, args.c, hidden) for m in args.m}
     shipped = {m: time_ms(lambda: fused_mlp_ln(*a, 1e-5), 20) for m, a in inputs.items()}
-    rows = fused_mlp_ln_kernel_info(torch.float32, args.c)["rows"]
+    info = fused_mlp_ln_kernel_info(torch.float32, args.c)
+    rows, blocks_a_tile = info["rows"], info["cluster"]
 
     # the stamped copy: _build reads its source and build directories from
     # these two names, so fused_mlp_ln loads the stamped library from here on
     stamps_dir = ROOT / "build" / "stamps"
-    stamped_sources(stamps_dir / "csrc")
+    stamped_sources(stamps_dir / "csrc", edits)
     _build.CSRC = stamps_dir / "csrc"
     _build.BUILD_DIR = stamps_dir / "kernels"
     _build._libs.pop("mlp_ln", None)
@@ -140,12 +210,12 @@ def main() -> int:
         fused_mlp_ln(*a, 1e-5)
         torch.cuda.synchronize()
         _build.check(lib, read(ctypes.addressof(sums), 0), "read the stamps")
-        tiles = -(-m // rows)
+        tiles = -(-m // rows) * blocks_a_tile  # a block's tiles, summed
         print(f"M={m} C/H={args.c}/{hidden} float32: kernel {shipped[m]:.4f} ms, "
-              f"stamped {stamped:.4f} ms; cycles a tile (mean of {tiles} tiles), "
-              "thread 0 / thread 128:")
+              f"stamped {stamped:.4f} ms; cycles a tile (mean of {tiles} "
+              f"block tiles, {blocks_a_tile} a tile), thread 0 / thread 128:")
         total = [0, 0]
-        for k, name in enumerate(PHASES):
+        for k, name in enumerate(phases):
             a0, a1 = sums[k] / tiles, sums[16 + k] / tiles
             total[0] += a0
             total[1] += a1

@@ -282,21 +282,28 @@ def test_fused_mlp_kernels_tile_edges(cuda, dtype, c, rows, kernel):
     assert torch.isfinite(got).all() and _scaled_err(got, want) <= TOL[name][dtype]
 
 
+def _tiles_at_once(info, dtype, c: int) -> int:
+    """Tiles the card takes at once: the blocks it holds at once over the
+    blocks of a tile (a cluster of two blocks in float32 at C >= 256)."""
+    i = info(dtype, c)
+    return i["resident"] // i["cluster"]
+
+
 def _walk_rows(info, dtype, c: int, walk: str) -> int:
-    """M for a walk of K3's or K5's tiles, from the tile and blocks a SM the
-    library reports: "three tiles a block" is three waves of tiles less half
-    a tile (a persistent block walks exactly three, the last of them
-    ragged), "a wave and a row" one wave of full tiles and a tile of one
-    row (a persistent block walks it second). Checks the reported grid:
-    persistent blocks (float32 at C <= 128) are at most one wave, the other
-    tiles a block each."""
-    r = info(dtype, c)["rows"]
-    wave = (torch.cuda.get_device_properties(0).multi_processor_count
-            * info(dtype, c)["blocks_per_sm"])
+    """M for a walk of K3's or K5's tiles, from the tile and the blocks the
+    card holds at once as the library reports them: "three tiles a block"
+    is three waves of tiles less half a tile (a persistent block or cluster
+    walks exactly three, the last of them ragged), "a wave and a row" one
+    wave of full tiles and a tile of one row (a persistent block or cluster
+    walks it second). Checks the reported grid: float32's persistent blocks
+    (C <= 128) and clusters (C >= 256) are at most one wave, bfloat16 a
+    block a tile."""
+    r, cluster = info(dtype, c)["rows"], info(dtype, c)["cluster"]
+    wave = _tiles_at_once(info, dtype, c)
     m = 3 * wave * r - r // 2 if walk == "three tiles a block" else wave * r + 1
     tiles = -(-m // r)
-    persistent = dtype == torch.float32 and c <= 128
-    assert info(dtype, c, m)["grid"] == (min(tiles, wave) if persistent else tiles)
+    persistent = dtype == torch.float32
+    assert info(dtype, c, m)["grid"] == (min(tiles, wave) * cluster if persistent else tiles)
     return m
 
 
@@ -366,6 +373,75 @@ def test_fused_mlp_ln_kernel_one_hot_hidden(cuda, dtype, c):
     want = fused_mlp_ln_reference(*(a.float() for a in args), 1e-5)
     assert torch.equal(got.float().argmax(-1), out_ch[unit[k]])
     assert _scaled_err(got, want) <= TOL["fused_mlp_ln"][dtype]
+
+
+def _k3_or_k5(kernel: str, args):
+    """(kernel output, plain version in float32) of K3 or K5 on _mlp_args."""
+    if kernel == "K3":
+        return (fused_mlp_ln(*args, 1e-5),
+                fused_mlp_ln_reference(*(a.float() for a in args), 1e-5))
+    x, _, _, w1, b1, w2, b2, _ = args
+    return (fused_mlp(x, w1, b1, w2, b2),
+            fused_mlp_reference(*(a.float() for a in (x, w1, b1, w2, b2))))
+
+
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("rows", ["under a tile", "clusters without a tile",
+                                  "a row over whole tiles"])
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_fused_mlp_kernels_cluster_walks(cuda, c, rows, kernel):
+    """float32 at C >= 256, where a cluster of two blocks takes a tile, each
+    over half the channels: M under one tile (one cluster, ragged), a second
+    round of tiles for half the clusters (the others leave after one tile),
+    and a last tile of one row walked third by the first cluster."""
+    info = fused_mlp_ln_kernel_info if kernel == "K3" else fused_mlp_kernel_info
+    r, cluster = info(torch.float32, c)["rows"], info(torch.float32, c)["cluster"]
+    assert cluster == 2
+    wave = _tiles_at_once(info, torch.float32, c)
+    m = {"under a tile": r - 37, "clusters without a tile": (wave + wave // 2) * r - 5,
+         "a row over whole tiles": 2 * wave * r + 1}[rows]
+    assert info(torch.float32, c, m)["grid"] == min(-(-m // r), wave) * cluster
+    got, want = _k3_or_k5(kernel, _mlp_args(cuda, m, torch.float32, c, _HIDDEN[c]))
+    name = "fused_mlp_ln" if kernel == "K3" else "fused_mlp"
+    assert got.shape == (m, c)
+    assert torch.isfinite(got).all() and _scaled_err(got, want) <= TOL[name][torch.float32]
+
+
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_fused_mlp_kernels_one_hot_across_the_cluster(cuda, c, kernel):
+    """float32 at C >= 256: row i is one-hot at input channel k = i mod C,
+    in block k // (C / nb)'s slice (nb blocks a cluster, as the library
+    reports); W1 sends channel k to one hidden unit u(k) whose column of its
+    chunk the next block finishes, and W2 sends unit u to an output channel
+    in the block after that one; b1 = -3 keeps every other unit near
+    GELU(-3). So each row's dominant hidden value crosses the cluster twice
+    (partial sums to u's block, the finished column to every block) and
+    lands on a known channel: a slot, rank or column mixed up in either
+    exchange shows as a wrong channel, not as rounding. Every slice, every
+    finishing block and every output slice comes up in turn."""
+    info = fused_mlp_ln_kernel_info if kernel == "K3" else fused_mlp_kernel_info
+    hidden, m, nb = _HIDDEN[c], 777, info(torch.float32, c)["cluster"]
+    assert nb > 1
+    w, cs = 64 // nb, c // nb  # a chunk's columns a block finishes; its channels
+    chunks = hidden // 64
+    k = torch.arange(c, device="cuda")
+    unit = 64 * (k % chunks) + w * ((k // cs + 1) % nb) + (k // chunks) % w
+    u = torch.arange(hidden, device="cuda")
+    out_ch = cs * (((u % 64) // w + 1) % nb) + (u // 8) % cs
+    rows = torch.arange(m, device="cuda")
+    x = torch.zeros(m, c, device="cuda")
+    x[rows, rows % c] = 0.5 if kernel == "K3" else 8.0
+    w1 = torch.zeros(hidden, c, device="cuda")
+    w1[unit, k] = 1.0
+    w2 = torch.zeros(c, hidden, device="cuda")
+    w2[out_ch, u] = 1.0
+    b1 = torch.full((hidden,), -3.0, device="cuda")
+    ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    got, want = _k3_or_k5(kernel, (x, ones, zeros, w1, b1, w2, zeros, ones))
+    assert torch.equal(got.argmax(-1), out_ch[unit[rows % c]])
+    name = "fused_mlp_ln" if kernel == "K3" else "fused_mlp"
+    assert _scaled_err(got, want) <= TOL[name][torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

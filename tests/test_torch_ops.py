@@ -214,11 +214,14 @@ def test_fused_mlp_ln_reference_bf16_within_rounding():
 _K5 = ("x", "w1", "b1", "w2", "b2")
 
 
-@pytest.mark.parametrize("c,hidden", [(128, 512), (64, 256)])
+@pytest.mark.parametrize("c,hidden", [(128, 512), (64, 256), (512, 1024),
+                                      (256, 1024)])
 def test_fused_mlp_reference_matches_jax(c, hidden):
     """K5's plain version against `_mlp_xla` and the Pallas kernel in
-    interpret mode, as tests/test_ops.py holds the kernel."""
-    a = _mlp_inputs(512, c, hidden)
+    interpret mode, as tests/test_ops.py holds the kernel: at the flagship's
+    and MotionAGFormer hierarchical's widths on 512 rows, at K5's route's
+    512/1024 (MixSTE) and DSTFormer's 256/1024 on 256."""
+    a = _mlp_inputs(512 if c <= 128 else 256, c, hidden)
     got = fused_mlp_reference(*(_torch_mlp_args(a)[i] for i in (0, 3, 4, 5, 6))).numpy()
     jargs = [jnp.asarray(a[k]) for k in _K5]
     np.testing.assert_allclose(got, np.asarray(_mlp_xla(*jargs)), atol=1e-5, rtol=1e-5)
