@@ -3,7 +3,7 @@
 
 Run from the repository root:  python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3d]
 (the short loops for kernel work: 0,1,2,3d for K1, 0,1,3,3b,3d for K3/K5,
-0,1,7 for K4)
+0,1,6 for K2, 0,1,7 for K4)
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
@@ -59,7 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
   6. K2 masked_sdpa_bwd against its plain version at the train shapes
      (spatial (32,27,17,128), temporal (32,17,27,128) with the gradient a
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
-     plain and scaled_dot_product_attention-backward times.
+     plain and scaled_dot_product_attention-backward times (kernel and SDPA
+     in turns), each row's tiles, waves, share of its bound and its time
+     over SDPA's; K2's registers, shared memory, spills, tile and grid an
+     instantiation to --out/chip_smoke_k2_kernel.txt (a spill fails the
+     phase).
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
@@ -239,6 +243,55 @@ def write_k1_report(out_dir: str) -> None:
     with open(os.path.join(out_dir, "chip_smoke_k1_kernel.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, masked_sdpa.cu\n"
                 + ptxas + "\n")
+
+
+def k2_row_line(dt, seqs: int, n: int, heads: int, ms: float, lib: float,
+                bms: float) -> str:
+    """A K2 row's tiles ((sequence, head group) pairs), the persistent grid,
+    waves (tiles over the grid), its share of its bound and its time over
+    the backward of one SDPA call (the tile fields only where the library
+    reports them: an older tree's, kept for A/B runs, does not)."""
+    from kasportsformer_torch.ops import attention
+
+    share = f"share of bound {bms / ms:.1%}  K2/SDPA bwd {ms / lib:.3f}"
+    if not hasattr(attention, "masked_sdpa_bwd_kernel_info"):
+        return share
+    info = attention.masked_sdpa_bwd_kernel_info(dt, n)
+    grid = info["grid"]
+    tiles = seqs * -(-heads // info["tile_heads"])
+    return f"{tiles} tiles on {min(tiles, grid)} blocks, {tiles / grid:.2f} waves; " + share
+
+
+def write_k2_report(out_dir: str) -> None:
+    """K2's compiler report (`-Xptxas -v`: registers, spills) and each
+    instantiation's threads, registers, shared memory, spills, blocks a SM,
+    tile and grid as the runtime reports them, to
+    --out/chip_smoke_k2_kernel.txt; one summary line an instantiation to the
+    log. Raises if one spills."""
+    import torch
+
+    from kasportsformer_torch.ops import _build, attention
+
+    if not hasattr(attention, "masked_sdpa_bwd_kernel_info"):  # an older tree
+        log("   K2 reports no instantiations in this tree")
+        return
+    lines, spills = [], []
+    for dt in (torch.float32, torch.bfloat16):
+        for n in range(4, 33, 4):  # one instantiation a block of four rows
+            info = attention.masked_sdpa_bwd_kernel_info(dt, n)
+            line = (f"K2 {str(dt).split('.')[1]:8s} D=16 N<={n:2d}: " + ", ".join(
+                f"{k} {v}" for k, v in info.items()))
+            lines.append(line)
+            if info["spill_bytes"] != 0:
+                spills.append(line)
+            log(f"   {line}")
+    log(f"   K2 instantiations with local memory (spills): {spills or 'none'}")
+    ptxas = _build.PTXAS.get("masked_sdpa_bwd", "(built before this process)")
+    with open(os.path.join(out_dir, "chip_smoke_k2_kernel.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, masked_sdpa_bwd.cu\n"
+                + ptxas + "\n")
+    if spills:
+        raise AssertionError(f"K2 instantiations spill: {spills}")
 
 
 def k3_tile_line(dt, m: int, c: int, h: int, ms: float, bms: float) -> str:
@@ -1317,16 +1370,8 @@ def sum_err(got, want) -> float:
     return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
 
 
-def time_backward_ms(out, inputs, grad, iters: int) -> float:
-    """Device time of autograd's backward of `out` alone (the graph kept)."""
-    import torch
-
-    return time_ms(lambda: torch.autograd.grad(out, inputs, grad,
-                                               retain_graph=True), iters)
-
-
 @phase("phase 6: K2 masked_sdpa_bwd vs plain")
-def check_k2(dev) -> dict:
+def check_k2(dev, out_dir: str) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -1355,16 +1400,18 @@ def check_k2(dev) -> dict:
                     and max(errs) <= tol[dt]):
                 raise AssertionError(f"K2 {mode} {dt}: errs {errs} > {tol[dt]}")
             b, g, n, c = qq.shape
-            ms = time_ms(lambda: masked_sdpa_bwd(qq, kk, vv, gg, scale, heads), 50)
-            plain = time_ms(lambda: masked_sdpa_bwd_reference(
-                qq, kk, vv, gg, scale, heads), 20)
             # the library yardstick: the backward of one SDPA call on
-            # (B*G, H, N, D)
+            # (B*G, H, N, D), timed in turns with the kernel
             qh, kh, vh, gh = (z.reshape(b * g, n, heads, c // heads)
                               .transpose(1, 2).contiguous().requires_grad_(z is not gg)
                               for z in (qq, kk, vv, gg))
             sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-            lib = time_backward_ms(sdpa_out, (qh, kh, vh), gh, 50)
+            ms, lib = interleaved_ms(
+                lambda: masked_sdpa_bwd(qq, kk, vv, gg, scale, heads),
+                lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), gh,
+                                            retain_graph=True), 50)
+            plain = time_ms(lambda: masked_sdpa_bwd_reference(
+                qq, kk, vv, gg, scale, heads), 20)
             dname = str(dt).split(".")[1]
             nbytes = 7 * b * g * n * c * qq.element_size()
             flops = 10 * b * g * n * n * c
@@ -1375,7 +1422,7 @@ def check_k2(dev) -> dict:
             log(f"   K2 {mode:8s} {dname:8s} {tuple(qq.shape)} err dq/dk/dv "
                 + "/".join(f"{e:.2e}" for e in errs) + f" (limit {tol[dt]:.0e}) "
                 f"kernel {ms:.4f} ms  plain {plain:.4f}  sdpa bwd {lib:.4f}  "
-                f"bound {bms:.4f} ({by})")
+                f"bound {bms:.4f} ({by})  " + k2_row_line(dt, b * g, n, heads, ms, lib, bms))
     q, k, v, g = (torch.randn(2, 4, 17, 128, device=dev, generator=gen)
                   for _ in range(4))
     q[..., :16] *= 60.0
@@ -1389,6 +1436,7 @@ def check_k2(dev) -> dict:
             raise AssertionError(f"K2 x60 spread {dt}: errs {errs}")
         log(f"   K2 x60 inter-head spread {dt}: errs "
             + "/".join(f"{e:.2e}" for e in errs))
+    write_k2_report(out_dir)
     return rows
 
 
@@ -1859,7 +1907,7 @@ def main() -> int:
         del res
     zoo = run("5b", check_zoo_models, dev, args.out)
     zoo_launches = run("5c", check_zoo_serving, dev)
-    k2 = run("6", check_k2, dev)
+    k2 = run("6", check_k2, dev, args.out)
     k4 = run("7", check_k4, dev, args.out)
     run("8", check_grads, dev)
     run("9", check_train_step, dev, args.out)

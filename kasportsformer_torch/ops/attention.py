@@ -226,3 +226,22 @@ def masked_sdpa_kernel_info(dtype: torch.dtype, d: int) -> dict:
     fn(_DTYPE_CODE[dtype], d, info)
     return dict(zip(("threads", "registers", "smem_bytes", "spill_bytes",
                      "blocks_per_sm"), info))
+
+
+def masked_sdpa_bwd_kernel_info(dtype: torch.dtype, n: int = 32) -> dict:
+    """K2's instantiation for `dtype` (head width 16) and N = `n` (one a
+    block of four rows) on the current CUDA device, as the runtime reports
+    it: threads a block, registers a thread, dynamic shared memory a block,
+    local memory (spills) a thread in bytes, blocks resident a SM, the tile
+    (heads of one sequence; rows, N padded to a multiple of four) and the
+    persistent grid (blocks resident on the device: a launch of more tiles
+    walks them with this many blocks). Builds the kernel if needed;
+    launches nothing."""
+    lib = _build.library("masked_sdpa_bwd")
+    info = (ctypes.c_int * 8)(*([-1] * 8))
+    fn = lib.kasf_masked_sdpa_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    fn(_DTYPE_CODE[dtype], n, info)
+    return dict(zip(("threads", "registers", "smem_bytes", "spill_bytes",
+                     "blocks_per_sm", "tile_heads", "tile_rows", "grid"), info))

@@ -4,270 +4,658 @@
 // (wrapper masked_sdpa_bwd_pallas, VJP _masked_sdpa_bwd). For every (b, g)
 // sequence of (B, G, N, C) inputs and every head h of width D = C / H, from the
 // residuals q, k, v and the output gradient g alone:
-//     P  = softmax(q_h k_h^T * scale)                  (recomputed)
+//     P  = softmax(q_h k_h^T * scale)                  (recomputed, exact max)
 //     dV = P^T g_h,  dP = g_h v_h^T
 //     dS = P * (dP - rowsum(P * dP)) * scale
 //     dq = dS k_h,   dk = dS^T q_h
 //
 // Bound on the H100: 7 tensors of B*G*N*C elements move (q, k, v, g in; dq,
-// dk, dv out) against ~10*N*N*C FLOP per sequence: at N = 17 or 27 that is a
-// few FLOP per byte, far below the card's ridge point, so it is bound by
-// device-memory bytes.
+// dk, dv out): 52.6 MB in f32 at (32, 27, 17, 128), 15.7 us at 3.35 TB/s.
+// Beside them, the five products (S, dP, dV, dq, dk) are 5*N*N*C FMAs a
+// sequence: 160 M spatially (N = 17), 4.8 us at the full f32 FMA rate, and
+// 254 M temporally (N = 27), 7.6 us. So it is bound by bytes, but the work
+// is not small beside them: only copies kept in flight while the products
+// run come near the byte bound.
 //
-// Design (simple and right first):
-//  * One block per (b, g) sequence. q, k, v and g (N x C) are staged once in
-//    shared memory as f32, from strided views: four leading strides each,
-//    channel stride 1, every row starting on a 4-element boundary (the
-//    wrapper copies an operand that does not), as K1 takes them.
-//  * Pass 1, one thread per (head, query row): recompute the logits with the
-//    exact per-head max (no head can underflow to 0/0, nothing needs a
-//    guard), P, dP and the row sum of P * dP in registers; write P and dS of
-//    all heads to shared memory (H*N*N f32 each: 32 KB at N = 32, H = 8) and
-//    dq, which needs only this row, to device memory.
-//  * Pass 2, one thread per (head, key row): dv and dk sum over the query
-//    rows of the staged P and dS, so no two threads write one element and no
-//    atomics are needed.
-//  * Everything accumulates in f32 for f32 and bf16 inputs; only dq, dk and
-//    dv are rounded to the input dtype. They come out contiguous (B, G, N, C).
+// Design:
+//  * Unit of work: one (sequence, head group) tile, HG = 4 heads (W = 64
+//    channels; a last group of fewer heads, C not a multiple of 64, loads and
+//    computes only its heads). Persistent blocks (SMs x 2, at most one a
+//    tile) walk the tiles in order through a two-stage ring: while tile t
+//    computes, the block's last warp copies tile t + grid into the other
+//    stage by 16-byte cp.async.cg copies (kasf_mma::cp_async16) and each of
+//    its lanes arrives on the stage's mbarrier once its copies have landed
+//    (cp.async.mbarrier.arrive); the other warps compute no tile indices
+//    but the output offset. A stage holds q, k, v and g of a tile, 32 rows
+//    (N padded) x W channels, each row padded by 16 bytes; rows N..31 are
+//    zeroed once and never written again. The loader takes all four leading
+//    strides of each operand (column slices of one qkv projection, the
+//    (B,T,J,C)->(B,J,T,C) permutation, a transposed gradient), channel
+//    stride 1, rows on 16-byte boundaries.
+//    Why four heads and not eight: an 8-head tile's ring and P/dS take
+//    ~200 KB, one block a SM, a 4-head tile's ~107 KB, two blocks a SM, so
+//    one block's barriers and loads overlap the other's products; the
+//    8-head tile measured 10-20 % slower (scripts/k2_tile_stamps.py
+//    --heads 8, both with stamps).
+//    Why cp.async from one warp: copies issued by every thread held every
+//    warp at the issue (~2k cycles a tile in the stamps); one bulk copy a
+//    row (4 N a tile) measured no better than this.
+//  * Exact f32 on the CUDA cores from either dtype (TF32 would put ~5e-4 on
+//    each logit). bf16 is copied as bf16 (half the bytes) and widened to an
+//    f32 copy of the stage once a tile, so no product widens its operands;
+//    only dq, dk and dv are rounded.
+//  * A tile's time goes to shared-memory reads and their latency more than
+//    to FMAs, so every product runs on register tiles (each float read feeds
+//    2 to 4 FMAs, every read 16 bytes wide) and each warp has 16 or more
+//    independent accumulators.
+//  * Pass 1, a group of four lanes per (head, block of four query rows),
+//    packed over the tile's heads x ceil(N / 4) blocks (no group on a block
+//    that is all padding): lane jb takes the keys jb + 4k and forms S and dP
+//    of the four rows x its keys (4 x NB register tiles, NB = ceil(N / 4),
+//    an instantiation each, so no loop has a guard). The row softmax takes
+//    two butterfly shuffles a reduction, the four rows side by side; the
+//    exponential is 2^((t - m) log2 e), with t - m formed in f32 first.
+//    P and dS go to shared memory transposed (key-major), one 16-byte store
+//    a key and a lane.
+//  * Pass 2, from P^T and dS^T: lanes (head, four keys, four channels) sum
+//    dV = P^T g and dK = dS^T q over the rows, four rows a step (4 x 4
+//    register tiles, two 16-byte reads of P^T and dS^T a step); lanes from
+//    the next warp on (head, four rows, eight channels) sum dq = dS k over
+//    the keys. Padded rows and keys read zeros (or finite P, dS times zero
+//    rows), so the sums need no guard; each output element is one sum in a
+//    fixed order: no atomics, reruns bitwise equal.
+//  * P and dS are kept (5 products) rather than recomputed from per-row
+//    statistics (7 products): shared memory reads set the pace, and
+//    recomputing would read k and v once more for every key of every row.
+//  * Head width D is a template parameter; only D = 16 (the flagship's) is
+//    instantiated.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int kMaxN = 32;
-constexpr int kD = 16;  // head width
+using kasf_mma::bf16_hi;
+using kasf_mma::bf16_lo;
+using kasf_mma::cp_async16;
+using kasf_mma::cp_async_arrive;
+using kasf_mma::mbar_init;
+using kasf_mma::mbar_wait;
+using kasf_mma::pack_bf16;
+
+constexpr int kMaxN = 32;   // rows a stage holds: N padded
+constexpr int kStages = 2;  // the ring of cp.async copies
+constexpr int kMaxDevices = 64;
 
 struct BwdStrides {
   long long q[4], k[4], v[4], g[4];
 };
 
-__device__ __forceinline__ void load4(const float* p, float (&d)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&d)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  d[0] = lo.x; d[1] = lo.y; d[2] = hi.x; d[3] = hi.y;
-}
-__device__ __forceinline__ void store4(float* p, const float (&d)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&d)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+template <typename T, int D>
+struct Tile {
+  static constexpr int HG = 4;                     // heads a group
+  static constexpr int W = HG * D;                 // channels a group
+  static constexpr int kThreads = 64 * HG;         // two warps a head
+  static constexpr int kMinBlocks = HG <= 4 ? 2 : 1;  // blocks a SM, as shared memory allows
+  static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // 16 bytes
+  static constexpr int kRingPitch = W + kChunk;    // elements a ring row
+  static constexpr int kRingStage = 4 * kMaxN * kRingPitch;  // q, k, v, g
+  static constexpr int kPitch = W + 4;             // floats a row of the f32 stage
+  static constexpr int kStage = 4 * kMaxN * kPitch;
+  static constexpr int kPPitch = kMaxN + 4;        // floats a key of P^T, dS^T
+  static constexpr int kPHead = kMaxN * kPPitch + 16;  // a head's: heads 16 banks apart
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kRingBytes = kStages * kRingStage * static_cast<int>(sizeof(T));
+  static constexpr int kPBytes = 2 * HG * kPHead * 4;  // P^T and dS^T
+  static constexpr int kBarBytes = 16;             // an mbarrier a ring stage
+  static constexpr int kStageBytes = kF32 ? 0 : kStage * 4;  // bf16: the widened copy
+  static constexpr int kSmem = kRingBytes + kStageBytes + kPBytes + kBarBytes;
+  static_assert(kF32 == (kRingPitch == kPitch), "an f32 ring stage is the f32 stage");
+  static_assert(D % 8 == 0, "dq's lanes take eight channels of a head");
+};
+
+// leading stride a (0..2) of operand z (q, k, v, g)
+__device__ __forceinline__ long long stride(const BwdStrides& st, int z, int a) {
+  return z == 0 ? st.q[a] : z == 1 ? st.k[a] : z == 2 ? st.v[a] : st.g[a];
 }
 
-// one D-wide head row of a staged (N x C) f32 tile
-__device__ __forceinline__ void head_row(const float* tile, int row, int C, int h,
-                                         float (&r)[kD]) {
-  const float4* p = reinterpret_cast<const float4*>(tile + row * C + h * kD);
+// a tile: its sequence, head group, the heads the group has, and the
+// element offset of its first channel in row 0 of the contiguous outputs
+struct TileBase {
+  long long o;
+  int seq, grp, heads;
+};
+
+template <int HG, int W>
+__device__ __forceinline__ TileBase tile_base(int t, int groups, int N, int C, int H) {
+  TileBase tb;
+  tb.seq = t / groups;
+  tb.grp = t - tb.seq * groups;
+  tb.o = static_cast<long long>(tb.seq) * N * C + tb.grp * W;
+  tb.heads = min(HG, H - tb.grp * HG);
+  return tb;
+}
+
+// One warp: q, k, v and g rows 0..N-1 of a tile's head group into a ring
+// stage by 16-byte cp.async copies (lane l takes chunk l % R of rows
+// l / R, l / R + 32 / R, ..., R the chunks a row), then one arrival each on
+// the stage's mbarrier once its copies have landed
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* stage, unsigned long long* bar,
+                                          const T* __restrict__ q, const T* __restrict__ k,
+                                          const T* __restrict__ v, const T* __restrict__ g,
+                                          const BwdStrides& st, const TileBase& tb, int G,
+                                          int N, int lane) {
+  using Tl = Tile<T, D>;
+  constexpr int kRowChunks = Tl::W / Tl::kChunk;
+  constexpr int kRowStep = 32 / kRowChunks;  // rows a pass of the warp
+  const int ch = lane % kRowChunks;
+  if (ch < tb.heads * D / Tl::kChunk) {  // not past a short last group
+    const int row = lane / kRowChunks;
+    const long long b = tb.seq / G;
+    const long long gi = tb.seq - b * G;
+    const long long c0 = tb.grp * Tl::W + ch * Tl::kChunk;
 #pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float4 v = p[d4];
-    r[4 * d4] = v.x; r[4 * d4 + 1] = v.y; r[4 * d4 + 2] = v.z; r[4 * d4 + 3] = v.w;
+    for (int z = 0; z < 4; ++z) {
+      const long long rs = stride(st, z, 2);
+      const T* src = (z == 0 ? q : z == 1 ? k : z == 2 ? v : g) + b * stride(st, z, 0) +
+                     gi * stride(st, z, 1) + row * rs + c0;
+      T* dst = stage + (z * kMaxN + row) * Tl::kRingPitch + ch * Tl::kChunk;
+#pragma unroll 4
+      for (int u = 0; u < kMaxN / kRowStep; ++u)
+        if (row + u * kRowStep < N)
+          cp_async16(dst + u * kRowStep * Tl::kRingPitch, src + u * kRowStep * rs);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+// bf16: rows 0..N-1 of a landed ring stage widened into the f32 stage (rows
+// N..31 of the f32 stage stay zero); a thread widens four channels at a time,
+// neighbouring threads on neighbouring 16-byte stores
+template <int D>
+__device__ __forceinline__ void widen_tile(const __nv_bfloat16* ring, float* stage,
+                                           int heads, int N) {
+  using Tl = Tile<__nv_bfloat16, D>;
+  constexpr int kRowQuads = Tl::W / 4;
+  constexpr int kRowStep = Tl::kThreads / kRowQuads;
+  const int c4 = threadIdx.x % kRowQuads;
+  if (c4 >= heads * D / 4) return;
+#pragma unroll
+  for (int u = 0; u < kMaxN / kRowStep; ++u) {
+    const int row = threadIdx.x / kRowQuads + u * kRowStep;
+    if (row < N) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const uint2 w = *reinterpret_cast<const uint2*>(
+            ring + (z * kMaxN + row) * Tl::kRingPitch + 4 * c4);
+        *reinterpret_cast<float4*>(stage + (z * kMaxN + row) * Tl::kPitch + 4 * c4) =
+            make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+      }
+    }
   }
 }
 
-__device__ __forceinline__ float dot_head(const float (&a)[kD], const float* tile,
-                                          int row, int C, int h) {
-  const float4* p = reinterpret_cast<const float4*>(tile + row * C + h * kD);
-  float acc = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float4 v = p[d4];
-    acc = fmaf(a[4 * d4], v.x, acc);
-    acc = fmaf(a[4 * d4 + 1], v.y, acc);
-    acc = fmaf(a[4 * d4 + 2], v.z, acc);
-    acc = fmaf(a[4 * d4 + 3], v.w, acc);
-  }
-  return acc;
+// 2^x in one MUFU.EX2 (relative error ~2^-22; -inf -> 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// 1/x in one MUFU.RCP (1 ulp), for a softmax sum x >= 1
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void axpy_head(float s, const float* tile, int row, int C,
-                                          int h, float (&acc)[kD]) {
-  const float4* p = reinterpret_cast<const float4*>(tile + row * C + h * kD);
+__device__ __forceinline__ void fma4(float4& acc, float s, const float4& x) {
+  acc.x = fmaf(s, x.x, acc.x);
+  acc.y = fmaf(s, x.y, acc.y);
+  acc.z = fmaf(s, x.z, acc.z);
+  acc.w = fmaf(s, x.w, acc.w);
+}
+// acc + a . b, one chain of four FMAs
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// 4 f32 or 4 bf16 (8 bytes) from four floats
+__device__ __forceinline__ void store4(float* dst, const float4& x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4& x) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+// ---- pass 1: a group of four lanes per (head h, row block ib) of the
+// tile's heads x NB blocks, packed with the heads fastest (the two groups of
+// a quarter warp read and write 16 banks apart); lane jb takes the keys
+// jb + 4k. S and dP of rows 4 ib .. +3 x its keys, the row softmax (two
+// shuffles a reduction, within the group), then P^T and dS^T of its keys
+// to shared memory, one 16-byte store a key: padded rows (q, g zero) give
+// finite values there that pass 2 multiplies by zero rows or never stores,
+// padded keys give zeros
+template <typename T, int D, int NB>
+__device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst, int heads,
+                                      int N, float scale) {
+  using Tl = Tile<T, D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int groups = heads * NB;
+  if (static_cast<int>(threadIdx.x >> 5) * 8 >= groups) return;  // the whole warp is idle
+  const int grp = threadIdx.x >> 2;
+  const bool valid = grp < groups;  // invalid groups compute group 0, store nothing
+  const int ib = valid ? grp / heads : 0;
+  const int h = valid ? grp - ib * heads : 0;
+  const int jb = threadIdx.x & 3;
+  const float* qs = stage + 4 * ib * Tl::kPitch + h * D;
+  const float* gs = qs + 3 * kMaxN * Tl::kPitch;
+  const float* ks = stage + (kMaxN + jb) * Tl::kPitch + h * D;
+  const float* vs = ks + kMaxN * Tl::kPitch;
+
+  float s[4][NB], dp[4][NB];
 #pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float4 v = p[d4];
-    acc[4 * d4] = fmaf(s, v.x, acc[4 * d4]);
-    acc[4 * d4 + 1] = fmaf(s, v.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(s, v.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(s, v.w, acc[4 * d4 + 3]);
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int k = 0; k < NB; ++k) s[r][k] = dp[r][k] = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    float4 a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = reinterpret_cast<const float4*>(qs + r * Tl::kPitch)[d4];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(ks + 4 * k * Tl::kPitch)[d4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r][k] = dot4(a[r], b, s[r][k]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = reinterpret_cast<const float4*>(gs + r * Tl::kPitch)[d4];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(vs + 4 * k * Tl::kPitch)[d4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dp[r][k] = dot4(a[r], b, dp[r][k]);
+    }
+  }
+
+  // the four rows side by side, so that their shuffles overlap: the exact
+  // max of each row's scaled logits (padded keys masked), then
+  // p = 2^((t - m) log2 e) (t - m is formed before the conversion, so large
+  // logits lose nothing to it), the sum and rowsum(P * dP); butterflies, so
+  // every lane of the group forms the same sums
+  float m[4], l[4], rs[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      s[r][k] = jb + 4 * k < N ? s[r][k] * scale : -INFINITY;
+      m[r] = fmaxf(m[r], s[r][k]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    l[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      s[r][k] = fast_exp2((s[r][k] - m[r]) * kLog2e);  // padded keys: 2^-inf = 0
+      l[r] += s[r][k];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float inv = fast_rcp(l[r]);  // l >= 1: the max logit contributes 2^0
+    rs[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      s[r][k] *= inv;
+      rs[r] = fmaf(s[r][k], dp[r][k], rs[r]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], o);
+  if (!valid) return;
+  float* pj = pt + h * Tl::kPHead + jb * Tl::kPPitch + 4 * ib;
+  float* dj = dst + h * Tl::kPHead + jb * Tl::kPPitch + 4 * ib;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    float4 ds;
+    ds.x = s[0][k] * (dp[0][k] - rs[0]) * scale;
+    ds.y = s[1][k] * (dp[1][k] - rs[1]) * scale;
+    ds.z = s[2][k] * (dp[2][k] - rs[2]) * scale;
+    ds.w = s[3][k] * (dp[3][k] - rs[3]) * scale;
+    *reinterpret_cast<float4*>(pj + 4 * k * Tl::kPPitch) =
+        make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
+    *reinterpret_cast<float4*>(dj + 4 * k * Tl::kPPitch) = ds;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_head(T* row, const float (&r)[kD]) {
+// pass 2's operands of a step of four rows 4 ic .. +3: of four keys of P^T
+// or dS^T (pitch PP) and four channels of g or q (pitch P)
+template <int PP, int P>
+__device__ __forceinline__ void load_rows(const float* keys, const float* rows, int ic,
+                                          float4 (&w)[4], float4 (&x)[4]) {
 #pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float o4[4] = {r[4 * d4], r[4 * d4 + 1], r[4 * d4 + 2], r[4 * d4 + 3]};
-    store4(row + 4 * d4, o4);
+  for (int t = 0; t < 4; ++t) {
+    w[t] = *reinterpret_cast<const float4*>(keys + t * PP + 4 * ic);
+    x[t] = *reinterpret_cast<const float4*>(rows + (4 * ic + t) * P);
+  }
+}
+// acc[t] += sum_e w[t][e] x[e]
+__device__ __forceinline__ void outer_step(float4 (&acc)[4], const float4 (&w)[4],
+                                           const float4 (&x)[4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    fma4(acc[t], w[t].x, x[0]);
+    fma4(acc[t], w[t].y, x[1]);
+    fma4(acc[t], w[t].z, x[2]);
+    fma4(acc[t], w[t].w, x[3]);
+  }
+}
+// dq's operands of step j2 (keys 2 j2, 2 j2 + 1): dS^T of the four rows,
+// eight channels of k
+template <int PP, int P>
+__device__ __forceinline__ void load_keys(const float* ds, const float* ks, int j2,
+                                          float4 (&w)[2], float4 (&x)[2][2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int j = 2 * j2 + e;
+    w[e] = *reinterpret_cast<const float4*>(ds + j * PP);
+    x[e][0] = *reinterpret_cast<const float4*>(ks + j * P);
+    x[e][1] = *reinterpret_cast<const float4*>(ks + j * P + 4);
+  }
+}
+__device__ __forceinline__ void dq_step(float4 (&acc)[4][2], const float4 (&w)[2],
+                                        const float4 (&x)[2][2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float wt[4] = {w[e].x, w[e].y, w[e].z, w[e].w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      fma4(acc[t][0], wt[t], x[e][0]);
+      fma4(acc[t][1], wt[t], x[e][1]);
+    }
   }
 }
 
-template <typename T>
-__global__ void masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                       const T* __restrict__ v, const T* __restrict__ g,
-                                       T* __restrict__ dq, T* __restrict__ dk,
-                                       T* __restrict__ dv, BwdStrides st, int G, int N,
-                                       int C, int H, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // N x C each
-  float* ks = qs + N * C;
-  float* vs = ks + N * C;
-  float* gs = vs + N * C;
-  float* ps = gs + N * C;   // H x N x N: P
-  float* dss = ps + H * N * N;  // H x N x N: dS
+// ---- pass 2, from P^T and dS^T: lanes 0 .. nA - 1 take (head, key block
+// of four, four channels) and sum dV = P^T g and dK = dS^T q over the rows,
+// four rows a step (16-byte reads of P^T and dS^T), the next step's reads
+// issued before this step's FMAs; from the next warp on,
+// lanes take (head, row block of four, eight channels) and sum dq = dS k
+// over the keys. Every sum runs over the padded rows or keys in order
+// (their entries are zero, or finite P and dS of a padded row times a zero
+// row): no guard, no atomics, each output element one fixed sum
+template <typename T, int D, int NB>
+__device__ __forceinline__ void pass2(const float* stage, const float* pt, const float* dst,
+                                      T* __restrict__ dq, T* __restrict__ dk,
+                                      T* __restrict__ dv, const TileBase& tb, int N, int C) {
+  using Tl = Tile<T, D>;
+  const int nA = tb.heads * NB * (D / 4);
+  const int offB = (nA + 31) & ~31;
+  const int nB = tb.heads * NB * (D / 8);
+  const int u = threadIdx.x;
+  if (u < nA) {
+    const int c4 = u % (D / 4);
+    const int hk = u / (D / 4);
+    const int h = hk / NB;
+    const int kb = hk - h * NB;
+    const float* pth = pt + h * Tl::kPHead + 4 * kb * Tl::kPPitch;
+    const float* dsh = dst + h * Tl::kPHead + 4 * kb * Tl::kPPitch;
+    const float* qs = stage + h * D + 4 * c4;
+    const float* gs = qs + 3 * kMaxN * Tl::kPitch;
+    // four rows a step, (P^T, g) then (dS^T, q): the next half's reads
+    // are issued before this half's FMAs
+    float4 dva[4], dka[4], wa[4], xa[4], wb[4], xb[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) dva[t] = dka[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    load_rows<Tl::kPPitch, Tl::kPitch>(pth, gs, 0, wa, xa);
+#pragma unroll
+    for (int ic = 0; ic < NB; ++ic) {
+      load_rows<Tl::kPPitch, Tl::kPitch>(dsh, qs, ic, wb, xb);
+      outer_step(dva, wa, xa);
+      if (ic + 1 < NB) load_rows<Tl::kPPitch, Tl::kPitch>(pth, gs, ic + 1, wa, xa);
+      outer_step(dka, wb, xb);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int j = 4 * kb + t;
+      if (j < N) {
+        const long long off = tb.o + static_cast<long long>(j) * C + h * D + 4 * c4;
+        store4(dv + off, dva[t]);
+        store4(dk + off, dka[t]);
+      }
+    }
+  } else if (u >= offB && u - offB < nB) {
+    const int c8 = (u - offB) % (D / 8);
+    const int hr = (u - offB) / (D / 8);
+    const int h = hr / NB;
+    const int rb = hr - h * NB;
+    const float* dsh = dst + h * Tl::kPHead + 4 * rb;
+    const float* ks = stage + kMaxN * Tl::kPitch + h * D + 8 * c8;
+    // two keys a step, the next step's reads issued before this step's FMAs
+    float4 acc[4][2], wa[2], ka[2][2], wb[2], kb2[2][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, 0, wa, ka);
+#pragma unroll
+    for (int j2 = 0; j2 < 2 * NB; j2 += 2) {
+      load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, j2 + 1, wb, kb2);
+      dq_step(acc, wa, ka);
+      if (j2 + 2 < 2 * NB) load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, j2 + 2, wa, ka);
+      dq_step(acc, wb, kb2);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = 4 * rb + t;
+      if (i < N) {
+        const long long off = tb.o + static_cast<long long>(i) * C + h * D + 8 * c8;
+        store4(dq + off, acc[t][0]);
+        store4(dq + off + 4, acc[t][1]);
+      }
+    }
+  }
+}
 
-  const long long seq = blockIdx.x;
-  const long long b = seq / G;
-  const long long gi = seq - b * G;
-  const T* qb = q + b * st.q[0] + gi * st.q[1];
-  const T* kb = k + b * st.k[0] + gi * st.k[1];
-  const T* vb = v + b * st.v[0] + gi * st.v[1];
-  const T* gb = g + b * st.g[0] + gi * st.g[1];
-  for (int e = threadIdx.x; e < N * C / 4; e += blockDim.x) {
-    const int j = e / (C / 4);
-    const int c = 4 * (e - j * (C / 4));
-    float t4[4];
-    load4(qb + j * st.q[2] + c, t4);
-    store4(qs + j * C + c, t4);
-    load4(kb + j * st.k[2] + c, t4);
-    store4(ks + j * C + c, t4);
-    load4(vb + j * st.v[2] + c, t4);
-    store4(vs + j * C + c, t4);
-    load4(gb + j * st.g[2] + c, t4);
-    store4(gs + j * C + c, t4);
+// ------------------------------------------------------------------ kernel
+
+template <typename T, int D, int NB>
+__global__ void __launch_bounds__(Tile<T, D>::kThreads, Tile<T, D>::kMinBlocks)
+masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ g,
+                       T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                       BwdStrides st, int tiles, int groups, int G, int N, int C, int H,
+                       float scale) {
+  using Tl = Tile<T, D>;
+  extern __shared__ uint4 smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  T* ring = reinterpret_cast<T*>(smem);
+  float* wide = reinterpret_cast<float*>(base + Tl::kRingBytes);
+  float* pt = reinterpret_cast<float*>(base + Tl::kRingBytes + Tl::kStageBytes);
+  float* dst = pt + Tl::HG * Tl::kPHead;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(base + Tl::kSmem -
+                                                                  Tl::kBarBytes);
+  const int lane = threadIdx.x & 31;
+  const bool loader = threadIdx.x >> 5 == Tl::kThreads / 32 - 1;  // the last warp copies
+
+  // zero everything once: rows N..31 of the stages and the P^T, dS^T entries
+  // of padded rows and keys stay zero, since nothing of a launch writes them
+  for (int e = threadIdx.x; e < (Tl::kSmem - Tl::kBarBytes) / 16; e += Tl::kThreads)
+    smem[e] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {  // one arrival a loader lane
+    mbar_init(bar, 32);
+    mbar_init(bar + 1, 32);
   }
   __syncthreads();
 
-  const int t = threadIdx.x;
-  const bool active = t < H * N;
-  const int h = active ? t / N : 0;
-  const int r = active ? t - h * N : 0;
-  const long long out_base = seq * N * C;  // outputs are contiguous (B, G, N, C)
-
-  // ---- pass 1: thread (h, i = r) -> P, dS rows of this head, and dq
-  if (active) {
-    float qr[kD], gr[kD];
-    head_row(qs, r, C, h, qr);
-    head_row(gs, r, C, h, gr);
-    float s[kMaxN], dp[kMaxN];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        s[j] = dot_head(qr, ks, j, C, h) * scale;
-        m = fmaxf(m, s[j]);
-      }
+  int t = blockIdx.x;  // the grid has at most one block a tile
+  TileBase cur = tile_base<Tl::HG, Tl::W>(t, groups, N, C, H);
+  if (loader) load_tile<T, D>(ring, bar, q, k, v, g, st, cur, G, N, lane);
+  for (int it = 0;; ++it) {
+    const int next = t + gridDim.x;
+    TileBase nb = cur;
+    if (next < tiles) {
+      nb = tile_base<Tl::HG, Tl::W>(next, groups, N, C, H);
+      if (loader)
+        load_tile<T, D>(ring + ((it + 1) % kStages) * Tl::kRingStage, bar + (it + 1) % kStages,
+                        q, k, v, g, st, nb, G, N, lane);
     }
-    float l = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        s[j] = expf(s[j] - m);
-        l += s[j];
-      }
+    mbar_wait(bar + it % kStages, (it / kStages) & 1);  // the tile has landed
+    const T* landed = ring + (it % kStages) * Tl::kRingStage;
+    const float* stage;
+    if constexpr (Tl::kF32) {
+      stage = landed;
+    } else {
+      widen_tile<D>(landed, wide, cur.heads, N);
+      __syncthreads();
+      stage = wide;
     }
-    const float inv = 1.f / l;  // l >= 1: the max logit contributes exp(0)
-    float rowsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        s[j] *= inv;
-        dp[j] = dot_head(gr, vs, j, C, h);
-        rowsum = fmaf(s[j], dp[j], rowsum);
-      }
-    }
-    float dqr[kD];
-#pragma unroll
-    for (int d = 0; d < kD; ++d) dqr[d] = 0.f;
-    float* prow = ps + (h * N + r) * N;
-    float* dsrow = dss + (h * N + r) * N;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        const float ds = s[j] * (dp[j] - rowsum) * scale;
-        prow[j] = s[j];
-        dsrow[j] = ds;
-        axpy_head(ds, ks, j, C, h, dqr);
-      }
-    }
-    store_head(dq + out_base + static_cast<long long>(r) * C + h * kD, dqr);
-  }
-  __syncthreads();
-
-  // ---- pass 2: thread (h, j = r) -> dv = P^T g, dk = dS^T q
-  if (active) {
-    float dvr[kD], dkr[kD];
-#pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      dvr[d] = 0.f;
-      dkr[d] = 0.f;
-    }
-    const float* pcol = ps + h * N * N + r;
-    const float* dscol = dss + h * N * N + r;
-    for (int i = 0; i < N; ++i) {
-      axpy_head(pcol[i * N], gs, i, C, h, dvr);
-      axpy_head(dscol[i * N], qs, i, C, h, dkr);
-    }
-    const long long off = out_base + static_cast<long long>(r) * C + h * kD;
-    store_head(dv + off, dvr);
-    store_head(dk + off, dkr);
+    pass1<T, D, NB>(stage, pt, dst, cur.heads, N, scale);
+    __syncthreads();  // P^T and dS^T complete
+    pass2<T, D, NB>(stage, pt, dst, dq, dk, dv, cur, N, C);
+    __syncthreads();  // the stage, P^T and dS^T are free before they refill
+    if (next >= tiles) break;
+    t = next;
+    cur = nb;
   }
 }
 
-template <typename T>
+// blocks of one instantiation resident at once on a device (SMs x blocks a
+// SM), found once per device; the dynamic shared-memory limit is raised
+// there first
+template <typename T, int D, int NB>
+cudaError_t resident_blocks(int* blocks) {
+  using Tl = Tile<T, D>;
+  static int cached[kMaxDevices];  // one array per instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaFuncSetAttribute(masked_sdpa_bwd_kernel<T, D, NB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, masked_sdpa_bwd_kernel<T, D, NB>, Tl::kThreads, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
+}
+
+template <typename T, int D, int NB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq,
                    void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
                    int H, float scale, cudaStream_t stream) {
-  const std::uintptr_t align = 4 * sizeof(T);
-  for (const void* p : {q, k, v, g, static_cast<const void*>(dq),
-                        static_cast<const void*>(dk), static_cast<const void*>(dv)})
-    if (reinterpret_cast<std::uintptr_t>(p) % align != 0) return cudaErrorMisalignedAddress;
-  for (int a = 0; a < 3; ++a)
-    if (st.q[a] % 4 || st.k[a] % 4 || st.v[a] % 4 || st.g[a] % 4)
-      return cudaErrorMisalignedAddress;
-  const size_t smem = sizeof(float) * (4 * static_cast<size_t>(N) * C +
-                                       2 * static_cast<size_t>(H) * N * N);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(masked_sdpa_bwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = ((H * N + 31) / 32) * 32;
-  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(B) * G);
-  masked_sdpa_bwd_kernel<T><<<blocks, threads, smem, stream>>>(
+  using Tl = Tile<T, D>;
+  int resident = 0;
+  cudaError_t err = resident_blocks<T, D, NB>(&resident);
+  if (err != cudaSuccess) return err;
+  const int groups = (H + Tl::HG - 1) / Tl::HG;
+  const long long tiles = static_cast<long long>(B) * G * groups;
+  if (tiles > INT32_MAX - resident) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles : resident);
+  masked_sdpa_bwd_kernel<T, D, NB><<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), st, G, N, C, H, scale);
+      static_cast<T*>(dv), st, static_cast<int>(tiles), groups, G, N, C, H, scale);
   return cudaGetLastError();
+}
+
+// the instantiation for N's blocks of four rows
+template <typename T, int D>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* g, void* dq,
+                        void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
+                        int H, float scale, cudaStream_t stream) {
+  using Tl = Tile<T, D>;
+  // every row of q, k, v, g and the outputs starts on a 16-byte boundary
+  for (const void* p : {q, k, v, g, static_cast<const void*>(dq),
+                        static_cast<const void*>(dk), static_cast<const void*>(dv)})
+    if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  for (int a = 0; a < 3; ++a)
+    if (st.q[a] % Tl::kChunk || st.k[a] % Tl::kChunk || st.v[a] % Tl::kChunk ||
+        st.g[a] % Tl::kChunk)
+      return cudaErrorMisalignedAddress;
+#define KASF_ROWS(nb) \
+  case nb: return launch<T, D, nb>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
+  switch ((N + 3) / 4) {
+    KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
+    KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef KASF_ROWS
+}
+
+template <typename T, int D, int NB>
+void describe(int* info) {
+  using Tl = Tile<T, D>;
+  cudaFuncAttributes attr{};
+  int resident = 0;
+  if (cudaFuncGetAttributes(&attr, masked_sdpa_bwd_kernel<T, D, NB>) != cudaSuccess ||
+      resident_blocks<T, D, NB>(&resident) != cudaSuccess)
+    return;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  info[0] = Tl::kThreads;
+  info[1] = attr.numRegs;
+  info[2] = Tl::kSmem;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = resident / sms;
+  info[5] = Tl::HG;
+  info[6] = 4 * NB;
+  info[7] = resident;
+}
+
+template <typename T>
+void describe_rows(int n, int* info) {
+#define KASF_ROWS(nb) \
+  case nb: describe<T, 16, nb>(info); break;
+  switch ((n + 3) / 4) {
+    KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
+    KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
+    default: break;
+  }
+#undef KASF_ROWS
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. C = 16 H. strides: 16 int64 in elements,
-// the four leading strides of q, k, v and g in that order (channel stride
-// 1); the three outer ones and every pointer 4-element aligned. dq, dk, dv
-// are contiguous (B, G, N, C). Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. C = 16 H, H <= 8, 1 <= N <= 32, any B G.
+// strides: 16 int64 in elements, the four leading strides of q, k, v and g
+// in that order (channel stride 1); every pointer and the three outer
+// strides of each operand 16-byte aligned. dq, dk, dv are contiguous
+// (B, G, N, C). Returns cudaGetLastError() after the launch (0 on success).
 int kasf_masked_sdpa_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv,
                          const long long* strides, int B, int G, int N, int C, int H,
                          float scale, void* stream) {
-  if (B < 1 || G < 1 || N < 1 || N > kMaxN || H < 1 || C != kD * H || H * N > 1024)
+  constexpr int kD = 16;  // the head width instantiated
+  if (B < 1 || G < 1 || N < 1 || N > kMaxN || H < 1 || H > 8 || C != kD * H)
     return cudaErrorInvalidValue;
   BwdStrides st;
   for (int a = 0; a < 4; ++a) {
@@ -278,10 +666,22 @@ int kasf_masked_sdpa_bwd(int dtype, const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
+    return launch_rows<float, kD>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
+    return launch_rows<__nv_bfloat16, kD>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale,
+                                          s);
   return cudaErrorInvalidValue;
+}
+
+// The instantiation for (dtype, N) on the current device, for reports:
+// info = {threads a block, registers a thread, dynamic shared memory a block
+// in bytes, local memory (spills) a thread in bytes, blocks resident a SM,
+// heads a tile, rows a tile (N padded to a multiple of 4), the persistent
+// grid (blocks resident on the device: a launch of more tiles has this
+// many blocks)}. Left untouched for a dtype or N there is none of.
+void kasf_masked_sdpa_bwd_info(int dtype, int n, int* info) {
+  if (dtype == 0) describe_rows<float>(n, info);
+  if (dtype == 1) describe_rows<__nv_bfloat16>(n, info);
 }
 
 const char* kasf_error_string(int code) {

@@ -35,16 +35,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// one arrival on bar once every cp.async this thread issued before has
+// landed (the barrier counts this thread among its `count` arrivals)
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
 // wait until at most N committed groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// An mbarrier in shared memory whose phase completes on one arrival (the
-// copying thread's) and the bytes that arrival announced
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+// An mbarrier in shared memory whose phase completes on `count` arrivals
+// (by default one: the copying thread's) and the bytes they announced
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 // wait until the phase of this parity has completed

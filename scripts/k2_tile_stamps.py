@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Where a tile of K2 (the masked-attention backward) spends its cycles.
+
+Run on the card from the repository root:
+
+    python3 scripts/k2_tile_stamps.py [--heads 4|8] [--one-block]
+
+It copies `kasportsformer_torch/ops/csrc` to `build/stamps_k2/csrc`, puts
+`clock64` stamps into the copy of `masked_sdpa_bwd.cu` after each phase of a
+tile (with `--heads 8`, also a head group of eight heads in place of the
+shipped one; with `--one-block`, a persistent grid of one block a SM in
+place of the blocks the card holds at once), builds the copy with `ops/_build.py` into
+`build/stamps_k2/kernels` and launches it through `masked_sdpa_bwd` at the
+flagship's train-step shapes (spatial (32, 27, 17, 128), temporal
+(32, 17, 27, 128) with the permuted views), float32 and bfloat16. For each it
+prints the card, the shipped and the stamped kernel's times (CUDA events),
+the stamped kernel's largest error against the plain version in float32,
+and each phase's cycles a tile for threads 0 and 128 (sums over every block
+and tile of the launch, over the tiles). The repository's own sources and
+libraries stay untouched; an anchor that is not found in the source stops
+the script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+PHASES = ("issue the next tile's copies", "wait for the tile", "widen (bf16)", "pass 1",
+          "barrier after pass 1", "pass 2", "barrier after pass 2")
+_N = len(PHASES)
+
+
+def _after(anchor: str, k: int) -> tuple[str, str]:
+    return anchor, anchor + f"    KASF_STAMP({k})\n"
+
+
+EDITS = [
+    ("  int t = blockIdx.x;  // the grid has at most one block a tile\n",
+     "  int t = blockIdx.x;  // the grid has at most one block a tile\n"
+     "  long long kasf_t0 = clock64();\n"
+     f"  unsigned long long kasf_st[{_N}] = {{}};\n"
+     "#define KASF_STAMP(k) { const long long n_ = clock64(); "
+     "kasf_st[k] += n_ - kasf_t0; kasf_t0 = n_; }\n"),
+    _after("                        q, k, v, g, st, nb, G, N, lane);\n    }\n", 0),
+    _after("    mbar_wait(bar + it % kStages, (it / kStages) & 1);  // the tile has landed\n", 1),
+    ("      widen_tile<D>(landed, wide, cur.heads, N);\n      __syncthreads();\n",
+     "      widen_tile<D>(landed, wide, cur.heads, N);\n      __syncthreads();\n"
+     "      KASF_STAMP(2)\n"),
+    _after("    pass1<T, D, NB>(stage, pt, dst, cur.heads, N, scale);\n", 3),
+    _after("    __syncthreads();  // P^T and dS^T complete\n", 4),
+    _after("    pass2<T, D, NB>(stage, pt, dst, dq, dk, dv, cur, N, C);\n", 5),
+    _after("    __syncthreads();  // the stage, P^T and dS^T are free before they refill\n", 6),
+    ("    t = next;\n    cur = nb;\n  }\n}\n",
+     "    t = next;\n    cur = nb;\n  }\n"
+     "  if (threadIdx.x == 0 || threadIdx.x == 128)\n"
+     f"    for (int k = 0; k < {_N}; ++k) "
+     "atomicAdd(&kasf_stamp_sums[threadIdx.x >> 7][k], kasf_st[k]);\n"
+     "#undef KASF_STAMP\n}\n"),
+    ("// ------------------------------------------------------------------ kernel\n",
+     "// ------------------------------------------------------------------ kernel\n"
+     "__device__ unsigned long long kasf_stamp_sums[2][16];\n"),
+]
+_READER = """
+extern "C" int kasf_stamps(unsigned long long* host, int reset) {
+  if (reset) {
+    static const unsigned long long zero[32] = {};
+    return cudaMemcpyToSymbol(kasf_stamp_sums, zero, sizeof zero);
+  }
+  return cudaMemcpyFromSymbol(host, kasf_stamp_sums, 32 * sizeof(unsigned long long));
+}
+"""
+_HEADS = "  static constexpr int HG = 4;  "
+_GRID = "    cached[dev] = per_sm * sms;\n"
+
+
+def stamped_sources(out: Path, heads: int, one_block: bool) -> None:
+    """The repository's csrc with the stamps in K2 (and `heads` a group, and
+    one block a SM)."""
+    src = ROOT / "kasportsformer_torch" / "ops" / "csrc"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(src, out)
+    text = (src / "masked_sdpa_bwd.cu").read_text()
+    edits = EDITS + [(_HEADS, _HEADS.replace("4", str(heads)))]
+    if one_block:
+        edits.append((_GRID, "    cached[dev] = sms;\n"))
+    for anchor, replacement in edits:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"anchor not found once in masked_sdpa_bwd.cu: {anchor!r}")
+        text = text.replace(anchor, replacement)
+    # the reader goes inside the file's anonymous namespace's translation unit
+    (out / "masked_sdpa_bwd.cu").write_text(text + _READER)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--heads", type=int, default=4, choices=(4, 8))
+    parser.add_argument("--one-block", action="store_true")
+    args = parser.parse_args()
+
+    import torch
+
+    from chip_smoke import card_line, scaled_err, time_ms
+    from kasportsformer_torch.ops import _build
+    from kasportsformer_torch.ops.attention import (masked_sdpa_bwd,
+                                                    masked_sdpa_bwd_reference)
+
+    if not torch.cuda.is_available():
+        print("k2_tile_stamps: needs a CUDA device")
+        return 1
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    heads, scale = 8, 16 ** -0.5
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(32, 27, 17, 384, device=dev, generator=gen).to(dt)
+        gfull = torch.randn(32, 27, 17, 128, device=dev, generator=gen).to(dt)
+        q, k, v = qkv.split(128, dim=-1)
+        cases[("spatial", dt)] = (q, k, v, gfull)
+        cases[("temporal", dt)] = tuple(z.transpose(1, 2) for z in (q, k, v, gfull))
+    shipped = {key: time_ms(lambda: masked_sdpa_bwd(*a, scale, heads), 50)
+               for key, a in cases.items()}
+
+    # the stamped copy: _build reads its source and build directories from
+    # these two names, so masked_sdpa_bwd loads the stamped library from here on
+    stamps_dir = ROOT / "build" / "stamps_k2"
+    stamped_sources(stamps_dir / "csrc", args.heads, args.one_block)
+    _build.CSRC = stamps_dir / "csrc"
+    _build.BUILD_DIR = stamps_dir / "kernels"
+    _build._libs.pop("masked_sdpa_bwd", None)
+    lib = _build.library("masked_sdpa_bwd")
+    read = lib.kasf_stamps
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    sums = (ctypes.c_ulonglong * 32)()
+    print(card_line())
+    for (mode, dt), a in cases.items():
+        stamped = time_ms(lambda: masked_sdpa_bwd(*a, scale, heads), 50)
+        got = masked_sdpa_bwd(*a, scale, heads)
+        want = masked_sdpa_bwd_reference(*(z.float() for z in a), scale, heads)
+        err = max(scaled_err(x, w) for x, w in zip(got, want))
+        torch.cuda.synchronize()
+        _build.check(lib, read(None, 1), "reset the stamps")
+        masked_sdpa_bwd(*a, scale, heads)
+        torch.cuda.synchronize()
+        _build.check(lib, read(ctypes.addressof(sums), 0), "read the stamps")
+        b, g, n, _ = a[0].shape
+        tiles = b * g * -(-heads // args.heads)
+        print(f"{mode} {str(dt).split('.')[1]} {tuple(a[0].shape)}, {args.heads} heads a "
+              f"tile{', one block a SM' if args.one_block else ''}: kernel {shipped[(mode, dt)]:.4f} ms, stamped {stamped:.4f} ms "
+              f"(err {err:.2e}); cycles a tile (mean of {tiles}), thread 0 / thread 128:")
+        total = [0, 0]
+        for k, name in enumerate(PHASES):
+            a0, a1 = sums[k] / tiles, sums[16 + k] / tiles
+            total[0] += a0
+            total[1] += a1
+            print(f"  {name:30s} {a0:10.0f} {a1:10.0f}")
+        print(f"  {'a tile':30s} {total[0]:10.0f} {total[1]:10.0f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

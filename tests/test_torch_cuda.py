@@ -10,6 +10,7 @@ import torch
 from kasportsformer_torch.ops.attention import (
     masked_sdpa,
     masked_sdpa_bwd,
+    masked_sdpa_bwd_kernel_info,
     masked_sdpa_bwd_reference,
     masked_sdpa_reference,
 )
@@ -506,6 +507,90 @@ def test_masked_sdpa_bwd_kernel_large_interhead_spread(cuda):
     for a, w in zip(masked_sdpa_bwd(q, k, v, g, 0.25, 8),
                     masked_sdpa_bwd_reference(q, k, v, g, 0.25, 8)):
         assert torch.isfinite(a).all() and _scaled_err(a, w) <= 1e-4
+
+
+def _bwd_views(gen, b: int, g: int, n: int, heads: int, dtype):
+    """q, k, v as column slices of one qkv projection and the gradient a
+    slice of a wider tensor, all permuted (B,T,J,C)->(B,J,T,C): four
+    leading strides each, channel stride 1, as the model's temporal
+    attention hands them over."""
+    c = 16 * heads
+    qkv = torch.randn(b, n, g, 3 * c, device="cuda", generator=gen).to(dtype)
+    gw = torch.randn(b, n, g, c + 16, device="cuda", generator=gen).to(dtype)
+    return tuple(z.transpose(1, 2) for z in (*qkv.split(c, dim=-1), gw[..., 16:]))
+
+
+def _bwd_holds(args, heads: int, dtype, scale: float = 0.25):
+    """K2 once (one launch counted) against its plain version in float32 on
+    the same inputs; returns K2's gradients."""
+    before = masked_sdpa_bwd.launches
+    got = masked_sdpa_bwd(*args, scale, heads)
+    assert masked_sdpa_bwd.launches == before + 1
+    want = masked_sdpa_bwd_reference(*(z.float() for z in args), scale, heads)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == args[0].shape and a.is_contiguous()
+        assert torch.isfinite(a).all()
+        assert _scaled_err(a, w) <= TOL["masked_sdpa_bwd"][dtype]
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [8, 5, 1])
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 27, 32])
+def test_masked_sdpa_bwd_kernel_rows_and_heads(cuda, dtype, heads, n):
+    """Every N the 32-row stage pads (key and row blocks of four, a ragged
+    last block, one row) at C = 128, 80 (a last head group of one head) and
+    16, on strided, permuted views."""
+    _bwd_holds(_bwd_views(cuda, 3, 5, n, heads, dtype), heads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiles", ["one", "short last group", "a wave and one"])
+def test_masked_sdpa_bwd_kernel_tiles_off_the_grid(cuda, dtype, tiles):
+    """B G = 1 (one tile); 133 x 3 sequences of 6 heads (two head groups,
+    the last of two heads); and one tile past the persistent grid that
+    `masked_sdpa_bwd_kernel_info` reports, so one block walks two tiles
+    and the ring refills a stage."""
+    info = masked_sdpa_bwd_kernel_info(dtype, 27)
+    assert info["spill_bytes"] == 0 and info["grid"] > 0
+    b, g, heads = {"one": (1, 1, 8), "short last group": (133, 3, 6),
+                   "a wave and one": (info["grid"] + 1, 1, info["tile_heads"])}[tiles]
+    args = tuple(torch.randn(b, g, 27, 16 * heads, device="cuda", generator=cuda)
+                 .to(dtype) for _ in range(4))
+    _bwd_holds(args, heads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_sdpa_bwd_kernel_one_hot_probabilities(cuda, dtype):
+    """One key dominates each head (key 3h+1 of head h), so P is one-hot:
+    dv of that key is the sum of g over the rows and every other key's dv
+    is 0, dq and dk are (near) 0. A permutation of rows, keys or heads in
+    the passes shows as a wrong row, not as a small error."""
+    n, heads = 27, 8
+    q = torch.rand(4, 3, n, 128, device="cuda", generator=cuda) + 0.5
+    k = 0.01 * torch.randn(4, 3, n, 128, device="cuda", generator=cuda)
+    v, g = (torch.randn(4, 3, n, 128, device="cuda", generator=cuda) for _ in range(2))
+    keys = [(3 * h + 1) % n for h in range(heads)]
+    for h, j in enumerate(keys):
+        k[:, :, j, h * 16:(h + 1) * 16] = 20.0  # its logit >= 40 above the rest
+    args = tuple(z.to(dtype) for z in (q, k, v, g))
+    _, _, dv = _bwd_holds(args, heads, dtype)
+    gf = args[3].float()
+    for h, j in enumerate(keys):
+        cols = slice(h * 16, (h + 1) * 16)
+        want = torch.zeros_like(gf[..., cols])
+        want[:, :, j] = gf[..., cols].sum(2)
+        assert _scaled_err(dv[..., cols], want) <= TOL["masked_sdpa_bwd"][dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_sdpa_bwd_kernel_reruns_bitwise_equal(cuda, dtype):
+    """Every sum in a fixed order, no atomics: a rerun gives the same bits
+    (the flagship's temporal views, more tiles than the grid)."""
+    args = _bwd_views(cuda, 32, 17, 27, 8, dtype)
+    got = _bwd_holds(args, 8, dtype)
+    again = masked_sdpa_bwd(*args, 0.25, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 

@@ -59,16 +59,21 @@ def _jax_sdpa_vjp(q, k, v, g, scale, heads):
     return [np.asarray(z) for z in vjp(q, k, v, g)]
 
 
-def test_masked_sdpa_bwd_reference_matches_jax():
+@pytest.mark.parametrize("n,heads", [(17, 8), (27, 8), (1, 8), (32, 8), (17, 5)])
+def test_masked_sdpa_bwd_reference_matches_jax(n, heads):
     """The plain backward against `jax.vjp(masked_sdpa_xla)` and the Pallas
-    backward kernel (interpret mode), at 8 heads of 16 (the kernel's
-    width); the temporal length 27 is covered by the autograd test below."""
-    q, k, v, g = (RNG.standard_normal((1, 3, 17, 128)).astype(np.float32)
+    backward kernel (interpret mode), in heads of 16 (the kernel's width):
+    the spatial (17) and temporal (27) lengths, the shortest and longest N
+    the kernel takes, and 5 heads (C = 80), a last head group of one head.
+    These are the shapes at which the card tests hold the kernel to this
+    plain version."""
+    c = 16 * heads
+    q, k, v, g = (RNG.standard_normal((1, 3, n, c)).astype(np.float32)
                   for _ in range(4))
-    got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, 8)
-    want = _jax_sdpa_vjp(q, k, v, g, 0.25, 8)
+    got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, heads)
+    want = _jax_sdpa_vjp(q, k, v, g, 0.25, heads)
     kernel = masked_sdpa_bwd_pallas(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), jnp.asarray(g), 0.25, 8,
+                                    jnp.asarray(v), jnp.asarray(g), 0.25, heads,
                                     interpret=True)
     for a, w, p in zip(got, want, kernel):
         np.testing.assert_allclose(a.numpy(), w, atol=1e-5, rtol=1e-4)
