@@ -68,8 +68,13 @@ Phases (any failure exits non-zero and prints no result line):
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
      reduce; torch.profiler over the timed calls) with each launch's own
-     bound and share; both passes' tiles, registers, shared memory and
-     spills an instantiation to --out (a spill in either fails the phase).
+     bound and share; the three launches' tiles, grids, registers, shared
+     memory and spills an instantiation to --out (a spill in any fails the
+     phase). Then the reduce alone on seeded partials of the same shapes,
+     bit for bit against its plain version on the card (dls2 within the
+     limit), its time, bound and share beside torch.sum over the weight
+     partials (a yardstick of that part only), and its device time after
+     other kernels (warm, a rewritten workspace, matmuls, a flushed L2).
      In phases 6 and 7 the plain version runs in float32 on the kernel's own
      inputs.
   8. full-model gradients: the train-mode loss and every parameter's
@@ -354,11 +359,11 @@ def write_k3_report(out_dir: str) -> None:
 
 def write_k4_report(out_dir: str) -> None:
     """The compiler's report of mlp_ln_bwd.cu (`-Xptxas -v`: registers and
-    spills of K4's three kernels in both dtypes) and the dx pass's and the
-    weight pass's instantiations (tile, the weight pass's chunk and row
-    splits at M = 14,688, registers, shared memory, spills, blocks a SM) as
-    the runtime reports them, to --out/chip_smoke_k4_kernel.txt; one summary
-    line an instantiation to the log. Raises if either pass spills."""
+    spills of K4's three kernels in both dtypes) and the three launches'
+    instantiations (tile, the weight pass's chunk and row splits at
+    M = 14,688, the reduce's grid, registers, shared memory, spills, blocks
+    a SM) as the runtime reports them, to --out/chip_smoke_k4_kernel.txt;
+    one summary line an instantiation to the log. Raises if any spills."""
     import torch
 
     from kasportsformer_torch.ops import _build
@@ -1447,6 +1452,7 @@ _MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
 def check_k4(dev, out_dir: str) -> dict:
     import torch
 
+    from kasportsformer_torch.ops import mlp as mlp_ops
     from kasportsformer_torch.ops.mlp import (fused_mlp_ln_bwd,
                                               fused_mlp_ln_bwd_kernel_info,
                                               fused_mlp_ln_bwd_reference)
@@ -1521,8 +1527,99 @@ def check_k4(dev, out_dir: str) -> dict:
             f"{label} {bounds[label][0]:.4f} ({bounds[label][1]}; "
             f"{bounds[label][0] / ms.get(label, float('nan')):.1%})"
             for label, _ in K4_LAUNCHES))
+    if hasattr(mlp_ops, "fused_mlp_ln_bwd_reduce"):
+        check_k4_reduce(dev, gen, per)
+    else:  # the parent tree of an A/B, from before the reduce had an entry
+        log("   K4 reduce alone: this tree has no entry for it")
     write_k4_report(out_dir)
     return rows
+
+
+def check_k4_reduce(dev, gen, per: dict) -> None:
+    """K4's reduce alone (`fused_mlp_ln_bwd_reduce`) on seeded partials of
+    the step's shapes, held bit for bit against its plain version on the
+    card (dls2, grouped otherwise, within K4's limit); its time (events, and
+    the profiler's device time a launch), bound, share, grid, registers and
+    spills (a spill fails the phase), beside `torch.sum` over the weight
+    partials' split axis, a library yardstick of that part only. Then the
+    reduce's device time alone on a warm workspace, after a copy that
+    rewrites the workspace, after f32 matmuls that touch none of it (and
+    leave it in L2), after those and the copy, and on a workspace flushed
+    from L2, beside its time inside K4 (after the weight pass): the state
+    of its data in L2 told apart from the card's after heavy compute."""
+    import torch
+
+    from kasportsformer_torch.ops.mlp import (_bwd_workspace_size,
+                                              fused_mlp_ln_bwd_kernel_info,
+                                              fused_mlp_ln_bwd_partition,
+                                              fused_mlp_ln_bwd_reduce,
+                                              fused_mlp_ln_bwd_reduce_reference)
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    hidden, grads = 512, 4 * (2 * 128 * 512 + 512 + 5 * 128)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for m in (14688, 1377):
+            p = fused_mlp_ln_bwd_partition(m, hidden)
+            n_dx = p["dx_tiles"] * 3 * 128
+            work = torch.randn(_bwd_workspace_size(m, hidden), device=dev, generator=gen)
+            w2 = torch.randn(128, hidden, device=dev, generator=gen).mul(
+                hidden ** -0.5).to(dt)
+            b2 = torch.randn(128, device=dev, generator=gen).mul(0.1).to(dt)
+            ls2 = torch.rand(128, device=dev, generator=gen)
+            args = (work, w2, b2, ls2, m)
+            got = fused_mlp_ln_bwd_reduce(*args)
+            want = fused_mlp_ln_bwd_reduce_reference(*args)
+            same = [torch.equal(a, b) for a, b in zip(got[:6], want[:6])]
+            err = sum_err(got[6], want[6])
+            if not all(same) or err > tol[dt]:
+                raise AssertionError(
+                    f"K4 reduce alone M={m} {dname}: bitwise equal "
+                    f"{dict(zip(_MLP_GRADS[1:7], same))}, dls2 err {err:.2e}")
+            ms = time_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 50)
+            launch = k4_launch_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 20)["reduce"]
+            plain = time_ms(lambda: fused_mlp_ln_bwd_reduce_reference(*args), 5)
+            part_w = work[n_dx:].view(p["splits"], -1)
+            lib = time_ms(lambda: torch.sum(part_w, 0), 50)
+            bms, by = bound_ms(4 * work.numel() + w2.numel() * w2.element_size()
+                               + grads, 0, dname)
+            info = fused_mlp_ln_bwd_kernel_info(dt, m, hidden)["reduce"]
+            log(f"   K4 reduce alone M={m:6d} {dname:8s} six gradients bitwise equal "
+                f"to plain, dls2 err {err:.2e} (limit {tol[dt]:.0e}); kernel "
+                f"{ms:.4f} ms (events), {launch:.4f} ms a launch (profiler)  "
+                f"plain {plain:.4f}  bound {bms:.4f} ({by}; {bms / launch:.1%} "
+                f"of a launch)  torch.sum over the weight partials' splits "
+                f"(yardstick of that part only) {lib:.4f}; grid {info['blocks']} "
+                f"x {info['threads']}, registers {info['registers']}, spills "
+                f"{info['spill_bytes']} B, {info['blocks_per_sm']} blocks a SM")
+            if info["spill_bytes"] != 0:
+                raise AssertionError(f"K4 reduce {dname} spills: {info}")
+    # the reduce's device time a launch (f32, M = 14,688) after each prefix
+    work = torch.randn(_bwd_workspace_size(14688, hidden), device=dev, generator=gen)
+    src = work.clone()
+    w2 = torch.randn(128, hidden, device=dev, generator=gen)
+    ls2 = torch.rand(128, device=dev, generator=gen)
+    a = torch.randn(1024, 1024, device=dev, generator=gen)  # 12 MB with b, mm's output
+    b = torch.randn(1024, 1024, device=dev, generator=gen)
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB, over the 50 MB L2
+
+    def after(prefix):
+        def call():
+            prefix()
+            fused_mlp_ln_bwd_reduce(work, w2, w2[:, 0], ls2, 14688)
+        return k4_launch_ms(call, 20)["reduce"]
+
+    times = {"inside K4 (after the weight pass)": per[(14688, "float32")].get(
+                 "reduce", float("nan")),
+             "alone, back to back": after(lambda: None),
+             "after a copy rewriting the workspace": after(lambda: work.copy_(src)),
+             "after four 1024^3 f32 matmuls (12 MB)": after(
+                 lambda: [torch.mm(a, b) for _ in range(4)]),
+             "after them and then the copy": after(
+                 lambda: ([torch.mm(a, b) for _ in range(4)], work.copy_(src))),
+             "on a workspace flushed from L2": after(lambda: flush.zero_())}
+    log("   K4 reduce f32 M=14688, device ms a launch (profiler): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
 
 
 def label_batch(gen, b: int):

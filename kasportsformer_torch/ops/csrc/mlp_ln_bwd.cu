@@ -122,11 +122,39 @@
 //     - Epilogue: float4 stores of dW1c and G_c; db1c summed over the 8 row
 //       groups in order.
 //     Registers, spills and blocks a SM of both passes: kasf_mlp_ln_bwd_info
-//     and chip_smoke.py phase 7's report (a spill in either fails it); a
-//     tile's split by phase: scripts/k4_weight_pass_probe.py.
-//  3. reduce pass: sum the partials in a fixed order (the dx pass's per
-//     tile, the weight pass's per split) and finish dgamma, dbeta, dW1, db1,
-//     dW2, db2 and dls2.
+//     and chip_smoke.py phase 7's report (a spill in either fails it); each
+//     launch's device time and share of its own bound: phase 7's profile.
+//  3. reduce (mlp_ln_bwd_reduce_kernel): sum the partials in a fixed order
+//     (the dx pass's per tile, the weight pass's per split) and finish
+//     dgamma, dbeta, dW1, db1, dW2, db2 and dls2. Bound by bytes: 9.4 MB at
+//     M = 14,688, H = 512 (132 dx partials of 1.5 KB, 16 weight partials of
+//     526 KB, W2, the gradients), 0.0028 ms at 3.35 TB/s. Every output is one
+//     sum in index order from +0 (splits s = 0.., tiles n = 0..), so dW1,
+//     db1, dW2, dgamma, dbeta and db2 are bitwise those of a plain loop
+//     `acc = acc + part[s]`; only dls2's sum over j is grouped otherwise.
+//     - Grid: one wave of 288-thread blocks. In each, warps 0-7 take a
+//       float4 of a split's partial a thread: channel blocks 1024 / H rows
+//       of G (two at H = 512, at most 8, one row at H >= 1024), hidden
+//       blocks 8 rows of dW1; 64 + 64 = 128 blocks at H = 512. A thread's
+//       loads of 16 splits come before their adds with no branch between
+//       (past the last split a load repeats it, its add skipped); the
+//       compiler keeps 6-8 of them in flight ahead of the adds in 56
+//       registers, and a budget that holds all 16 (124 registers) measured
+//       slower. float4 stores. (The first design, one thread a channel
+//       walking the 132 x 3 dx partials alone, took 0.0125 ms.)
+//     - Warp 8 of a channel block sums its 3 x rows dx chains (dgamma,
+//       dbeta and g's sum for db2 and dls2), a lane each over the tiles in
+//       order, while warps 0-7 sum G: all 288 threads copy the chains'
+//       partials into a stage by 4-byte cp.async, chain-major so a lane
+//       reads float4s, and arrive on an mbarrier as their copies land;
+//       warp 8 alone refills the stage (16 KB: 680 tiles at H = 512).
+//       Warp 8 of a hidden block sums its 8 rows' db1 as two float4s.
+//     - dls2 = sum_j W2 * G + b2 * sum g: each G float4's share of the
+//       row's dot product goes to shared memory; after a barrier one warp a
+//       row sums the shares in a fixed order and adds b2 times warp 8's sum
+//       of g. Reruns are bitwise equal.
+//     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info; the reduce
+//     alone on a caller's workspace: kasf_mlp_ln_bwd_reduce.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -138,7 +166,6 @@
 namespace {
 
 constexpr int kC = 128;  // model width
-constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -933,61 +960,179 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// ---- 3. reduce pass: blocks 0..C-1 take channel c (G row, dW2, dls2, db2,
-// dgamma, dbeta), blocks C..C+H-1 take hidden unit j (dW1 row, db1); every
-// sum runs over the partials in index order
+// ---- 3. reduce: its own helpers
+namespace rd {
+
+using dxp::ld4;
+using dxp::load4;
+using dxp::st4;
+using kasf_mma::cp_async_arrive;
+using kasf_mma::mbar_init;
+using kasf_mma::mbar_wait;
+
+constexpr int kT = 256;                // item threads: one float4 of a split's partial each
+constexpr int kTB = kT + 32;           // and warp 8: the dx chains, or db1
+constexpr int kU = 16;                 // splits whose loads a thread issues before its adds
+constexpr int kHidRows = 4 * kT / kC;  // dW1 rows a hidden block: 8
+constexpr int kRowsMax = 8;            // G rows a channel block at most: 24 chains, a lane each
+constexpr int kItemsMax = 2048 / 4;    // G float4s a channel block at most (a row at H = 2048)
+constexpr int kDxBuf = 4096;           // floats of dx partials staged at a time
+static_assert(kHidRows % 4 == 0 && kHidRows / 4 <= 32, "db1 in whole float4s, by warp 8");
+static_assert(3 * kRowsMax <= 32, "a lane of warp 8 a chain");
+
+// G rows a channel block: those of 256 float4s, at least one, at most 8
+__host__ __device__ inline int rows_c(int H) {
+  return H >= 4 * kT ? 1 : 4 * kT / H < kRowsMax ? 4 * kT / H : kRowsMax;
+}
+__host__ __device__ inline int channel_blocks(int H) { return (kC + rows_c(H) - 1) / rows_c(H); }
+inline int blocks(int H) { return channel_blocks(H) + H / kHidRows; }
+
+// 4 bytes from global to shared memory (cp.async.ca: .cg takes 16 only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(kasf_mma::smem_addr(dst)),
+               "l"(src));
+}
+
+// sum over s = 0..n-1 of the float4 at p + s * stride, in that order from +0
+// (a plain loop acc = acc + p[s] bit for bit); the loads of kU splits are
+// issued before their adds, on the read-only path (the partials are the
+// previous launches'). Past the last split a load repeats it and its add is
+// skipped, so no load waits on a branch
+__device__ __forceinline__ float4 split_sum(const float* p, long long stride, int n) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < n; s0 += kU) {
+    float4 v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      v[u] = __ldg(reinterpret_cast<const float4*>(p + (s0 + u < n ? s0 + u : n - 1) * stride));
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (s0 + u < n) {
+        acc.x += v[u].x;
+        acc.y += v[u].y;
+        acc.z += v[u].z;
+        acc.w += v[u].w;
+      }
+  }
+  return acc;
+}
+
+// the dx partials of tiles n0..n0+nt-1 of the block's chains into the stage,
+// chain k's run at dxs + k * per: the calling threads (`first` of `count`)
+// take every count-th element, neighbouring lanes on neighbouring addresses
+__device__ __forceinline__ void stage_dx(float* dxs, const float* part_dx, int n0, int nt,
+                                         int c0, int nr, int per, int first, int count) {
+  const int nch = 3 * nr;
+  for (int e = first; e < nt * nch; e += count) {
+    const int n = e / nch, k = e - n * nch, q = k / nr;
+    cp_async4(dxs + k * per + n, part_dx + (3LL * (n0 + n) + q) * kC + c0 + k - q * nr);
+  }
+}
+
+// chain + p[0] + p[1] + ... + p[n-1], added in that order; p 16-byte aligned
+__device__ __forceinline__ float add_run(float chain, const float* p, int n) {
+  int i = 0;
+#pragma unroll 4
+  for (; i + 4 <= n; i += 4) {
+    const float4 v = ld4(p + i);
+    chain += v.x;
+    chain += v.y;
+    chain += v.z;
+    chain += v.w;
+  }
+  for (; i < n; ++i) chain += p[i];
+  return chain;
+}
+
+}  // namespace rd
+
+// Channel blocks first (rd::rows_c(H) rows of G each: dW2, dls2, and the
+// dgamma, dbeta, db2 of those channels), then hidden blocks (8 rows of dW1
+// and their db1); every sum runs over the partials in index order
 template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, long long n_dx,
+__global__ void __launch_bounds__(rd::kTB)
+mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
                          const float* __restrict__ part_w, int n_w,
                          const T* __restrict__ w2, const T* __restrict__ b2,
                          const float* __restrict__ ls2, float* __restrict__ dgamma,
                          float* __restrict__ dbeta, float* __restrict__ dw1,
                          float* __restrict__ db1, float* __restrict__ dw2,
                          float* __restrict__ db2, float* __restrict__ dls2, int H) {
-  __shared__ float red[kReduceThreads / 32];
-  const int tid = threadIdx.x;
-  const long long stride = 2LL * H * kC + H;
-  if (blockIdx.x < kC) {
-    const int c = blockIdx.x;
-    float t = 0.f;
-    for (int j = tid; j < H; j += kReduceThreads) {
-      float gs = 0.f;
-      for (int s = 0; s < n_w; ++s)
-        gs += part_w[s * stride + static_cast<long long>(H) * kC +
-                     static_cast<long long>(c) * H + j];
-      dw2[static_cast<long long>(c) * H + j] = ls2[c] * gs;
-      t = fmaf(to_f(w2[static_cast<long long>(c) * H + j]), gs, t);
+  using namespace rd;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long stride = 2LL * H * kC + H;  // floats of a split's partial
+  const int n_cb = channel_blocks(H);
+  if (static_cast<int>(blockIdx.x) >= n_cb) {  // dW1 rows j0..j0+7, a float4 a thread
+    const int j0 = (blockIdx.x - n_cb) * kHidRows;
+    if (tid < kT) {
+      const long long o = static_cast<long long>(j0) * kC + 4 * tid;
+      st4(dw1 + o, split_sum(part_w + o, stride, n_w));
+    } else if (lane < kHidRows / 4) {
+      st4(db1 + j0 + 4 * lane, split_sum(part_w + 2LL * H * kC + j0 + 4 * lane, stride, n_w));
     }
-    t = warp_sum(t);
-    if ((tid & 31) == 0) red[tid >> 5] = t;
-    __syncthreads();
-    if (tid == 0) {
-      float tw = 0.f;
-      for (int w = 0; w < kReduceThreads / 32; ++w) tw += red[w];
-      float sg = 0.f, sb = 0.f, sgsum = 0.f;
-      for (long long n = 0; n < n_dx; ++n) {
-        sg += part_dx[(n * 3 + 0) * kC + c];
-        sb += part_dx[(n * 3 + 1) * kC + c];
-        sgsum += part_dx[(n * 3 + 2) * kC + c];
+    return;
+  }
+  __shared__ __align__(16) float dxs[kDxBuf];  // [chain][tile] of the stage
+  __shared__ float dots[kItemsMax];            // each G float4's share of dls2
+  __shared__ float sg[kRowsMax];               // sum g of each row's channel
+  __shared__ unsigned long long bar;           // the first stage landed
+  const int R = rows_c(H), c0 = blockIdx.x * R;
+  const int nr = R < kC - c0 ? R : kC - c0;
+  const int nch = 3 * nr;                // chain q * nr + r: quantity q of channel c0 + r
+  const int per = (kDxBuf / nch) & ~3;   // tiles a stage, a whole number of float4s
+  if (tid == 0) mbar_init(&bar, kTB);
+  __syncthreads();  // the barrier is initialised
+  // the first stage: every thread copies a share and arrives once it landed
+  stage_dx(dxs, part_dx, 0, per < n_dx ? per : n_dx, c0, nr, per, tid, kTB);
+  cp_async_arrive(&bar);
+  if (warp == kT / 32) {
+    // warp 8: a lane's chain over the tiles in order, while warps 0-7 sum G
+    mbar_wait(&bar, 0);
+    float chain = 0.f;
+    for (int n0 = 0;;) {
+      const int nt = per < n_dx - n0 ? per : n_dx - n0;
+      if (lane < nch) chain = add_run(chain, dxs + lane * per, nt);
+      n0 += nt;
+      if (n0 >= n_dx) break;
+      __syncwarp();  // the stage is read: the warp refills it alone
+      stage_dx(dxs, part_dx, n0, per < n_dx - n0 ? per : n_dx - n0, c0, nr, per, lane, 32);
+      kasf_mma::cp_async_commit();
+      kasf_mma::cp_async_wait<0>();
+      __syncwarp();
+    }
+    if (lane < nch) {
+      const int q = lane / nr, r = lane - q * nr, c = c0 + r;
+      if (q == 0) {
+        dgamma[c] = chain;
+      } else if (q == 1) {
+        dbeta[c] = chain;
+      } else {
+        db2[c] = ls2[c] * chain;
+        sg[r] = chain;
       }
-      dgamma[c] = sg;
-      dbeta[c] = sb;
-      db2[c] = ls2[c] * sgsum;
-      dls2[c] = tw + to_f(b2[c]) * sgsum;
     }
   } else {
-    const int j = blockIdx.x - kC;
-    for (int c = tid; c < kC; c += kReduceThreads) {
-      float s1 = 0.f;
-      for (int s = 0; s < n_w; ++s) s1 += part_w[s * stride + static_cast<long long>(j) * kC + c];
-      dw1[static_cast<long long>(j) * kC + c] = s1;
+    // G[c][4 j4..] over the splits: dW2 = ls2 * G, and the float4's share
+    // of sum_j W2 * G
+    const int row4 = H / 4;
+    for (int f = tid; f < nr * row4; f += kT) {
+      const int r = f / row4, c = c0 + r;
+      const long long o = static_cast<long long>(c) * H + 4 * (f - r * row4);
+      const float4 w = load4(w2 + o);
+      const float4 gs = split_sum(part_w + static_cast<long long>(H) * kC + o, stride, n_w);
+      const float s = ls2[c];
+      st4(dw2 + o, make_float4(s * gs.x, s * gs.y, s * gs.z, s * gs.w));
+      dots[f] = fmaf(w.w, gs.w, fmaf(w.z, gs.z, fmaf(w.y, gs.y, w.x * gs.x)));
     }
-    if (tid == 0) {
-      float s1 = 0.f;
-      for (int s = 0; s < n_w; ++s) s1 += part_w[s * stride + 2LL * H * kC + j];
-      db1[j] = s1;
-    }
+  }
+  __syncthreads();  // dots and sg in
+  // dls2: one warp a row, lane l summing its float4s' shares l, l + 32, ...
+  const int row4 = H / 4;
+  for (int r = warp; r < nr; r += kTB / 32) {
+    float t = 0.f;
+    for (int f = lane; f < row4; f += 32) t += dots[r * row4 + f];
+    t = warp_sum(t);
+    if (lane == 0) dls2[c0 + r] = fmaf(to_f(b2[c0 + r]), sg[r], t);
   }
 }
 
@@ -997,6 +1142,17 @@ struct Args {
   void* dx;
   float *dgamma, *dbeta, *dw1, *db1, *dw2, *db2, *dls2, *work;
 };
+
+// The reduce over a.work as the two passes leave it for M rows and hidden H
+template <typename T>
+cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream) {
+  const long long tiles = (M + dxp::kR - 1) / dxp::kR;  // the dx pass's tiles
+  mlp_ln_bwd_reduce_kernel<T><<<rd::blocks(H), rd::kTB, 0, stream>>>(
+      a.work, static_cast<int>(tiles), a.work + tiles * 3 * kC, wp::splits(M, H),
+      static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
+      a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
@@ -1026,15 +1182,12 @@ cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t st
       x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, part_w, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlp_ln_bwd_reduce_kernel<T><<<kC + H, kReduceThreads, 0, stream>>>(
-      part_dx, tiles, part_w, splits, w2, static_cast<const T*>(a.b2), a.ls2, a.dgamma,
-      a.dbeta, a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
-  return cudaGetLastError();
+  return launch_reduce<T>(a, M, H, stream);
 }
 
 // A kernel's threads a block, registers and local memory (spills) a thread,
-// and blocks resident a SM at `smem` bytes of dynamic shared memory, into
-// info[0], info[1], info[2], info[3]; false where the runtime refuses
+// blocks resident a SM at `smem` bytes of dynamic shared memory and its
+// static shared memory, into info[0..4]; false where the runtime refuses
 template <typename K>
 bool describe(K kernel, int threads, int smem, int* info) {
   cudaFuncAttributes attr{};
@@ -1049,16 +1202,19 @@ bool describe(K kernel, int threads, int smem, int* info) {
   info[1] = attr.numRegs;
   info[2] = static_cast<int>(attr.localSizeBytes);
   info[3] = per_sm;
+  info[4] = static_cast<int>(attr.sharedSizeBytes);
   return true;
 }
 
 // info[0..5]: the dx pass as {threads, rows a block, registers, shared
 // memory bytes, spill bytes, blocks a SM}; info[6..13]: the weight pass as
 // {threads, rows a tile, hidden columns a block, row splits for M rows and
-// hidden H, registers, shared memory bytes, spill bytes, blocks a SM}
+// hidden H, registers, shared memory bytes, spill bytes, blocks a SM};
+// info[14..19]: the reduce as {threads, blocks for hidden H, registers,
+// shared memory bytes, spill bytes, blocks a SM}
 template <typename T>
-void describe_both(long long M, int H, int* info) {
-  int d[4];
+void describe_all(long long M, int H, int* info) {
+  int d[5];
   const int smem_dx = static_cast<int>(dxp::smem_bytes<T>());
   if (describe(mlp_ln_bwd_dx_kernel<T>, dxp::kT, smem_dx, d)) {
     const int v[6] = {d[0], dxp::kR, d[1], smem_dx, d[2], d[3]};
@@ -1069,6 +1225,15 @@ void describe_both(long long M, int H, int* info) {
     const int v[8] = {d[0], wp::kR, wp::kJ, wp::splits(M, H), d[1], smem_w, d[2], d[3]};
     for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
   }
+  if (describe(mlp_ln_bwd_reduce_kernel<T>, rd::kTB, 0, d)) {
+    const int v[6] = {d[0], rd::blocks(H), d[1], d[4], d[2], d[3]};
+    for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
+  }
+}
+
+// the shapes K4 takes: C = 128, H a multiple of 64 up to 2048
+bool takes(long long M, int C, int H) {
+  return M >= 1 && C == kC && H >= wp::kJ && H % wp::kJ == 0 && H <= 4 * rd::kItemsMax;
 }
 
 }  // namespace
@@ -1085,14 +1250,14 @@ long long kasf_mlp_ln_bwd_workspace(long long M, int H) {
 // dtype: 0 = float32, 1 = bfloat16 (x, g, w1, b1, w2, b2, dx); gamma, beta,
 // ls2, the parameter gradients and the workspace are float32. All tensors
 // contiguous and 16-byte aligned: x, g, dx (M, 128); w1 and dw1 (H, 128);
-// w2 and dw2 (128, H) with H a multiple of 64. Returns cudaGetLastError()
+// w2 and dw2 (128, H) with H a multiple of 64 up to 2048. Returns cudaGetLastError()
 // after the last of the three launches (0 on success).
 int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
                     const void* beta, const void* w1, const void* b1, const void* w2,
                     const void* b2, const void* ls2, void* dx, void* dgamma, void* dbeta,
                     void* dw1, void* db1, void* dw2, void* db2, void* dls2, void* work,
                     long long M, int C, int H, float eps, void* stream) {
-  if (M < 1 || C != kC || H < wp::kJ || H % wp::kJ != 0) return cudaErrorInvalidValue;
+  if (!takes(M, C, H)) return cudaErrorInvalidValue;
   Args a{x, g, w1, b1, w2, b2,
          static_cast<const float*>(gamma), static_cast<const float*>(beta),
          static_cast<const float*>(ls2), dx,
@@ -1105,14 +1270,35 @@ int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
   return cudaErrorInvalidValue;
 }
 
-// Both passes' instantiations for (dtype, C) on the current device at M rows
-// and hidden H, for reports, into info[14] as describe_both lays it out.
-// Left untouched for a width or dtype there is none of (C = 128 only), or
-// where the runtime refuses the query.
+// The reduce alone (the third of kasf_mlp_ln_bwd's launches) on a workspace
+// laid out as the two passes leave it for M rows and hidden H, of
+// kasf_mlp_ln_bwd_workspace(M, H) floats: dgamma, dbeta, dw1, db1, dw2, db2
+// and dls2 as kasf_mlp_ln_bwd writes them. dtype as there (w2, b2); ls2,
+// the workspace and the gradients float32; all 16-byte aligned.
+int kasf_mlp_ln_bwd_reduce(int dtype, const void* work, const void* w2, const void* b2,
+                           const void* ls2, void* dgamma, void* dbeta, void* dw1,
+                           void* db1, void* dw2, void* db2, void* dls2, long long M, int C,
+                           int H, void* stream) {
+  if (!takes(M, C, H)) return cudaErrorInvalidValue;
+  Args a{nullptr, nullptr, nullptr, nullptr, w2, b2,
+         nullptr, nullptr, static_cast<const float*>(ls2), nullptr,
+         static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(dw1),
+         static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2),
+         static_cast<float*>(dls2), static_cast<float*>(const_cast<void*>(work))};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_reduce<float>(a, M, H, s);
+  if (dtype == 1) return launch_reduce<__nv_bfloat16>(a, M, H, s);
+  return cudaErrorInvalidValue;
+}
+
+// The three launches' instantiations for (dtype, C) on the current device at
+// M rows and hidden H, for reports, into info[20] as describe_all lays it
+// out. Left untouched for a shape or dtype there is none of (C = 128 only),
+// or where the runtime refuses the query.
 void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {
-  if (C != kC || M < 1 || H < wp::kJ || H % wp::kJ != 0) return;
-  if (dtype == 0) describe_both<float>(M, H, info);
-  if (dtype == 1) describe_both<__nv_bfloat16>(M, H, info);
+  if (!takes(M, C, H)) return;
+  if (dtype == 0) describe_all<float>(M, H, info);
+  if (dtype == 1) describe_all<__nv_bfloat16>(M, H, info);
 }
 
 const char* kasf_error_string(int code) {

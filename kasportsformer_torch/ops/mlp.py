@@ -59,9 +59,14 @@ from either dtype, the weights through a cp.async ring), a weight pass (one
 block per hidden chunk of 64 and row split, walking the split's 40-row tiles
 with the next tile's rows in flight by a bulk copy and dW1, G = g^T h and
 db1 kept in registers, exact f32 too) and a reduce that sums both passes'
-partials in a fixed order. The library chooses both passes' tiles and the
-weight pass's row splits; `fused_mlp_ln_bwd_kernel_info` reports both
-passes' instantiations.
+partials in index order: one wave of blocks, each thread a float4 of the
+weight partials with 16 splits' loads written before its adds, and a ninth
+warp summing the dx partials' chains, a lane each, from a stage that the
+whole block copies. The library chooses both passes' tiles and the weight pass's row
+splits (`fused_mlp_ln_bwd_partition` mirrors them);
+`fused_mlp_ln_bwd_kernel_info` reports the three launches' instantiations.
+`fused_mlp_ln_bwd_reduce` runs the reduce alone on a caller's workspace,
+and `fused_mlp_ln_bwd_reduce_reference` is its plain version.
 
 `fused_mlp(x, w1, b1, w2, b2)` computes fc1 -> exact GELU -> fc2 over the last
 axis, the port of `kasportsformer_tpu/ops/mlp.py:fused_mlp` (Pallas kernel
@@ -285,28 +290,59 @@ _BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
                 "blocks_per_sm")
 _BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
                "spill_bytes", "blocks_per_sm")
+_BWD_R_KEYS = ("threads", "blocks", "registers", "smem_bytes", "spill_bytes",
+               "blocks_per_sm")
+# K4's partition of the rows (csrc/mlp_ln_bwd.cu: dxp::kR, wp::kR, wp::kJ,
+# wp::kSMs)
+_BWD_DX_ROWS, _BWD_W_ROWS, _BWD_W_CHUNK, _SMS = 112, 40, 64, 132
+
+
+def fused_mlp_ln_bwd_partition(m: int, hidden: int) -> dict:
+    """K4's partition of m rows at this hidden width, as its library makes
+    it (`wp::splits` in csrc/mlp_ln_bwd.cu): the dx pass's `dx_tiles` tiles
+    of `dx_rows` rows, one partial each; the weight pass's tiles of `w_rows`
+    rows in `splits` row splits of `per_split` consecutive tiles (trailing
+    splits may be empty and leave zeros), one partial each. The workspace
+    holds the dx partials (dx_tiles, 3, C), then the weight partials, each
+    dW1 (hidden, C), G = g^T h (C, hidden) and db1 (hidden)."""
+    w_tiles = -(-m // _BWD_W_ROWS)
+    splits = max(1, min(w_tiles, _SMS // (hidden // _BWD_W_CHUNK)))
+    return dict(dx_rows=_BWD_DX_ROWS, dx_tiles=-(-m // _BWD_DX_ROWS),
+                w_rows=_BWD_W_ROWS, splits=splits, per_split=-(-w_tiles // splits))
 
 
 def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
                                  hidden: int = 512) -> dict:
-    """The instantiations of K4's first two launches for `dtype` at C = 128,
-    as the runtime reports them: {"dx_pass": ..., "weight_pass": ...}. Each
-    has threads a block, registers a thread, dynamic shared memory a block,
-    local memory (spills) a thread in bytes and blocks resident a SM; `rows`
-    is the pass's row tile (the dx pass runs ceil(m / rows) blocks), the
-    weight pass also has `chunk`, its hidden columns a block, and `splits`,
-    its row splits for m rows and this hidden width (a grid of
-    hidden / chunk x splits blocks). Builds the kernel if needed; launches
-    nothing."""
+    """The instantiations of K4's three launches for `dtype` at C = 128, as
+    the runtime reports them: {"dx_pass": ..., "weight_pass": ...,
+    "reduce": ...}. Each has threads a block, registers a thread, shared
+    memory a block (dynamic in the passes, static in the reduce), local
+    memory (spills) a thread in bytes and blocks resident a SM; `rows` is a
+    pass's row tile (the dx pass runs ceil(m / rows) blocks), the weight
+    pass also has `chunk`, its hidden columns a block, and `splits`, its row
+    splits for m rows and this hidden width (a grid of hidden / chunk x
+    splits blocks); the reduce has `blocks`, its grid at this hidden width.
+    Builds the kernel if needed; launches nothing."""
     lib = _build.library("mlp_ln_bwd")
-    info = (ctypes.c_int * 14)(*([-1] * 14))
+    n = len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)
+    info = (ctypes.c_int * n)(*([-1] * n))
     fn = lib.kasf_mlp_ln_bwd_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], 128, m, hidden, info)
     return {"dx_pass": dict(zip(_BWD_DX_KEYS, info[:6])),
-            "weight_pass": dict(zip(_BWD_W_KEYS, info[6:]))}
+            "weight_pass": dict(zip(_BWD_W_KEYS, info[6:14])),
+            "reduce": dict(zip(_BWD_R_KEYS, info[14:]))}
+
+
+def _bwd_workspace_size(m: int, hidden: int) -> int:
+    """Floats of workspace K4 needs for m rows, as its library sizes it."""
+    size = _build.library("mlp_ln_bwd").kasf_mlp_ln_bwd_workspace
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        size.restype = ctypes.c_longlong
+    return size(m, hidden)
 
 
 def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
@@ -326,10 +362,7 @@ def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
     lib, fn = _fn("mlp_ln_bwd", 18, [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
                                      ctypes.c_void_p])
-    size = lib.kasf_mlp_ln_bwd_workspace
-    size.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    size.restype = ctypes.c_longlong
-    work = torch.empty(size(m, hidden), dtype=f32, device=dev)
+    work = torch.empty(_bwd_workspace_size(m, hidden), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xc, g, *ops[1:], dx, *grads, work)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -357,6 +390,90 @@ def fused_mlp_ln_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 fused_mlp_ln_bwd.launches = 0
+
+
+def _reduce_parts(work: torch.Tensor, c: int, hidden: int,
+                  m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The workspace's dx partials (dx_tiles, 3, c) and weight partials
+    (splits, 2 hidden c + hidden); raises unless it has their size."""
+    p = fused_mlp_ln_bwd_partition(m, hidden)
+    n_dx, n_w = p["dx_tiles"] * 3 * c, p["splits"] * (2 * hidden * c + hidden)
+    if work.dtype != torch.float32 or work.numel() != n_dx + n_w:
+        raise ValueError(f"mlp_ln_bwd reduce: the workspace for m = {m}, hidden "
+                         f"= {hidden} is {n_dx + n_w} float32 elements; got "
+                         f"{work.numel()} {work.dtype}")
+    flat = work.reshape(-1)
+    return flat[:n_dx].view(p["dx_tiles"], 3, c), flat[n_dx:].view(p["splits"], -1)
+
+
+def fused_mlp_ln_bwd_reduce_reference(work: torch.Tensor, w2: torch.Tensor,
+                                      b2: torch.Tensor, ls2: torch.Tensor,
+                                      m: int) -> tuple[torch.Tensor, ...]:
+    """Plain version of K4's reduce (`fused_mlp_ln_bwd_reduce`) on a
+    workspace laid out as `fused_mlp_ln_bwd_partition(m, hidden)` says.
+    Every partial sum runs in index order as acc = acc + part[s], as the
+    kernel's does, so on the card dgamma, dbeta, dw1, db1, dw2 and db2 equal
+    the kernel's bit for bit; dls2, a dot product over the hidden width, is
+    grouped otherwise. Returns (dgamma, dbeta, dw1, db1, dw2, db2, dls2) in
+    float32."""
+    c, hidden = w2.shape
+    part_dx, part_w = _reduce_parts(work, c, hidden, m)
+
+    def ordered(parts: torch.Tensor) -> torch.Tensor:
+        acc = torch.zeros_like(parts[0])
+        for s in range(parts.shape[0]):
+            acc = acc + parts[s]
+        return acc
+
+    sx, sw = ordered(part_dx), ordered(part_w)
+    gg = sw[hidden * c:2 * hidden * c].view(c, hidden)
+    ls = ls2.float()
+    return (sx[0], sx[1], sw[:hidden * c].view(hidden, c), sw[2 * hidden * c:],
+            ls[:, None] * gg, ls * sx[2], (w2.float() * gg).sum(1) + b2.float() * sx[2])
+
+
+def fused_mlp_ln_bwd_reduce(work: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                            ls2: torch.Tensor, m: int) -> tuple[torch.Tensor, ...]:
+    """K4's third launch alone, on CUDA tensors: the reduce over a float32
+    workspace laid out as K4's two passes leave it for m rows
+    (`fused_mlp_ln_bwd_partition`), with w2 (C, hidden) and b2 of the
+    kernel's dtype and ls2 float32. Returns (dgamma, dbeta, dw1, db1, dw2,
+    db2, dls2) in float32, as `fused_mlp_ln_bwd` does.
+    `fused_mlp_ln_bwd_reduce.launches` counts kernel launches."""
+    if work.device.type != "cuda":
+        raise ValueError("the mlp_ln_bwd reduce kernel takes CUDA tensors")
+    dt, dev = w2.dtype, work.device
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"mlp_ln_bwd reduce takes float32 or bfloat16, got {dt}")
+    c, hidden = w2.shape
+    if (c not in _WIDTHS["mlp_ln_bwd"] or hidden % _CHUNK
+            or not 0 < hidden <= _MAX_HIDDEN or b2.numel() != c
+            or ls2.numel() != c or m < 1):
+        raise ValueError(f"mlp_ln_bwd reduce takes w2 (128, hidden), hidden a "
+                         f"multiple of {_CHUNK} up to {_MAX_HIDDEN}, b2 and ls2 "
+                         f"of 128 elements and m >= 1; got w2 {tuple(w2.shape)}, "
+                         f"b2 {b2.numel()}, ls2 {ls2.numel()}, m {m}")
+    if any(t.device != dev for t in (w2, b2, ls2)):
+        raise ValueError("mlp_ln_bwd reduce takes all tensors on one CUDA device")
+    _reduce_parts(work, c, hidden, m)
+    ops = [_prep(work.reshape(-1), torch.float32), _prep(w2, dt), _prep(b2, dt),
+           _prep(ls2, torch.float32)]
+    grads = [torch.empty(s, dtype=torch.float32, device=dev) for s in
+             (c, c, (hidden, c), hidden, (c, hidden), c, c)]
+    lib, fn = _build.bind("mlp_ln_bwd", "kasf_mlp_ln_bwd_reduce",
+                          [ctypes.c_int] + [ctypes.c_void_p] * 11
+                          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(_DTYPE_CODE[dt], *(t.data_ptr() for t in (*ops, *grads)),
+                  m, c, hidden, stream)
+    _build.check(lib, code, "mlp_ln_bwd reduce kernel launch")
+    fused_mlp_ln_bwd_reduce.launches += 1
+    return tuple(grads)
+
+
+fused_mlp_ln_bwd_reduce.launches = 0
 
 
 class FusedMlpLnFunction(torch.autograd.Function):

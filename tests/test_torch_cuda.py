@@ -15,11 +15,15 @@ from kasportsformer_torch.ops.attention import (
     masked_sdpa_reference,
 )
 from kasportsformer_torch.ops.mlp import (
+    _bwd_workspace_size,
     fused_mlp,
     fused_mlp_kernel_info,
     fused_mlp_ln,
     fused_mlp_ln_bwd,
     fused_mlp_ln_bwd_kernel_info,
+    fused_mlp_ln_bwd_partition,
+    fused_mlp_ln_bwd_reduce,
+    fused_mlp_ln_bwd_reduce_reference,
     fused_mlp_ln_bwd_reference,
     fused_mlp_ln_kernel_info,
     fused_mlp_ln_reference,
@@ -761,6 +765,60 @@ def test_fused_mlp_ln_bwd_weight_pass_one_hot(cuda, dtype):
     for name, a, want in (("dw1", got[3], dw1), ("db1", got[4], db1), ("dw2", got[5], gg)):
         err = (a.double() - want).abs().max() / want.abs().max()
         assert err <= 1e-3, f"{name}: {err.item():.2e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,hidden", [(14688, 512), (1377, 512), (58752, 64),
+                                      (1377, 192), (300, 2048)])
+def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain(cuda, dtype, m, hidden):
+    """K4's reduce alone on seeded partials against its plain version on the
+    card: dgamma, dbeta, dw1, db1, dw2 and db2 bit for bit (both sum in
+    index order), dls2 (grouped otherwise) within K4's limit against its
+    largest entry; a rerun bitwise equal. The step's M = 14,688 at H = 512
+    (2 G rows a channel block); M = 1,377 (16 splits of 3 tiles, the last
+    four empty); H = 64 (8 rows a block, 132 splits; 132 tiles restage the
+    dx partials, 168 at a time, at M = 58,752); H = 192 (5 rows a block, the
+    last block 3);
+    H = 2048 (a row of 512 float4s a block, two a thread)."""
+    p = fused_mlp_ln_bwd_partition(m, hidden)
+    n = p["dx_tiles"] * 3 * 128 + p["splits"] * (2 * hidden * 128 + hidden)
+    work = torch.randn(n, device="cuda", generator=cuda)
+    w2 = torch.randn(128, hidden, device="cuda", generator=cuda).to(dtype)
+    b2 = torch.randn(128, device="cuda", generator=cuda).to(dtype)
+    ls2 = torch.rand(128, device="cuda", generator=cuda)
+    before = fused_mlp_ln_bwd_reduce.launches
+    got = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    assert fused_mlp_ln_bwd_reduce.launches == before + 1
+    want = fused_mlp_ln_bwd_reduce_reference(work, w2, b2, ls2, m)
+    names = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, w), name
+    assert _sum_err(got[6], want[6]) <= TOL["fused_mlp_ln_bwd"][dtype]
+    again = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_mlp_ln_bwd_partition_matches_library(cuda):
+    """The Python mirror of K4's partition against the library's: both
+    passes' tiles, the weight pass's splits and the workspace's size at
+    several M and H; the reduce's instantiation without spills in either
+    dtype; a workspace of another size is refused."""
+    for m in (1, 40, 300, 1377, 14688, 58752):
+        for hidden in (64, 128, 192, 512, 1024, 2048):
+            p = fused_mlp_ln_bwd_partition(m, hidden)
+            info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, hidden)
+            assert (p["dx_rows"], p["w_rows"], p["splits"]) == (
+                info["dx_pass"]["rows"], info["weight_pass"]["rows"],
+                info["weight_pass"]["splits"]), (m, hidden)
+            assert _bwd_workspace_size(m, hidden) == (
+                p["dx_tiles"] * 3 * 128 + p["splits"] * (2 * hidden * 128 + hidden))
+    for dtype in (torch.float32, torch.bfloat16):
+        red = fused_mlp_ln_bwd_kernel_info(dtype)["reduce"]
+        assert red["spill_bytes"] == 0 and red["registers"] > 0, red
+        assert red["blocks"] <= 132 * red["blocks_per_sm"], red
+    w2 = torch.zeros(128, 512, device="cuda")
+    with pytest.raises(ValueError, match="workspace"):
+        fused_mlp_ln_bwd_reduce(torch.zeros(10, device="cuda"), w2, w2[:, 0], w2[:, 0], 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

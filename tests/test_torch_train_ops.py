@@ -27,8 +27,12 @@ from kasportsformer_torch.ops.attention import (
     masked_sdpa_bwd_reference,
 )
 from kasportsformer_torch.ops.mlp import (
+    _gelu_grad,
     fused_mlp_ln,
     fused_mlp_ln_bwd,
+    fused_mlp_ln_bwd_partition,
+    fused_mlp_ln_bwd_reduce,
+    fused_mlp_ln_bwd_reduce_reference,
     fused_mlp_ln_bwd_reference,
 )
 from kasportsformer_torch.train import losses as TLS
@@ -214,6 +218,72 @@ def test_fused_mlp_ln_bwd_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp_ln_bwd(*args, args[0])
     assert fused_mlp_ln_bwd.launches == before
+
+
+def _k4_workspace(args, g: torch.Tensor) -> torch.Tensor:
+    """The workspace K4's two passes leave, built in plain float32 torch over
+    their partition: a dx partial (sum da * xhat, sum da, sum g) a 112-row
+    tile, then a weight partial (dW1 = dz^T a, G = g^T h, db1 = sum dz) a
+    row split of consecutive 40-row tiles (an empty split's zeros)."""
+    x, gamma, beta, w1, b1, w2, b2, ls2 = args
+    m, c = x.shape
+    hidden = w1.shape[0]
+    mean = x.mean(-1, keepdim=True)
+    xhat = (x - mean) * torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + 1e-5)
+    a = xhat * gamma + beta
+    z = a @ w1.t() + b1
+    h = torch.nn.functional.gelu(z)
+    dz = (g * ls2) @ w2 * _gelu_grad(z)
+    da = dz @ w1
+    p = fused_mlp_ln_bwd_partition(m, hidden)
+    parts = []
+    for n in range(p["dx_tiles"]):
+        r = slice(n * p["dx_rows"], (n + 1) * p["dx_rows"])
+        parts.append(torch.stack([(da[r] * xhat[r]).sum(0), da[r].sum(0), g[r].sum(0)]))
+    rows = p["per_split"] * p["w_rows"]
+    for s in range(p["splits"]):
+        r = slice(s * rows, (s + 1) * rows)
+        parts.append(torch.cat([(dz[r].t() @ a[r]).reshape(-1),
+                                (g[r].t() @ h[r]).reshape(-1), dz[r].sum(0)]))
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+@pytest.mark.parametrize("m,hidden", [(300, 128), (1377, 512), (320, 128)])
+def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden):
+    """The reduce's plain version on partials built over K4's own partition
+    (a ragged M = 300 at H = 128: 3 dx tiles, 8 splits of one 40-row tile;
+    M = 1,377 at H = 512: 13 dx tiles, 16 splits of 3 tiles, the last four
+    empty; M = 320, a multiple of 8) against the JAX package's K4
+    gradients: `jax.vjp(_mlp_ln_xla)` and, where its row blocks divide M (a
+    multiple of 8), the Pallas backward kernel (interpret mode)."""
+    a = _mlp_inputs(m, hidden=hidden)
+    g = RNG.standard_normal((m, 128)).astype(np.float32)
+    args = _torch_mlp_args(a)
+    p = fused_mlp_ln_bwd_partition(m, hidden)
+    empty = p["splits"] - -(-(-(-m // p["w_rows"])) // p["per_split"])
+    assert (p["dx_tiles"], p["splits"], empty) == {300: (3, 8, 0), 1377: (13, 16, 4),
+                                                   320: (3, 8, 0)}[m]
+    got = fused_mlp_ln_bwd_reduce_reference(_k4_workspace(args, _t(g)), *args[5:], m)
+    wants = [_jax_mlp_grads(a, g)[1:]]
+    if m % 8 == 0:
+        kernel = [np.asarray(z) for z in fused_mlp_ln_bwd_pallas(
+            *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), interpret=True)]
+        kernel[3], kernel[5] = kernel[3].T, kernel[5].T
+        wants.append(kernel[1:])
+    for want in wants:
+        for name, x, w in zip(_ORDER[1:], got, want):
+            np.testing.assert_allclose(x.numpy(), w, atol=1e-4, rtol=1e-5, err_msg=name)
+
+
+def test_fused_mlp_ln_bwd_reduce_refuses_cpu_tensors():
+    """The reduce alone launches its kernel or raises: no plain fallback."""
+    args = _torch_mlp_args(_mlp_inputs(8))
+    p = fused_mlp_ln_bwd_partition(8, 512)
+    work = torch.zeros(p["dx_tiles"] * 3 * 128 + p["splits"] * (2 * 512 * 128 + 512))
+    before = fused_mlp_ln_bwd_reduce.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_ln_bwd_reduce(work, *args[5:], 8)
+    assert fused_mlp_ln_bwd_reduce.launches == before
 
 
 # ------------------------------------------------------------ losses
