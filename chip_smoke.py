@@ -3,7 +3,7 @@
 
 Run from the repository root:  python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3d]
 (the short loops for kernel work: 0,1,2,3d for K1, 0,1,3,3b,3d for K3/K5,
-0,1,6 for K2, 0,1,7 for K4)
+0,1,6 for K2, 0,1,7 for K4, 0,1,6,7,9b for the zoo's training)
 
 Phases (any failure exits non-zero and prints no result line):
   0. device: CUDA present; the card's name and power limit; TF32 off.
@@ -61,9 +61,13 @@ Phases (any failure exits non-zero and prints no result line):
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
      plain and scaled_dot_product_attention-backward times (kernel and SDPA
      in turns), each row's tiles, waves, share of its bound and its time
-     over SDPA's; K2's registers, shared memory, spills, tile and grid an
-     instantiation to --out/chip_smoke_k2_kernel.txt (a spill fails the
-     phase).
+     over SDPA's; then the zoo's train shapes at batch 32, DSTFormer's heads
+     of 32 (flat spatial stream, grouped temporal view with a transposed
+     gradient) and MixSTE's of 64 (flat spatial and temporal streams), both
+     dtypes, a rerun bitwise equal, with the same times and shares; heads of
+     128 and C = 1024 raise; K2's registers, shared memory, spills, tile and
+     grid an instantiation (D = 16, 32, 64) to --out/chip_smoke_k2_kernel.txt
+     (a spill fails the phase).
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
@@ -75,8 +79,11 @@ Phases (any failure exits non-zero and prints no result line):
      limit), its time, bound and share beside torch.sum over the weight
      partials (a yardstick of that part only), and its device time after
      other kernels (warm, a rewritten workspace, matmuls, a flushed L2).
-     In phases 6 and 7 the plain version runs in float32 on the kernel's own
-     inputs.
+     Then K4 at the zoo's widths (C/H 256/1024, and 512/1024 at eps 1e-6) at
+     M = 14,688 and 1,377, both dtypes, all eight gradients, a rerun bitwise
+     equal, the call's and each launch's time against its bound; C = 64 and
+     1024 raise. In phases 6 and 7 the plain version runs in float32 on the
+     kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -86,6 +93,14 @@ Phases (any failure exits non-zero and prints no result line):
      ms/step, clips/s, peak memory, device busy share and a profiler table
      (the profiles of phases 4 and 9 with the SM clock they ran at);
      then 50 steps on one batch, whose loss must fall.
+  9b. the zoo trains on the card (MixSTE, DSTFormer at full width, drop_path
+     0 as the config sets it): the B=4 train-mode loss and every parameter's
+     gradient on the card against the CPU (each within 1e-3 of its module's
+     largest CPU entry, the loss within 1e-5), 16 / 20 K2 and K4 launches a
+     backward; the float32 step at batch 32 (median ms over 12 steps,
+     clips/s, peak memory, profiler table by kernel group); one epoch of
+     MixSTE through the CLI's `train` on phase 10's synthetic store, then
+     `evaluate`, the launches read around `train`.
  10. training, the second main path: `train` through the CLI's entry point
      on a seeded synthetic .npz clip store (256 train, 64 test clips) for 2
      epochs, each evaluated, then `evaluate` of the best checkpoint, which
@@ -251,7 +266,7 @@ def write_k1_report(out_dir: str) -> None:
 
 
 def k2_row_line(dt, seqs: int, n: int, heads: int, ms: float, lib: float,
-                bms: float) -> str:
+                bms: float, d: int = 16) -> str:
     """A K2 row's tiles ((sequence, head group) pairs), the persistent grid,
     waves (tiles over the grid), its share of its bound and its time over
     the backward of one SDPA call (the tile fields only where the library
@@ -261,7 +276,8 @@ def k2_row_line(dt, seqs: int, n: int, heads: int, ms: float, lib: float,
     share = f"share of bound {bms / ms:.1%}  K2/SDPA bwd {ms / lib:.3f}"
     if not hasattr(attention, "masked_sdpa_bwd_kernel_info"):
         return share
-    info = attention.masked_sdpa_bwd_kernel_info(dt, n)
+    info = (attention.masked_sdpa_bwd_kernel_info(dt, n) if d == 16 else
+            attention.masked_sdpa_bwd_kernel_info(dt, n, d=d))
     grid = info["grid"]
     tiles = seqs * -(-heads // info["tile_heads"])
     return f"{tiles} tiles on {min(tiles, grid)} blocks, {tiles / grid:.2f} waves; " + share
@@ -281,15 +297,20 @@ def write_k2_report(out_dir: str) -> None:
         log("   K2 reports no instantiations in this tree")
         return
     lines, spills = [], []
+    # one instantiation a head width and block of four rows (an older tree's
+    # library, kept for A/B runs, has the flagship's D = 16 only)
+    widths = attention.LIMITS["masked_sdpa_bwd"][0]
     for dt in (torch.float32, torch.bfloat16):
-        for n in range(4, 33, 4):  # one instantiation a block of four rows
-            info = attention.masked_sdpa_bwd_kernel_info(dt, n)
-            line = (f"K2 {str(dt).split('.')[1]:8s} D=16 N<={n:2d}: " + ", ".join(
-                f"{k} {v}" for k, v in info.items()))
-            lines.append(line)
-            if info["spill_bytes"] != 0:
-                spills.append(line)
-            log(f"   {line}")
+        for d in widths:
+            for n in range(4, 33, 4):
+                info = (attention.masked_sdpa_bwd_kernel_info(dt, n) if d == 16 else
+                        attention.masked_sdpa_bwd_kernel_info(dt, n, d=d))
+                line = (f"K2 {str(dt).split('.')[1]:8s} D={d} N<={n:2d}: " + ", ".join(
+                    f"{k} {v}" for k, v in info.items()))
+                lines.append(line)
+                if info["spill_bytes"] != 0:
+                    spills.append(line)
+                log(f"   {line}")
     log(f"   K2 instantiations with local memory (spills): {spills or 'none'}")
     ptxas = _build.PTXAS.get("masked_sdpa_bwd", "(built before this process)")
     with open(os.path.join(out_dir, "chip_smoke_k2_kernel.txt"), "w") as f:
@@ -371,13 +392,17 @@ def write_k4_report(out_dir: str) -> None:
 
     lines, spills = [], []
     for dt in (torch.float32, torch.bfloat16):
-        for label, info in fused_mlp_ln_bwd_kernel_info(dt, 14688, 512).items():
-            line = (f"K4 {label.replace('_', ' '):11s} {str(dt).split('.')[1]:8s} "
-                    "C=128 M=14688: " + ", ".join(f"{k} {v}" for k, v in info.items()))
-            lines.append(line)
-            if info["spill_bytes"] != 0:
-                spills.append(line)
-            log(f"   {line}")
+        for c, h in k4_widths():
+            info_c = (fused_mlp_ln_bwd_kernel_info(dt, 14688, h) if c == 128 else
+                      fused_mlp_ln_bwd_kernel_info(dt, 14688, h, c=c))
+            for label, info in info_c.items():
+                line = (f"K4 {label.replace('_', ' '):11s} {str(dt).split('.')[1]:8s} "
+                        f"C/H={c}/{h} M=14688: " + ", ".join(
+                            f"{k} {v}" for k, v in info.items()))
+                lines.append(line)
+                if info["spill_bytes"] != 0:
+                    spills.append(line)
+                log(f"   {line}")
     log(f"   K4 instantiations with local memory (spills): {spills or 'none'}")
     ptxas = _build.PTXAS.get("mlp_ln_bwd", "(built before this process)")
     with open(os.path.join(out_dir, "chip_smoke_k4_kernel.txt"), "w") as f:
@@ -385,6 +410,15 @@ def write_k4_report(out_dir: str) -> None:
                 + ptxas + "\n")
     if spills:
         raise AssertionError(f"K4 instantiations spill: {spills}")
+
+
+def k4_widths() -> tuple:
+    """K4's (C, H): the flagship's, then the zoo's (DSTFormer, MixSTE) where
+    the tree's K4 takes them (an older tree's, kept for A/B runs, does not)."""
+    from kasportsformer_torch.ops.mlp import _WIDTHS
+
+    return ((128, 512),) + (((256, 1024), (512, 1024))
+                            if 512 in _WIDTHS["mlp_ln_bwd"] else ())
 
 
 # K4's three launches, by the kernel names the profiler reports
@@ -633,29 +667,29 @@ def check_k5_route(dev) -> int:
     return launches
 
 
-def zoo_sdpa_views(dev, gen, dt):
-    """K1's operands as the zoo passes them at B = 128, 27 frames: strided
-    column slices of one qkv projection, in the layouts of MotionAGFormer
-    hierarchical (C 64 over 8 heads, (B,T,J,C) and its temporal permutation),
-    DSTFormer (C 256: a flat (B*F,J,C) stream and the grouped (B,J,F,C) view
-    of its temporal attention) and MixSTE (C 512: flat spatial and temporal
-    streams)."""
+def zoo_sdpa_views(dev, gen, dt, b: int = 128):
+    """K1's (and K2's) operands as the zoo passes them at B = b, 27 frames:
+    strided column slices of one qkv projection, in the layouts of
+    MotionAGFormer hierarchical (C 64 over 8 heads, (B,T,J,C) and its
+    temporal permutation), DSTFormer (C 256: a flat (B*F,J,C) stream and the
+    grouped (B,J,F,C) view of its temporal attention) and MixSTE (C 512: flat
+    spatial and temporal streams)."""
     import torch
 
     def split(shape, c):
         qkv = torch.randn(*shape, 3 * c, device=dev, generator=gen).to(dt)
         return qkv.split(c, dim=-1)
 
-    mag = split((128, 27, 17), 64)
-    dst = split((128 * 27, 17), 256)
+    mag = split((b, 27, 17), 64)
+    dst = split((b * 27, 17), 256)
     return {
         "MAG spatial D=8": (mag, 8),
         "MAG temporal D=8": (tuple(z.transpose(1, 2) for z in mag), 8),
         "DST spatial D=32": (dst, 8),
-        "DST temporal D=32": (tuple(z.reshape(128, 27, 17, 256).transpose(1, 2)
+        "DST temporal D=32": (tuple(z.reshape(b, 27, 17, 256).transpose(1, 2)
                                     for z in dst), 8),
-        "MixSTE spatial D=64": (split((128 * 27, 17), 512), 8),
-        "MixSTE temporal D=64": (split((128 * 17, 27), 512), 8),
+        "MixSTE spatial D=64": (split((b * 27, 17), 512), 8),
+        "MixSTE temporal D=64": (split((b * 17, 27), 512), 8),
     }
 
 
@@ -1441,7 +1475,84 @@ def check_k2(dev, out_dir: str) -> dict:
             raise AssertionError(f"K2 x60 spread {dt}: errs {errs}")
         log(f"   K2 x60 inter-head spread {dt}: errs "
             + "/".join(f"{e:.2e}" for e in errs))
+    from kasportsformer_torch.ops import attention
+    if 64 in attention.LIMITS["masked_sdpa_bwd"][0]:  # an older tree has D = 16 only
+        rows.update(check_k2_zoo(dev, gen, tol))
     write_k2_report(out_dir)
+    return rows
+
+
+def check_k2_zoo(dev, gen, tol: dict) -> dict:
+    """K2 at the zoo's train shapes (batch 32, 27 frames): DSTFormer's heads
+    of 32 (C = 256: the flat spatial stream and the grouped temporal view,
+    its gradient a transposed view) and MixSTE's of 64 (C = 512: flat
+    spatial and temporal streams), both dtypes, against the plain version in
+    float32 and a rerun bitwise equal, with the kernel's, the plain
+    version's and SDPA's backward times; then shapes outside K2's range
+    (heads of 128, C = 1024) raise."""
+    import torch
+    import torch.nn.functional as F
+
+    from kasportsformer_torch.ops.attention import (masked_sdpa_bwd,
+                                                    masked_sdpa_bwd_reference)
+
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for name, ((qq, kk, vv), heads) in zoo_sdpa_views(dev, gen, dt, 32).items():
+            c = qq.shape[-1]
+            d = c // heads
+            if d == 8:  # MotionAGFormer hierarchical: not K2's
+                continue
+            scale = d ** -0.5
+            if qq.dim() == 3:  # a flat stream enters as the view (1, M, N, C)
+                qq, kk, vv = (z[None] for z in (qq, kk, vv))
+            if "temporal D=32" in name:  # DSTFormer's grouped view
+                gg = torch.randn(32, 27, 17, c, device=dev, generator=gen).to(dt).transpose(1, 2)
+            else:
+                gg = torch.randn(qq.shape, device=dev, generator=gen).to(dt)
+            got = masked_sdpa_bwd(qq, kk, vv, gg, scale, heads)
+            again = masked_sdpa_bwd(qq, kk, vv, gg, scale, heads)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = masked_sdpa_bwd_reference(*(z.float() for z in (qq, kk, vv, gg)),
+                                             scale, heads)
+            errs = _errs(got, want)
+            if not (same and all(torch.isfinite(z).all() for z in got)
+                    and max(errs) <= tol[dt]):
+                raise AssertionError(f"K2 {name} {dt}: errs {errs} > {tol[dt]}, "
+                                     f"rerun bitwise equal {same}")
+            lead, n = qq.shape[:-2].numel(), qq.shape[-2]
+            qh, kh, vh, gh = (z.reshape(lead, n, heads, d).transpose(1, 2).contiguous()
+                              .requires_grad_(z is not gg) for z in (qq, kk, vv, gg))
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            ms, lib = interleaved_ms(
+                lambda: masked_sdpa_bwd(qq, kk, vv, gg, scale, heads),
+                lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), gh,
+                                            retain_graph=True), 20)
+            plain = time_ms(lambda: masked_sdpa_bwd_reference(
+                qq, kk, vv, gg, scale, heads), 10)
+            bms, by = bound_ms(7 * lead * n * c * qq.element_size(),
+                               10 * lead * n * n * c, dname)
+            rows[(name, dname)] = dict(shape=list(qq.shape), max_abs_err=max(
+                (a.float() - w).abs().max().item() for a, w in zip(got, want)),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            log(f"   K2 {name:20s} {dname:8s} {tuple(qq.shape)} err dq/dk/dv "
+                + "/".join(f"{e:.2e}" for e in errs) + f" (limit {tol[dt]:.0e}), "
+                f"rerun bitwise equal; kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"sdpa bwd {lib:.4f}  bound {bms:.4f} ({by})  "
+                + k2_row_line(dt, lead, n, heads, ms, lib, bms, d))
+    q = torch.randn(2, 3, 17, 256, device=dev)
+    w = torch.randn(2, 3, 17, 1024, device=dev)
+    refused = 0
+    for call in (lambda: masked_sdpa_bwd(q, q, q, q, 0.1, 2),   # heads of 128
+                 lambda: masked_sdpa_bwd(w, w, w, w, 0.1, 16)):  # C = 1024
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    log(f"   K2 at D=128 and at C=1024: {refused} of 2 refused")
+    if refused != 2:
+        raise AssertionError("K2 took a shape outside its range")
     return rows
 
 
@@ -1512,26 +1623,101 @@ def check_k4(dev, out_dir: str) -> dict:
     # the function's, and count in the reduce's bound); the reduce reads both
     # passes' partials and W2 and writes the parameter gradients (bytes)
     for (m, dname), ms in per.items():
-        info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, 512)
-        it = 4 if dname == "float32" else 2
-        wts = 2 * 128 * 512 * it
-        part_dx = -(-m // info["dx_pass"]["rows"]) * 3 * 128 * 4
-        w_out = (2 * 512 * 128 + 512) * 4
-        part_w = info["weight_pass"]["splits"] * w_out
-        grads = 4 * (2 * 128 * 512 + 512 + 5 * 128)
-        bounds = {"dx pass": bound_ms(3 * m * 128 * it + wts, 6 * m * 128 * 512, dname),
-                  "weight pass": bound_ms(2 * m * 128 * it + wts + w_out,
-                                          8 * m * 128 * 512, dname),
-                  "reduce": bound_ms(part_dx + part_w + wts // 2 + grads, 0, dname)}
-        log(f"   K4 M={m:6d} {dname:8s} by launch, bound (share): " + "; ".join(
-            f"{label} {bounds[label][0]:.4f} ({bounds[label][1]}; "
-            f"{bounds[label][0] / ms.get(label, float('nan')):.1%})"
-            for label, _ in K4_LAUNCHES))
+        log(f"   K4 M={m:6d} {dname:8s} by launch, bound (share): "
+            + k4_launch_bounds(m, 128, 512, dname, ms))
     if hasattr(mlp_ops, "fused_mlp_ln_bwd_reduce"):
         check_k4_reduce(dev, gen, per)
     else:  # the parent tree of an A/B, from before the reduce had an entry
         log("   K4 reduce alone: this tree has no entry for it")
+    if len(k4_widths()) > 1:  # an older tree's K4 has C = 128 only
+        rows.update(check_k4_zoo(dev, gen, tol))
     write_k4_report(out_dir)
+    return rows
+
+
+def k4_launch_bounds(m: int, c: int, h: int, dname: str, ms: dict) -> str:
+    """Each of K4's launches against the bound of its own work: the dx pass
+    recomputes fc1 and takes dh = do W2 and da = dz W1 (6*M*C*H) from x, g
+    and the weights, and writes dx; the weight pass recomputes fc1 and dh and
+    takes dW1 = dz^T a and G = g^T h (8*M*C*H) from the same inputs, and
+    writes one copy of dW1, G and db1 (its row-split partials are the
+    design's, not the function's, and count in the reduce's bound); the
+    reduce reads both passes' partials and W2 and writes the parameter
+    gradients (bytes). `ms` holds each launch's device ms."""
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd_partition
+
+    p = (fused_mlp_ln_bwd_partition(m, h) if c == 128 else
+         fused_mlp_ln_bwd_partition(m, h, c))
+    it = 4 if dname == "float32" else 2
+    wts = 2 * c * h * it
+    part_dx = p["dx_tiles"] * 3 * c * 4
+    w_out = (2 * h * c + h) * 4
+    part_w = p["splits"] * w_out
+    grads = 4 * (2 * c * h + h + 5 * c)
+    bounds = {"dx pass": bound_ms(3 * m * c * it + wts, 6 * m * c * h, dname),
+              "weight pass": bound_ms(2 * m * c * it + wts + w_out, 8 * m * c * h, dname),
+              "reduce": bound_ms(part_dx + part_w + wts // 2 + grads, 0, dname)}
+    return "; ".join(
+        f"{label} {bounds[label][0]:.4f} ({bounds[label][1]}; "
+        f"{bounds[label][0] / ms.get(label, float('nan')):.1%})"
+        for label, _ in K4_LAUNCHES)
+
+
+def check_k4_zoo(dev, gen, tol: dict) -> dict:
+    """K4 at the zoo's widths (C/H 256/1024 for DSTFormer, 512/1024 with
+    MixSTE's LayerNorm eps of 1e-6) at the train step's M = 14,688 and a
+    ragged 1,377, both dtypes: all eight gradients against the plain version
+    in float32, a rerun bitwise equal, the whole call's time, the plain
+    version's, the bound, and each launch's device time against its own
+    bound; then widths outside K4's range (C = 64, 1024) raise."""
+    import torch
+
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd, fused_mlp_ln_bwd_reference
+
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
+            for m in (14688, 1377):
+                args = mlp_args(dev, gen, m, dt, c, h)
+                g = torch.randn(m, c, device=dev, generator=gen).to(dt)
+                got = fused_mlp_ln_bwd(*args, g, eps)
+                again = fused_mlp_ln_bwd(*args, g, eps)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), eps)
+                errs = [scaled_err(got[0], want[0])] + [
+                    sum_err(a, b) for a, b in zip(got[1:], want[1:])]
+                if not (same and all(torch.isfinite(z).all() for z in got)
+                        and max(errs) <= tol[dt]):
+                    raise AssertionError(f"K4 C/H={c}/{h} M={m} {dt}: errs "
+                                         f"{dict(zip(_MLP_GRADS, errs))}, rerun "
+                                         f"bitwise equal {same}")
+                ms = time_ms(lambda: fused_mlp_ln_bwd(*args, g, eps), 10)
+                plain = time_ms(lambda: fused_mlp_ln_bwd_reference(*args, g, eps), 10)
+                it = args[0].element_size()
+                nbytes = 3 * m * c * it + 2 * c * h * it + 4 * (2 * c * h + h + 5 * c)
+                bms, by = bound_ms(nbytes, 10 * m * c * h, dname)
+                per = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, eps), 10)
+                rows[(m, dname, c)] = dict(shape=[m, c, h], max_abs_err=max(
+                    (a.float() - w).abs().max().item() for a, w in zip(got, want)),
+                    ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+                log(f"   K4 C/H={c}/{h} eps {eps:.0e} M={m:6d} {dname:8s} worst err "
+                    f"{max(errs):.2e} ({_MLP_GRADS[errs.index(max(errs))]}; limit "
+                    f"{tol[dt]:.0e}), rerun bitwise equal; kernel {ms:.4f} ms  "
+                    f"plain {plain:.4f}  bound {bms:.4f} ({by}; {bms / ms:.1%})")
+                log("     by launch (profiler, ms a launch): " + "; ".join(
+                    f"{label} {per.get(label, float('nan')):.4f}" for label, _ in K4_LAUNCHES)
+                    + "; bound (share): " + k4_launch_bounds(m, c, h, dname, per))
+    refused = 0
+    for c in (64, 1024):
+        args = mlp_args(dev, gen, 8, torch.float32, c, 256)
+        try:
+            fused_mlp_ln_bwd(*args, args[0], 1e-5)
+        except ValueError:
+            refused += 1
+    log(f"   K4 at C=64 and at C=1024: {refused} of 2 refused")
+    if refused != 2:
+        raise AssertionError("K4 took a width outside its range")
     return rows
 
 
@@ -1630,6 +1816,37 @@ def label_batch(gen, b: int):
     return y - y[:, :, :1]
 
 
+def grad_rows(model, cpu_model) -> list:
+    """Per parameter with a gradient, the worst first: (max |card - CPU|
+    over the largest CPU gradient entry of the module that holds it (a
+    linear's weight and bias), the same over its own largest entry, that
+    entry, its name). A bias whose gradient is a sum that cancels to near
+    zero is so held to the size of what flows through its module, which
+    cancellation cannot shrink; its error over its own largest entry is
+    printed beside it."""
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()
+                 if p.grad is not None}
+
+    def owner(n: str) -> str:
+        return n.rpartition(".")[0]
+
+    module_max: dict[str, float] = {}
+    for n, ref in cpu_grads.items():
+        module_max[owner(n)] = max(module_max.get(owner(n), 0.0),
+                                   ref.abs().max().item())
+    rows = []
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        ref = cpu_grads[name]
+        diff = (p.grad.cpu() - ref).abs().max().item()
+        scale, own = module_max[owner(name)], ref.abs().max().item()
+        rows.append((diff / scale if scale else (0.0 if diff == 0 else float("inf")),
+                     diff / own if own else float("nan"), own, name))
+    rows.sort(reverse=True)
+    return rows
+
+
 @phase("phase 8: full-model gradients on the card vs the CPU")
 def check_grads(dev) -> dict:
     import torch
@@ -1672,31 +1889,7 @@ def check_grads(dev) -> dict:
             f"parameters without a gradient: {len(missing)} on the card "
             f"({sorted(missing - unreached)[:5]} beyond the limb norms), "
             f"{len(cpu_missing)} on the CPU, {len(unreached)} limb norms")
-    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()
-                 if p.grad is not None}
-
-    # per parameter: max |card - CPU| over the largest CPU gradient entry of
-    # the module that holds it (a linear's weight and bias). A bias whose
-    # gradient is a sum that cancels to near zero is so held to the size of
-    # what flows through its module, which cancellation cannot shrink; its
-    # error over its own largest entry is printed beside it.
-    def owner(n: str) -> str:
-        return n.rpartition(".")[0]
-
-    module_max: dict[str, float] = {}
-    for n, ref in cpu_grads.items():
-        module_max[owner(n)] = max(module_max.get(owner(n), 0.0),
-                                   ref.abs().max().item())
-    rows = []
-    for name, p in model.named_parameters():
-        if name in missing:
-            continue
-        ref = cpu_grads[name]
-        diff = (p.grad.cpu() - ref).abs().max().item()
-        scale, own = module_max[owner(name)], ref.abs().max().item()
-        rows.append((diff / scale if scale else (0.0 if diff == 0 else float("inf")),
-                     diff / own if own else float("nan"), own, name))
-    rows.sort(reverse=True)
+    rows = grad_rows(model, cpu_model)
     worst = rows[0][0]
     worst_own = max(rows, key=lambda r: r[1] if r[1] == r[1] else -1.0)
     cpu_bufs = dict(cpu_model.named_buffers())
@@ -1723,6 +1916,114 @@ def check_grads(dev) -> dict:
     if not (loss_rel <= 1e-5 and worst <= grad_tol and bn <= bn_tol):
         raise AssertionError("full-model gradients off the CPU's")
     return {"worst": worst, "worst_name": rows[0][3], "loss_rel": loss_rel}
+
+
+@phase("phase 9b: zoo train step on the card")
+def check_zoo_train(dev, out_dir: str) -> dict:
+    """MixSTE and DSTFormer trained on the card at full width, drop_path 0
+    as the config sets it (so every MLP tail takes K3 and K4): (1) each
+    model's train-mode loss and every parameter's gradient at B = 4 on the
+    card (kernels) against the CPU (plain versions), same perturbed weights,
+    each gradient within 1e-3 of its module's largest CPU entry and the loss
+    within 1e-5 relative, K2 and K4 launches counted per backward; (2) the
+    float32 train step at the config's batch 32: median ms over 12 steps,
+    clips/s, peak memory and a profiler table by kernel group, the launches
+    read around the 12 steps; (3) one epoch of MixSTE through the CLI's
+    `train` on phase 10's synthetic store, then `evaluate`, the launches
+    read around `train`."""
+    import numpy as np
+    import torch
+
+    from kasportsformer_torch.data.pipeline import flip_generator
+    from kasportsformer_torch.models import build_model
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
+    from kasportsformer_torch.train.loop import (make_grads_fn, make_optimizer,
+                                                 make_train_step)
+
+    res = {}
+    for i, name in enumerate(("MixSTE", "DSTFormer")):
+        cfg = zoo_config(name)
+        if cfg.drop_path != 0.0:
+            raise AssertionError(f"{name}: the config's drop_path is {cfg.drop_path}")
+        gcfg = cfg.replace(grad_microbatch=0)
+        cpu_model = perturbed(cfg, seed=40 + i)
+        model = copy.deepcopy(cpu_model).to(dev)
+        x = clip_batch(torch.Generator().manual_seed(41 + i), 4)
+        y = label_batch(torch.Generator().manual_seed(43 + i), 4)
+        w = torch.ones(4)
+        t0 = time.perf_counter()
+        want = make_grads_fn(cpu_model, gcfg)(x, y, w)
+        cpu_s = time.perf_counter() - t0
+        k2, k4 = masked_sdpa_bwd.launches, fused_mlp_ln_bwd.launches
+        got = make_grads_fn(model, gcfg)(x.to(dev), y.to(dev), w.to(dev))
+        torch.cuda.synchronize()
+        d = (masked_sdpa_bwd.launches - k2, fused_mlp_ln_bwd.launches - k4)
+        loss_rel = abs(got["loss_total"].item() - want["loss_total"].item()) / abs(
+            want["loss_total"].item())
+        missing = {n for n, p in model.named_parameters() if p.grad is None}
+        cpu_missing = {n for n, p in cpu_model.named_parameters() if p.grad is None}
+        rows = grad_rows(model, cpu_model)
+        errs = sorted(r[0] for r in rows)
+        log(f"   {name} B=4 train-mode backward: K2/K4 launches {d} (expected "
+            f"{ZOO_LAUNCHES[name]}); loss {got['loss_total'].item():.6f} (rel diff "
+            f"{loss_rel:.2e}, limit 1e-5); {len(rows)} parameters with a gradient, "
+            f"{len(missing)} without; per-parameter error over its module's largest "
+            f"CPU gradient (limit 1e-3): median {errs[len(errs) // 2]:.2e}, worst "
+            f"five: " + "; ".join(f"{n} {e:.2e} (over its own |g| max {s:.2e}: {o:.2e})"
+                                  for e, o, s, n in rows[:5])
+            + f"; CPU forward+backward {cpu_s:.2f} s")
+        if not (d == ZOO_LAUNCHES[name] and missing == cpu_missing
+                and loss_rel <= 1e-5 and rows[0][0] <= 1e-3):
+            raise AssertionError(f"{name}: gradients off the CPU's")
+        res[name] = {"worst": rows[0][0], "worst_name": rows[0][3], "loss_rel": loss_rel}
+        del model, cpu_model
+
+    train, _ = synthetic_clipsets(12, 320, 4)
+    arrays = {"inputs": torch.as_tensor(train.inputs, device=dev),
+              "labels": torch.as_tensor(train.labels, device=dev)}
+    plans = np.arange(320).reshape(10, 32)
+    for name in ("MixSTE", "DSTFormer"):
+        cfg = zoo_config(name)  # the public config: batch 32, float32
+        model = build_model(cfg, device=dev)
+        opt = make_optimizer(model, cfg)
+        step = make_train_step(model, cfg, opt)
+        w = torch.ones(cfg.batch_size, device=dev)
+        times, losses, i = [], [], 0
+
+        def one() -> None:
+            nonlocal i
+            losses.append(step(arrays, plans[i % 10], w,
+                               flip_generator(cfg.seed, 0, i))["loss_total"])
+            i += 1
+
+        one()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        masked_sdpa_bwd.launches = fused_mlp_ln_bwd.launches = 0
+        for _ in range(12):
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {"masked_sdpa_bwd": masked_sdpa_bwd.launches,
+                    "fused_mlp_ln_bwd": fused_mlp_ln_bwd.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(times)
+        busy = profile_steps(one, 3, f"train_{name}", out_dir)
+        finite = all(bool(torch.isfinite(v)) for v in losses)
+        log(f"   {name} train step float32, batch 32: median {med:.1f} ms over 12 "
+            f"steps (min {min(times):.1f}, max {max(times):.1f}), {32e3 / med:.1f} "
+            f"clips/s, peak memory {peak:.2f} GiB; launches over the 12 steps "
+            f"{launches}; losses finite {finite}")
+        if not finite or min(launches.values()) == 0:
+            raise AssertionError(f"{name} train step: losses finite {finite}, "
+                                 f"launches {launches}")
+        res[name].update(step_ms=med, peak_gib=peak, busy=busy, launches=launches)
+        del model, opt, step
+    del arrays
+    res["MixSTE"]["cli_launches"] = train_and_evaluate_cli(ZOO["MixSTE"], 1)
+    return res
 
 
 def synthetic_clipsets(seed: int, n_train: int, n_test: int):
@@ -1883,8 +2184,12 @@ def check_train_step(dev, out_dir: str) -> dict:
     return res
 
 
-@phase("phase 10: train and evaluate through the CLI (main path)")
-def check_train_cli(dev, out_dir: str) -> dict:
+def train_and_evaluate_cli(overrides: dict, epochs: int) -> dict:
+    """`train` through the CLI's entry point on a seeded synthetic .npz clip
+    store (256 train, 64 test clips) in a temp dir, the flagship's YAML with
+    `overrides`, for `epochs` epochs, each evaluated; then `evaluate` of the
+    best checkpoint, which must give its epoch's MPJPE. The launch counts of
+    K1-K4 are set to 0 just before `train` and read just after."""
     import dataclasses
     import io
     import re
@@ -1903,7 +2208,8 @@ def check_train_cli(dev, out_dir: str) -> dict:
             save_clipstore(os.path.join(tmp, "clips", "SYN-27", f"{cs.split}.npz"), cs)
         raw = dataclasses.asdict(
             load_config("configs/sportspose-gt-kasportsformer.yaml"))
-        raw.update(epochs=2, warmup_epoches=1, data_root=os.path.join(tmp, "clips"),
+        raw.update(overrides)
+        raw.update(epochs=epochs, warmup_epoches=1, data_root=os.path.join(tmp, "clips"),
                    clip_set_name="SYN-27", new_checkpoint_dir=os.path.join(tmp, "ckpt"),
                    new_checkpoint_name="syn", logger_dir_path=os.path.join(tmp, "log"),
                    logger_file_name="train.log", use_wandb=False, checkpoint=False,
@@ -1923,8 +2229,8 @@ def check_train_cli(dev, out_dir: str) -> dict:
                        for n in os.listdir(os.path.join(tmp, "log")))
         mpjpes = [float(v) for v in re.findall(r"epoch \d+: MPJPE ([0-9.eE+-]+) mm", logs)]
         best = os.path.join(tmp, "ckpt", "syn_best")
-        if len(mpjpes) != 2 or not os.path.isdir(best):
-            raise AssertionError(f"expected 2 evaluated epochs and a best "
+        if len(mpjpes) != epochs or not os.path.isdir(best):
+            raise AssertionError(f"expected {epochs} evaluated epochs and a best "
                                  f"checkpoint, got {mpjpes}")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1932,7 +2238,7 @@ def check_train_cli(dev, out_dir: str) -> dict:
                            "--checkpoint", best])
         result = json.loads(buf.getvalue().strip().splitlines()[-1])
         diff = abs(result["mpjpe"] - min(mpjpes))
-        log(f"   train: 2 epochs of 8 steps in {train_s:.1f} s, eval MPJPE per "
+        log(f"   train: {epochs} epochs of 8 steps in {train_s:.1f} s, eval MPJPE per "
             f"epoch {mpjpes}; evaluate on the best checkpoint: "
             f"{result['mpjpe']} mm (diff {diff:.2e}); launches {launches}")
         if rc != 0 or diff > 1e-3 or min(launches.values()) == 0:
@@ -1941,8 +2247,13 @@ def check_train_cli(dev, out_dir: str) -> dict:
     return launches
 
 
+@phase("phase 10: train and evaluate through the CLI (main path)")
+def check_train_cli(dev, out_dir: str) -> dict:
+    return train_and_evaluate_cli({}, 2)
+
+
 PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "4", "5", "5b", "5c", "6",
-          "7", "8", "9", "10")
+          "7", "8", "9", "9b", "10")
 
 
 def main() -> int:
@@ -2008,6 +2319,7 @@ def main() -> int:
     k4 = run("7", check_k4, dev, args.out)
     run("8", check_grads, dev)
     run("9", check_train_step, dev, args.out)
+    zoo_train = run("9b", check_zoo_train, dev, args.out)
     train_launches = run("10", check_train_cli, dev, args.out)
     log(f"== total {time.perf_counter() - t_start:.1f} s")
     if args.phases is not None:
@@ -2016,7 +2328,8 @@ def main() -> int:
             + (f"FAILED: {FAILED}" if FAILED else "ok"))
         return 1 if FAILED else 0
     if FAILED or not (k1 and k3 and k5 and k5_launches and zoo_k and launches
-                      and zoo and zoo_launches and k2 and k4 and train_launches):
+                      and zoo and zoo_launches and k2 and k4 and zoo_train
+                      and train_launches):
         log(f"chip_smoke: FAILED phases: {FAILED}")
         return 1
 
@@ -2064,6 +2377,28 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:202",
              launches=zoo_launches["fused_mlp_ln"],
              **zoo_k[("K3", 512, "float32")]),
+        # the zoo's training (phase 9b): DSTFormer's widths from its batch-32
+        # steps, MixSTE's from its epoch through the CLI
+        dict(name="masked_sdpa_bwd[zoo D=32]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:365",
+             launches=zoo_train["DSTFormer"]["launches"]["masked_sdpa_bwd"],
+             **k2[("DST spatial D=32", "float32")]),
+        dict(name="masked_sdpa_bwd[zoo D=64]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:365",
+             launches=zoo_train["MixSTE"]["cli_launches"]["masked_sdpa_bwd"],
+             **k2[("MixSTE spatial D=64", "float32")]),
+        dict(name="fused_mlp_ln_bwd[zoo C=256]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:284",
+             launches=zoo_train["DSTFormer"]["launches"]["fused_mlp_ln_bwd"],
+             **k4[(14688, "float32", 256)]),
+        dict(name="fused_mlp_ln_bwd[zoo C=512]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:284",
+             launches=zoo_train["MixSTE"]["cli_launches"]["fused_mlp_ln_bwd"],
+             **k4[(14688, "float32", 512)]),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

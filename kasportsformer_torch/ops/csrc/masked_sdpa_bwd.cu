@@ -18,7 +18,7 @@
 // run come near the byte bound.
 //
 // Design:
-//  * Unit of work: one (sequence, head group) tile, HG = 4 heads (W = 64
+//  * Unit of work: one (sequence, head group) tile, HG = 64 / D heads (W = 64
 //    channels; a last group of fewer heads, C not a multiple of 64, loads and
 //    computes only its heads). Persistent blocks (SMs x 2, at most one a
 //    tile) walk the tiles in order through a two-stage ring: while tile t
@@ -52,7 +52,12 @@
 //    packed over the tile's heads x ceil(N / 4) blocks (no group on a block
 //    that is all padding): lane jb takes the keys jb + 4k and forms S and dP
 //    of the four rows x its keys (4 x NB register tiles, NB = ceil(N / 4),
-//    an instantiation each, so no loop has a guard). The row softmax takes
+//    an instantiation each, so no loop has a guard). A head of D = 32 or 64
+//    takes 4 D / 16 lanes, lane kl the keys kl + 4 (D / 16) k over the whole
+//    head width: a lane holds ceil(NB 16 / D) keys (fewer registers than
+//    D / 16 quads each over 16 channels, whose S and dP sums spilled at
+//    NB = 7, 8), the row reductions take one or two more shuffles, and the
+//    tile keeps its 256 threads. The row softmax takes
 //    two butterfly shuffles a reduction, the four rows side by side; the
 //    exponential is 2^((t - m) log2 e), with t - m formed in f32 first.
 //    P and dS go to shared memory transposed (key-major), one 16-byte store
@@ -67,8 +72,12 @@
 //  * P and dS are kept (5 products) rather than recomputed from per-row
 //    statistics (7 products): shared memory reads set the pace, and
 //    recomputing would read k and v once more for every key of every row.
-//  * Head width D is a template parameter; only D = 16 (the flagship's) is
-//    instantiated.
+//  * Head width D is a template parameter, instantiated at D = 16 (the
+//    flagship's: four heads a tile), 32 (DSTFormer: two) and 64 (MixSTE:
+//    one), every NB and both dtypes: a tile is always 64 channels, so the
+//    ring, its loader, the stages and the block of 256 threads are the same
+//    at every D (P^T and dS^T shrink with the heads), and pass 2's lanes
+//    (16 NB and 8 NB of them) too.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -90,6 +99,7 @@ using kasf_mma::mbar_wait;
 using kasf_mma::pack_bf16;
 
 constexpr int kMaxN = 32;   // rows a stage holds: N padded
+constexpr int kMaxC = 512;  // the widest model's channels
 constexpr int kStages = 2;  // the ring of cp.async copies
 constexpr int kMaxDevices = 64;
 
@@ -99,10 +109,12 @@ struct BwdStrides {
 
 template <typename T, int D>
 struct Tile {
-  static constexpr int HG = 4;                     // heads a group
-  static constexpr int W = HG * D;                 // channels a group
-  static constexpr int kThreads = 64 * HG;         // two warps a head
-  static constexpr int kMinBlocks = HG <= 4 ? 2 : 1;  // blocks a SM, as shared memory allows
+  static_assert(D == 16 || D == 32 || D == 64, "heads of 16, 32 or 64 channels");
+  static constexpr int HG = 64 / D;                // heads a group
+  static constexpr int W = HG * D;                 // channels a group: 64
+  static constexpr int kSplit = D / 16;            // pass 1's lanes a (head, row block): 4 kSplit
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 2;             // blocks a SM, as shared memory allows
   static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // 16 bytes
   static constexpr int kRingPitch = W + kChunk;    // elements a ring row
   static constexpr int kRingStage = 4 * kMaxN * kRingPitch;  // q, k, v, g
@@ -234,52 +246,58 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4& x) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
 
-// ---- pass 1: a group of four lanes per (head h, row block ib) of the
-// tile's heads x NB blocks, packed with the heads fastest (the two groups of
-// a quarter warp read and write 16 banks apart); lane jb takes the keys
-// jb + 4k. S and dP of rows 4 ib .. +3 x its keys, the row softmax (two
-// shuffles a reduction, within the group), then P^T and dS^T of its keys
-// to shared memory, one 16-byte store a key: padded rows (q, g zero) give
-// finite values there that pass 2 multiplies by zero rows or never stores,
-// padded keys give zeros
+// ---- pass 1: a group of L = 4 S lanes (S = D / 16) per (head h, row
+// block ib) of the tile's heads x NB blocks, packed with the heads fastest
+// (at D = 16 the two groups of a quarter warp read and write 16 banks
+// apart); lane kl of the group takes the keys kl + L k over the head's whole
+// width, so a wider head spreads its keys over more lanes and a lane holds
+// NK = ceil(NB / S) of them. S and dP of rows 4 ib .. +3 x its keys, the row
+// softmax (log2 L shuffles a reduction, within the group), then P^T and
+// dS^T of its keys to shared memory, one 16-byte store a key: padded rows
+// (q, g zero) give finite values there that pass 2 multiplies by zero rows
+// or never stores, padded keys give zeros
 template <typename T, int D, int NB>
 __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst, int heads,
                                       int N, float scale) {
   using Tl = Tile<T, D>;
   constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int S = Tl::kSplit;
+  constexpr int L = 4 * S;              // lanes a (head, row block)
+  constexpr int NK = (NB + S - 1) / S;  // keys a lane: kl + L k < 4 S NK <= kMaxN
+  static_assert(L * NK <= kMaxN, "a lane's keys lie in the stage's rows");
   const int groups = heads * NB;
-  if (static_cast<int>(threadIdx.x >> 5) * 8 >= groups) return;  // the whole warp is idle
-  const int grp = threadIdx.x >> 2;
+  if (static_cast<int>(threadIdx.x >> 5) * 8 >= groups * S) return;  // the whole warp is idle
+  const int grp = threadIdx.x / L;
   const bool valid = grp < groups;  // invalid groups compute group 0, store nothing
   const int ib = valid ? grp / heads : 0;
   const int h = valid ? grp - ib * heads : 0;
-  const int jb = threadIdx.x & 3;
+  const int kl = threadIdx.x % L;
   const float* qs = stage + 4 * ib * Tl::kPitch + h * D;
   const float* gs = qs + 3 * kMaxN * Tl::kPitch;
-  const float* ks = stage + (kMaxN + jb) * Tl::kPitch + h * D;
+  const float* ks = stage + (kMaxN + kl) * Tl::kPitch + h * D;
   const float* vs = ks + kMaxN * Tl::kPitch;
 
-  float s[4][NB], dp[4][NB];
+  float s[4][NK], dp[4][NK];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int k = 0; k < NB; ++k) s[r][k] = dp[r][k] = 0.f;
+    for (int k = 0; k < NK; ++k) s[r][k] = dp[r][k] = 0.f;
 #pragma unroll
   for (int d4 = 0; d4 < D / 4; ++d4) {
     float4 a[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = reinterpret_cast<const float4*>(qs + r * Tl::kPitch)[d4];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const float4 b = reinterpret_cast<const float4*>(ks + 4 * k * Tl::kPitch)[d4];
+    for (int k = 0; k < NK; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(ks + L * k * Tl::kPitch)[d4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[r][k] = dot4(a[r], b, s[r][k]);
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = reinterpret_cast<const float4*>(gs + r * Tl::kPitch)[d4];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const float4 b = reinterpret_cast<const float4*>(vs + 4 * k * Tl::kPitch)[d4];
+    for (int k = 0; k < NK; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(vs + L * k * Tl::kPitch)[d4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) dp[r][k] = dot4(a[r], b, dp[r][k]);
     }
@@ -295,26 +313,26 @@ __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst,
   for (int r = 0; r < 4; ++r) {
     m[r] = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      s[r][k] = jb + 4 * k < N ? s[r][k] * scale : -INFINITY;
+    for (int k = 0; k < NK; ++k) {
+      s[r][k] = kl + L * k < N ? s[r][k] * scale : -INFINITY;
       m[r] = fmaxf(m[r], s[r][k]);
     }
   }
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
+  for (int o = 1; o < L; o <<= 1)
 #pragma unroll
     for (int r = 0; r < 4; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     l[r] = 0.f;
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
+    for (int k = 0; k < NK; ++k) {
       s[r][k] = fast_exp2((s[r][k] - m[r]) * kLog2e);  // padded keys: 2^-inf = 0
       l[r] += s[r][k];
     }
   }
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
+  for (int o = 1; o < L; o <<= 1)
 #pragma unroll
     for (int r = 0; r < 4; ++r) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
 #pragma unroll
@@ -322,28 +340,28 @@ __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst,
     const float inv = fast_rcp(l[r]);  // l >= 1: the max logit contributes 2^0
     rs[r] = 0.f;
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
+    for (int k = 0; k < NK; ++k) {
       s[r][k] *= inv;
       rs[r] = fmaf(s[r][k], dp[r][k], rs[r]);
     }
   }
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
+  for (int o = 1; o < L; o <<= 1)
 #pragma unroll
     for (int r = 0; r < 4; ++r) rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], o);
   if (!valid) return;
-  float* pj = pt + h * Tl::kPHead + jb * Tl::kPPitch + 4 * ib;
-  float* dj = dst + h * Tl::kPHead + jb * Tl::kPPitch + 4 * ib;
+  float* pj = pt + h * Tl::kPHead + kl * Tl::kPPitch + 4 * ib;
+  float* dj = dst + h * Tl::kPHead + kl * Tl::kPPitch + 4 * ib;
 #pragma unroll
-  for (int k = 0; k < NB; ++k) {
+  for (int k = 0; k < NK; ++k) {
     float4 ds;
     ds.x = s[0][k] * (dp[0][k] - rs[0]) * scale;
     ds.y = s[1][k] * (dp[1][k] - rs[1]) * scale;
     ds.z = s[2][k] * (dp[2][k] - rs[2]) * scale;
     ds.w = s[3][k] * (dp[3][k] - rs[3]) * scale;
-    *reinterpret_cast<float4*>(pj + 4 * k * Tl::kPPitch) =
+    *reinterpret_cast<float4*>(pj + L * k * Tl::kPPitch) =
         make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
-    *reinterpret_cast<float4*>(dj + 4 * k * Tl::kPPitch) = ds;
+    *reinterpret_cast<float4*>(dj + L * k * Tl::kPPitch) = ds;
   }
 }
 
@@ -629,10 +647,10 @@ void describe(int* info) {
   info[7] = resident;
 }
 
-template <typename T>
+template <typename T, int D>
 void describe_rows(int n, int* info) {
 #define KASF_ROWS(nb) \
-  case nb: describe<T, 16, nb>(info); break;
+  case nb: describe<T, D, nb>(info); break;
   switch ((n + 3) / 4) {
     KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
     KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
@@ -641,11 +659,31 @@ void describe_rows(int n, int* info) {
 #undef KASF_ROWS
 }
 
+template <typename T>
+cudaError_t launch_width(const void* q, const void* k, const void* v, const void* g, void* dq,
+                         void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
+                         int H, float scale, cudaStream_t stream) {
+  switch (C / H) {
+    case 16: return launch_rows<T, 16>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
+    case 32: return launch_rows<T, 32>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
+    case 64: return launch_rows<T, 64>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+void describe_width(int d, int n, int* info) {
+  if (d == 16) describe_rows<T, 16>(n, info);
+  if (d == 32) describe_rows<T, 32>(n, info);
+  if (d == 64) describe_rows<T, 64>(n, info);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. C = 16 H, H <= 8, 1 <= N <= 32, any B G.
+// dtype: 0 = float32, 1 = bfloat16. Heads of D = C / H in {16, 32, 64},
+// C <= 512, 1 <= N <= 32, any B G.
 // strides: 16 int64 in elements, the four leading strides of q, k, v and g
 // in that order (channel stride 1); every pointer and the three outer
 // strides of each operand 16-byte aligned. dq, dk, dv are contiguous
@@ -654,8 +692,7 @@ int kasf_masked_sdpa_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv,
                          const long long* strides, int B, int G, int N, int C, int H,
                          float scale, void* stream) {
-  constexpr int kD = 16;  // the head width instantiated
-  if (B < 1 || G < 1 || N < 1 || N > kMaxN || H < 1 || H > 8 || C != kD * H)
+  if (B < 1 || G < 1 || N < 1 || N > kMaxN || H < 1 || C % H || C > kMaxC)
     return cudaErrorInvalidValue;
   BwdStrides st;
   for (int a = 0; a < 4; ++a) {
@@ -666,22 +703,21 @@ int kasf_masked_sdpa_bwd(int dtype, const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_rows<float, kD>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
+    return launch_width<float>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
   if (dtype == 1)
-    return launch_rows<__nv_bfloat16, kD>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale,
-                                          s);
+    return launch_width<__nv_bfloat16>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// The instantiation for (dtype, N) on the current device, for reports:
+// The instantiation for (dtype, head width d, N) on the current device, for reports:
 // info = {threads a block, registers a thread, dynamic shared memory a block
 // in bytes, local memory (spills) a thread in bytes, blocks resident a SM,
 // heads a tile, rows a tile (N padded to a multiple of 4), the persistent
 // grid (blocks resident on the device: a launch of more tiles has this
-// many blocks)}. Left untouched for a dtype or N there is none of.
-void kasf_masked_sdpa_bwd_info(int dtype, int n, int* info) {
-  if (dtype == 0) describe_rows<float>(n, info);
-  if (dtype == 1) describe_rows<__nv_bfloat16>(n, info);
+// many blocks)}. Left untouched for a dtype, d or N there is none of.
+void kasf_masked_sdpa_bwd_info(int dtype, int d, int n, int* info) {
+  if (dtype == 0) describe_width<float>(d, n, info);
+  if (dtype == 1) describe_width<__nv_bfloat16>(d, n, info);
 }
 
 const char* kasf_error_string(int code) {

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel kasportsformer_tpu/ops/mlp.py:_mlp_ln_bwd_kernel
 // (wrapper fused_mlp_ln_bwd_pallas, VJP _fused_mlp_ln_bwd). The forward (K3)
-// is, over M token rows of width C = 128 and a hidden width H:
+// is, over M token rows of width C (128, 256 or 512) and a hidden width H:
 //     a = LN(x) * gamma + beta,  z = a W1^T + b1,  h = GELU(z)
 //     out = x + ls2 * (h W2^T + b2)
 // with W1 (H, C), W2 (C, H) in the torch nn.Linear layout. For the output
@@ -29,6 +29,27 @@
 // the 1e-4 the gradients are held to); only dx is rounded to the input dtype.
 // Tail rows of a ragged M are loaded as zeros; their g is zero, so dh, dz
 // and every contribution of theirs vanish.
+//
+// Widths. Each launch is a template on C, instantiated at 128 (the
+// flagship), 256 (DSTFormer) and 512 (MixSTE); the numbers below are C =
+// 128's, whose instantiations compute bit for bit what they did before the
+// template. The tiles scale with 128 / C, so that shared memory and
+// registers a thread stay near C = 128's (dxp::Cfg, wp::Cfg):
+//  * dx pass: 112, 56, 32 rows a tile and hidden chunks of 4096 / C = 32,
+//    16, 8 (rows x C 14,336 at C <= 256; 16,384 at 512, where 28 rows would
+//    not divide the warps: ~194 KB and ~202 KB of shared memory in f32); fc1
+//    and dh split the channels over kKS = 1, 4, 8 neighbouring lanes that sum
+//    by shuffles, so a thread keeps a 7 x 4 (4 x 4 at 512) register tile; da
+//    is 7 x 8, 7 x 8, 4 x 16 a thread, a row over a half warp at C = 128 and
+//    a whole warp beyond. At C = 512 it reaches 18 % of its bound on the
+//    H100 (chip_smoke.py phase 7): a chunk of 8 columns leaves little work
+//    between barriers.
+//  * weight pass: chunks of 8192 / C = 64, 32, 16 hidden columns (dW1c and
+//    G_c stay 8,192 floats a block, 64 registers a thread, and 128 blocks at
+//    H = 512 / 1024), tiles of 40, 24, 16 rows; fc1 and dh over 2, 4, 8
+//    channel splits of 64, each into its own buffer, summed in split order.
+//  * reduce: channel blocks as before; a hidden block's 8 dW1 rows are
+//    C / 128 float4s a thread; the dx chains read partials of C channels.
 //
 //  1. dx pass (mlp_ln_bwd_dx_kernel): fc1 recomputed, dh, dz, da and dx; the
 //     tile's partial sums of da*xhat, da and g per channel to a workspace.
@@ -165,8 +186,6 @@
 
 namespace {
 
-constexpr int kC = 128;  // model width
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -181,50 +200,101 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- 1. dx pass: its own tile (the helpers above belong to the weight pass)
+// v summed over the n neighbouring lanes of an aligned group (butterfly:
+// every lane of the group holds the same sum, bitwise)
+template <int n>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = n / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// each entry summed over the n neighbouring lanes of an aligned group
+// (lanes xor 1, 2, ...; n = 1 leaves them)
+template <int n, int R, int U>
+__device__ __forceinline__ void lanes_sum(float (&v)[R][U]) {
+#pragma unroll
+  for (int off = 1; off < n; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[i][u] += __shfl_xor_sync(0xffffffffu, v[i][u], off);
+}
+
+// (a.x + a.y) + (a.z + a.w), and the same of the squares
+__device__ __forceinline__ float quad_sum(float4 a) { return (a.x + a.y) + (a.z + a.w); }
+__device__ __forceinline__ float quad_sq(float4 a) {
+  return (a.x * a.x + a.y * a.y) + (a.z * a.z + a.w * a.w);
+}
+
+// ---- 1. dx pass: its own tile (the helpers above belong to every launch)
 namespace dxp {
 
 using bf16 = __nv_bfloat16;
 using kasf_mma::cp_async16;
 
-constexpr int kR = 112;          // rows a tile: ceil(14,688 / 112) = 132 blocks
-constexpr int kKC = 32;          // hidden columns a chunk
-constexpr int kT = 256;          // threads a block: 8 warps
-constexpr int kRG = 16;          // row groups; group q owns rows q + 16 i
-constexpr int kRT = kR / kRG;    // 7 rows a thread
-constexpr int kLdA = kC + 4;     // aS, dS rows: LN(x) * gamma + beta, g * ls2
-constexpr int kLdZ = kKC + 8;    // zS, hS rows: z + b1 (then dz), dh
-constexpr int kLdW1 = kC + 4;    // W1 chunk rows in f32, as in memory
-constexpr int kLdW1h = kC + 8;   // W1 chunk rows in bf16
-// a chunk in f32 (floats): W1 rows | W2 columns (C rows of kKC) | b1
-constexpr int kW1F = kKC * kLdW1, kW2F = kC * kKC, kStageF = kW1F + kW2F + kKC;
-// a chunk in bf16 (elements), the same order
-constexpr int kW1H = kKC * kLdW1h, kW2H = kC * kKC, kStageH = kW1H + kW2H + kKC;
-// shared memory in floats: aS, dS | zS, hS | mean, rstd | ring. In f32 the
-// ring is two stages; in bf16 two widened W1 chunks (each with its b1), one
-// widened W2 chunk and one bf16 stage
-constexpr int kOffZ = 2 * kR * kLdA;
-constexpr int kOffStat = kOffZ + 2 * kR * kLdZ;
-constexpr int kOffRing = kOffStat + 2 * kR;
-constexpr int kW1B = kW1F + kKC;         // a widened W1 chunk and its b1
-constexpr int kOffW2f = 2 * kW1B;        // from kOffRing
-constexpr int kOffStageH = kOffW2f + kW2F;
-static_assert(kR % kRG == 0 && kR % (2 * kT / 32) == 0 && kKC * kC % (4 * kT) == 0 &&
-                  kR * kKC % (2 * kT) == 0,
-              "the threads divide the tile, the chunk and the dz step evenly");
-static_assert(kOffStat % 4 == 0 && kOffRing % 4 == 0 && kStageF % 4 == 0 && kW1B % 4 == 0 &&
-                  kOffStageH % 4 == 0 && kW1H % 8 == 0 && kW2H % 8 == 0,
-              "16-byte alignment of the shared buffers");
-static_assert(kRG * 3 * kC <= 2 * kR * kLdA, "the epilogue's sums fit in aS and dS");
+constexpr int kT = 256;  // threads a block: 8 warps
 
-template <typename T>
+// The dx pass's tile at width C. Rows a tile and hidden columns a chunk
+// scale with 128 / C, so that rows x C (14,336 at C = 128 and 256), and
+// with them shared memory and da's registers a thread, stay near C = 128's:
+// 112 rows and chunks of 32 at C = 128, 56 and 16 at 256, 32 and 8 at 512.
+template <int C>
+struct Cfg {
+  static_assert(C == 128 || C == 256 || C == 512, "model widths 128, 256, 512");
+  static constexpr int kR = C == 128 ? 112 : C == 256 ? 56 : 32;  // rows a tile
+  static constexpr int kKC = 4096 / C;  // hidden columns a chunk
+  // fc1 and dh (128 threads each): kKS neighbouring lanes split the
+  // channels (float4 s, s + kKS, ...) and sum by shuffles; a thread holds
+  // kRT1 rows x 4 columns of the chunk
+  static constexpr int kKS = C == 128 ? 1 : C == 256 ? 4 : 8;
+  static constexpr int kCG1 = kKC / 4;                // column groups
+  static constexpr int kRG1 = 128 / (kKS * kCG1);     // row groups: rows q + kRG1 i
+  static constexpr int kRT1 = kR / kRG1;              // 7, 7, 4
+  // da (256 threads): kCG lanes of a warp hold a row's C channels, kK
+  // float4s each (channels 4p + 4 kCG k); kRG row groups of kRT rows
+  static constexpr int kCG = C / 8 < 32 ? C / 8 : 32;  // 16, 32, 32
+  static constexpr int kK = C / (4 * kCG);             // 2, 2, 4
+  static constexpr int kRG = kT / kCG;                 // 16, 8, 8
+  static constexpr int kRT = kR / kRG;                 // 7, 7, 4
+  // staging: a warp's rows w, w + 8, ..., kBatch at a time; lane l holds
+  // the float4s 4l + 128 q of a row
+  static constexpr int kQ = C / 128;
+  static constexpr int kWarpRows = kR / (kT / 32);     // 14, 7, 4
+  static constexpr int kBatch = kWarpRows < 7 ? kWarpRows : 7;
+  static constexpr int kLdA = C + 4;     // aS, dS rows: LN(x) * gamma + beta, g * ls2
+  static constexpr int kLdZ = kKC + 8;   // zS, hS rows: z + b1 (then dz), dh
+  static constexpr int kLdW1 = C + 4;    // W1 chunk rows in f32, as in memory
+  static constexpr int kLdW1h = C + 8;   // W1 chunk rows in bf16
+  // a chunk in f32 (floats): W1 rows | W2 columns (C rows of kKC) | b1
+  static constexpr int kW1F = kKC * kLdW1, kW2F = C * kKC, kStageF = kW1F + kW2F + kKC;
+  // a chunk in bf16 (elements), the same order
+  static constexpr int kW1H = kKC * kLdW1h, kW2H = C * kKC, kStageH = kW1H + kW2H + kKC;
+  // shared memory in floats: aS, dS | zS, hS | mean, rstd | ring. In f32 the
+  // ring is two stages; in bf16 two widened W1 chunks (each with its b1), one
+  // widened W2 chunk and one bf16 stage
+  static constexpr int kOffZ = 2 * kR * kLdA;
+  static constexpr int kOffStat = kOffZ + 2 * kR * kLdZ;
+  static constexpr int kOffRing = kOffStat + 2 * kR;
+  static constexpr int kW1B = kW1F + kKC;         // a widened W1 chunk and its b1
+  static constexpr int kOffW2f = 2 * kW1B;        // from kOffRing
+  static constexpr int kOffStageH = kOffW2f + kW2F;
+  static_assert(kR % kRG == 0 && kRG1 * kRT1 == kR && kWarpRows % kBatch == 0 &&
+                    kR % (kT / 32) == 0 && kKC * C % (8 * kT) == 0 && kKC % 8 == 0,
+                "the threads divide the tile and the chunk evenly");
+  static_assert(kOffStat % 4 == 0 && kOffRing % 4 == 0 && kStageF % 4 == 0 && kW1B % 4 == 0 &&
+                    kOffStageH % 4 == 0 && kW1H % 8 == 0 && kW2H % 8 == 0,
+                "16-byte alignment of the shared buffers");
+  static_assert(kRG * 3 * C <= 2 * kR * kLdA, "the epilogue's sums fit in aS and dS");
+};
+
+template <typename T, int C>
 constexpr size_t smem_bytes() {
+  using K = Cfg<C>;
   return std::is_same<T, float>::value
-             ? sizeof(float) * (kOffRing + 2 * kStageF)
-             : sizeof(float) * (kOffRing + kOffStageH) + sizeof(bf16) * kStageH;
+             ? sizeof(float) * (K::kOffRing + 2 * K::kStageF)
+             : sizeof(float) * (K::kOffRing + K::kOffStageH) + sizeof(bf16) * K::kStageH;
 }
-static_assert(smem_bytes<float>() <= 232448 && smem_bytes<bf16>() <= 232448,
-              "a block fits the H100's 227 KB");
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -249,41 +319,45 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 
 // Start copying hidden chunk j0 (W1 rows j0.., W2 columns j0.., b1) into a
 // ring stage, raw, in 16-byte pieces; one group (empty past the last chunk)
+template <int C>
 __device__ __forceinline__ void fetch_chunk(float* st, const float* __restrict__ w1,
                                             const float* __restrict__ w2,
                                             const float* __restrict__ b1, int j0, int H,
                                             int tid) {
+  using K = Cfg<C>;
   if (j0 < H) {
 #pragma unroll
-    for (int i = 0; i < kKC * kC / 4 / kT; ++i) {
-      const int e = tid + i * kT, j = e / (kC / 4), c4 = e % (kC / 4);
-      cp_async16(st + j * kLdW1 + c4 * 4, w1 + (j0 + j) * kC + c4 * 4);
+    for (int i = 0; i < K::kKC * C / 4 / kT; ++i) {
+      const int e = tid + i * kT, j = e / (C / 4), c4 = e % (C / 4);
+      cp_async16(st + j * K::kLdW1 + c4 * 4, w1 + (j0 + j) * C + c4 * 4);
     }
 #pragma unroll
-    for (int i = 0; i < kC * kKC / 4 / kT; ++i) {
-      const int e = tid + i * kT, c = e / (kKC / 4), j4 = e % (kKC / 4);
-      cp_async16(st + kW1F + c * kKC + j4 * 4, w2 + c * H + j0 + j4 * 4);
+    for (int i = 0; i < C * K::kKC / 4 / kT; ++i) {
+      const int e = tid + i * kT, c = e / (K::kKC / 4), j4 = e % (K::kKC / 4);
+      cp_async16(st + K::kW1F + c * K::kKC + j4 * 4, w2 + c * H + j0 + j4 * 4);
     }
-    if (tid < kKC / 4) cp_async16(st + kW1F + kW2F + tid * 4, b1 + j0 + tid * 4);
+    if (tid < K::kKC / 4) cp_async16(st + K::kW1F + K::kW2F + tid * 4, b1 + j0 + tid * 4);
   }
   kasf_mma::cp_async_commit();
 }
+template <int C>
 __device__ __forceinline__ void fetch_chunk(bf16* st, const bf16* __restrict__ w1,
                                             const bf16* __restrict__ w2,
                                             const bf16* __restrict__ b1, int j0, int H,
                                             int tid) {
+  using K = Cfg<C>;
   if (j0 < H) {
 #pragma unroll
-    for (int i = 0; i < kKC * kC / 8 / kT; ++i) {
-      const int e = tid + i * kT, j = e / (kC / 8), c8 = e % (kC / 8);
-      cp_async16(st + j * kLdW1h + c8 * 8, w1 + (j0 + j) * kC + c8 * 8);
+    for (int i = 0; i < K::kKC * C / 8 / kT; ++i) {
+      const int e = tid + i * kT, j = e / (C / 8), c8 = e % (C / 8);
+      cp_async16(st + j * K::kLdW1h + c8 * 8, w1 + (j0 + j) * C + c8 * 8);
     }
 #pragma unroll
-    for (int i = 0; i < kC * kKC / 8 / kT; ++i) {
-      const int e = tid + i * kT, c = e / (kKC / 8), j8 = e % (kKC / 8);
-      cp_async16(st + kW1H + c * kKC + j8 * 8, w2 + c * H + j0 + j8 * 8);
+    for (int i = 0; i < C * K::kKC / 8 / kT; ++i) {
+      const int e = tid + i * kT, c = e / (K::kKC / 8), j8 = e % (K::kKC / 8);
+      cp_async16(st + K::kW1H + c * K::kKC + j8 * 8, w2 + c * H + j0 + j8 * 8);
     }
-    if (tid < kKC / 8) cp_async16(st + kW1H + kW2H + tid * 8, b1 + j0 + tid * 8);
+    if (tid < K::kKC / 8) cp_async16(st + K::kW1H + K::kW2H + tid * 8, b1 + j0 + tid * 8);
   }
   kasf_mma::cp_async_commit();
 }
@@ -299,24 +373,26 @@ __device__ __forceinline__ void widen8(float* dst, const bf16* src) {
 
 // A landed bf16 chunk widened (all threads): W1 rows to w1f (b1 after
 // them, at kW1F), W2 columns to w2f, in the f32 chunk's layouts
+template <int C>
 __device__ __forceinline__ void widen_chunk(float* w1f, float* w2f, const bf16* st, int tid) {
+  using K = Cfg<C>;
 #pragma unroll
-  for (int i = 0; i < kKC * kC / 8 / kT; ++i) {
-    const int e = tid + i * kT, j = e / (kC / 8), c8 = e % (kC / 8);
-    widen8(w1f + j * kLdW1 + c8 * 8, st + j * kLdW1h + c8 * 8);
+  for (int i = 0; i < K::kKC * C / 8 / kT; ++i) {
+    const int e = tid + i * kT, j = e / (C / 8), c8 = e % (C / 8);
+    widen8(w1f + j * K::kLdW1 + c8 * 8, st + j * K::kLdW1h + c8 * 8);
   }
 #pragma unroll
-  for (int i = 0; i < kC * kKC / 8 / kT; ++i) {
+  for (int i = 0; i < C * K::kKC / 8 / kT; ++i) {
     const int e = tid + i * kT;
-    widen8(w2f + e * 8, st + kW1H + e * 8);
+    widen8(w2f + e * 8, st + K::kW1H + e * 8);
   }
-  if (tid < kKC / 8) widen8(w1f + kW1F + tid * 8, st + kW1H + kW2H + tid * 8);
+  if (tid < K::kKC / 8) widen8(w1f + K::kW1F + tid * 8, st + K::kW1H + K::kW2H + tid * 8);
 }
 
 // Stage the tile: aS = LN(x) * gamma + beta, dS = g * ls2 (row-major), and
 // each row's mean and rstd. Warp w takes rows w, w + 8, ...; lane l holds
-// channels 4l..4l+3. Tail rows (>= M) are zeros: a = beta, do = 0.
-template <typename T>
+// channels 4l..4l+3 (+ 128 q). Tail rows (>= M) are zeros: a = beta, do = 0.
+template <int C, typename T>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __restrict__ g,
                                            const float* __restrict__ gamma,
                                            const float* __restrict__ beta,
@@ -324,31 +400,54 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __r
                                            float* dS, float* sMean, float* sRstd,
                                            long long row0, long long M, float eps, int warp,
                                            int lane) {
-  constexpr int kHalf = kR / (kT / 32) / 2;  // 7 rows of a warp's 14 at a time
-  const float4 gm = ld4(gamma + 4 * lane), bt = ld4(beta + 4 * lane), ls = ld4(ls2 + 4 * lane);
+  using K = Cfg<C>;
+  constexpr int kB = K::kBatch, kQ = K::kQ;  // rows of a warp's in flight together
+  float4 gm[kQ], bt[kQ], ls[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    gm[q] = ld4(gamma + 4 * lane + 128 * q);
+    bt[q] = ld4(beta + 4 * lane + 128 * q);
+    ls[q] = ld4(ls2 + 4 * lane + 128 * q);
+  }
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 1
-  for (int h = 0; h < 2; ++h) {
-    float4 xv[kHalf], gv[kHalf];
+  for (int h = 0; h < K::kWarpRows / kB; ++h) {
+    float4 xv[kB][kQ], gv[kB][kQ];
 #pragma unroll
-    for (int i = 0; i < kHalf; ++i) {  // the loads of 7 rows in flight together
-      const long long row = row0 + warp + (kT / 32) * (h * kHalf + i);
-      xv[i] = row < M ? load4(x + row * kC + 4 * lane) : zero;
-      gv[i] = row < M ? load4(g + row * kC + 4 * lane) : zero;
+    for (int i = 0; i < kB; ++i) {  // the loads of the batch's rows in flight together
+      const long long row = row0 + warp + (kT / 32) * (h * kB + i);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        xv[i][q] = row < M ? load4(x + row * C + 4 * lane + 128 * q) : zero;
+        gv[i][q] = row < M ? load4(g + row * C + 4 * lane + 128 * q) : zero;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const int r = warp + (kT / 32) * (h * kHalf + i);
-      const float4 v = xv[i];
-      const float mean = warp_sum((v.x + v.y) + (v.z + v.w)) * (1.0f / kC);
-      const float4 xc = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
-      const float sq = (xc.x * xc.x + xc.y * xc.y) + (xc.z * xc.z + xc.w * xc.w);
-      const float rstd = 1.0f / sqrtf(warp_sum(sq) * (1.0f / kC) + eps);
-      st4(aS + r * kLdA + 4 * lane,
-          make_float4(fmaf(xc.x * rstd, gm.x, bt.x), fmaf(xc.y * rstd, gm.y, bt.y),
-                      fmaf(xc.z * rstd, gm.z, bt.z), fmaf(xc.w * rstd, gm.w, bt.w)));
-      st4(dS + r * kLdA + 4 * lane, make_float4(gv[i].x * ls.x, gv[i].y * ls.y,
-                                                gv[i].z * ls.z, gv[i].w * ls.w));
+    for (int i = 0; i < kB; ++i) {
+      const int r = warp + (kT / 32) * (h * kB + i);
+      float s = quad_sum(xv[i][0]);
+#pragma unroll
+      for (int q = 1; q < kQ; ++q) s += quad_sum(xv[i][q]);
+      const float mean = warp_sum(s) * (1.0f / C);
+      float4 xc[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float4 v = xv[i][q];
+        xc[q] = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
+      }
+      float sq = quad_sq(xc[0]);
+#pragma unroll
+      for (int q = 1; q < kQ; ++q) sq += quad_sq(xc[q]);
+      const float rstd = 1.0f / sqrtf(warp_sum(sq) * (1.0f / C) + eps);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float4 c = xc[q], gmq = gm[q], btq = bt[q], lsq = ls[q], gq = gv[i][q];
+        st4(aS + r * K::kLdA + 4 * lane + 128 * q,
+            make_float4(fmaf(c.x * rstd, gmq.x, btq.x), fmaf(c.y * rstd, gmq.y, btq.y),
+                        fmaf(c.z * rstd, gmq.z, btq.z), fmaf(c.w * rstd, gmq.w, btq.w)));
+        st4(dS + r * K::kLdA + 4 * lane + 128 * q,
+            make_float4(gq.x * lsq.x, gq.y * lsq.y, gq.z * lsq.z, gq.w * lsq.w));
+      }
       if (lane == 0) {
         sMean[r] = mean;
         sRstd[r] = rstd;
@@ -357,24 +456,29 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __r
   }
 }
 
-// fc1 of the chunk, z = a W1c^T + b1c, into zS. Thread (row group q of 16,
-// column group p of 8): rows q + 16i, hidden columns p + 8u (u < 4); each
-// step of four channels reads 4 W1 and 7 a float4s for 112 FMAs.
+// fc1 of the chunk, z = a W1c^T + b1c, into zS. Thread (row group q,
+// column group p, channel split s): rows q + kRG1 i, hidden columns
+// p + kCG1 u (u < 4), channel float4s s, s + kKS, ...; each step reads 4 W1
+// and kRT1 a float4s for 16 kRT1 FMAs. The kKS splits' sums meet by
+// shuffles; the split lanes share the stores.
+template <int C>
 __device__ __forceinline__ void fc1_chunk(const float* aS, const float* w1c, const float* b1c,
-                                          float* zS, int q, int p) {
-  float acc[kRT][4];
+                                          float* zS, int q, int p, int s) {
+  using K = Cfg<C>;
+  float acc[K::kRT1][4];
 #pragma unroll
-  for (int i = 0; i < kRT; ++i)
+  for (int i = 0; i < K::kRT1; ++i)
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
 #pragma unroll 2
-  for (int c = 0; c < kC; c += 4) {
+  for (int t = 0; t < C / 4 / K::kKS; ++t) {
+    const int c = 4 * (s + K::kKS * t);
     float4 w[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = ld4(w1c + (p + 8 * u) * kLdW1 + c);
+    for (int u = 0; u < 4; ++u) w[u] = ld4(w1c + (p + K::kCG1 * u) * K::kLdW1 + c);
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const float4 a = ld4(aS + (q + kRG * i) * kLdA + c);
+    for (int i = 0; i < K::kRT1; ++i) {
+      const float4 a = ld4(aS + (q + K::kRG1 * i) * K::kLdA + c);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         acc[i][u] = fmaf(a.x, w[u].x, acc[i][u]);
@@ -384,32 +488,38 @@ __device__ __forceinline__ void fc1_chunk(const float* aS, const float* w1c, con
       }
     }
   }
+  lanes_sum<K::kKS>(acc);
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    const float bias = b1c[p + 8 * u];
+    const float bias = b1c[p + K::kCG1 * u];
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) zS[(q + kRG * i) * kLdZ + p + 8 * u] = acc[i][u] + bias;
+    for (int i = 0; i < K::kRT1; ++i)
+      if ((i * 4 + u) % K::kKS == s)
+        zS[(q + K::kRG1 * i) * K::kLdZ + p + K::kCG1 * u] = acc[i][u] + bias;
   }
 }
 
-// dh of the chunk, dh = do W2c, into hS. Thread (q, p): rows q + 16i,
-// hidden columns 4p..4p+3; each step of four channels reads 4 W2 and 7 do
-// float4s for 112 FMAs.
+// dh of the chunk, dh = do W2c, into hS. Thread (q, p, s): rows q + kRG1 i,
+// hidden columns 4p..4p+3, channel float4s s, s + kKS, ...; each step reads
+// 4 W2 and kRT1 do float4s for 16 kRT1 FMAs.
+template <int C>
 __device__ __forceinline__ void dh_chunk(const float* dS, const float* w2c, float* hS, int q,
-                                         int p) {
-  float acc[kRT][4];
+                                         int p, int s) {
+  using K = Cfg<C>;
+  float acc[K::kRT1][4];
 #pragma unroll
-  for (int i = 0; i < kRT; ++i)
+  for (int i = 0; i < K::kRT1; ++i)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[i][v] = 0.f;
 #pragma unroll 2
-  for (int c = 0; c < kC; c += 4) {
+  for (int t = 0; t < C / 4 / K::kKS; ++t) {
+    const int c = 4 * (s + K::kKS * t);
     float4 w[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = ld4(w2c + (c + u) * kKC + 4 * p);
+    for (int u = 0; u < 4; ++u) w[u] = ld4(w2c + (c + u) * K::kKC + 4 * p);
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const float4 d = ld4(dS + (q + kRG * i) * kLdA + c);
+    for (int i = 0; i < K::kRT1; ++i) {
+      const float4 d = ld4(dS + (q + K::kRG1 * i) * K::kLdA + c);
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
         acc[i][v] = fmaf(d.x, lane4(w[0], v), acc[i][v]);
@@ -419,57 +529,55 @@ __device__ __forceinline__ void dh_chunk(const float* dS, const float* w2c, floa
       }
     }
   }
+  lanes_sum<K::kKS>(acc);
 #pragma unroll
-  for (int i = 0; i < kRT; ++i)
-    st4(hS + (q + kRG * i) * kLdZ + 4 * p,
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  for (int i = 0; i < K::kRT1; ++i)
+    if (i % K::kKS == s)
+      st4(hS + (q + K::kRG1 * i) * K::kLdZ + 4 * p,
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
-// da += dz W1c. Thread (row group q, channel group p of 16): rows q + 16i,
-// channels 4p..4p+3 and 64 + 4p..; each step of four hidden columns reads 8
-// W1 and 7 dz float4s for 224 FMAs.
+// da += dz W1c. Thread (row group q, channel group p of kCG): rows
+// q + kRG i, channels 4p + 4 kCG k .. +3 (k < kK); each step of four hidden
+// columns reads 4 kK W1 and kRT dz float4s for 16 kK kRT FMAs.
+template <int C>
 __device__ __forceinline__ void da_chunk(const float* zS, const float* w1c,
-                                         float (&da)[kRT][8], int q, int p) {
+                                         float (&da)[Cfg<C>::kRT][4 * Cfg<C>::kK], int q,
+                                         int p) {
+  using K = Cfg<C>;
 #pragma unroll 2
-  for (int j = 0; j < kKC; j += 4) {
-    float4 wa[4], wb[4];
+  for (int j = 0; j < K::kKC; j += 4) {
+    float4 w[K::kK][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      wa[u] = ld4(w1c + (j + u) * kLdW1 + 4 * p);
-      wb[u] = ld4(w1c + (j + u) * kLdW1 + kC / 2 + 4 * p);
-    }
+    for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const float4 d = ld4(zS + (q + kRG * i) * kLdZ + j);
+      for (int k = 0; k < K::kK; ++k)
+        w[k][u] = ld4(w1c + (j + u) * K::kLdW1 + 4 * K::kCG * k + 4 * p);
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        da[i][v] = fmaf(d.x, lane4(wa[0], v), da[i][v]);
-        da[i][v] = fmaf(d.y, lane4(wa[1], v), da[i][v]);
-        da[i][v] = fmaf(d.z, lane4(wa[2], v), da[i][v]);
-        da[i][v] = fmaf(d.w, lane4(wa[3], v), da[i][v]);
-        da[i][4 + v] = fmaf(d.x, lane4(wb[0], v), da[i][4 + v]);
-        da[i][4 + v] = fmaf(d.y, lane4(wb[1], v), da[i][4 + v]);
-        da[i][4 + v] = fmaf(d.z, lane4(wb[2], v), da[i][4 + v]);
-        da[i][4 + v] = fmaf(d.w, lane4(wb[3], v), da[i][4 + v]);
-      }
+    for (int i = 0; i < K::kRT; ++i) {
+      const float4 d = ld4(zS + (q + K::kRG * i) * K::kLdZ + j);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int k = 0; k < K::kK; ++k) {
+          float& o = da[i][4 * k + v];
+          o = fmaf(d.x, lane4(w[k][0], v), o);
+          o = fmaf(d.y, lane4(w[k][1], v), o);
+          o = fmaf(d.z, lane4(w[k][2], v), o);
+          o = fmaf(d.w, lane4(w[k][3], v), o);
+        }
     }
   }
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 }  // namespace dxp
 
-// One block per 112-row tile; the hidden width in chunks of 32 through a
-// cp.async ring; warps 0-3 run fc1 and warps 4-7 dh, then all take dz and
-// da; dx and the tile's partial sums at the end. bf16 weights land in one
-// bf16 stage and are widened during the previous chunk's dz step, so the
-// products read f32 chunks in both dtypes.
-template <typename T>
+// One block per tile of dxp::Cfg<C>::kR rows; the hidden width in chunks of
+// kKC through a cp.async ring; warps 0-3 run fc1 and warps 4-7 dh, then all
+// take dz and da; dx and the tile's partial sums at the end. bf16 weights
+// land in one bf16 stage and are widened during the previous chunk's dz
+// step, so the products read f32 chunks in both dtypes.
+template <typename T, int C>
 __global__ void __launch_bounds__(dxp::kT, 1)
 mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -478,136 +586,171 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      T* __restrict__ dx, float* __restrict__ part, long long M, int H,
                      float eps) {
   using namespace dxp;
+  using K = Cfg<C>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* aS = reinterpret_cast<float*>(smem4);
-  float* dS = aS + kR * kLdA;
-  float* zS = aS + kOffZ;
-  float* hS = zS + kR * kLdZ;
-  float* sMean = aS + kOffStat;
-  float* sRstd = sMean + kR;
-  float* ring = aS + kOffRing;
+  float* dS = aS + K::kR * K::kLdA;
+  float* zS = aS + K::kOffZ;
+  float* hS = zS + K::kR * K::kLdZ;
+  float* sMean = aS + K::kOffStat;
+  float* sRstd = sMean + K::kR;
+  float* ring = aS + K::kOffRing;
   // f32: stages at ring and ring + kStageF. bf16: the widened W1 chunks (with
   // b1) at ring and ring + kW1B, the W2 chunk at ring + kOffW2f, the bf16
   // stage after it
-  T* st0 = reinterpret_cast<T*>(kF32 ? ring : ring + kOffStageH);
-  T* st1 = reinterpret_cast<T*>(ring + kStageF);  // f32 only
+  T* st0 = reinterpret_cast<T*>(kF32 ? ring : ring + K::kOffStageH);
+  T* st1 = reinterpret_cast<T*>(ring + K::kStageF);  // f32 only
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kR;
-  fetch_chunk(st0, w1, w2, b1, 0, H, tid);
-  stage_rows(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, row0, M, eps, warp, lane);
+  const long long row0 = static_cast<long long>(blockIdx.x) * K::kR;
+  fetch_chunk<C>(st0, w1, w2, b1, 0, H, tid);
+  stage_rows<C>(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, row0, M, eps, warp, lane);
   if constexpr (!kF32) {
     kasf_mma::cp_async_wait<0>();
     __syncthreads();
-    widen_chunk(ring, ring + kOffW2f, st0, tid);
+    widen_chunk<C>(ring, ring + K::kOffW2f, st0, tid);
     __syncthreads();  // the bf16 stage is free
-    fetch_chunk(st0, w1, w2, b1, kKC, H, tid);
+    fetch_chunk<C>(st0, w1, w2, b1, K::kKC, H, tid);
   }
 
-  // fc1 / dh layout: row group 4 (warp % 4) + lane / 8, column group lane % 8;
-  // da layout: row group 2 warp + lane / 16, channel group lane % 16
-  const int q1 = (warp & 3) * 4 + (lane >> 3), p1 = lane & 7;
-  const int q4 = warp * 2 + (lane >> 4), p4 = lane & 15;
-  float da[kRT][8];
+  // fc1 / dh layout (thread tid % 128 of warps 0-3 or 4-7): channel split
+  // fastest, then column group, then row group (at C = 128: row group
+  // 4 (warp % 4) + lane / 8, column group lane % 8); da layout: row group
+  // tid / kCG, channel group tid % kCG
+  const int i1 = tid & 127;
+  const int s1 = i1 % K::kKS, p1 = i1 / K::kKS % K::kCG1, q1 = i1 / (K::kKS * K::kCG1);
+  const int q4 = tid / K::kCG, p4 = tid % K::kCG;
+  float da[K::kRT][4 * K::kK];
 #pragma unroll
-  for (int i = 0; i < kRT; ++i)
+  for (int i = 0; i < K::kRT; ++i)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) da[i][k] = 0.f;
+    for (int k = 0; k < 4 * K::kK; ++k) da[i][k] = 0.f;
 
-  for (int j0 = 0, s = 0; j0 < H; j0 += kKC, s ^= 1) {
+  for (int j0 = 0, s = 0; j0 < H; j0 += K::kKC, s ^= 1) {
     // this chunk's W1, W2 and b1 in f32
     const float* w1c =
-        kF32 ? reinterpret_cast<const float*>(s ? st1 : st0) : ring + s * kW1B;
-    const float* w2c = kF32 ? w1c + kW1F : ring + kOffW2f;
-    const float* b1c = w1c + (kF32 ? kW1F + kW2F : kW1F);
+        kF32 ? reinterpret_cast<const float*>(s ? st1 : st0) : ring + s * K::kW1B;
+    const float* w2c = kF32 ? w1c + K::kW1F : ring + K::kOffW2f;
+    const float* b1c = w1c + (kF32 ? K::kW1F + K::kW2F : K::kW1F);
     if constexpr (kF32) kasf_mma::cp_async_wait<0>();
     __syncthreads();  // this chunk is in; the last chunk's zS and stage are consumed
-    if constexpr (kF32) fetch_chunk(s ? st0 : st1, w1, w2, b1, j0 + kKC, H, tid);
+    if constexpr (kF32) fetch_chunk<C>(s ? st0 : st1, w1, w2, b1, j0 + K::kKC, H, tid);
     if (warp < 4)
-      fc1_chunk(aS, w1c, b1c, zS, q1, p1);
+      fc1_chunk<C>(aS, w1c, b1c, zS, q1, p1, s1);
     else
-      dh_chunk(dS, w2c, hS, q1, p1);
+      dh_chunk<C>(dS, w2c, hS, q1, p1, s1);
     if constexpr (!kF32) kasf_mma::cp_async_wait<0>();
     __syncthreads();  // z and dh in; bf16: the next chunk landed, W2's buffer free
-    // dz = dh * GELU'(z + b1) in place of z, 14 elements a thread
+    // dz = dh * GELU'(z + b1) in place of z, a pair of columns at a time
+    constexpr int kPairs = K::kR * K::kKC / 2;
 #pragma unroll
-    for (int i = 0; i < kR * kKC / 2 / kT; ++i) {
-      const int e = tid + i * kT, r = e / (kKC / 2), j2 = e % (kKC / 2) * 2;
-      const float2 z = *reinterpret_cast<const float2*>(zS + r * kLdZ + j2);
-      const float2 h = *reinterpret_cast<const float2*>(hS + r * kLdZ + j2);
-      *reinterpret_cast<float2*>(zS + r * kLdZ + j2) =
-          make_float2(h.x * gelu_erf_grad(z.x), h.y * gelu_erf_grad(z.y));
+    for (int i = 0; i < (kPairs + kT - 1) / kT; ++i) {
+      const int e = tid + i * kT, r = e / (K::kKC / 2), j2 = e % (K::kKC / 2) * 2;
+      if (kPairs % kT == 0 || e < kPairs) {
+        const float2 z = *reinterpret_cast<const float2*>(zS + r * K::kLdZ + j2);
+        const float2 h = *reinterpret_cast<const float2*>(hS + r * K::kLdZ + j2);
+        *reinterpret_cast<float2*>(zS + r * K::kLdZ + j2) =
+            make_float2(h.x * gelu_erf_grad(z.x), h.y * gelu_erf_grad(z.y));
+      }
     }
     if constexpr (!kF32)  // the next chunk
-      if (j0 + kKC < H) widen_chunk(ring + (s ^ 1) * kW1B, ring + kOffW2f, st0, tid);
+      if (j0 + K::kKC < H) widen_chunk<C>(ring + (s ^ 1) * K::kW1B, ring + K::kOffW2f, st0, tid);
     __syncthreads();  // dz in; bf16: the next chunk widened, the bf16 stage free
-    if constexpr (!kF32) fetch_chunk(st0, w1, w2, b1, j0 + 2 * kKC, H, tid);
-    da_chunk(zS, w1c, da, q4, p4);
+    if constexpr (!kF32) fetch_chunk<C>(st0, w1, w2, b1, j0 + 2 * K::kKC, H, tid);
+    da_chunk<C>(zS, w1c, da, q4, p4);
   }
 
-  // ---- dx per row (the 16 lanes of a half warp hold a row's 128 channels)
+  // ---- dx per row (the kCG lanes of a row group hold the row's C channels)
   // and the thread's sums of da * xhat, da and g over its valid rows
-  const float4 gma = ld4(gamma + 4 * p4), gmb = ld4(gamma + kC / 2 + 4 * p4);
-  const float gam[8] = {gma.x, gma.y, gma.z, gma.w, gmb.x, gmb.y, gmb.z, gmb.w};
+  constexpr int kE = 4 * K::kK;  // channels a thread: 4p + 4 kCG k + v
+  float gam[kE];
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k) {
+    const float4 gk = ld4(gamma + 4 * K::kCG * k + 4 * p4);
+    gam[4 * k] = gk.x;
+    gam[4 * k + 1] = gk.y;
+    gam[4 * k + 2] = gk.z;
+    gam[4 * k + 3] = gk.w;
+  }
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float sx[8], sd[8], sg[8];
+  float sx[kE], sd[kE], sg[kE];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) sx[k] = sd[k] = sg[k] = 0.f;
+  for (int k = 0; k < kE; ++k) sx[k] = sd[k] = sg[k] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kRT; ++i) {
-    const int r = q4 + kRG * i;
+  for (int i = 0; i < K::kRT; ++i) {
+    const int r = q4 + K::kRG * i;
     const long long row = row0 + r;
     const bool valid = row < M;
     const float mean = sMean[r], rstd = sRstd[r];
-    const T* xr = x + row * kC + 4 * p4;
-    const T* gr = g + row * kC + 4 * p4;
-    const float4 xa = valid ? load4(xr) : zero, xb = valid ? load4(xr + kC / 2) : zero;
-    const float4 ga = valid ? load4(gr) : zero, gb = valid ? load4(gr + kC / 2) : zero;
-    const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-    const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-    float xh[8], dxh[8], m1 = 0.f, m2 = 0.f;
+    const T* xr = x + row * C + 4 * p4;
+    const T* gr = g + row * C + 4 * p4;
+    float4 xa[K::kK], ga[K::kK];  // x's float4s, then g's
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < K::kK; ++k) xa[k] = valid ? load4(xr + 4 * K::kCG * k) : zero;
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k) ga[k] = valid ? load4(gr + 4 * K::kCG * k) : zero;
+    float xv[kE], gv[kE];
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k) {
+      xv[4 * k] = xa[k].x;
+      xv[4 * k + 1] = xa[k].y;
+      xv[4 * k + 2] = xa[k].z;
+      xv[4 * k + 3] = xa[k].w;
+      gv[4 * k] = ga[k].x;
+      gv[4 * k + 1] = ga[k].y;
+      gv[4 * k + 2] = ga[k].z;
+      gv[4 * k + 3] = ga[k].w;
+    }
+    float xh[kE], dxh[kE], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
       xh[k] = (xv[k] - mean) * rstd;
       dxh[k] = da[i][k] * gam[k];
       m1 += dxh[k];
       m2 = fmaf(dxh[k], xh[k], m2);
     }
-    m1 = half_warp_sum(m1) * (1.0f / kC);
-    m2 = half_warp_sum(m2) * (1.0f / kC);
-    float o[8];
+    m1 = group_sum<K::kCG>(m1) * (1.0f / C);
+    m2 = group_sum<K::kCG>(m2) * (1.0f / C);
+    float o[kE];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = gv[k] + rstd * (dxh[k] - m1 - xh[k] * m2);
+    for (int k = 0; k < kE; ++k) o[k] = gv[k] + rstd * (dxh[k] - m1 - xh[k] * m2);
     if (valid) {
-      store4(dx + row * kC + 4 * p4, make_float4(o[0], o[1], o[2], o[3]));
-      store4(dx + row * kC + kC / 2 + 4 * p4, make_float4(o[4], o[5], o[6], o[7]));
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
+      for (int k = 0; k < K::kK; ++k)
+        store4(dx + row * C + 4 * K::kCG * k + 4 * p4,
+               make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]));
+#pragma unroll
+      for (int k = 0; k < kE; ++k) {
         sx[k] = fmaf(da[i][k], xh[k], sx[k]);
         sd[k] += da[i][k];
         sg[k] += gv[k];
       }
     }
   }
-  // the tile's sums over the 16 row groups, in order; aS and dS are free
+  // the tile's sums over the kRG row groups, in order; aS and dS are free
   // (last read before the final chunk's second barrier)
-  float* red = aS + q4 * 3 * kC + 4 * p4;  // [row group][3][C]
-  st4(red, make_float4(sx[0], sx[1], sx[2], sx[3]));
-  st4(red + kC / 2, make_float4(sx[4], sx[5], sx[6], sx[7]));
-  st4(red + kC, make_float4(sd[0], sd[1], sd[2], sd[3]));
-  st4(red + kC + kC / 2, make_float4(sd[4], sd[5], sd[6], sd[7]));
-  st4(red + 2 * kC, make_float4(sg[0], sg[1], sg[2], sg[3]));
-  st4(red + 2 * kC + kC / 2, make_float4(sg[4], sg[5], sg[6], sg[7]));
-  __syncthreads();
-  if (tid < kC) {
-    float t[3] = {0.f, 0.f, 0.f};
-    for (int q = 0; q < kRG; ++q)
+  float* red = aS + q4 * 3 * C + 4 * p4;  // [row group][3][C]
 #pragma unroll
-      for (int k3 = 0; k3 < 3; ++k3) t[k3] += aS[(q * 3 + k3) * kC + tid];
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + 4 * K::kCG * k, make_float4(sx[4 * k], sx[4 * k + 1], sx[4 * k + 2], sx[4 * k + 3]));
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + C + 4 * K::kCG * k,
+        make_float4(sd[4 * k], sd[4 * k + 1], sd[4 * k + 2], sd[4 * k + 3]));
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + 2 * C + 4 * K::kCG * k,
+        make_float4(sg[4 * k], sg[4 * k + 1], sg[4 * k + 2], sg[4 * k + 3]));
+  __syncthreads();
+  for (int c = tid; c < C; c += kT) {
+    float t[3] = {0.f, 0.f, 0.f};
+    for (int q = 0; q < K::kRG; ++q)
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3) t[k3] += aS[(q * 3 + k3) * C + c];
 #pragma unroll
     for (int k3 = 0; k3 < 3; ++k3)
-      part[(static_cast<long long>(blockIdx.x) * 3 + k3) * kC + tid] = t[k3];
+      part[(static_cast<long long>(blockIdx.x) * 3 + k3) * C + c] = t[k3];
   }
 }
 
@@ -619,42 +762,66 @@ using dxp::ld4;
 using dxp::load4;
 using dxp::st4;
 
-constexpr int kR = 40;           // rows a tile: 368 tiles at M = 14,688, 23 a split
-constexpr int kJ = 64;           // hidden columns a block (its chunk)
 constexpr int kT = 256;          // threads a block: 8 warps
 constexpr int kRG = kT / 32;     // row groups: group q owns rows q + 8 i
-constexpr int kRT = kR / kRG;    // 5 rows a thread
 constexpr int kSMs = 132;        // the H100's: splits = min(tiles, 132 / chunks)
-constexpr int kLdA = kC + 4;     // aS, gS rows: LN(x) * gamma + beta, g
-constexpr int kLdZ = kJ + 8;     // zS, hS rows: z (then h), dh (then dz)
-constexpr int kLdW = kJ;         // W1 chunk transposed and ls2 * W2 chunk,
-                                 // channel-major: [c][j]
-constexpr int kKH = kC / 2;      // channels a half of fc1 or dh
-// shared memory in floats: aS, gS | zS, hS, then their second halves' sums
-// zS2, hS2 | W1^T, ls2 * W2, b1 of the chunk | the raw stage of the next
-// tile's x and g rows, in the input dtype
-constexpr int kOffZ = 2 * kR * kLdA;
-constexpr int kOffW1 = kOffZ + 4 * kR * kLdZ;
-constexpr int kOffW2 = kOffW1 + kC * kLdW;
-constexpr int kOffB1 = kOffW2 + kC * kLdW;
-constexpr int kOffRaw = kOffB1 + kJ;
-static_assert(kR % kRG == 0 && kRG == 8 && kJ == 64 && kC == 128,
-              "the thread layouts below assume 8 warps, 64 columns and C = 128");
-static_assert(kOffZ % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kOffRaw % 4 == 0 &&
-                  kLdA % 4 == 0 && kLdZ % 4 == 0,
-              "16-byte alignment of the shared buffers");
-static_assert(kRG * kJ <= kR * kLdA, "the epilogue's db1 sums fit in aS");
 
-template <typename T>
+// The weight pass's tile at width C: a block's hidden chunk kJ scales with
+// 128 / C, so that dW1c and G_c (kJ x C each) stay 8,192 floats a block and
+// 64 registers a thread, and the grid of H / kJ chunks x splits stays 128
+// blocks at the models' H; rows a tile shrink so that the stages fit: 40
+// rows and chunks of 64 at C = 128, 24 and 32 at 256, 16 and 16 at 512.
+template <int C>
+struct Cfg {
+  static_assert(C == 128 || C == 256 || C == 512, "model widths 128, 256, 512");
+  static constexpr int kR = C == 128 ? 40 : C == 256 ? 24 : 16;  // rows a tile
+  static constexpr int kJ = 8192 / C;   // hidden columns a block (its chunk)
+  static constexpr int kRT = kR / kRG;  // 5, 3, 2 rows a thread
+  static constexpr int kQ = C / 128;    // float4s of a row a lane stages
+  // fc1 and dh: kNS channel splits of kKH channels, each on kJ threads of 8
+  // row groups x kJ / 8 column groups, each into its own buffer
+  static constexpr int kNS = 128 / kJ;  // 2, 4, 8
+  static constexpr int kKH = C / kNS;   // 64
+  // GELU and dz: kV neighbouring columns a thread, kCols threads a row,
+  // kRGz row groups of kRTz rows
+  static constexpr int kV = kJ >= 64 ? 2 : 1;
+  static constexpr int kCols = kJ / kV;
+  static constexpr int kRGz = kT / kCols;
+  static constexpr int kRTz = kR / kRGz;
+  static constexpr int kLdA = C + 4;    // aS, gS rows: LN(x) * gamma + beta, g
+  static constexpr int kLdZ = kJ + 8;   // z and dh buffers: z (then h), dh (then dz)
+  static constexpr int kLdW = kJ;       // W1 chunk transposed and ls2 * W2 chunk,
+                                        // channel-major: [c][j]
+  // shared memory in floats: aS, gS | z, dh of split 0, z, dh of split 1,
+  // ... | W1^T, ls2 * W2, b1 of the chunk | the raw stage of the next tile's
+  // x and g rows, in the input dtype
+  static constexpr int kOffZ = 2 * kR * kLdA;
+  static constexpr int kOffW1 = kOffZ + 2 * kNS * kR * kLdZ;
+  static constexpr int kOffW2 = kOffW1 + C * kLdW;
+  static constexpr int kOffB1 = kOffW2 + C * kLdW;
+  static constexpr int kOffRaw = kOffB1 + kJ;
+  static_assert(kR % kRG == 0 && kJ % 16 == 0 && kNS * kJ == 128 && kCols * kRGz == kT &&
+                    kR % kRGz == 0 && kJ * C / 4 % kT == 0,
+                "the thread layouts divide the tile");
+  static_assert(kOffZ % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kOffRaw % 4 == 0 &&
+                    kLdA % 4 == 0 && kLdZ % 4 == 0,
+                "16-byte alignment of the shared buffers");
+  static_assert(kRGz * kJ <= kR * kLdA, "the epilogue's db1 sums fit in aS");
+};
+
+template <typename T, int C>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * kOffRaw + sizeof(T) * 2 * kR * kC + sizeof(unsigned long long);
+  return sizeof(float) * Cfg<C>::kOffRaw + sizeof(T) * 2 * Cfg<C>::kR * C +
+         sizeof(unsigned long long);
 }
-static_assert(smem_bytes<float>() <= 232448 && smem_bytes<bf16>() <= 232448,
-              "a block fits the H100's 227 KB");
 
-__host__ __device__ inline long long tiles(long long M) { return (M + kR - 1) / kR; }
+template <int C>
+__host__ __device__ inline long long tiles(long long M) {
+  return (M + Cfg<C>::kR - 1) / Cfg<C>::kR;
+}
+template <int C>
 inline int splits(long long M, int H) {
-  const long long s = kSMs / (H / kJ), t = tiles(M);
+  const long long s = kSMs / (H / Cfg<C>::kJ), t = tiles<C>(M);
   return static_cast<int>(s < 1 ? 1 : s < t ? s : t);
 }
 
@@ -670,32 +837,34 @@ using kasf_mma::mbar_wait;
 // One thread: copy the tile's rows row0.. (those < M) of x and of g, each a
 // contiguous run in device memory, raw into the stage by two bulk copies
 // (the TMA engine; no per-thread copy instructions) that complete on bar.
-template <typename T>
+template <int C, typename T>
 __device__ __forceinline__ void fetch_rows(T* raw, const T* __restrict__ x,
                                            const T* __restrict__ g, long long row0,
                                            long long M, unsigned long long* bar) {
+  constexpr int kR = Cfg<C>::kR;
   const long long n = M - row0 < kR ? M - row0 : kR;
-  const unsigned bytes = static_cast<unsigned>(n * kC * sizeof(T));
+  const unsigned bytes = static_cast<unsigned>(n * C * sizeof(T));
   kasf_mma::mbar_expect(bar, 2 * bytes);
-  kasf_mma::bulk_load(raw, x + row0 * kC, bytes, bar);
-  kasf_mma::bulk_load(raw + kR * kC, g + row0 * kC, bytes, bar);
+  kasf_mma::bulk_load(raw, x + row0 * C, bytes, bar);
+  kasf_mma::bulk_load(raw + kR * C, g + row0 * C, bytes, bar);
 }
 
 // Stage the chunk's weights once, widened and channel-major: w1t[c][j] =
 // W1[j0 + j][c], w2s[c][j] = ls2[c] * W2[c][j0 + j], and b1[j0..]
-template <typename T>
+template <int C, typename T>
 __device__ __forceinline__ void stage_weights(float* w1t, float* w2s, float* b1s,
                                               const T* __restrict__ w1,
                                               const T* __restrict__ w2,
                                               const T* __restrict__ b1,
                                               const float* __restrict__ ls2, int j0, int H,
                                               int tid) {
-  constexpr int kN = kJ * kC / 4 / kT;  // float4s a thread, of each matrix
+  constexpr int kJ = Cfg<C>::kJ, kLdW = Cfg<C>::kLdW;
+  constexpr int kN = kJ * C / 4 / kT;  // float4s a thread, of each matrix
   float4 v[kN];
 #pragma unroll
   for (int i = 0; i < kN; ++i) {  // a warp's lanes on neighbouring j
     const int e = tid + i * kT, j = e % kJ, c4 = e / kJ;
-    v[i] = load4(w1 + static_cast<long long>(j0 + j) * kC + 4 * c4);
+    v[i] = load4(w1 + static_cast<long long>(j0 + j) * C + 4 * c4);
   }
 #pragma unroll
   for (int i = 0; i < kN; ++i) {
@@ -729,75 +898,99 @@ __device__ __forceinline__ float4 raw4(const bf16* p) {
 }
 
 // each of the warp's row sums over its 32 lanes (warp_sum's order)
-__device__ __forceinline__ void rows_sum(float (&s)[kRT]) {
+template <int R>
+__device__ __forceinline__ void rows_sum(float (&s)[R]) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+    for (int i = 0; i < R; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
 }
 
 // aS = LN(x) * gamma + beta and gS = g from the raw stage. Warp w takes rows
-// w + 8i; lane l holds channels 4l..4l+3. Rows >= M are zeros.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS, float4 gm,
-                                           float4 bt, long long row0, long long M, float eps,
-                                           int warp, int lane) {
+// w + 8i; lane l holds channels 4l..4l+3 (+ 128 q). Rows >= M are zeros.
+template <int C, typename T>
+__device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS,
+                                           const float4 (&gm)[Cfg<C>::kQ],
+                                           const float4 (&bt)[Cfg<C>::kQ], long long row0,
+                                           long long M, float eps, int warp, int lane) {
+  using K = Cfg<C>;
+  constexpr int kRT = K::kRT, kQ = K::kQ;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 xv[kRT], gv[kRT];
+  float4 xv[kRT][kQ], gv[kRT][kQ];
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
     const int r = warp + kRG * i;
     const bool valid = row0 + r < M;
-    xv[i] = valid ? raw4(raw + r * kC + 4 * lane) : zero;
-    gv[i] = valid ? raw4(raw + (kR + r) * kC + 4 * lane) : zero;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      xv[i][q] = valid ? raw4(raw + r * C + 4 * lane + 128 * q) : zero;
+      gv[i][q] = valid ? raw4(raw + (K::kR + r) * C + 4 * lane + 128 * q) : zero;
+    }
   }
   // the rows' statistics reduce together, one shuffle of each row a step,
   // so their latencies overlap; rsqrtf has no branch to serialise them
   float s[kRT];
 #pragma unroll
-  for (int i = 0; i < kRT; ++i) s[i] = (xv[i].x + xv[i].y) + (xv[i].z + xv[i].w);
+  for (int i = 0; i < kRT; ++i) {
+    s[i] = quad_sum(xv[i][0]);
+#pragma unroll
+    for (int q = 1; q < kQ; ++q) s[i] += quad_sum(xv[i][q]);
+  }
   rows_sum(s);
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
-    const float mean = s[i] * (1.0f / kC);
-    xv[i] = make_float4(xv[i].x - mean, xv[i].y - mean, xv[i].z - mean, xv[i].w - mean);
-    s[i] = (xv[i].x * xv[i].x + xv[i].y * xv[i].y) + (xv[i].z * xv[i].z + xv[i].w * xv[i].w);
+    const float mean = s[i] * (1.0f / C);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const float4 v = xv[i][q];
+      xv[i][q] = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
+    }
+    s[i] = quad_sq(xv[i][0]);
+#pragma unroll
+    for (int q = 1; q < kQ; ++q) s[i] += quad_sq(xv[i][q]);
   }
   rows_sum(s);
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
     const int r = warp + kRG * i;
-    const float4 xc = xv[i];
-    const float rstd = rsqrtf(s[i] * (1.0f / kC) + eps);
-    st4(aS + r * kLdA + 4 * lane,
-        make_float4(fmaf(xc.x * rstd, gm.x, bt.x), fmaf(xc.y * rstd, gm.y, bt.y),
-                    fmaf(xc.z * rstd, gm.z, bt.z), fmaf(xc.w * rstd, gm.w, bt.w)));
-    st4(gS + r * kLdA + 4 * lane, gv[i]);
+    const float rstd = rsqrtf(s[i] * (1.0f / C) + eps);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const float4 xc = xv[i][q], gmq = gm[q], btq = bt[q];
+      st4(aS + r * K::kLdA + 4 * lane + 128 * q,
+          make_float4(fmaf(xc.x * rstd, gmq.x, btq.x), fmaf(xc.y * rstd, gmq.y, btq.y),
+                      fmaf(xc.z * rstd, gmq.z, btq.z), fmaf(xc.w * rstd, gmq.w, btq.w)));
+      st4(gS + r * K::kLdA + 4 * lane + 128 * q, gv[i][q]);
+    }
   }
 }
 
-// out = X Wc over the channel half kh, for fc1 (X = a, Wc = W1c^T: z
-// without b1) and dh (X = g, Wc = ls2 * W2c). Thread (row group q, column
-// group p of 8): rows q + 8i, hidden columns 4p..4p+3 and 32 + 4p..; each
-// step of four channels reads 8 Wc and 5 X float4s for 160 FMAs.
-__device__ __forceinline__ void half_product(const float* X, const float* Wc, float* out,
-                                             int kh, int q, int p) {
+// out = X Wc over the channel split kh (channels kh kKH .. +kKH), for fc1
+// (X = a, Wc = W1c^T: z without b1) and dh (X = g, Wc = ls2 * W2c). Thread
+// (row group q, column group p of kJ / 8): rows q + 8i, hidden columns
+// 4p..4p+3 and kJ / 2 + 4p..; each step of four channels reads 8 Wc and kRT
+// X float4s for 32 kRT FMAs.
+template <int C>
+__device__ __forceinline__ void split_product(const float* X, const float* Wc, float* out,
+                                              int kh, int q, int p) {
+  using K = Cfg<C>;
+  constexpr int kRT = K::kRT, kJ = K::kJ;
   float acc[kRT][8];
 #pragma unroll
   for (int i = 0; i < kRT; ++i)
 #pragma unroll
     for (int v = 0; v < 8; ++v) acc[i][v] = 0.f;
 #pragma unroll 2
-  for (int c = kh * kKH; c < kh * kKH + kKH; c += 4) {
+  for (int c = kh * K::kKH; c < kh * K::kKH + K::kKH; c += 4) {
     float4 w[8];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      w[u] = ld4(Wc + (c + u) * kLdW + 4 * p);
-      w[4 + u] = ld4(Wc + (c + u) * kLdW + kJ / 2 + 4 * p);
+      w[u] = ld4(Wc + (c + u) * K::kLdW + 4 * p);
+      w[4 + u] = ld4(Wc + (c + u) * K::kLdW + kJ / 2 + 4 * p);
     }
 #pragma unroll
     for (int i = 0; i < kRT; ++i) {
-      const float4 d = ld4(X + (q + kRG * i) * kLdA + c);
+      const float4 d = ld4(X + (q + kRG * i) * K::kLdA + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -812,20 +1005,47 @@ __device__ __forceinline__ void half_product(const float* X, const float* Wc, fl
   }
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
-    float* row = out + (q + kRG * i) * kLdZ + 4 * p;
+    float* row = out + (q + kRG * i) * K::kLdZ + 4 * p;
     st4(row, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
     st4(row + kJ / 2, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
   }
 }
 
-// acc[a][b] += P[r][a] Q[r][b] over the tile's rows, where the thread's a
+// kV neighbouring floats of shared memory: loaded, added to v, stored (one
+// float2 access at kV = 2)
+template <int kV>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[kV]) {
+  if constexpr (kV == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+template <int kV>
+__device__ __forceinline__ void add_cols(const float* p, float (&v)[kV]) {
+  float w[kV];
+  load_cols<kV>(p, w);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) v[i] += w[i];
+}
+template <int kV>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[kV]) {
+  if constexpr (kV == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    p[0] = v[0];
+}
+
+// acc[a][b] += P[r][a] Q[r][b] over the tile's R rows, where the thread's a
 // are 4 neighbours at P and 4 at P + kHalfP, its b likewise at Q: dW1c
 // (P = dz, Q = a) or G_c (P = g, Q = h). 4 float4s a row for 64 FMAs.
-template <int kLdP, int kHalfP, int kLdQ, int kHalfQ>
+template <int R, int kLdP, int kHalfP, int kLdQ, int kHalfQ>
 __device__ __forceinline__ void outer_tile(const float* P, const float* Q,
                                            float (&acc)[8][8]) {
 #pragma unroll 4
-  for (int r = 0; r < kR; ++r) {
+  for (int r = 0; r < R; ++r) {
     const float4 p0 = ld4(P + r * kLdP), p1 = ld4(P + r * kLdP + kHalfP);
     const float4 q0 = ld4(Q + r * kLdQ), q1 = ld4(Q + r * kLdQ + kHalfQ);
     const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
@@ -839,12 +1059,12 @@ __device__ __forceinline__ void outer_tile(const float* P, const float* Q,
 
 }  // namespace wp
 
-// One block per (hidden chunk of 64, row split); the split's 40-row tiles
-// through a raw stage that one thread fills by bulk copies; warps 0-3 run
-// fc1 and warps 4-7 dh, each over two channel halves, all take GELU and dz,
-// then warps 0-3 accumulate dW1c and warps 4-7 G_c in registers; the
+// One block per (hidden chunk of wp::Cfg<C>::kJ, row split); the split's
+// tiles through a raw stage that one thread fills by bulk copies; warps 0-3
+// run fc1 and warps 4-7 dh, each over kNS channel splits, all take GELU and
+// dz, then warps 0-3 accumulate dW1c and warps 4-7 G_c in registers; the
 // split's partial at the end.
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(wp::kT, 1)
 mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -852,98 +1072,121 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const T* __restrict__ w2, const float* __restrict__ ls2,
                     float* __restrict__ part, long long M, int H, float eps) {
   using namespace wp;
+  using K = Cfg<C>;
+  constexpr int kJ = K::kJ, kR = K::kR, kLdZ = K::kLdZ, kLdA = K::kLdA, kV = K::kV;
   extern __shared__ float4 smem4[];
   float* aS = reinterpret_cast<float*>(smem4);
   float* gS = aS + kR * kLdA;
-  float* zS = aS + kOffZ;
-  float* hS = zS + kR * kLdZ;
-  float* zS2 = hS + kR * kLdZ;
-  float* hS2 = zS2 + kR * kLdZ;
-  float* w1t = aS + kOffW1;
-  float* w2s = aS + kOffW2;
-  float* b1s = aS + kOffB1;
-  T* raw = reinterpret_cast<T*>(aS + kOffRaw);
-  auto* bar = reinterpret_cast<unsigned long long*>(raw + 2 * kR * kC);
+  float* zb = aS + K::kOffZ;  // split s: z at zb + 2 s kR kLdZ, dh after it
+  float* zS = zb;             // h = GELU(z) after the sum
+  float* hS = zb + kR * kLdZ; // dz after the sum
+  float* w1t = aS + K::kOffW1;
+  float* w2s = aS + K::kOffW2;
+  float* b1s = aS + K::kOffB1;
+  T* raw = reinterpret_cast<T*>(aS + K::kOffRaw);
+  auto* bar = reinterpret_cast<unsigned long long*>(raw + 2 * kR * C);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = blockIdx.x * kJ;
-  const long long n_tiles = tiles(M);
+  const long long n_tiles = tiles<C>(M);
   const long long per = (n_tiles + gridDim.y - 1) / gridDim.y;
   const long long t_begin = blockIdx.y * per;
   const long long t_end = t_begin + per < n_tiles ? t_begin + per : n_tiles;
   if (tid == 0) mbar_init(bar);
   __syncthreads();  // the barrier is initialised
-  if (tid == 0 && t_begin < t_end) fetch_rows(raw, x, g, t_begin * kR, M, bar);
-  stage_weights(w1t, w2s, b1s, w1, w2, b1, ls2, j0, H, tid);
+  if (tid == 0 && t_begin < t_end) fetch_rows<C>(raw, x, g, t_begin * kR, M, bar);
+  stage_weights<C>(w1t, w2s, b1s, w1, w2, b1, ls2, j0, H, tid);
   __syncthreads();  // the weights are staged
-  const float4 gm = ld4(gamma + 4 * lane), bt = ld4(beta + 4 * lane);
-  const float2 b1p = *reinterpret_cast<const float2*>(b1s + 2 * lane);  // GELU's columns
+  float4 gm[K::kQ], bt[K::kQ];
+#pragma unroll
+  for (int q = 0; q < K::kQ; ++q) {
+    gm[q] = ld4(gamma + 4 * lane + 128 * q);
+    bt[q] = ld4(beta + 4 * lane + 128 * q);
+  }
+  // GELU's columns kV jc.. of rows qz + kRGz i (at C = 128 a lane's pair of a
+  // warp's rows)
+  const int jc = tid % K::kCols, qz = tid / K::kCols;
+  float b1p[kV];
+  if constexpr (kV == 2) {
+    const float2 b = *reinterpret_cast<const float2*>(b1s + 2 * jc);
+    b1p[0] = b.x;
+    b1p[1] = b.y;
+  } else {
+    b1p[0] = b1s[jc];
+  }
 
-  // fc1 / dh: channel half w4 / 2, row group 4 (w4 & 1) + lane / 8 (= g8),
-  // column group lane % 8. Products: g16 = 8 (w4 / 2) + lane % 8; warps 0-3
-  // hold dW1c[4 g8 + v (+32)][4 g16 + v (+64)], warps 4-7
-  // G_c[4 g16 + v (+64)][4 g8 + v (+32)]
-  const int w4 = warp & 3, kh = w4 >> 1;
-  const int g8 = 4 * (w4 & 1) + (lane >> 3), g16 = 8 * kh + (lane & 7);
+  // fc1 / dh (thread idx of warps 0-3 or 4-7): channel split kh = idx / kJ,
+  // row group q8 = (idx % kJ) / (kJ / 8), column group idx % (kJ / 8).
+  // Outer products: g8 = (idx / 8) % (kJ / 8), g16 = 8 (idx / kJ) + idx % 8
+  // (at C = 128 g8 is q8); warps 0-3 hold dW1c[4 g8 + v (+kJ/2)][4 g16 + v
+  // (+C/2)], warps 4-7 G_c[4 g16 + v (+C/2)][4 g8 + v (+kJ/2)]
+  const int idx = tid & 127, kh = idx / kJ;
+  const int q8 = idx % kJ / (kJ / 8), p8 = idx % (kJ / 8);
+  const int g8 = idx / 8 % (kJ / 8), g16 = 8 * (idx / kJ) + (idx & 7);
   float acc[8][8];
 #pragma unroll
   for (int a = 0; a < 8; ++a)
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  float db1a[2] = {0.f, 0.f};  // columns 2 lane, 2 lane + 1 over rows warp + 8i
-
+  float db1a[kV];  // columns kV jc.. over rows qz + kRGz i
+#pragma unroll
+  for (int v = 0; v < kV; ++v) db1a[v] = 0.f;
   for (long long t = t_begin; t < t_end; ++t) {
     mbar_wait(bar, static_cast<unsigned>((t - t_begin) & 1));
     __syncthreads();  // tile t's rows landed; the last tile's products are done
-    stage_rows(raw, aS, gS, gm, bt, t * kR, M, eps, warp, lane);
+    stage_rows<C>(raw, aS, gS, gm, bt, t * kR, M, eps, warp, lane);
     __syncthreads();  // a and g in; the stage is free
-    if (tid == 0 && t + 1 < t_end) fetch_rows(raw, x, g, (t + 1) * kR, M, bar);
+    if (tid == 0 && t + 1 < t_end) fetch_rows<C>(raw, x, g, (t + 1) * kR, M, bar);
+    float* out = zb + (2 * kh + (warp < 4 ? 0 : 1)) * kR * kLdZ;
     if (warp < 4)
-      half_product(aS, w1t, kh ? zS2 : zS, kh, g8, lane & 7);
+      split_product<C>(aS, w1t, out, kh, q8, p8);
     else
-      half_product(gS, w2s, kh ? hS2 : hS, kh, g8, lane & 7);
-    __syncthreads();  // both halves of z and of dh in
-    // z + b1 and dh from their halves; h = GELU(z) in place of z, dz = dh *
-    // GELU'(z) in place of dh, 5 pairs a thread
+      split_product<C>(gS, w2s, out, kh, q8, p8);
+    __syncthreads();  // every split's z and dh in
+    // z + b1 and dh from their splits in order; h = GELU(z) in place of z,
+    // dz = dh * GELU'(z) in place of dh
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const int o = (warp + kRG * i) * kLdZ + 2 * lane;
-      float* zp = zS + o;
-      float* hp = hS + o;
-      const float2 z0 = *reinterpret_cast<const float2*>(zp);
-      const float2 z1 = *reinterpret_cast<const float2*>(zS2 + o);
-      const float2 d0 = *reinterpret_cast<const float2*>(hp);
-      const float2 d1 = *reinterpret_cast<const float2*>(hS2 + o);
-      const float2 z = make_float2(z0.x + z1.x + b1p.x, z0.y + z1.y + b1p.y);
-      const float2 d = make_float2(d0.x + d1.x, d0.y + d1.y);
-      const float2 e0 = gelu_and_grad(z.x), e1 = gelu_and_grad(z.y);
-      const float2 dz = make_float2(d.x * e0.y, d.y * e1.y);
-      *reinterpret_cast<float2*>(zp) = make_float2(e0.x, e1.x);
-      *reinterpret_cast<float2*>(hp) = dz;
-      db1a[0] += dz.x;
-      db1a[1] += dz.y;
+    for (int i = 0; i < K::kRTz; ++i) {
+      const int o = (qz + K::kRGz * i) * kLdZ + kV * jc;
+      float z[kV], d[kV];
+      load_cols<kV>(zb + o, z);  // the splits' z in order, then their dh
+#pragma unroll
+      for (int s = 1; s < K::kNS; ++s) add_cols<kV>(zb + 2 * s * kR * kLdZ + o, z);
+      load_cols<kV>(zb + kR * kLdZ + o, d);
+#pragma unroll
+      for (int s = 1; s < K::kNS; ++s) add_cols<kV>(zb + (2 * s + 1) * kR * kLdZ + o, d);
+      float h[kV], dz[kV];
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        const float2 e = gelu_and_grad(z[v] + b1p[v]);
+        h[v] = e.x;
+        dz[v] = d[v] * e.y;
+        db1a[v] += dz[v];
+      }
+      store_cols<kV>(zS + o, h);
+      store_cols<kV>(hS + o, dz);
     }
     __syncthreads();  // h and dz in
     if (warp < 4)
-      outer_tile<kLdZ, kJ / 2, kLdA, kC / 2>(hS + 4 * g8, aS + 4 * g16, acc);
+      outer_tile<kR, kLdZ, kJ / 2, kLdA, C / 2>(hS + 4 * g8, aS + 4 * g16, acc);
     else
-      outer_tile<kLdA, kC / 2, kLdZ, kJ / 2>(gS + 4 * g16, zS + 4 * g8, acc);
+      outer_tile<kR, kLdA, C / 2, kLdZ, kJ / 2>(gS + 4 * g16, zS + 4 * g8, acc);
   }
 
   // the split's partial: dW1c rows, G_c columns, db1c
-  float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * kC + H);
+  float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * C + H);
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
     const float4 lo = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
     const float4 hi = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
     if (warp < 4) {
       const int j = 4 * g8 + (a & 3) + (a < 4 ? 0 : kJ / 2);
-      float* row = base + static_cast<long long>(j0 + j) * kC + 4 * g16;
+      float* row = base + static_cast<long long>(j0 + j) * C + 4 * g16;
       st4(row, lo);
-      st4(row + kC / 2, hi);
+      st4(row + C / 2, hi);
     } else {
-      const int c = 4 * g16 + (a & 3) + (a < 4 ? 0 : kC / 2);
-      float* row = base + static_cast<long long>(H) * kC + static_cast<long long>(c) * H +
+      const int c = 4 * g16 + (a & 3) + (a < 4 ? 0 : C / 2);
+      float* row = base + static_cast<long long>(H) * C + static_cast<long long>(c) * H +
                    j0 + 4 * g8;
       st4(row, lo);
       st4(row + kJ / 2, hi);
@@ -951,12 +1194,13 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
   __syncthreads();  // aS is free
   float* red = aS;  // [row group][kJ]
-  *reinterpret_cast<float2*>(red + warp * kJ + 2 * lane) = make_float2(db1a[0], db1a[1]);
+#pragma unroll
+  for (int v = 0; v < kV; ++v) red[qz * kJ + kV * jc + v] = db1a[v];
   __syncthreads();
   if (tid < kJ) {
     float s = 0.f;
-    for (int q = 0; q < kRG; ++q) s += red[q * kJ + tid];
-    base[2LL * H * kC + j0 + tid] = s;
+    for (int q = 0; q < K::kRGz; ++q) s += red[q * kJ + tid];
+    base[2LL * H * C + j0 + tid] = s;
   }
 }
 
@@ -973,7 +1217,7 @@ using kasf_mma::mbar_wait;
 constexpr int kT = 256;                // item threads: one float4 of a split's partial each
 constexpr int kTB = kT + 32;           // and warp 8: the dx chains, or db1
 constexpr int kU = 16;                 // splits whose loads a thread issues before its adds
-constexpr int kHidRows = 4 * kT / kC;  // dW1 rows a hidden block: 8
+constexpr int kHidRows = 8;            // dW1 rows a hidden block: C / 128 float4s a thread
 constexpr int kRowsMax = 8;            // G rows a channel block at most: 24 chains, a lane each
 constexpr int kItemsMax = 2048 / 4;    // G float4s a channel block at most (a row at H = 2048)
 constexpr int kDxBuf = 4096;           // floats of dx partials staged at a time
@@ -984,8 +1228,14 @@ static_assert(3 * kRowsMax <= 32, "a lane of warp 8 a chain");
 __host__ __device__ inline int rows_c(int H) {
   return H >= 4 * kT ? 1 : 4 * kT / H < kRowsMax ? 4 * kT / H : kRowsMax;
 }
-__host__ __device__ inline int channel_blocks(int H) { return (kC + rows_c(H) - 1) / rows_c(H); }
-inline int blocks(int H) { return channel_blocks(H) + H / kHidRows; }
+template <int C>
+__host__ __device__ inline int channel_blocks(int H) {
+  return (C + rows_c(H) - 1) / rows_c(H);
+}
+template <int C>
+inline int blocks(int H) {
+  return channel_blocks<C>(H) + H / kHidRows;
+}
 
 // 4 bytes from global to shared memory (cp.async.ca: .cg takes 16 only)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -1020,12 +1270,13 @@ __device__ __forceinline__ float4 split_sum(const float* p, long long stride, in
 // the dx partials of tiles n0..n0+nt-1 of the block's chains into the stage,
 // chain k's run at dxs + k * per: the calling threads (`first` of `count`)
 // take every count-th element, neighbouring lanes on neighbouring addresses
+template <int C>
 __device__ __forceinline__ void stage_dx(float* dxs, const float* part_dx, int n0, int nt,
                                          int c0, int nr, int per, int first, int count) {
   const int nch = 3 * nr;
   for (int e = first; e < nt * nch; e += count) {
     const int n = e / nch, k = e - n * nch, q = k / nr;
-    cp_async4(dxs + k * per + n, part_dx + (3LL * (n0 + n) + q) * kC + c0 + k - q * nr);
+    cp_async4(dxs + k * per + n, part_dx + (3LL * (n0 + n) + q) * C + c0 + k - q * nr);
   }
 }
 
@@ -1049,7 +1300,7 @@ __device__ __forceinline__ float add_run(float chain, const float* p, int n) {
 // Channel blocks first (rd::rows_c(H) rows of G each: dW2, dls2, and the
 // dgamma, dbeta, db2 of those channels), then hidden blocks (8 rows of dW1
 // and their db1); every sum runs over the partials in index order
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(rd::kTB)
 mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
                          const float* __restrict__ part_w, int n_w,
@@ -1060,15 +1311,18 @@ mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
                          float* __restrict__ db2, float* __restrict__ dls2, int H) {
   using namespace rd;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long stride = 2LL * H * kC + H;  // floats of a split's partial
-  const int n_cb = channel_blocks(H);
-  if (static_cast<int>(blockIdx.x) >= n_cb) {  // dW1 rows j0..j0+7, a float4 a thread
+  const long long stride = 2LL * H * C + H;  // floats of a split's partial
+  const int n_cb = channel_blocks<C>(H);
+  if (static_cast<int>(blockIdx.x) >= n_cb) {  // dW1 rows j0..j0+7, float4s f = tid + kT i
     const int j0 = (blockIdx.x - n_cb) * kHidRows;
     if (tid < kT) {
-      const long long o = static_cast<long long>(j0) * kC + 4 * tid;
-      st4(dw1 + o, split_sum(part_w + o, stride, n_w));
+#pragma unroll
+      for (int f = tid; f < kHidRows * C / 4; f += kT) {
+        const long long o = static_cast<long long>(j0) * C + 4 * f;
+        st4(dw1 + o, split_sum(part_w + o, stride, n_w));
+      }
     } else if (lane < kHidRows / 4) {
-      st4(db1 + j0 + 4 * lane, split_sum(part_w + 2LL * H * kC + j0 + 4 * lane, stride, n_w));
+      st4(db1 + j0 + 4 * lane, split_sum(part_w + 2LL * H * C + j0 + 4 * lane, stride, n_w));
     }
     return;
   }
@@ -1077,13 +1331,13 @@ mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
   __shared__ float sg[kRowsMax];               // sum g of each row's channel
   __shared__ unsigned long long bar;           // the first stage landed
   const int R = rows_c(H), c0 = blockIdx.x * R;
-  const int nr = R < kC - c0 ? R : kC - c0;
+  const int nr = R < C - c0 ? R : C - c0;
   const int nch = 3 * nr;                // chain q * nr + r: quantity q of channel c0 + r
   const int per = (kDxBuf / nch) & ~3;   // tiles a stage, a whole number of float4s
   if (tid == 0) mbar_init(&bar, kTB);
   __syncthreads();  // the barrier is initialised
   // the first stage: every thread copies a share and arrives once it landed
-  stage_dx(dxs, part_dx, 0, per < n_dx ? per : n_dx, c0, nr, per, tid, kTB);
+  stage_dx<C>(dxs, part_dx, 0, per < n_dx ? per : n_dx, c0, nr, per, tid, kTB);
   cp_async_arrive(&bar);
   if (warp == kT / 32) {
     // warp 8: a lane's chain over the tiles in order, while warps 0-7 sum G
@@ -1095,7 +1349,7 @@ mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
       n0 += nt;
       if (n0 >= n_dx) break;
       __syncwarp();  // the stage is read: the warp refills it alone
-      stage_dx(dxs, part_dx, n0, per < n_dx - n0 ? per : n_dx - n0, c0, nr, per, lane, 32);
+      stage_dx<C>(dxs, part_dx, n0, per < n_dx - n0 ? per : n_dx - n0, c0, nr, per, lane, 32);
       kasf_mma::cp_async_commit();
       kasf_mma::cp_async_wait<0>();
       __syncwarp();
@@ -1119,7 +1373,7 @@ mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
       const int r = f / row4, c = c0 + r;
       const long long o = static_cast<long long>(c) * H + 4 * (f - r * row4);
       const float4 w = load4(w2 + o);
-      const float4 gs = split_sum(part_w + static_cast<long long>(H) * kC + o, stride, n_w);
+      const float4 gs = split_sum(part_w + static_cast<long long>(H) * C + o, stride, n_w);
       const float s = ls2[c];
       st4(dw2 + o, make_float4(s * gs.x, s * gs.y, s * gs.z, s * gs.w));
       dots[f] = fmaf(w.w, gs.w, fmaf(w.z, gs.z, fmaf(w.y, gs.y, w.x * gs.x)));
@@ -1143,46 +1397,52 @@ struct Args {
   float *dgamma, *dbeta, *dw1, *db1, *dw2, *db2, *dls2, *work;
 };
 
+template <int C>
+long long dx_tiles(long long M) {
+  return (M + dxp::Cfg<C>::kR - 1) / dxp::Cfg<C>::kR;
+}
+
 // The reduce over a.work as the two passes leave it for M rows and hidden H
-template <typename T>
+template <typename T, int C>
 cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream) {
-  const long long tiles = (M + dxp::kR - 1) / dxp::kR;  // the dx pass's tiles
-  mlp_ln_bwd_reduce_kernel<T><<<rd::blocks(H), rd::kTB, 0, stream>>>(
-      a.work, static_cast<int>(tiles), a.work + tiles * 3 * kC, wp::splits(M, H),
+  const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
+  mlp_ln_bwd_reduce_kernel<T, C><<<rd::blocks<C>(H), rd::kTB, 0, stream>>>(
+      a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, wp::splits<C>(M, H),
       static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
       a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int C>
 cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(dxp::smem_bytes<T>()));
+                                         static_cast<int>(dxp::smem_bytes<T, C>()));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T>,
+  err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wp::smem_bytes<T>()));
+                             static_cast<int>(wp::smem_bytes<T, C>()));
   if (err != cudaSuccess) return err;
-  const long long tiles = (M + dxp::kR - 1) / dxp::kR;  // the dx pass's tiles
-  const int splits = wp::splits(M, H);
+  const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
+  const int splits = wp::splits<C>(M, H);
   float* part_dx = a.work;
-  float* part_w = a.work + tiles * 3 * kC;
+  float* part_w = a.work + tiles * 3 * C;
   const T* x = static_cast<const T*>(a.x);
   const T* g = static_cast<const T*>(a.g);
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);
   const T* w2 = static_cast<const T*>(a.w2);
-  mlp_ln_bwd_dx_kernel<T><<<static_cast<unsigned>(tiles), dxp::kT, dxp::smem_bytes<T>(),
-                            stream>>>(
+  mlp_ln_bwd_dx_kernel<T, C><<<static_cast<unsigned>(tiles), dxp::kT,
+                               dxp::smem_bytes<T, C>(), stream>>>(
       x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), part_dx, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlp_ln_bwd_w_kernel<T><<<dim3(H / wp::kJ, splits), wp::kT, wp::smem_bytes<T>(), stream>>>(
+  mlp_ln_bwd_w_kernel<T, C><<<dim3(H / wp::Cfg<C>::kJ, splits), wp::kT,
+                              wp::smem_bytes<T, C>(), stream>>>(
       x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, part_w, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce<T>(a, M, H, stream);
+  return launch_reduce<T, C>(a, M, H, stream);
 }
 
 // A kernel's threads a block, registers and local memory (spills) a thread,
@@ -1212,52 +1472,68 @@ bool describe(K kernel, int threads, int smem, int* info) {
 // hidden H, registers, shared memory bytes, spill bytes, blocks a SM};
 // info[14..19]: the reduce as {threads, blocks for hidden H, registers,
 // shared memory bytes, spill bytes, blocks a SM}
-template <typename T>
+template <typename T, int C>
 void describe_all(long long M, int H, int* info) {
   int d[5];
-  const int smem_dx = static_cast<int>(dxp::smem_bytes<T>());
-  if (describe(mlp_ln_bwd_dx_kernel<T>, dxp::kT, smem_dx, d)) {
-    const int v[6] = {d[0], dxp::kR, d[1], smem_dx, d[2], d[3]};
+  const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
+  if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d)) {
+    const int v[6] = {d[0], dxp::Cfg<C>::kR, d[1], smem_dx, d[2], d[3]};
     for (int i = 0; i < 6; ++i) info[i] = v[i];
   }
-  const int smem_w = static_cast<int>(wp::smem_bytes<T>());
-  if (describe(mlp_ln_bwd_w_kernel<T>, wp::kT, smem_w, d)) {
-    const int v[8] = {d[0], wp::kR, wp::kJ, wp::splits(M, H), d[1], smem_w, d[2], d[3]};
+  const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
+  if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d)) {
+    const int v[8] = {d[0], wp::Cfg<C>::kR, wp::Cfg<C>::kJ, wp::splits<C>(M, H), d[1], smem_w,
+                      d[2], d[3]};
     for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
   }
-  if (describe(mlp_ln_bwd_reduce_kernel<T>, rd::kTB, 0, d)) {
-    const int v[6] = {d[0], rd::blocks(H), d[1], d[4], d[2], d[3]};
+  if (describe(mlp_ln_bwd_reduce_kernel<T, C>, rd::kTB, 0, d)) {
+    const int v[6] = {d[0], rd::blocks<C>(H), d[1], d[4], d[2], d[3]};
     for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
   }
 }
 
-// the shapes K4 takes: C = 128, H a multiple of 64 up to 2048
+// the shapes K4 takes: C in {128, 256, 512}, H a multiple of 64 up to 2048
 bool takes(long long M, int C, int H) {
-  return M >= 1 && C == kC && H >= wp::kJ && H % wp::kJ == 0 && H <= 4 * rd::kItemsMax;
+  return M >= 1 && (C == 128 || C == 256 || C == 512) && H >= 64 && H % 64 == 0 &&
+         H <= 4 * rd::kItemsMax;
+}
+
+// f<C>() at the width C takes, for the three widths
+template <typename F>
+auto by_width(int C, F&& f) {
+  return C == 128 ? f(std::integral_constant<int, 128>{})
+         : C == 256 ? f(std::integral_constant<int, 256>{})
+                    : f(std::integral_constant<int, 512>{});
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace kasf_mlp_ln_bwd needs for M rows and hidden H: the dx
-// pass's partials, one a tile, then the weight pass's, one a row split.
-long long kasf_mlp_ln_bwd_workspace(long long M, int H) {
-  const long long tiles = (M + dxp::kR - 1) / dxp::kR;
-  return tiles * 3 * kC + static_cast<long long>(wp::splits(M, H)) * (2LL * H * kC + H);
+// Floats of workspace kasf_mlp_ln_bwd needs for M rows, width C and hidden
+// H: the dx pass's partials, one a tile, then the weight pass's, one a row
+// split. 0 for a shape K4 does not take.
+long long kasf_mlp_ln_bwd_workspace(long long M, int C, int H) {
+  if (!takes(M, C, H)) return 0;
+  return by_width(C, [&](auto c) {
+    constexpr int kC = decltype(c)::value;
+    return dx_tiles<kC>(M) * 3 * kC +
+           static_cast<long long>(wp::splits<kC>(M, H)) * (2LL * H * kC + H);
+  });
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, w1, b1, w2, b2, dx); gamma, beta,
 // ls2, the parameter gradients and the workspace are float32. All tensors
-// contiguous and 16-byte aligned: x, g, dx (M, 128); w1 and dw1 (H, 128);
-// w2 and dw2 (128, H) with H a multiple of 64 up to 2048. Returns cudaGetLastError()
-// after the last of the three launches (0 on success).
+// contiguous and 16-byte aligned: x, g, dx (M, C) with C in {128, 256,
+// 512}; w1 and dw1 (H, C); w2 and dw2 (C, H) with H a multiple of 64 up to
+// 2048. Returns cudaGetLastError() after the last of the three launches (0
+// on success).
 int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
                     const void* beta, const void* w1, const void* b1, const void* w2,
                     const void* b2, const void* ls2, void* dx, void* dgamma, void* dbeta,
                     void* dw1, void* db1, void* dw2, void* db2, void* dls2, void* work,
                     long long M, int C, int H, float eps, void* stream) {
-  if (!takes(M, C, H)) return cudaErrorInvalidValue;
+  if (!takes(M, C, H) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   Args a{x, g, w1, b1, w2, b2,
          static_cast<const float*>(gamma), static_cast<const float*>(beta),
          static_cast<const float*>(ls2), dx,
@@ -1265,40 +1541,50 @@ int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
          static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2),
          static_cast<float*>(dls2), static_cast<float*>(work)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, M, H, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, M, H, eps, s);
-  return cudaErrorInvalidValue;
+  return by_width(C, [&](auto c) {
+    constexpr int kC = decltype(c)::value;
+    return dtype == 0 ? launch<float, kC>(a, M, H, eps, s)
+                      : launch<__nv_bfloat16, kC>(a, M, H, eps, s);
+  });
 }
 
 // The reduce alone (the third of kasf_mlp_ln_bwd's launches) on a workspace
-// laid out as the two passes leave it for M rows and hidden H, of
-// kasf_mlp_ln_bwd_workspace(M, H) floats: dgamma, dbeta, dw1, db1, dw2, db2
-// and dls2 as kasf_mlp_ln_bwd writes them. dtype as there (w2, b2); ls2,
+// laid out as the two passes leave it for M rows, width C and hidden H, of
+// kasf_mlp_ln_bwd_workspace(M, C, H) floats: dgamma, dbeta, dw1, db1, dw2,
+// db2 and dls2 as kasf_mlp_ln_bwd writes them. dtype as there (w2, b2); ls2,
 // the workspace and the gradients float32; all 16-byte aligned.
 int kasf_mlp_ln_bwd_reduce(int dtype, const void* work, const void* w2, const void* b2,
                            const void* ls2, void* dgamma, void* dbeta, void* dw1,
                            void* db1, void* dw2, void* db2, void* dls2, long long M, int C,
                            int H, void* stream) {
-  if (!takes(M, C, H)) return cudaErrorInvalidValue;
+  if (!takes(M, C, H) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   Args a{nullptr, nullptr, nullptr, nullptr, w2, b2,
          nullptr, nullptr, static_cast<const float*>(ls2), nullptr,
          static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(dw1),
          static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2),
          static_cast<float*>(dls2), static_cast<float*>(const_cast<void*>(work))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_reduce<float>(a, M, H, s);
-  if (dtype == 1) return launch_reduce<__nv_bfloat16>(a, M, H, s);
-  return cudaErrorInvalidValue;
+  return by_width(C, [&](auto c) {
+    constexpr int kC = decltype(c)::value;
+    return dtype == 0 ? launch_reduce<float, kC>(a, M, H, s)
+                      : launch_reduce<__nv_bfloat16, kC>(a, M, H, s);
+  });
 }
 
 // The three launches' instantiations for (dtype, C) on the current device at
 // M rows and hidden H, for reports, into info[20] as describe_all lays it
-// out. Left untouched for a shape or dtype there is none of (C = 128 only),
-// or where the runtime refuses the query.
+// out. Left untouched for a shape or dtype there is none of, or where the
+// runtime refuses the query.
 void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {
-  if (!takes(M, C, H)) return;
-  if (dtype == 0) describe_all<float>(M, H, info);
-  if (dtype == 1) describe_all<__nv_bfloat16>(M, H, info);
+  if (!takes(M, C, H) || (dtype != 0 && dtype != 1)) return;
+  by_width(C, [&](auto c) {
+    constexpr int kC = decltype(c)::value;
+    if (dtype == 0)
+      describe_all<float, kC>(M, H, info);
+    else
+      describe_all<__nv_bfloat16, kC>(M, H, info);
+    return 0;
+  });
 }
 
 const char* kasf_error_string(int code) {

@@ -18,7 +18,8 @@ tensor it runs `fused_mlp_ln_reference` under plain autograd. The kernel
 masks the tail rows of a ragged M, so any number of rows works. It evaluates
 GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
 up to 4.8e-4 away). K3 takes C in {64, 128, 256, 512} (the flagship's 128
-and the zoo's widths) and K4 the flagship's C = 128.
+and the zoo's widths) and K4 C in {128, 256, 512} (the flagship, DSTFormer
+and MixSTE).
 
 K3's tile: a block takes tiles of R token rows, normalises each once into
 shared memory, and walks the hidden width in chunks of 64 columns, so the
@@ -54,12 +55,14 @@ from L2, so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 registers, shared memory and spills as the runtime sees them, and the blocks
 of a launch over m rows.
 
-K4 is three launches: a dx pass (112-row tiles, exact f32 on the CUDA cores
-from either dtype, the weights through a cp.async ring), a weight pass (one
-block per hidden chunk of 64 and row split, walking the split's 40-row tiles
-with the next tile's rows in flight by a bulk copy and dW1, G = g^T h and
-db1 kept in registers, exact f32 too) and a reduce that sums both passes'
-partials in index order: one wave of blocks, each thread a float4 of the
+K4 is three launches, each a template on C: a dx pass (112-row tiles at
+C = 128, 56 at 256, 32 at 512, exact f32 on the CUDA cores from either
+dtype, the weights through a cp.async ring in chunks of 4096 / C hidden
+columns), a weight pass (one block per hidden chunk of 8192 / C columns and
+row split, walking the split's tiles of 40, 24 or 16 rows with the next
+tile's rows in flight by a bulk copy and dW1, G = g^T h and db1 kept in
+registers, exact f32 too) and a reduce that sums both passes' partials in
+index order: one wave of blocks, each thread a float4 of the
 weight partials with 16 splits' loads written before its adds, and a ninth
 warp summing the dx partials' chains, a lane each, from a stage that the
 whole block copies. The library chooses both passes' tiles and the weight pass's row
@@ -89,8 +92,8 @@ from kasportsformer_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # model widths each kernel is built for: K3 and K5 the flagship's 128 and the
 # zoo's 64 (MotionAGFormer hierarchical), 256 (DSTFormer) and 512 (MixSTE);
-# K4 the flagship's only
-_WIDTHS = {"mlp_ln": (64, 128, 256, 512), "mlp_ln_bwd": (128,),
+# K4 the same but for 64
+_WIDTHS = {"mlp_ln": (64, 128, 256, 512), "mlp_ln_bwd": (128, 256, 512),
            "mlp": (64, 128, 256, 512)}
 _CHUNK = 64
 _MAX_HIDDEN = 2048
@@ -292,29 +295,34 @@ _BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
                "spill_bytes", "blocks_per_sm")
 _BWD_R_KEYS = ("threads", "blocks", "registers", "smem_bytes", "spill_bytes",
                "blocks_per_sm")
-# K4's partition of the rows (csrc/mlp_ln_bwd.cu: dxp::kR, wp::kR, wp::kJ,
-# wp::kSMs)
-_BWD_DX_ROWS, _BWD_W_ROWS, _BWD_W_CHUNK, _SMS = 112, 40, 64, 132
+# K4's partition of the rows at each width C: (dx pass rows a tile, weight
+# pass rows a tile, weight pass hidden columns a block), as
+# csrc/mlp_ln_bwd.cu's dxp::Cfg<C>::kR, wp::Cfg<C>::kR and wp::Cfg<C>::kJ
+# make them; wp::kSMs
+_BWD_TILES = {128: (112, 40, 64), 256: (56, 24, 32), 512: (32, 16, 16)}
+_SMS = 132
 
 
-def fused_mlp_ln_bwd_partition(m: int, hidden: int) -> dict:
-    """K4's partition of m rows at this hidden width, as its library makes
-    it (`wp::splits` in csrc/mlp_ln_bwd.cu): the dx pass's `dx_tiles` tiles
-    of `dx_rows` rows, one partial each; the weight pass's tiles of `w_rows`
-    rows in `splits` row splits of `per_split` consecutive tiles (trailing
-    splits may be empty and leave zeros), one partial each. The workspace
-    holds the dx partials (dx_tiles, 3, C), then the weight partials, each
-    dW1 (hidden, C), G = g^T h (C, hidden) and db1 (hidden)."""
-    w_tiles = -(-m // _BWD_W_ROWS)
-    splits = max(1, min(w_tiles, _SMS // (hidden // _BWD_W_CHUNK)))
-    return dict(dx_rows=_BWD_DX_ROWS, dx_tiles=-(-m // _BWD_DX_ROWS),
-                w_rows=_BWD_W_ROWS, splits=splits, per_split=-(-w_tiles // splits))
+def fused_mlp_ln_bwd_partition(m: int, hidden: int, c: int = 128) -> dict:
+    """K4's partition of m rows at this hidden width and width c, as its
+    library makes it (`wp::splits` in csrc/mlp_ln_bwd.cu): the dx pass's
+    `dx_tiles` tiles of `dx_rows` rows, one partial each; the weight pass's
+    tiles of `w_rows` rows in `splits` row splits of `per_split` consecutive
+    tiles (trailing splits may be empty and leave zeros), one partial each.
+    The workspace holds the dx partials (dx_tiles, 3, C), then the weight
+    partials, each dW1 (hidden, C), G = g^T h (C, hidden) and db1
+    (hidden)."""
+    dx_rows, w_rows, chunk = _BWD_TILES[c]
+    w_tiles = -(-m // w_rows)
+    splits = max(1, min(w_tiles, _SMS // (hidden // chunk)))
+    return dict(dx_rows=dx_rows, dx_tiles=-(-m // dx_rows),
+                w_rows=w_rows, splits=splits, per_split=-(-w_tiles // splits))
 
 
 def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
-                                 hidden: int = 512) -> dict:
-    """The instantiations of K4's three launches for `dtype` at C = 128, as
-    the runtime reports them: {"dx_pass": ..., "weight_pass": ...,
+                                 hidden: int = 512, c: int = 128) -> dict:
+    """The instantiations of K4's three launches for `dtype` at width `c`,
+    as the runtime reports them: {"dx_pass": ..., "weight_pass": ...,
     "reduce": ...}. Each has threads a block, registers a thread, shared
     memory a block (dynamic in the passes, static in the reduce), local
     memory (spills) a thread in bytes and blocks resident a SM; `rows` is a
@@ -330,19 +338,20 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    fn(_DTYPE_CODE[dtype], 128, m, hidden, info)
+    fn(_DTYPE_CODE[dtype], c, m, hidden, info)
     return {"dx_pass": dict(zip(_BWD_DX_KEYS, info[:6])),
             "weight_pass": dict(zip(_BWD_W_KEYS, info[6:14])),
             "reduce": dict(zip(_BWD_R_KEYS, info[14:]))}
 
 
-def _bwd_workspace_size(m: int, hidden: int) -> int:
-    """Floats of workspace K4 needs for m rows, as its library sizes it."""
+def _bwd_workspace_size(m: int, hidden: int, c: int = 128) -> int:
+    """Floats of workspace K4 needs for m rows, hidden width and width c,
+    as its library sizes it."""
     size = _build.library("mlp_ln_bwd").kasf_mlp_ln_bwd_workspace
     if size.argtypes is None:
-        size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         size.restype = ctypes.c_longlong
-    return size(m, hidden)
+    return size(m, c, hidden)
 
 
 def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
@@ -362,7 +371,7 @@ def _launch_bwd(ops: tuple[torch.Tensor, ...], g: torch.Tensor,
     lib, fn = _fn("mlp_ln_bwd", 18, [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
                                      ctypes.c_void_p])
-    work = torch.empty(_bwd_workspace_size(m, hidden), dtype=f32, device=dev)
+    work = torch.empty(_bwd_workspace_size(m, hidden, c), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xc, g, *ops[1:], dx, *grads, work)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -396,7 +405,7 @@ def _reduce_parts(work: torch.Tensor, c: int, hidden: int,
                   m: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The workspace's dx partials (dx_tiles, 3, c) and weight partials
     (splits, 2 hidden c + hidden); raises unless it has their size."""
-    p = fused_mlp_ln_bwd_partition(m, hidden)
+    p = fused_mlp_ln_bwd_partition(m, hidden, c)
     n_dx, n_w = p["dx_tiles"] * 3 * c, p["splits"] * (2 * hidden * c + hidden)
     if work.dtype != torch.float32 or work.numel() != n_dx + n_w:
         raise ValueError(f"mlp_ln_bwd reduce: the workspace for m = {m}, hidden "
@@ -410,7 +419,7 @@ def fused_mlp_ln_bwd_reduce_reference(work: torch.Tensor, w2: torch.Tensor,
                                       b2: torch.Tensor, ls2: torch.Tensor,
                                       m: int) -> tuple[torch.Tensor, ...]:
     """Plain version of K4's reduce (`fused_mlp_ln_bwd_reduce`) on a
-    workspace laid out as `fused_mlp_ln_bwd_partition(m, hidden)` says.
+    workspace laid out as `fused_mlp_ln_bwd_partition(m, hidden, C)` says.
     Every partial sum runs in index order as acc = acc + part[s], as the
     kernel's does, so on the card dgamma, dbeta, dw1, db1, dw2 and db2 equal
     the kernel's bit for bit; dls2, a dot product over the hidden width, is
@@ -449,10 +458,11 @@ def fused_mlp_ln_bwd_reduce(work: torch.Tensor, w2: torch.Tensor, b2: torch.Tens
     if (c not in _WIDTHS["mlp_ln_bwd"] or hidden % _CHUNK
             or not 0 < hidden <= _MAX_HIDDEN or b2.numel() != c
             or ls2.numel() != c or m < 1):
-        raise ValueError(f"mlp_ln_bwd reduce takes w2 (128, hidden), hidden a "
-                         f"multiple of {_CHUNK} up to {_MAX_HIDDEN}, b2 and ls2 "
-                         f"of 128 elements and m >= 1; got w2 {tuple(w2.shape)}, "
-                         f"b2 {b2.numel()}, ls2 {ls2.numel()}, m {m}")
+        raise ValueError(f"mlp_ln_bwd reduce takes w2 (C, hidden), C in "
+                         f"{_WIDTHS['mlp_ln_bwd']}, hidden a multiple of {_CHUNK} "
+                         f"up to {_MAX_HIDDEN}, b2 and ls2 of C elements and "
+                         f"m >= 1; got w2 {tuple(w2.shape)}, b2 {b2.numel()}, "
+                         f"ls2 {ls2.numel()}, m {m}")
     if any(t.device != dev for t in (w2, b2, ls2)):
         raise ValueError("mlp_ln_bwd reduce takes all tensors on one CUDA device")
     _reduce_parts(work, c, hidden, m)
@@ -495,7 +505,7 @@ class FusedMlpLnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ops = ctx.saved_tensors
-        _check("mlp_ln_bwd", *ops)  # K4 has the flagship's width only
+        _check("mlp_ln_bwd", *ops)  # K4 has no C = 64
         xc = ops[0]
         gc = _prep(g.reshape(xc.shape), xc.dtype)
         dx, *rest = _launch_bwd(ops, gc, ctx.eps)
@@ -510,8 +520,8 @@ def fused_mlp_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """x + ls2 * MLP(LN(x)) over the last axis of x (..., C).
 
     CPU tensors take the plain version (plain autograd); CUDA tensors go
-    through `FusedMlpLnFunction` (K3 forward, K4 backward; K4 only at
-    C = 128, so a tail of another width under autograd raises in the
+    through `FusedMlpLnFunction` (K3 forward, K4 backward; K4 at C = 128,
+    256 and 512, so a tail of width 64 under autograd raises in the
     backward). Pass ls2 = ones for a tail without LayerScale.
     `fused_mlp_ln.launches` counts K3 launches."""
     if x.device.type == "cpu":

@@ -214,7 +214,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0])
     with pytest.raises(ValueError, match="C in"):
         fused_mlp(x, w, w[:, 0], w.T, x[0])
-    x, w = x[:, :64], w[:, :64]  # K4 has the flagship's C = 128 only
+    x, w = x[:, :64], w[:, :64]  # K4 has no C = 64
     with pytest.raises(ValueError, match="C in"):
         fused_mlp_ln_bwd(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0], x)
 
@@ -513,12 +513,12 @@ def test_masked_sdpa_bwd_kernel_large_interhead_spread(cuda):
         assert torch.isfinite(a).all() and _scaled_err(a, w) <= 1e-4
 
 
-def _bwd_views(gen, b: int, g: int, n: int, heads: int, dtype):
+def _bwd_views(gen, b: int, g: int, n: int, heads: int, dtype, d: int = 16):
     """q, k, v as column slices of one qkv projection and the gradient a
     slice of a wider tensor, all permuted (B,T,J,C)->(B,J,T,C): four
     leading strides each, channel stride 1, as the model's temporal
-    attention hands them over."""
-    c = 16 * heads
+    attention hands them over; heads of d channels."""
+    c = d * heads
     qkv = torch.randn(b, n, g, 3 * c, device="cuda", generator=gen).to(dtype)
     gw = torch.randn(b, n, g, c + 16, device="cuda", generator=gen).to(dtype)
     return tuple(z.transpose(1, 2) for z in (*qkv.split(c, dim=-1), gw[..., 16:]))
@@ -599,21 +599,21 @@ def test_masked_sdpa_bwd_kernel_reruns_bitwise_equal(cuda, dtype):
 
 
 
-def _bwd_matches_plain(args, g, dtype) -> tuple[torch.Tensor, ...]:
+def _bwd_matches_plain(args, g, dtype, eps: float = 1e-5) -> tuple[torch.Tensor, ...]:
     """K4 once (one launch counted) against its plain version in float32 on
     the same inputs: dx per element, the parameter gradients against their
     largest entry; a rerun bitwise equal (no atomics). Returns K4's
     gradients."""
     before = fused_mlp_ln_bwd.launches
-    got = fused_mlp_ln_bwd(*args, g, 1e-5)
+    got = fused_mlp_ln_bwd(*args, g, eps)
     assert fused_mlp_ln_bwd.launches == before + 1
-    want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), 1e-5)
+    want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), eps)
     tol = TOL["fused_mlp_ln_bwd"][dtype]
     assert got[0].dtype == dtype and torch.isfinite(got[0]).all()
     assert _scaled_err(got[0], want[0]) <= tol
     for a, w in zip(got[1:], want[1:]):
         assert a.dtype == torch.float32 and _sum_err(a, w) <= tol
-    again = fused_mlp_ln_bwd(*args, g, 1e-5)
+    again = fused_mlp_ln_bwd(*args, g, eps)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     return got
 
@@ -857,3 +857,172 @@ def test_autograd_functions_match_plain_autograd(cuda, dtype):
     assert _scaled_err(got[0], want[0]) <= tol
     for a, w in zip(got[1:], want[1:]):
         assert _sum_err(a, w) <= tol
+
+
+# ------------------------------------------------------------ the zoo's training widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["D32 flat", "D32 grouped", "D64 flat", "D64 temporal"])
+def test_masked_sdpa_bwd_kernel_zoo_widths(cuda, dtype, name):
+    """K2 at the zoo's heads, as its models hand them over at batch 4:
+    DSTFormer's 8 heads of 32 (C = 256) on the flat (B*F, J, C) stream
+    (entering as (1, M, N, C)) and on the grouped (B, J, F, C) view of its
+    temporal attention with a transposed gradient, MixSTE's 8 heads of 64
+    (C = 512) on flat spatial and temporal streams; column slices of one qkv
+    projection; a rerun bitwise equal."""
+    d = 32 if name.startswith("D32") else 64
+    c, b = 8 * d, 4
+    shape = {"D32 flat": (1, b * 27, 17), "D32 grouped": (b, 27, 17),
+             "D64 flat": (1, b * 27, 17), "D64 temporal": (1, b * 17, 27)}[name]
+    qkv = torch.randn(*shape, 3 * c, device="cuda", generator=cuda).to(dtype)
+    g = torch.randn(*shape, c, device="cuda", generator=cuda).to(dtype)
+    q, k, v = qkv.split(c, dim=-1)
+    if name == "D32 grouped":
+        q, k, v, g = (z.transpose(1, 2) for z in (q, k, v, g))
+    got = _bwd_holds((q, k, v, g), 8, dtype, d ** -0.5)
+    again = masked_sdpa_bwd(q, k, v, g, d ** -0.5, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads", [(32, 8), (32, 3), (64, 8), (64, 1)])
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 27, 32])
+def test_masked_sdpa_bwd_kernel_rows_and_wide_heads(cuda, dtype, d, heads, n):
+    """Every N the 32-row stage pads at heads of 32 (C = 256, and C = 96: a
+    last head group of one head) and 64 (C = 512 and one head), on strided,
+    permuted views: a lane of pass 1 takes keys kl + 4 (D / 16) k, so every
+    key block and padded key is covered."""
+    _bwd_holds(_bwd_views(cuda, 3, 5, n, heads, dtype, d), heads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+def test_masked_sdpa_bwd_kernel_wide_heads_walk_the_grid(cuda, dtype, d):
+    """One tile past the persistent grid at heads of 32 and 64, so one block
+    walks two tiles and the ring refills a stage; no instantiation spills."""
+    info = masked_sdpa_bwd_kernel_info(dtype, 27, d=d)
+    assert info["spill_bytes"] == 0 and info["tile_heads"] == 64 // d, info
+    args = tuple(torch.randn(info["grid"] + 1, 1, 27, d * info["tile_heads"],
+                             device="cuda", generator=cuda).to(dtype) for _ in range(4))
+    _bwd_holds(args, info["tile_heads"], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hidden,eps", [(256, 1024, 1e-5), (512, 1024, 1e-6)])
+@pytest.mark.parametrize("m", [14688, 1377, 5])
+def test_fused_mlp_ln_bwd_kernel_zoo_widths(cuda, dtype, c, hidden, eps, m):
+    """K4 at DSTFormer's 256/1024 and MixSTE's 512/1024 (LayerNorm eps
+    1e-6): the train step's M = 14,688, a ragged 1,377 and 5 rows; all eight
+    gradients against the plain version, a rerun bitwise equal."""
+    args = _mlp_args(cuda, m, dtype, c, hidden)
+    g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype, eps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("edge", ["dx R-1", "dx R+1", "w R", "w R+1", "empty splits"])
+def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
+    """Each pass's tile of R rows at the zoo's widths (56 and 32 rows in the
+    dx pass, 24 and 16 in the weight pass) and one row either side, and 17
+    weight-pass tiles over the 16 row splits of 8 hidden chunks (H = 256 at
+    C = 256, 128 at 512): the last splits stay empty and their zero
+    partials enter the reduce."""
+    hidden = 8 * 8192 // c if edge == "empty splits" else 1024
+    info = fused_mlp_ln_bwd_kernel_info(dtype, 14688, hidden, c=c)
+    r_dx, r_w = info["dx_pass"]["rows"], info["weight_pass"]["rows"]
+    m = {"dx R-1": r_dx - 1, "dx R+1": r_dx + 1, "w R": r_w, "w R+1": r_w + 1,
+         "empty splits": 17 * r_w}[edge]
+    if edge == "empty splits":
+        p = fused_mlp_ln_bwd_partition(m, hidden, c)
+        assert (p["splits"] - 1) * p["per_split"] >= -(-m // r_w), p
+    args = _mlp_args(cuda, m, dtype, c, hidden)
+    g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,hidden,c", [(14688, 1024, 256), (14688, 1024, 512),
+                                        (1377, 64, 512), (300, 2048, 256)])
+def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, hidden, c):
+    """K4's reduce alone at C = 256 and 512 on seeded partials against its
+    plain version: six gradients bit for bit, dls2 within K4's limit, a
+    rerun bitwise equal; a hidden block's eight dW1 rows are C / 128 float4s
+    a thread."""
+    p = fused_mlp_ln_bwd_partition(m, hidden, c)
+    n = p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
+    work = torch.randn(n, device="cuda", generator=cuda)
+    w2 = torch.randn(c, hidden, device="cuda", generator=cuda).to(dtype)
+    b2 = torch.randn(c, device="cuda", generator=cuda).to(dtype)
+    ls2 = torch.rand(c, device="cuda", generator=cuda)
+    got = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    want = fused_mlp_ln_bwd_reduce_reference(work, w2, b2, ls2, m)
+    for a, w in zip(got[:6], want[:6]):
+        assert torch.equal(a, w)
+    assert _sum_err(got[6], want[6]) <= TOL["fused_mlp_ln_bwd"][dtype]
+    again = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
+    """The Python mirror of K4's partition at C = 256 and 512 against the
+    library's, and the workspace's size; no pass spills at either width."""
+    for c in (256, 512):
+        for m in (1, 300, 1377, 14688):
+            for hidden in (64, 512, 1024, 2048):
+                p = fused_mlp_ln_bwd_partition(m, hidden, c)
+                info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, hidden, c=c)
+                assert (p["dx_rows"], p["w_rows"], p["splits"]) == (
+                    info["dx_pass"]["rows"], info["weight_pass"]["rows"],
+                    info["weight_pass"]["splits"]), (c, m, hidden)
+                assert _bwd_workspace_size(m, hidden, c) == (
+                    p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden))
+        for dtype in (torch.float32, torch.bfloat16):
+            for launch in fused_mlp_ln_bwd_kernel_info(dtype, 14688, 1024, c=c).values():
+                assert launch["spill_bytes"] == 0 and launch["registers"] > 0, launch
+
+
+def test_fused_mlp_ln_bwd_c128_digests_unchanged(cuda):
+    """The flagship's K4 (C = 128) computes bit for bit what it computed
+    before its launches became templates on C: SHA-1 of dx, dgamma, dbeta,
+    dw1, db1, dw2 and db2 on the seeded inputs of `scripts/torch_ab.sh
+    digest` (an H100; the CUDA generator's stream), in both dtypes."""
+    import hashlib
+
+    want = {torch.float32: "58156b444940 8096f000dc3e 79a2cd00ff2b c32c2aeb5932 "
+                           "f5be679db688 1847d887a6fd 759b064cbe19",
+            torch.bfloat16: "9c78e50c0815 7ec0c39f18e4 8d5f581f0385 172cace851fc "
+                            "dd3e797cde42 bf63323800c2 480f126a9d2c"}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dt in (torch.float32, torch.bfloat16):
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(*shape, device="cuda", generator=gen)
+        x, g = randn(14688, 128).to(dt), randn(14688, 128).to(dt)
+        args = (x, 1 + randn(128, scale=0.1), randn(128, scale=0.1),
+                randn(512, 128, scale=128 ** -0.5).to(dt), randn(512, scale=0.1).to(dt),
+                randn(128, 512, scale=512 ** -0.5).to(dt), randn(128, scale=0.1).to(dt),
+                torch.rand(128, device="cuda", generator=gen))
+        out = fused_mlp_ln_bwd(*args, g, 1e-5)
+        got = " ".join(hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]
+                       for t in out[:7])
+        assert got == want[dt], dt
+
+
+def test_widened_backward_kernels_reject_what_they_do_not_take(cuda):
+    """K2 raises on heads of 128 and on C = 1024 (heads of 64); K4 on a
+    width outside (128, 256, 512); the reduce alone likewise."""
+    q = torch.randn(2, 3, 17, 256, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="heads of width"):
+        masked_sdpa_bwd(q, q, q, q, 0.25, 2)
+    w = torch.randn(2, 3, 17, 1024, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="C <= 512"):
+        masked_sdpa_bwd(w, w, w, w, 0.25, 16)
+    for c in (64, 1024):
+        args = _mlp_args(cuda, 8, torch.float32, c, 256)
+        with pytest.raises(ValueError, match="C in"):
+            fused_mlp_ln_bwd(*args, args[0], 1e-5)
+        w2 = torch.zeros(c, 256, device="cuda")
+        with pytest.raises(ValueError, match="C in"):
+            fused_mlp_ln_bwd_reduce(torch.zeros(10, device="cuda"), w2, w2[:, 0],
+                                    w2[:, 0], 8)

@@ -63,15 +63,22 @@ def _jax_sdpa_vjp(q, k, v, g, scale, heads):
     return [np.asarray(z) for z in vjp(q, k, v, g)]
 
 
-@pytest.mark.parametrize("n,heads", [(17, 8), (27, 8), (1, 8), (32, 8), (17, 5)])
-def test_masked_sdpa_bwd_reference_matches_jax(n, heads):
+@pytest.mark.parametrize("n,heads,d", [
+    pytest.param(17, 8, 16, id="17-8"), pytest.param(27, 8, 16, id="27-8"),
+    pytest.param(1, 8, 16, id="1-8"), pytest.param(32, 8, 16, id="32-8"),
+    pytest.param(17, 5, 16, id="17-5"),
+    pytest.param(17, 8, 32, id="17-8-d32"), pytest.param(27, 8, 32, id="27-8-d32"),
+    pytest.param(17, 8, 64, id="17-8-d64"), pytest.param(27, 8, 64, id="27-8-d64")])
+def test_masked_sdpa_bwd_reference_matches_jax(n, heads, d):
     """The plain backward against `jax.vjp(masked_sdpa_xla)` and the Pallas
-    backward kernel (interpret mode), in heads of 16 (the kernel's width):
-    the spatial (17) and temporal (27) lengths, the shortest and longest N
-    the kernel takes, and 5 heads (C = 80), a last head group of one head.
-    These are the shapes at which the card tests hold the kernel to this
-    plain version."""
-    c = 16 * heads
+    backward kernel (interpret mode), in the kernel's head widths: heads of
+    16 (the flagship) at the spatial (17) and temporal (27) lengths, the
+    shortest and longest N the kernel takes, and 5 heads (C = 80), a last
+    head group of one head; 8 heads of 32 (DSTFormer, C = 256) and of 64
+    (MixSTE, C = 512) at both lengths. These are the shapes at which the
+    card tests hold the kernel to this plain version. float32 on both sides:
+    within atol 1e-5, rtol 1e-4."""
+    c = d * heads
     q, k, v, g = (RNG.standard_normal((1, 3, n, c)).astype(np.float32)
                   for _ in range(4))
     got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, heads)
@@ -154,26 +161,40 @@ def _torch_mlp_args(a: dict, grad: bool = False):
     return tuple(_t(a[k].T if k in ("w1", "w2") else a[k], grad) for k in _ORDER)
 
 
-def _jax_mlp_grads(a: dict, g: np.ndarray) -> list[np.ndarray]:
+def _jax_mlp_grads(a: dict, g: np.ndarray, eps: float = 1e-5) -> list[np.ndarray]:
     """`jax.vjp(_mlp_ln_xla)`, weight gradients turned to the torch layout."""
-    vjp = jax.jit(lambda args, g: jax.vjp(_mlp_ln_xla, *args)[1](g))
+    vjp = jax.jit(lambda args, g: jax.vjp(
+        lambda *r: _mlp_ln_xla(*r, eps=eps), *args)[1](g))
     out = [np.asarray(z) for z in vjp(tuple(a[k] for k in _ORDER), g)]
     out[3], out[5] = out[3].T, out[5].T
     return out
 
 
-def test_fused_mlp_ln_bwd_reference_matches_jax():
-    a = _mlp_inputs(256)
-    g = RNG.standard_normal((256, 128)).astype(np.float32)
-    got = fused_mlp_ln_bwd_reference(*_torch_mlp_args(a), _t(g))
-    want = _jax_mlp_grads(a, g)
+def _check_mlp_bwd_reference(m: int, c: int, hidden: int, eps: float) -> None:
+    """The plain K4 backward against `jax.vjp(_mlp_ln_xla)` and the Pallas
+    backward kernel (interpret mode) at this width and LayerNorm eps."""
+    a = _mlp_inputs(m, c, hidden)
+    g = RNG.standard_normal((m, c)).astype(np.float32)
+    got = fused_mlp_ln_bwd_reference(*_torch_mlp_args(a), _t(g), eps)
+    want = _jax_mlp_grads(a, g, eps)
     kernel = [np.asarray(z) for z in fused_mlp_ln_bwd_pallas(
-        *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), interpret=True)]
+        *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), eps=eps, interpret=True)]
     kernel[3], kernel[5] = kernel[3].T, kernel[5].T
     for name, x, w, p in zip(_ORDER, got, want, kernel):
-        # parameter gradients sum 256 rows: relative 1e-5 of their scale
+        # parameter gradients sum m rows: relative 1e-5 of their scale
         np.testing.assert_allclose(x.numpy(), w, atol=1e-4, rtol=1e-5, err_msg=name)
         np.testing.assert_allclose(x.numpy(), p, atol=1e-4, rtol=1e-5, err_msg=name)
+
+
+def test_fused_mlp_ln_bwd_reference_matches_jax():
+    _check_mlp_bwd_reference(256, 128, 512, 1e-5)
+
+
+@pytest.mark.parametrize("c,hidden,eps", [(256, 1024, 1e-5), (512, 1024, 1e-6)])
+def test_fused_mlp_ln_bwd_reference_matches_jax_at_zoo_widths(c, hidden, eps):
+    """DSTFormer's tail (256/1024) and MixSTE's (512/1024, LayerNorm eps
+    1e-6), the widths K4 takes beside the flagship's, at 64 rows."""
+    _check_mlp_bwd_reference(64, c, hidden, eps)
 
 
 def test_fused_mlp_ln_autograd_matches_jax_ragged_rows():
@@ -220,22 +241,23 @@ def test_fused_mlp_ln_bwd_refuses_cpu_tensors():
     assert fused_mlp_ln_bwd.launches == before
 
 
-def _k4_workspace(args, g: torch.Tensor) -> torch.Tensor:
+def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """The workspace K4's two passes leave, built in plain float32 torch over
-    their partition: a dx partial (sum da * xhat, sum da, sum g) a 112-row
-    tile, then a weight partial (dW1 = dz^T a, G = g^T h, db1 = sum dz) a
-    row split of consecutive 40-row tiles (an empty split's zeros)."""
+    their partition: a dx partial (sum da * xhat, sum da, sum g) a dx tile
+    (112 rows at C = 128), then a weight partial (dW1 = dz^T a, G = g^T h,
+    db1 = sum dz) a row split of consecutive weight-pass tiles (40 rows at
+    C = 128; an empty split's zeros)."""
     x, gamma, beta, w1, b1, w2, b2, ls2 = args
     m, c = x.shape
     hidden = w1.shape[0]
     mean = x.mean(-1, keepdim=True)
-    xhat = (x - mean) * torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + 1e-5)
+    xhat = (x - mean) * torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
     a = xhat * gamma + beta
     z = a @ w1.t() + b1
     h = torch.nn.functional.gelu(z)
     dz = (g * ls2) @ w2 * _gelu_grad(z)
     da = dz @ w1
-    p = fused_mlp_ln_bwd_partition(m, hidden)
+    p = fused_mlp_ln_bwd_partition(m, hidden, c)
     parts = []
     for n in range(p["dx_tiles"]):
         r = slice(n * p["dx_rows"], (n + 1) * p["dx_rows"])
@@ -248,26 +270,37 @@ def _k4_workspace(args, g: torch.Tensor) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in parts])
 
 
-@pytest.mark.parametrize("m,hidden", [(300, 128), (1377, 512), (320, 128)])
-def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden):
+@pytest.mark.parametrize("m,hidden,c,eps", [
+    pytest.param(300, 128, 128, 1e-5, id="300-128"),
+    pytest.param(1377, 512, 128, 1e-5, id="1377-512"),
+    pytest.param(320, 128, 128, 1e-5, id="320-128"),
+    pytest.param(300, 1024, 256, 1e-5, id="300-1024-c256"),
+    pytest.param(300, 1024, 512, 1e-6, id="300-1024-c512")])
+def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     """The reduce's plain version on partials built over K4's own partition
     (a ragged M = 300 at H = 128: 3 dx tiles, 8 splits of one 40-row tile;
     M = 1,377 at H = 512: 13 dx tiles, 16 splits of 3 tiles, the last four
-    empty; M = 320, a multiple of 8) against the JAX package's K4
-    gradients: `jax.vjp(_mlp_ln_xla)` and, where its row blocks divide M (a
-    multiple of 8), the Pallas backward kernel (interpret mode)."""
-    a = _mlp_inputs(m, hidden=hidden)
-    g = RNG.standard_normal((m, 128)).astype(np.float32)
+    empty; M = 320, a multiple of 8; M = 300 at the zoo's widths: DSTFormer's
+    256/1024, 6 dx tiles of 56 rows and 4 splits of 4 24-row tiles, and
+    MixSTE's 512/1024 at eps 1e-6, 10 dx tiles of 32 rows and 2 splits of 10
+    16-row tiles) against the JAX package's K4 gradients:
+    `jax.vjp(_mlp_ln_xla)` and, where its row blocks divide M (a multiple of
+    8), the Pallas backward kernel (interpret mode)."""
+    a = _mlp_inputs(m, c, hidden)
+    g = RNG.standard_normal((m, c)).astype(np.float32)
     args = _torch_mlp_args(a)
-    p = fused_mlp_ln_bwd_partition(m, hidden)
+    p = fused_mlp_ln_bwd_partition(m, hidden, c)
     empty = p["splits"] - -(-(-(-m // p["w_rows"])) // p["per_split"])
-    assert (p["dx_tiles"], p["splits"], empty) == {300: (3, 8, 0), 1377: (13, 16, 4),
-                                                   320: (3, 8, 0)}[m]
-    got = fused_mlp_ln_bwd_reduce_reference(_k4_workspace(args, _t(g)), *args[5:], m)
-    wants = [_jax_mlp_grads(a, g)[1:]]
+    assert (p["dx_tiles"], p["splits"], empty) == {
+        (300, 128): (3, 8, 0), (1377, 128): (13, 16, 4), (320, 128): (3, 8, 0),
+        (300, 256): (6, 4, 0), (300, 512): (10, 2, 0)}[m, c]
+    got = fused_mlp_ln_bwd_reduce_reference(_k4_workspace(args, _t(g), eps),
+                                            *args[5:], m)
+    wants = [_jax_mlp_grads(a, g, eps)[1:]]
     if m % 8 == 0:
         kernel = [np.asarray(z) for z in fused_mlp_ln_bwd_pallas(
-            *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), interpret=True)]
+            *(jnp.asarray(a[k]) for k in _ORDER), jnp.asarray(g), eps=eps,
+            interpret=True)]
         kernel[3], kernel[5] = kernel[3].T, kernel[5].T
         wants.append(kernel[1:])
     for want in wants:
