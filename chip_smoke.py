@@ -81,9 +81,11 @@ Phases (any failure exits non-zero and prints no result line):
      other kernels (warm, a rewritten workspace, matmuls, a flushed L2).
      Then K4 at the zoo's widths (C/H 256/1024, and 512/1024 at eps 1e-6) at
      M = 14,688 and 1,377, both dtypes, all eight gradients, a rerun bitwise
-     equal, the call's and each launch's time against its bound; C = 64 and
-     1024 raise. In phases 6 and 7 the plain version runs in float32 on the
-     kernel's own inputs.
+     equal, the call's and each launch's time against its bound (there a
+     stage launch writes the dx pass's f32 weights first, and the dx pass
+     runs clusters of two blocks: its cluster size, clusters resident,
+     tiles and waves beside); C = 64 and 1024 raise. In phases 6 and 7 the
+     plain version runs in float32 on the kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -421,14 +423,20 @@ def k4_widths() -> tuple:
                             if 512 in _WIDTHS["mlp_ln_bwd"] else ())
 
 
-# K4's three launches, by the kernel names the profiler reports
-K4_LAUNCHES = (("dx pass", "mlp_ln_bwd_dx_kernel"), ("weight pass", "mlp_ln_bwd_w_kernel"),
-               ("reduce", "mlp_ln_bwd_reduce_kernel"))
+# K4's launches, by the kernel names the profiler reports: at C = 256 and
+# 512 a stage launch (the dx pass's f32 weights) first; the dx pass is one
+# block a tile at C = 128 and a cluster of two at 256 and 512 (and one
+# block a tile at every width in a tree from before the cluster, kept for
+# A/B runs), so it goes by both kernels' names
+K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
+               ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel")),
+               ("weight pass", ("mlp_ln_bwd_w_kernel",)),
+               ("reduce", ("mlp_ln_bwd_reduce_kernel",)))
 
 
 def k4_launch_ms(call, iters: int) -> dict:
-    """Device ms per launch of each of K4's three kernels over `iters`
-    calls of `call` (torch.profiler; a kernel it does not see is absent)."""
+    """Device ms per launch of each of K4's kernels over `iters` calls of
+    `call` (torch.profiler; a kernel it does not see is absent)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -440,8 +448,8 @@ def k4_launch_ms(call, iters: int) -> dict:
         torch.cuda.synchronize()
     acc: dict = {}
     for e in device_events(prof):
-        for label, name in K4_LAUNCHES:
-            if name in e.key:
+        for label, names in K4_LAUNCHES:
+            if any(name in e.key for name in names):
                 t, n = acc.get(label, (0.0, 0))
                 acc[label] = (t + e.self_device_time_total, n + e.count)
     return {label: t / 1e3 / n for label, (t, n) in acc.items()}
@@ -1613,8 +1621,7 @@ def check_k4(dev, out_dir: str) -> dict:
                 f"bound {bms:.4f} ({by}); rerun bitwise equal")
             per[(m, dname)] = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
             log("     by launch (profiler, ms a launch): " + "; ".join(
-                f"{label} {per[(m, dname)].get(label, float('nan')):.4f}"
-                for label, _ in K4_LAUNCHES))
+                f"{label} {t:.4f}" for label, t in per[(m, dname)].items()))
     # each launch against the bound of its own work: the dx pass recomputes
     # fc1 and takes dh = do W2 and da = dz W1 (6*M*C*H) from x, g and the
     # weights, and writes dx; the weight pass recomputes fc1 and dh and takes
@@ -1624,7 +1631,8 @@ def check_k4(dev, out_dir: str) -> dict:
     # passes' partials and W2 and writes the parameter gradients (bytes)
     for (m, dname), ms in per.items():
         log(f"   K4 M={m:6d} {dname:8s} by launch, bound (share): "
-            + k4_launch_bounds(m, 128, 512, dname, ms))
+            + k4_launch_bounds(m, 128, 512, dname, ms) + "; "
+            + k4_dx_tiling(dname, m, 128, 512))
     if hasattr(mlp_ops, "fused_mlp_ln_bwd_reduce"):
         check_k4_reduce(dev, gen, per)
     else:  # the parent tree of an A/B, from before the reduce had an entry
@@ -1654,13 +1662,34 @@ def k4_launch_bounds(m: int, c: int, h: int, dname: str, ms: dict) -> str:
     w_out = (2 * h * c + h) * 4
     part_w = p["splits"] * w_out
     grads = 4 * (2 * c * h + h + 5 * c)
-    bounds = {"dx pass": bound_ms(3 * m * c * it + wts, 6 * m * c * h, dname),
+    # the stage launch reads W1 and W2 (in bf16 also b1) and writes the f32
+    # copies the dx pass reads
+    staged = 2 * c * h + (h if it == 2 else 0)
+    bounds = {"stage": bound_ms((it + 4) * staged, 0, dname),
+              "dx pass": bound_ms(3 * m * c * it + wts, 6 * m * c * h, dname),
               "weight pass": bound_ms(2 * m * c * it + wts + w_out, 8 * m * c * h, dname),
               "reduce": bound_ms(part_dx + part_w + wts // 2 + grads, 0, dname)}
     return "; ".join(
         f"{label} {bounds[label][0]:.4f} ({bounds[label][1]}; "
-        f"{bounds[label][0] / ms.get(label, float('nan')):.1%})"
-        for label, _ in K4_LAUNCHES)
+        f"{bounds[label][0] / ms[label]:.1%})" for label, _ in K4_LAUNCHES if label in ms)
+
+
+def k4_dx_tiling(dname: str, m: int, c: int, h: int) -> str:
+    """The dx pass's instantiation at this shape, as the library reports it:
+    blocks a cluster (a tile), clusters (at C = 128 blocks) the card holds
+    at once, the tiles of m rows and the waves they make on those."""
+    import torch
+
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd_kernel_info
+
+    dt = getattr(torch, dname)
+    info = (fused_mlp_ln_bwd_kernel_info(dt, m, h) if c == 128 else
+            fused_mlp_ln_bwd_kernel_info(dt, m, h, c=c))["dx_pass"]
+    tiles = -(-m // info["rows"])
+    if "resident" not in info:  # a tree from before the report had the key
+        return f"dx pass {info['rows']}-row tiles: {tiles}"
+    return (f"dx pass cluster {info['cluster']}, clusters resident {info['resident']}, "
+            f"{info['rows']}-row tiles {tiles}, waves {tiles / info['resident']:.2f}")
 
 
 def check_k4_zoo(dev, gen, tol: dict) -> dict:
@@ -1706,8 +1735,9 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
                     f"{tol[dt]:.0e}), rerun bitwise equal; kernel {ms:.4f} ms  "
                     f"plain {plain:.4f}  bound {bms:.4f} ({by}; {bms / ms:.1%})")
                 log("     by launch (profiler, ms a launch): " + "; ".join(
-                    f"{label} {per.get(label, float('nan')):.4f}" for label, _ in K4_LAUNCHES)
+                    f"{label} {t:.4f}" for label, t in per.items())
                     + "; bound (share): " + k4_launch_bounds(m, c, h, dname, per))
+                log("     " + k4_dx_tiling(dname, m, c, h))
     refused = 0
     for c in (64, 1024):
         args = mlp_args(dev, gen, 8, torch.float32, c, 256)
@@ -2109,10 +2139,11 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
         log("     by group, ms/step (kernels a step): " + "; ".join(
             f"{g} {t:.1f} ({c:.0f})" for g, (t, c) in
             sorted(groups.items(), key=lambda kv: -kv[1][0])))
-        k4 = {label: [e for e in events if name in e.key] for label, name in K4_LAUNCHES}
+        k4 = {label: [e for e in events if any(name in e.key for name in names)]
+              for label, names in K4_LAUNCHES}
         log("     K4 by launch, ms/step (kernels a step): " + "; ".join(
             f"{label} {sum(e.self_device_time_total for e in es) / 1e3 / n:.2f} "
-            f"({sum(e.count for e in es) / n:.0f})" for label, es in k4.items()))
+            f"({sum(e.count for e in es) / n:.0f})" for label, es in k4.items() if es))
         for line in lines[:8]:
             log(f"     {line[:110]}")
         return f"{100 * busy / wall_us:.1f}%"

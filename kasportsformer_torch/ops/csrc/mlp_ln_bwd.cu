@@ -33,17 +33,10 @@
 // Widths. Each launch is a template on C, instantiated at 128 (the
 // flagship), 256 (DSTFormer) and 512 (MixSTE); the numbers below are C =
 // 128's, whose instantiations compute bit for bit what they did before the
-// template. The tiles scale with 128 / C, so that shared memory and
-// registers a thread stay near C = 128's (dxp::Cfg, wp::Cfg):
-//  * dx pass: 112, 56, 32 rows a tile and hidden chunks of 4096 / C = 32,
-//    16, 8 (rows x C 14,336 at C <= 256; 16,384 at 512, where 28 rows would
-//    not divide the warps: ~194 KB and ~202 KB of shared memory in f32); fc1
-//    and dh split the channels over kKS = 1, 4, 8 neighbouring lanes that sum
-//    by shuffles, so a thread keeps a 7 x 4 (4 x 4 at 512) register tile; da
-//    is 7 x 8, 7 x 8, 4 x 16 a thread, a row over a half warp at C = 128 and
-//    a whole warp beyond. At C = 512 it reaches 18 % of its bound on the
-//    H100 (chip_smoke.py phase 7): a chunk of 8 columns leaves little work
-//    between barriers.
+// template.
+//  * dx pass: at C = 128 one block a 112-row tile (1.); at 256 and 512 a
+//    thread-block cluster of two blocks a tile, each over half the channels,
+//    after a stage launch that lays the weights out for it (1b.).
 //  * weight pass: chunks of 8192 / C = 64, 32, 16 hidden columns (dW1c and
 //    G_c stay 8,192 floats a block, 64 registers a thread, and 128 blocks at
 //    H = 512 / 1024), tiles of 40, 24, 16 rows; fc1 and dh over 2, 4, 8
@@ -89,6 +82,67 @@
 //       the tile's 16 row groups are added in a fixed order.
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info, and
 //     chip_smoke.py phase 7's report (no spill in either dtype).
+//  1b. at C = 256 and 512: the stage launch (mlp_ln_bwd_stage_kernel) writes
+//     W1 and W2^T in f32 into the workspace as channel halves, [2][H][C/2 +
+//     4] each (rows padded as the chunk buffers are; W2 transposed through
+//     shared memory, bf16 widened; in bf16 also b1), so that a block's slice
+//     of a hidden chunk of either is one contiguous run: one bulk copy. Then
+//     the dx pass (mlp_ln_bwd_dx_cluster_kernel): a cluster of two blocks
+//     takes a tile, block b the channels CS b .. CS b + CS - 1 (CS = C / 2):
+//     112 rows of 128 channels a block at C = 256 (the C = 128 block's rows x
+//     channels), 56 of 256 at 512, so da's 7 x 8 register tile a thread
+//     (56 accumulators over the whole hidden width) carries over. Clusters
+//     are persistent, as many as the card holds (cudaOccupancyMax-
+//     ActiveClusters: 66 of two, every SM), each walking the tiles clusterid,
+//     + nclusterid, ...: at M = 14,688, 132 tiles (2.00 waves) at 256 and
+//     263 (3.98) at 512. (Not four blocks of 128 channels: the card holds
+//     only 30 clusters of four, and K3's such layout ran 22-35 % slower.)
+//     - Rows: each block stages its slice of the tile, aS = LN(x) * gamma +
+//       beta and dS = g * ls2; LN's row sums, then their squared deviations,
+//       are summed across the cluster in rank order through DSMEM
+//       (kasf_mma::cluster_row_sums, K3's exchange), so both blocks get the
+//       same bits; the rows' mean and rstd stay for the epilogue. The next
+//       tile's rows are prefetched into L2 (half a block).
+//     - Hidden chunks of 32 columns, block b finishing columns 16b..16b+15.
+//       fc1 and dh run one register layout, 7 rows x 4 columns (p + 8u) a
+//       thread over a kKS-th of the block's channels (kKS = 2, 4 lanes,
+//       whose float4s fall on distinct banks); a fixed tree of shuffles
+//       reduce-scatters the kKS lanes' partial sums, leaving each lane one
+//       column of its rows at C = 512 and two (one a block) at 256. A lane
+//       sends the other block's column (partial z, dh over this block's
+//       channels) by st.async into that block's recv, completing bytes on
+//       its mbarrier, and keeps its own; dh of the next chunk runs while
+//       they travel. The owner adds the two partials in rank order, b1, and
+//       forms dz = dh GELU'(z) once per hidden value in the cluster (at 512
+//       it hands half its rows to the lane s ^ 4 beside it, so no lane takes
+//       more than 4). After a block barrier each block sends its 16 dz
+//       columns into the other's zS by st.async (float4s) and runs da += dz
+//       W1 over its own columns while the other's arrive, then over those.
+//       No cluster barrier or release fence sits in the chunk loop (K3 found
+//       them ~1k cycles an arrive); two block barriers a chunk.
+//     - Weights: W1 in two chunk buffers, W2^T in one, each chunk by one
+//       bulk copy on the buffer's mbarrier (threads 0 and 32 issue them):
+//       W2^T(n + 2) after the barrier that follows dh(n + 1), W1(n + 2) after
+//       the one that closes chunk n, the chunk index running on across
+//       tiles. (32 row copies from one warp's lanes stalled it ~2.9k cycles
+//       a chunk; 16-byte cp.async from every thread cost ~1.6k.)
+//     - Shared memory a block (floats): aS, dS R x (CS + 4), the W1 chunks
+//       2 x 32 x (CS + 4), W2^T 32 x (CS + 4), zS R x 32, recv R x 16 float2
+//       (also dx's row sums in the epilogue), mean and rstd, LN's exchange
+//       slots, five mbarriers: 203,944 B at C = 256, 232,040 at 512 (of
+//       232,448). 236 and 254 registers a thread, no spill.
+//     - Epilogue: dx needs the row means of da * gamma and da * gamma * xhat
+//       over all C channels: each block's share goes to both blocks (DSMEM,
+//       one cluster barrier a tile), added in rank order; each block writes
+//       dx and its channels of the tile's partial sums (da * xhat, da, g; its
+//       row groups in a fixed order) into the (tile, 3, C) partials the
+//       reduce reads, one a tile whichever cluster ran it: reruns are
+//       bitwise equal, no atomics. Tail rows (>= M) are zeros in both blocks.
+//     - A chunk at M = 14,688, C/H 512/1024 (scripts/k4_dx_stamps.py on an
+//       H100 80GB HBM3 at 700 W): ~21k cycles a block, of which fc1 ~6.7k
+//       and dh ~6.4k (3,584 of FMA issue each at the pipe's full rate), da
+//       ~5.2k, dz ~0.6k, the two exchange waits ~0.35k; 51 % of the pass's
+//       6*M*C*H bound (55-56 % at 256/1024).
 //  2. weight pass (mlp_ln_bwd_w_kernel): one block per (hidden chunk of 64,
 //     row split); the split's 40-row tiles in order; per tile a = LN(x) *
 //     gamma + beta, z = a W1c^T + b1c, dh = g (ls2 * W2c), dz = dh * GELU'(z)
@@ -235,33 +289,31 @@ using kasf_mma::cp_async16;
 
 constexpr int kT = 256;  // threads a block: 8 warps
 
-// The dx pass's tile at width C. Rows a tile and hidden columns a chunk
-// scale with 128 / C, so that rows x C (14,336 at C = 128 and 256), and
-// with them shared memory and da's registers a thread, stay near C = 128's:
-// 112 rows and chunks of 32 at C = 128, 56 and 16 at 256, 32 and 8 at 512.
+// The dx pass's one-block tile, at C = 128 (C = 256 and 512 take the
+// cluster tile, dxc::Cfg): 112 rows and hidden chunks of 32 columns.
 template <int C>
 struct Cfg {
-  static_assert(C == 128 || C == 256 || C == 512, "model widths 128, 256, 512");
-  static constexpr int kR = C == 128 ? 112 : C == 256 ? 56 : 32;  // rows a tile
-  static constexpr int kKC = 4096 / C;  // hidden columns a chunk
+  static_assert(C == 128, "the one-block width");
+  static constexpr int kR = 112;  // rows a tile
+  static constexpr int kKC = 32;  // hidden columns a chunk
   // fc1 and dh (128 threads each): kKS neighbouring lanes split the
-  // channels (float4 s, s + kKS, ...) and sum by shuffles; a thread holds
-  // kRT1 rows x 4 columns of the chunk
-  static constexpr int kKS = C == 128 ? 1 : C == 256 ? 4 : 8;
+  // channels (float4 s, s + kKS, ...; one here) and sum by shuffles; a
+  // thread holds kRT1 rows x 4 columns of the chunk
+  static constexpr int kKS = 1;
   static constexpr int kCG1 = kKC / 4;                // column groups
   static constexpr int kRG1 = 128 / (kKS * kCG1);     // row groups: rows q + kRG1 i
-  static constexpr int kRT1 = kR / kRG1;              // 7, 7, 4
+  static constexpr int kRT1 = kR / kRG1;              // 7
   // da (256 threads): kCG lanes of a warp hold a row's C channels, kK
   // float4s each (channels 4p + 4 kCG k); kRG row groups of kRT rows
-  static constexpr int kCG = C / 8 < 32 ? C / 8 : 32;  // 16, 32, 32
-  static constexpr int kK = C / (4 * kCG);             // 2, 2, 4
-  static constexpr int kRG = kT / kCG;                 // 16, 8, 8
-  static constexpr int kRT = kR / kRG;                 // 7, 7, 4
+  static constexpr int kCG = 16;
+  static constexpr int kK = C / (4 * kCG);             // 2
+  static constexpr int kRG = kT / kCG;                 // 16
+  static constexpr int kRT = kR / kRG;                 // 7
   // staging: a warp's rows w, w + 8, ..., kBatch at a time; lane l holds
   // the float4s 4l + 128 q of a row
   static constexpr int kQ = C / 128;
-  static constexpr int kWarpRows = kR / (kT / 32);     // 14, 7, 4
-  static constexpr int kBatch = kWarpRows < 7 ? kWarpRows : 7;
+  static constexpr int kWarpRows = kR / (kT / 32);     // 14
+  static constexpr int kBatch = 7;
   static constexpr int kLdA = C + 4;     // aS, dS rows: LN(x) * gamma + beta, g * ls2
   static constexpr int kLdZ = kKC + 8;   // zS, hS rows: z + b1 (then dz), dh
   static constexpr int kLdW1 = C + 4;    // W1 chunk rows in f32, as in memory
@@ -537,14 +589,13 @@ __device__ __forceinline__ void dh_chunk(const float* dS, const float* w2c, floa
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
-// da += dz W1c. Thread (row group q, channel group p of kCG): rows
-// q + kRG i, channels 4p + 4 kCG k .. +3 (k < kK); each step of four hidden
-// columns reads 4 kK W1 and kRT dz float4s for 16 kK kRT FMAs.
-template <int C>
+// da += dz W1c over the kKC hidden columns of a chunk (K: a tile's Cfg).
+// Thread (row group q, channel group p of kCG): rows q + kRG i, channels
+// 4p + 4 kCG k .. +3 (k < kK); each step of four hidden columns reads 4 kK
+// W1 and kRT dz float4s for 16 kK kRT FMAs.
+template <typename K>
 __device__ __forceinline__ void da_chunk(const float* zS, const float* w1c,
-                                         float (&da)[Cfg<C>::kRT][4 * Cfg<C>::kK], int q,
-                                         int p) {
-  using K = Cfg<C>;
+                                         float (&da)[K::kRT][4 * K::kK], int q, int p) {
 #pragma unroll 2
   for (int j = 0; j < K::kKC; j += 4) {
     float4 w[K::kK][4];
@@ -658,7 +709,7 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
       if (j0 + K::kKC < H) widen_chunk<C>(ring + (s ^ 1) * K::kW1B, ring + K::kOffW2f, st0, tid);
     __syncthreads();  // dz in; bf16: the next chunk widened, the bf16 stage free
     if constexpr (!kF32) fetch_chunk<C>(st0, w1, w2, b1, j0 + 2 * K::kKC, H, tid);
-    da_chunk<C>(zS, w1c, da, q4, p4);
+    da_chunk<K>(zS, w1c, da, q4, p4);
   }
 
   // ---- dx per row (the kCG lanes of a row group hold the row's C channels)
@@ -752,6 +803,639 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int k3 = 0; k3 < 3; ++k3)
       part[(static_cast<long long>(blockIdx.x) * 3 + k3) * C + c] = t[k3];
   }
+}
+
+// ---- 1b. dx pass at C = 256 and 512: a thread-block cluster of two blocks a
+// tile, each over half the channels
+namespace dxc {
+
+using dxp::ld4;
+using dxp::load4;
+using dxp::st4;
+using dxp::store4;
+
+constexpr int kT = 256;  // threads a block: 8 warps
+constexpr int kNB = 2;   // blocks a cluster
+
+// Block b of a cluster holds channels CS b .. CS b + CS - 1 of the tile's
+// kR rows: 112 rows of 128 channels at C = 256 (the C = 128 block's rows x
+// channels), 56 of 256 at 512. The hidden width comes in chunks of kJ
+// columns; block b finishes columns kW b .. kW b + kW - 1 of each.
+template <int C>
+struct Cfg {
+  static_assert(C == 256 || C == 512, "the cluster widths");
+  static constexpr int CS = C / kNB;          // channels a block
+  static constexpr int kR = 14336 / CS;       // rows a tile: 112, 56
+  static constexpr int kJ = 32;               // hidden columns a chunk
+  static constexpr int kW = kJ / kNB;         // ... a block finishes
+  // fc1 and dh, one layout for both: lane (s, p, q) of kKS x 8 x kRG takes
+  // rows q + kRG i (i < kRT), columns p + 8u (u < 4) and a kKS-th of the
+  // block's channels: the float4s 8 b + kG s + e (e < kG) of each run of 8.
+  // A warp holds kKS splits x kPW column groups x 32 / (kKS kPW) row groups,
+  // so its W loads touch 16 float4s (two wavefronts) at both widths
+  static constexpr int kKS = CS / 64;         // 2, 4
+  static constexpr int kG = 8 / kKS;          // 4, 2
+  static constexpr int kPW = 16 / kKS;        // 8, 4
+  static constexpr int kRG = kT / (8 * kKS);  // 16, 8
+  static constexpr int kRT = kR / kRG;        // 7
+  // after the reduce-scatter over the kKS lanes a lane holds kNE columns of
+  // its rows, one of them (at C = 512: of half the lanes) the other block's
+  static constexpr int kNE = 4 / kKS;         // 2, 1
+  static constexpr int kSlots = kT * kNE / 2; // lanes a chunk's partials go between
+  // da (da_chunk's view): kCG lanes hold a row's CS channels, kK float4s each
+  // (channels 4p + 4 kCG k), row groups q of rows q + kRG i (kRG and kRT as
+  // fc1's); a da_chunk call takes kKC = kW columns
+  static constexpr int kCG = CS / 8;          // 16, 32
+  static constexpr int kK = 2;
+  static constexpr int kKC = kW;
+  // row strides, in floats, that put a warp's distinct float4s of fc1 and
+  // dh on distinct banks: W1, W2^T chunk rows (p + 8u, s) CS + 4; aS, dS
+  // rows (q + kRG i, s) CS + 8 at C = 256, CS + 4 at 512
+  static constexpr int kLdW1 = CS + 4;
+  static constexpr int kLdA = CS + (kKS == 2 ? 8 : 4);
+  static constexpr int kLdZ = kJ;             // zS rows: dz of the chunk
+  // staging: warp w rows kRowsW w.., lane l the float4s 4l + 128u of a row
+  static constexpr int kRowsW = kR / (kT / 32);  // 14, 7
+  static constexpr int kNV = CS / 128;           // 1, 2
+  // shared memory (floats): aS, dS [kR][kLdA] (LN(x) * gamma + beta,
+  // g * ls2) | W1 chunks [2][kJ][kLdW1] | W2^T chunk [kJ][kLdW1] | zS
+  // [kR][kJ] | recv [kRT][kSlots] float2 (the other block's partial z, dh of
+  // this block's columns; in the epilogue dx's two row sums, [2][kNB][kR]) |
+  // mean, rstd [kR] | slots [2][kNB][kR] (LN's row sums, then its squared
+  // deviations; slot b from block b) | mbarriers (recv's, zS's, the two W1
+  // buffers', W2^T's)
+  static constexpr int kOffD = kR * kLdA;
+  static constexpr int kOffW1 = 2 * kR * kLdA;
+  static constexpr int kOffW2 = kOffW1 + 2 * kJ * kLdW1;
+  static constexpr int kOffZ = kOffW2 + kJ * kLdW1;
+  static constexpr int kOffRecv = kOffZ + kR * kJ;
+  static constexpr int kOffStat = kOffRecv + 2 * kRT * kSlots;
+  static constexpr int kOffSlots = kOffStat + 2 * kR;
+  static constexpr int kOffBar = kOffSlots + 2 * kNB * kR;
+  static constexpr int kBars = 5;
+  static constexpr size_t kSmem = sizeof(float) * kOffBar + kBars * sizeof(unsigned long long);
+  // bytes the other block sends a chunk: partials into recv, dz into zS
+  static constexpr unsigned kRecvBytes = sizeof(float2) * kRT * kSlots;
+  static constexpr unsigned kZBytes = sizeof(float) * kR * kW;
+  static_assert(kRG * kRT == kR && kT / kCG == kRG && 4 * kCG * kK == CS && kKS * kG == 8 &&
+                    kRowsW * (kT / 32) == kR && kSlots * kRT == kR * kW && kJ == 32 &&
+                    2 * kNB * kR <= 2 * kRT * kSlots,
+                "the thread layouts cover the tile; dx's row sums fit in recv");
+  static_assert(kOffD % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kOffZ % 4 == 0 &&
+                    kOffRecv % 4 == 0 && kOffBar % 2 == 0 && kLdW1 % 4 == 0 && kLdA % 4 == 0,
+                "16-byte alignment of the copies' targets and float4s, 8 of the mbarriers");
+  static_assert(kRG * 3 * CS <= kR * kLdA, "the epilogue's sums fit in aS");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// One thread: the block's slice of hidden rows j0 .. j0 + kJ - 1 of a
+// matrix the stage launch wrote, [kNB][H][kLdW1] (W1, or W2^T: slice b holds
+// channels CS b.., each row padded as the chunk buffers are), into a chunk
+// buffer by one bulk copy (the TMA engine) completing on bar. The caller
+// issues it after a block barrier past the buffer's last reads (each
+// thread's reads have returned, so the copy needs no proxy fence).
+template <int C>
+__device__ __forceinline__ void fetch_slice(float* buf, const float* __restrict__ w, int j0,
+                                            int H, unsigned rank, unsigned long long* bar) {
+  using K = Cfg<C>;
+  constexpr unsigned kBytes = sizeof(float) * K::kJ * K::kLdW1;
+  kasf_mma::mbar_arm(bar, kBytes);
+  kasf_mma::bulk_load(buf, w + (static_cast<long long>(rank) * H + j0) * K::kLdW1, kBytes, bar);
+}
+
+// Stage the block's slice of the tile: aS = LN(x) * gamma + beta and dS =
+// g * ls2 (row-major, stride kLdA), each row's mean and rstd. LN's statistics
+// span all C channels: the rows' sums, then their squared deviations from
+// the mean (as the plain version forms the variance), each summed across
+// the cluster in rank order (kasf_mma::cluster_row_sums). Warp w takes rows
+// kRowsW w..; lane l holds channels 4l + 128u of the slice. Rows >= M are
+// zeros: a = beta, do = 0, and rstd stays finite.
+template <int C, typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __restrict__ g,
+                                           const float* __restrict__ gamma,
+                                           const float* __restrict__ beta,
+                                           const float* __restrict__ ls2, float* aS, float* dS,
+                                           float* sMean, float* sRstd, const float* slots,
+                                           long long row0, long long M, float eps,
+                                           unsigned rank, int warp, int lane) {
+  using K = Cfg<C>;
+  constexpr int N = K::kRowsW, NV = K::kNV;
+  const int r0 = warp * N, c0 = rank * K::CS + 4 * lane;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 xv[N][NV];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const long long row = row0 + r0 + i;
+      xv[i][u] = row < M ? load4(x + row * C + c0 + 128 * u) : zero;
+    }
+  // dS first: its loads in flight with x's (the last tile's dh is past)
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int c = c0 + 128 * u;
+    const float4 ls = ld4(ls2 + c);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const long long row = row0 + r0 + i;
+      const float4 gv = row < M ? load4(g + row * C + c) : zero;
+      st4(dS + (r0 + i) * K::kLdA + c - rank * K::CS,
+          make_float4(gv.x * ls.x, gv.y * ls.y, gv.z * ls.z, gv.w * ls.w));
+    }
+  }
+  float s[N], mean[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] = quad_sum(xv[i][0]);
+#pragma unroll
+    for (int u = 1; u < NV; ++u) s[i] += quad_sum(xv[i][u]);
+  }
+  kasf_mma::cluster_row_sums<kNB>(s, slots, K::kR, r0, rank, lane);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mean[i] = s[i] * (1.0f / C);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const float4 v = xv[i][u];
+      xv[i][u] = make_float4(v.x - mean[i], v.y - mean[i], v.z - mean[i], v.w - mean[i]);
+    }
+    s[i] = quad_sq(xv[i][0]);
+#pragma unroll
+    for (int u = 1; u < NV; ++u) s[i] += quad_sq(xv[i][u]);
+  }
+  kasf_mma::cluster_row_sums<kNB>(s, slots + kNB * K::kR, K::kR, r0, rank, lane);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = 1.0f / sqrtf(s[i] * (1.0f / C) + eps);  // rstd
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int c = c0 + 128 * u;
+    const float4 gm = ld4(gamma + c), bt = ld4(beta + c);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float4 v = xv[i][u];
+      st4(aS + (r0 + i) * K::kLdA + c - rank * K::CS,
+          make_float4(fmaf(v.x * s[i], gm.x, bt.x), fmaf(v.y * s[i], gm.y, bt.y),
+                      fmaf(v.z * s[i], gm.z, bt.z), fmaf(v.w * s[i], gm.w, bt.w)));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      sMean[r0 + i] = mean[i];
+      sRstd[r0 + i] = s[i];
+    }
+  }
+}
+
+// acc[i][u] = the block's channels' share of X[q + kRG i] . W[p + 8u]: X
+// row-major (aS, or dS), W a chunk's rows (W1, or W2^T), both over the
+// block's CS channels. Lane s takes the float4s 8 b + kG s + e (e < kG) of
+// each run of 8; a warp's W loads touch 16 distinct float4s and its X loads
+// 4 or 8 (broadcast to the column groups), all on distinct banks, the
+// fewest wavefronts a load can take. A step reads 4 W and kRT X float4s for
+// 16 kRT FMAs; every sum runs over the lane's channels in order.
+template <int C>
+__device__ __forceinline__ void rows_dot(const float* X, const float* W,
+                                         float (&acc)[Cfg<C>::kRT][4], int q, int p, int s) {
+  using K = Cfg<C>;
+#pragma unroll
+  for (int i = 0; i < K::kRT; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+  const float* xq = X + q * K::kLdA + 4 * K::kG * s;
+  const float* wp = W + p * K::kLdW1 + 4 * K::kG * s;
+#pragma unroll 2
+  for (int tb = 0; tb < K::CS / 4 / K::kKS; tb += 4) {  // four steps an iteration
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int f = 4 * (8 * (tb / K::kG + d / K::kG) + d % K::kG);  // float offset
+      float4 w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = ld4(wp + 8 * u * K::kLdW1 + f);
+#pragma unroll
+      for (int i = 0; i < K::kRT; ++i) {
+        const float4 a = ld4(xq + i * K::kRG * K::kLdA + f);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][u] = fmaf(a.x, w[u].x, acc[i][u]);
+          acc[i][u] = fmaf(a.y, w[u].y, acc[i][u]);
+          acc[i][u] = fmaf(a.z, w[u].z, acc[i][u]);
+          acc[i][u] = fmaf(a.w, w[u].w, acc[i][u]);
+        }
+      }
+    }
+  }
+}
+
+// The kKS lanes of a (row group, column group) hold partial sums of the same
+// 7 x 4 outputs over their channels: a fixed tree of shuffles leaves each
+// with the sums over all the block's channels of kNE of the columns, u = s
+// and s + 2 (kKS = 2: one of each block's), or u = s (kKS = 4; columns
+// u < 2 are block 0's).
+template <int KS, int RT>
+__device__ __forceinline__ void scatter_lanes(const float (&a)[RT][4], float (&o)[RT][4 / KS],
+                                              int s) {
+  if constexpr (KS == 2) {
+    const bool odd = s & 1;
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float give = __shfl_xor_sync(0xffffffffu, odd ? a[i][2 * e] : a[i][2 * e + 1], 1);
+        o[i][e] = (odd ? a[i][2 * e + 1] : a[i][2 * e]) + give;
+      }
+  } else {
+    static_assert(KS == 4, "two or four channel splits");
+    const bool hi = s & 2, odd = s & 1;
+    float h[RT][2];  // columns 2 (s >> 1) + v over this lane's pair of splits
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float give = __shfl_xor_sync(0xffffffffu, hi ? a[i][v] : a[i][2 + v], 2);
+        h[i][v] = (hi ? a[i][2 + v] : a[i][v]) + give;
+      }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float give = __shfl_xor_sync(0xffffffffu, odd ? h[i][0] : h[i][1], 1);
+      o[i][0] = (odd ? h[i][1] : h[i][0]) + give;
+    }
+  }
+}
+
+}  // namespace dxc
+
+// Clusters of two blocks walk the tiles clusterid, + nclusterid, ... (at most
+// as many clusters as the card holds at once); block b of a cluster takes
+// the tile's channels CS b .. CS b + CS - 1. Per tile: the rows (LN's
+// statistics summed across the cluster), dh of chunk 0, then per hidden
+// chunk n:
+//  1. fc1(n) over the block's channels; a reduce-scatter of z and dh over
+//     the lanes that split the channels; each lane sends the other block's
+//     columns (partial z, dh over this block's channels) into its recv by
+//     st.async, and keeps its own.
+//  2. dh(n + 1), while the partials travel.
+//  3. the other block's partials of this block's kW columns: z = the two in
+//     rank order + b1, dh likewise, dz = dh * GELU'(z) into zS.
+//  4. a block barrier; then this block's dz columns into the other block's
+//     zS by st.async, while
+//  5. da += dz W1 over this block's columns, then, once the other block's
+//     dz is in, over its columns.
+// Each exchange completes bytes on the receiver's mbarrier (recv's, zS's),
+// so a block waits for its data on its own mbarrier and no cluster barrier
+// or release fence sits in the chunk loop. Thread 0 arms each phase once the
+// last has completed; bytes may land before it. The n-th chunk's exchange
+// completes its mbarriers' phase n: parity n & 1. The write-after-read
+// hazards follow from the data flow: a block sends partials of chunk n + 1
+// only after its zS of chunk n is complete (after the barrier that closes
+// chunk n), which needs the other block's dz of chunk n, which that block
+// computed from its recv (so it has read it) and sent after its own block
+// barrier; so neither recv nor zS is written while it is read.
+// Weights: W1 chunks in two buffers, W2^T in one, each chunk by one bulk
+// copy from the stage launch's slices, completing on the buffer's mbarrier:
+// W2^T(n + 2) starts at the barrier of step 4 (after dh(n + 1)) and W1(n + 2)
+// at the barrier that closes chunk n (after da(n)); the chunk index runs on
+// across tiles, so the weights stream without a break (the last chunk of a
+// tile leaves W2^T of the next tile's first in the buffer).
+// Epilogue: dx needs the row means of da * gamma and da * gamma * xhat over
+// all C channels: each block's share goes to both blocks (DSMEM, a cluster
+// barrier) and each adds the two in rank order. Each block writes dx for
+// its channels and its channels of the tile's partial sums (da * xhat, da,
+// g; a fixed order over its row groups): one partial a tile, whichever
+// cluster ran it, so reruns are bitwise equal.
+template <typename T, int C>
+__global__ void __launch_bounds__(dxc::kT, 1)
+mlp_ln_bwd_dx_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             const float* __restrict__ gamma, const float* __restrict__ beta,
+                             const float* __restrict__ w1s_g, const float* __restrict__ b1,
+                             const float* __restrict__ w2s_g, const float* __restrict__ ls2,
+                             T* __restrict__ dx, float* __restrict__ part, long long M, int H,
+                             float eps) {
+  using namespace dxc;
+  using K = Cfg<C>;
+  using kasf_mma::map_rank;
+  using kasf_mma::mbar_arm;
+  using kasf_mma::mbar_wait;
+  using kasf_mma::mbar_wait_cluster;
+  extern __shared__ float4 smem4[];
+  float* aS = reinterpret_cast<float*>(smem4);
+  float* dS = aS + K::kOffD;
+  float* w1s = aS + K::kOffW1;  // chunk n in w1s + (n & 1) kJ kLdW1
+  float* w2s = aS + K::kOffW2;
+  float* zS = aS + K::kOffZ;
+  float2* recv = reinterpret_cast<float2*>(aS + K::kOffRecv);
+  float* sMean = aS + K::kOffStat;
+  float* sRstd = sMean + K::kR;
+  float* slots = aS + K::kOffSlots;
+  // recv's, zS's; W1 buffer b's at w1_bar + b, W2^T's
+  auto* bar = reinterpret_cast<unsigned long long*>(aS + K::kOffBar);
+  unsigned long long* const w1_bar = bar + 2;
+  unsigned long long* const w2_bar = bar + 4;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // fc1 / dh: lane (s, p, q); da: row group q4, channel group p4
+  constexpr int kWP = 8 / K::kPW, kQW = 32 / (K::kKS * K::kPW);  // warps a row group, rows a warp
+  const int s = lane % K::kKS, p = lane / K::kKS % K::kPW + K::kPW * (warp % kWP);
+  const int q = lane / (K::kKS * K::kPW) + kQW * (warp / kWP);
+  const int q4 = tid / K::kCG, p4 = tid % K::kCG;
+  const unsigned rank = kasf_mma::cluster_rank(), other = rank ^ 1u;
+  const long long cid = kasf_mma::cluster_index(), ncl = kasf_mma::cluster_count();
+  const long long tiles = (M + K::kR - 1) / K::kR;
+  const int chunks = H / K::kJ;
+  const long long my_tiles = cid < tiles ? (tiles - 1 - cid) / ncl + 1 : 0;
+  const long long total = my_tiles * chunks;  // chunks the block multiplies
+  // the lane's columns after the reduce-scatter: at C = 256 column
+  // p + 8 (s + 2e) of each row, e = rank its own and e = other the other
+  // block's; at C = 512 the one column p + 8s, its own where s / 2 = rank
+  const bool owns = K::kNE == 2 || (s >> 1) == static_cast<int>(rank);
+  const bool sends = K::kNE == 2 || !owns;
+  const int col = K::kNE == 2 ? p + 8 * s + K::kW * rank : p + 8 * s;  // its own column
+  const int slot = K::kNE == 2 ? tid : (tid >> 2) * 2 + (s & 1);
+
+  if (tid == 0) {
+    for (int b = 0; b < K::kBars; ++b) kasf_mma::mbar_init(bar + b);
+    mbar_arm(bar, K::kRecvBytes);  // chunk 0's exchanges
+    mbar_arm(bar + 1, K::kZBytes);
+  }
+  kasf_mma::cluster_sync();  // both blocks of the cluster run, their mbarriers initialised
+  const unsigned recv_far = map_rank(recv + slot, other), recv_bar = map_rank(bar, other);
+  const unsigned z_far = map_rank(zS, other), z_bar = map_rank(bar + 1, other);
+  // the weights, from the stage launch's slices: thread 0 copies W1, thread
+  // 32 W2^T; the m-th copy into a buffer completes its mbarrier's phase m
+  // (W1(n): buffer n & 1, copy n >> 1)
+  const bool w1_copier = tid == 0, w2_copier = tid == 32;
+  if (total > 0 && w1_copier) {
+    fetch_slice<C>(w1s, w1s_g, 0, H, rank, w1_bar);
+    fetch_slice<C>(w1s + K::kJ * K::kLdW1, w1s_g, K::kJ, H, rank, w1_bar + 1);
+  }
+  if (total > 0 && w2_copier) fetch_slice<C>(w2s, w2s_g, 0, H, rank, w2_bar);
+
+  long long n = 0;  // the block's chunks so far, over its tiles
+  for (long long k = 0; k < my_tiles; ++k) {
+    const long long tile = cid + k * ncl, row0 = tile * K::kR;
+    if (tid == 0 && k + 1 < my_tiles) {  // the next tile's rows into L2, half a block
+      const long long next0 = row0 + ncl * K::kR;
+      const long long rows = M - next0 < K::kR ? M - next0 : K::kR;
+      const long long per = (rows + 1) / 2, first = rank * per;
+      const long long mine = rows - first < per ? rows - first : per;
+      if (mine > 0) {
+        const unsigned bytes = static_cast<unsigned>(mine * C * sizeof(T));
+        kasf_mma::bulk_prefetch_l2(x + (next0 + first) * C, bytes);
+        kasf_mma::bulk_prefetch_l2(g + (next0 + first) * C, bytes);
+      }
+    }
+    stage_rows<C>(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, slots, row0, M, eps, rank, warp,
+                  lane);
+    __syncthreads();  // the tile's rows staged
+    float ht[K::kRT][K::kNE];  // dh of the next chunk, over the block's channels
+    {
+      float acc[K::kRT][4];
+      mbar_wait(w2_bar, static_cast<unsigned>(n) & 1u);  // W2^T(n) has landed
+      rows_dot<C>(dS, w2s, acc, q, p, s);
+      scatter_lanes<K::kKS>(acc, ht, s);
+    }
+    __syncthreads();  // W2^T(n) read
+    if (n + 1 < total && w2_copier) fetch_slice<C>(w2s, w2s_g, K::kJ, H, rank, w2_bar);
+    float da[K::kRT][4 * K::kK];
+#pragma unroll
+    for (int i = 0; i < K::kRT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * K::kK; ++c) da[i][c] = 0.f;
+
+    for (int j = 0; j < chunks; ++j, ++n) {
+      float* w1c = w1s + (n & 1) * K::kJ * K::kLdW1;
+      const unsigned par = static_cast<unsigned>(n) & 1u;
+      const bool ahead = j + 1 < chunks;  // dh of the tile's next chunk comes now
+      const float bias = owns ? b1[j * K::kJ + col] : 0.f;
+      // 1. fc1; the other block's columns go to it, this block's stay
+      float zo[K::kRT], ho[K::kRT];
+      {
+        float acc[K::kRT][4], zt[K::kRT][K::kNE];
+        mbar_wait(w1_bar + (n & 1), static_cast<unsigned>(n >> 1) & 1u);  // W1(n) has landed
+        rows_dot<C>(aS, w1c, acc, q, p, s);
+        scatter_lanes<K::kKS>(acc, zt, s);
+        const bool hi = K::kNE == 2 && rank == 1;  // at C = 256: own entry 1, sent 0
+#pragma unroll
+        for (int i = 0; i < K::kRT; ++i) {
+          zo[i] = hi ? zt[i][K::kNE - 1] : zt[i][0];
+          ho[i] = hi ? ht[i][K::kNE - 1] : ht[i][0];
+          const float zs = hi ? zt[i][0] : zt[i][K::kNE - 1];
+          const float hs = hi ? ht[i][0] : ht[i][K::kNE - 1];
+          if (sends)
+            kasf_mma::st_async2(recv_far + sizeof(float2) * i * K::kSlots, make_float2(zs, hs),
+                                recv_bar);
+        }
+      }
+      // 2. dh of the next chunk while the partials travel
+      if (ahead) {
+        mbar_wait(w2_bar, static_cast<unsigned>(n + 1) & 1u);  // W2^T(n + 1) has landed
+        float acc[K::kRT][4];
+        rows_dot<C>(dS, w2s, acc, q, p, s);
+        scatter_lanes<K::kKS>(acc, ht, s);
+      }
+      // 3. dz of this block's columns: the two blocks' partials in rank order
+      mbar_wait_cluster(bar, par);  // the other block's partials are in
+      if (tid == 0) mbar_arm(bar, K::kRecvBytes);  // the next chunk's
+      float z[K::kRT], h[K::kRT];
+#pragma unroll
+      for (int i = 0; i < K::kRT; ++i) {
+        z[i] = h[i] = 0.f;
+        if (owns) {
+          const float2 r = recv[i * K::kSlots + slot];
+          z[i] = (rank == 0 ? zo[i] + r.x : r.x + zo[i]) + bias;
+          h[i] = rank == 0 ? ho[i] + r.y : r.y + ho[i];
+        }
+      }
+      if constexpr (K::kNE == 2) {
+#pragma unroll
+        for (int i = 0; i < K::kRT; ++i)
+          zS[(q + K::kRG * i) * K::kJ + col] = h[i] * gelu_erf_grad(z[i]);
+      } else {
+        // at C = 512 half the lanes own a column: each hands rows kHalf..
+        // to its partner (s ^ 2, which sends), so every lane takes at most
+        // kHalf GELU's, all lanes on one instruction stream
+        constexpr int kHalf = (K::kRT + 1) / 2;
+        const int owner_col = owns ? col : col ^ 16;  // the owner's: p + 8 (s ^ 2)
+#pragma unroll
+        for (int t = 0; t < kHalf; ++t) {
+          const bool mine = owns || t + kHalf < K::kRT;
+          const int i = owns ? t : t + kHalf < K::kRT ? t + kHalf : 0;
+          float zt = z[t], hv = h[t];
+          if (t + kHalf < K::kRT) {
+            const float zp = __shfl_xor_sync(0xffffffffu, z[t + kHalf], 2);
+            const float hp = __shfl_xor_sync(0xffffffffu, h[t + kHalf], 2);
+            zt = owns ? zt : zp;
+            hv = owns ? hv : hp;
+          }
+          const float dz = hv * gelu_erf_grad(zt);
+          if (mine) zS[(q + K::kRG * i) * K::kJ + owner_col] = dz;
+        }
+      }
+      __syncthreads();  // this block's dz columns in; W2^T(n + 1) read
+      if (ahead && n + 2 < total && w2_copier)
+        fetch_slice<C>(w2s, w2s_g, (j + 2) % chunks * K::kJ, H, rank, w2_bar);
+      // 4. this block's dz columns into the other block's zS
+      for (int e = tid; e < K::kR * K::kW / 4; e += kT) {
+        const int off = e / (K::kW / 4) * K::kJ + K::kW * rank + 4 * (e % (K::kW / 4));
+        kasf_mma::st_async4(z_far + sizeof(float) * off, ld4(zS + off), z_bar);
+      }
+      // 5. da += dz W1: this block's columns, then the other block's
+      dxp::da_chunk<K>(zS + K::kW * rank, w1c + K::kW * rank * K::kLdW1, da, q4, p4);
+      mbar_wait_cluster(bar + 1, par);  // the other block's dz columns are in
+      if (tid == 0) mbar_arm(bar + 1, K::kZBytes);  // the next chunk's
+      dxp::da_chunk<K>(zS + K::kW * other, w1c + K::kW * other * K::kLdW1, da, q4, p4);
+      __syncthreads();  // W1(n) and zS read
+      if (n + 2 < total && w1_copier)
+        fetch_slice<C>(w1c, w1s_g, (j + 2) % chunks * K::kJ, H, rank, w1_bar + (n & 1));
+    }
+
+    // ---- dx and the tile's partial sums over this block's channels 4 p4 +
+    // 4 kCG k + v; the kCG lanes of a row group hold a row's CS channels
+    constexpr int kE = 4 * K::kK;
+    const int cb = rank * K::CS + 4 * p4;  // the thread's first channel
+    float gam[kE];
+#pragma unroll
+    for (int k2 = 0; k2 < K::kK; ++k2) {
+      const float4 gk = ld4(gamma + cb + 4 * K::kCG * k2);
+      gam[4 * k2] = gk.x;
+      gam[4 * k2 + 1] = gk.y;
+      gam[4 * k2 + 2] = gk.z;
+      gam[4 * k2 + 3] = gk.w;
+    }
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    // the block's shares of each row's sums of da * gamma and da * gamma * xhat
+    float m1[K::kRT], m2[K::kRT];
+#pragma unroll
+    for (int i = 0; i < K::kRT; ++i) {
+      const int r = q4 + K::kRG * i;
+      const long long row = row0 + r;
+      const float mean = sMean[r], rstd = sRstd[r];
+      m1[i] = m2[i] = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < K::kK; ++k2) {
+        const float4 xa = row < M ? load4(x + row * C + cb + 4 * K::kCG * k2) : zero;
+        const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float dxh = da[i][4 * k2 + v] * gam[4 * k2 + v];
+          m1[i] += dxh;
+          m2[i] = fmaf(dxh, (xv[v] - mean) * rstd, m2[i]);
+        }
+      }
+    }
+    // [2][kNB][kR]: da * gamma, da * gamma * xhat (recv is idle until the
+    // other block sends partials of the next tile's first chunk, after the
+    // next tile's cluster barriers, and this block reads these before them)
+    float* const sums = reinterpret_cast<float*>(recv);
+#pragma unroll
+    for (int i = 0; i < K::kRT; ++i) {
+      m1[i] = group_sum<K::kCG>(m1[i]);
+      m2[i] = group_sum<K::kCG>(m2[i]);
+    }
+    if (p4 < kNB) {  // lane b of the row group to block b
+      const unsigned a = map_rank(sums + rank * K::kR + q4, p4);
+#pragma unroll
+      for (int i = 0; i < K::kRT; ++i) {
+        kasf_mma::st_cluster(a + sizeof(float) * K::kRG * i, m1[i]);
+        kasf_mma::st_cluster(a + sizeof(float) * (kNB * K::kR + K::kRG * i), m2[i]);
+      }
+    }
+    kasf_mma::cluster_sync();  // both blocks' shares are in
+    float sx[kE], sd[kE], sg[kE];
+#pragma unroll
+    for (int c = 0; c < kE; ++c) sx[c] = sd[c] = sg[c] = 0.f;
+#pragma unroll
+    for (int i = 0; i < K::kRT; ++i) {
+      const int r = q4 + K::kRG * i;
+      const long long row = row0 + r;
+      const bool valid = row < M;
+      const float mean = sMean[r], rstd = sRstd[r];
+      const float t1 = (sums[r] + sums[K::kR + r]) * (1.0f / C);
+      const float t2 = (sums[kNB * K::kR + r] + sums[(kNB + 1) * K::kR + r]) * (1.0f / C);
+      float4 xa[K::kK], ga[K::kK];
+#pragma unroll
+      for (int k2 = 0; k2 < K::kK; ++k2) xa[k2] = valid ? load4(x + row * C + cb + 4 * K::kCG * k2) : zero;
+#pragma unroll
+      for (int k2 = 0; k2 < K::kK; ++k2) ga[k2] = valid ? load4(g + row * C + cb + 4 * K::kCG * k2) : zero;
+      float o[kE];
+#pragma unroll
+      for (int k2 = 0; k2 < K::kK; ++k2) {
+        const float xv[4] = {xa[k2].x, xa[k2].y, xa[k2].z, xa[k2].w};
+        const float gv[4] = {ga[k2].x, ga[k2].y, ga[k2].z, ga[k2].w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int c = 4 * k2 + v;
+          const float xh = (xv[v] - mean) * rstd, dxh = da[i][c] * gam[c];
+          o[c] = gv[v] + rstd * (dxh - t1 - xh * t2);
+          if (valid) {
+            sx[c] = fmaf(da[i][c], xh, sx[c]);
+            sd[c] += da[i][c];
+            sg[c] += gv[v];
+          }
+        }
+      }
+      if (valid) {
+#pragma unroll
+        for (int k2 = 0; k2 < K::kK; ++k2)
+          store4(dx + row * C + cb + 4 * K::kCG * k2,
+                 make_float4(o[4 * k2], o[4 * k2 + 1], o[4 * k2 + 2], o[4 * k2 + 3]));
+      }
+    }
+    // the tile's sums over the kRG row groups, in order, through aS (free:
+    // last read by fc1 of the tile's last chunk)
+    float* red = aS + q4 * 3 * K::CS + 4 * p4;  // [row group][3][CS]
+#pragma unroll
+    for (int k2 = 0; k2 < K::kK; ++k2) {
+      const int o = 4 * K::kCG * k2;
+      st4(red + o, make_float4(sx[4 * k2], sx[4 * k2 + 1], sx[4 * k2 + 2], sx[4 * k2 + 3]));
+      st4(red + K::CS + o,
+          make_float4(sd[4 * k2], sd[4 * k2 + 1], sd[4 * k2 + 2], sd[4 * k2 + 3]));
+      st4(red + 2 * K::CS + o,
+          make_float4(sg[4 * k2], sg[4 * k2 + 1], sg[4 * k2 + 2], sg[4 * k2 + 3]));
+    }
+    __syncthreads();
+    for (int c = tid; c < K::CS; c += kT) {
+      float t[3] = {0.f, 0.f, 0.f};
+      for (int r = 0; r < K::kRG; ++r)
+#pragma unroll
+        for (int k3 = 0; k3 < 3; ++k3) t[k3] += aS[(r * 3 + k3) * K::CS + c];
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3)
+        part[(tile * 3 + k3) * C + rank * K::CS + c] = t[k3];
+    }
+  }
+}
+
+// The weights the cluster dx pass reads, in f32 into the workspace, as
+// [kNB][H][CS + 4] slices: w1s[b][j][c] = W1[j][CS b + c] and w2s[b][j][c] =
+// W2[CS b + c][j], so that a chunk's slice of either, padded as the chunk
+// buffers are, is one contiguous run (one bulk copy); in bf16 also b1
+// widened (in f32 the dx pass reads b1 where it is). A block a 32 x 32 tile
+// of W2 (transposed through shared memory) and the same tile of W1; block 0
+// also b1. Bound by bytes: W1 and W2 read and written once (4 MB each way
+// in f32 at C/H 512/1024).
+template <typename T, int C>
+__global__ void __launch_bounds__(256)
+mlp_ln_bwd_stage_kernel(const T* __restrict__ w1, const T* __restrict__ b1,
+                        const T* __restrict__ w2, float* __restrict__ w1s,
+                        float* __restrict__ w2s, float* __restrict__ b1f, int H) {
+  using K = dxc::Cfg<C>;
+  __shared__ float tile[32][33];
+  const int ct = blockIdx.x / (H / 32), jt = blockIdx.x % (H / 32);
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int c = ct * 32 + tx;  // the channel of a thread's writes
+  const long long slice = (static_cast<long long>(c / K::CS) * H + jt * 32) * K::kLdW1 + c % K::CS;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8)
+    tile[r][tx] = to_f(w2[static_cast<long long>(ct * 32 + r) * H + jt * 32 + tx]);
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    w2s[slice + r * K::kLdW1] = tile[tx][r];
+    w1s[slice + r * K::kLdW1] = to_f(w1[static_cast<long long>(jt * 32 + r) * C + c]);
+  }
+  if (!std::is_same<T, float>::value && blockIdx.x == 0)
+    for (int j = threadIdx.x; j < H; j += 256) b1f[j] = to_f(b1[j]);
 }
 
 // ---- 2. weight pass: its own tile and helpers
@@ -1397,10 +2081,69 @@ struct Args {
   float *dgamma, *dbeta, *dw1, *db1, *dw2, *db2, *dls2, *work;
 };
 
+// the dx pass's rows a tile: one block's at C = 128, a cluster's beyond
+template <int C>
+constexpr int dx_rows() {
+  if constexpr (C == 128) return dxp::Cfg<C>::kR;
+  else return dxc::Cfg<C>::kR;
+}
 template <int C>
 long long dx_tiles(long long M) {
-  return (M + dxp::Cfg<C>::kR - 1) / dxp::Cfg<C>::kR;
+  return (M + dx_rows<C>() - 1) / dx_rows<C>();
 }
+
+// floats of the stage launch's output at C >= 256: W1 and W2^T in f32 as
+// padded slices (dxc::Cfg::kLdW1 floats a row), b1
+template <int C>
+long long stage_floats(int H) {
+  if constexpr (C == 128) return 0;
+  else return 2LL * dxc::kNB * H * dxc::Cfg<C>::kLdW1 + H;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The cluster dx pass's instantiation: its dynamic shared-memory limit
+// raised, and the clusters of two the device holds at once
+// (cudaOccupancyMaxActiveClusters; a cluster lives within one GPC), once per
+// device. A launch of `clusters` clusters on `stream` is cfg's.
+template <typename T, int C>
+struct DxCluster {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  DxCluster(unsigned clusters, cudaStream_t stream) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = dxc::kNB;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(clusters * dxc::kNB);
+    cfg.blockDim = dim3(dxc::kT);
+    cfg.dynamicSmemBytes = dxc::Cfg<C>::kSmem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  static cudaError_t resident(int* clusters) {
+    static int held[kMaxDevices];  // one array per instantiation; 0: not yet
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (held[dev] == 0) {
+      const auto kernel = mlp_ln_bwd_dx_cluster_kernel<T, C>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(dxc::Cfg<C>::kSmem));
+      int n = 0;
+      DxCluster one(1, nullptr);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &one.cfg);
+      if (err != cudaSuccess) return err;
+      if (n < 1) return cudaErrorInvalidConfiguration;
+      held[dev] = n;
+    }
+    *clusters = held[dev];
+    return cudaSuccess;
+  }
+};
 
 // The reduce over a.work as the two passes leave it for M rows and hidden H
 template <typename T, int C>
@@ -1413,33 +2156,63 @@ cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream
   return cudaGetLastError();
 }
 
+// The dx pass: at C = 128 one block a tile; at 256 and 512 the stage launch,
+// then clusters of two, at most one wave of them, walking the tiles
 template <typename T, int C>
-cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(dxp::smem_bytes<T, C>()));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wp::smem_bytes<T, C>()));
-  if (err != cudaSuccess) return err;
-  const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
-  const int splits = wp::splits<C>(M, H);
-  float* part_dx = a.work;
-  float* part_w = a.work + tiles * 3 * C;
+cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps,
+                      cudaStream_t stream) {
+  const long long tiles = dx_tiles<C>(M);
   const T* x = static_cast<const T*>(a.x);
   const T* g = static_cast<const T*>(a.g);
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);
   const T* w2 = static_cast<const T*>(a.w2);
-  mlp_ln_bwd_dx_kernel<T, C><<<static_cast<unsigned>(tiles), dxp::kT,
-                               dxp::smem_bytes<T, C>(), stream>>>(
-      x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), part_dx, M, H, eps);
-  err = cudaGetLastError();
+  if constexpr (C == 128) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(dxp::smem_bytes<T, C>()));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_dx_kernel<T, C><<<static_cast<unsigned>(tiles), dxp::kT,
+                                 dxp::smem_bytes<T, C>(), stream>>>(
+        x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), a.work, M, H, eps);
+  } else {
+    int resident = 0;
+    const cudaError_t err = DxCluster<T, C>::resident(&resident);
+    if (err != cudaSuccess) return err;
+    constexpr bool kF32 = std::is_same<T, float>::value;
+    const long long slices = 1LL * dxc::kNB * H * dxc::Cfg<C>::kLdW1;  // floats a matrix
+    float* w1s = stage;
+    float* w2s = stage + slices;
+    float* b1f = stage + 2 * slices;
+    mlp_ln_bwd_stage_kernel<T, C><<<(C / 32) * (H / 32), 256, 0, stream>>>(w1, b1, w2, w1s, w2s,
+                                                                            b1f, H);
+    const cudaError_t staged = cudaGetLastError();
+    if (staged != cudaSuccess) return staged;
+    DxCluster<T, C> l(static_cast<unsigned>(tiles < resident ? tiles : resident), stream);
+    cudaLaunchKernelEx(&l.cfg, mlp_ln_bwd_dx_cluster_kernel<T, C>, x, g, a.gamma, a.beta, w1s,
+                       kF32 ? reinterpret_cast<const float*>(b1) : b1f, w2s, a.ls2,
+                       static_cast<T*>(a.dx), a.work, M, H, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(wp::smem_bytes<T, C>()));
+  if (err != cudaSuccess) return err;
+  const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
+  const int splits = wp::splits<C>(M, H);
+  float* part_w = a.work + tiles * 3 * C;
+  float* stage = part_w + static_cast<long long>(splits) * (2LL * H * C + H);
+  err = launch_dx<T, C>(a, stage, M, H, eps, stream);
   if (err != cudaSuccess) return err;
   mlp_ln_bwd_w_kernel<T, C><<<dim3(H / wp::Cfg<C>::kJ, splits), wp::kT,
                               wp::smem_bytes<T, C>(), stream>>>(
-      x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, part_w, M, H, eps);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+      static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
+      a.ls2, part_w, M, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce<T, C>(a, M, H, stream);
@@ -1466,19 +2239,41 @@ bool describe(K kernel, int threads, int smem, int* info) {
   return true;
 }
 
-// info[0..5]: the dx pass as {threads, rows a block, registers, shared
+// info[0..5]: the dx pass as {threads, rows a tile, registers, shared
 // memory bytes, spill bytes, blocks a SM}; info[6..13]: the weight pass as
 // {threads, rows a tile, hidden columns a block, row splits for M rows and
 // hidden H, registers, shared memory bytes, spill bytes, blocks a SM};
 // info[14..19]: the reduce as {threads, blocks for hidden H, registers,
-// shared memory bytes, spill bytes, blocks a SM}
+// shared memory bytes, spill bytes, blocks a SM}; info[20..22]: the dx pass
+// again, {blocks a cluster (a tile), clusters the device holds at once (one
+// block each at C = 128), blocks of its launch over M rows}
 template <typename T, int C>
 void describe_all(long long M, int H, int* info) {
   int d[5];
-  const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
-  if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d)) {
-    const int v[6] = {d[0], dxp::Cfg<C>::kR, d[1], smem_dx, d[2], d[3]};
-    for (int i = 0; i < 6; ++i) info[i] = v[i];
+  const long long tiles = dx_tiles<C>(M);
+  if constexpr (C == 128) {
+    const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
+    int sms = 0, dev = 0;
+    if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d) &&
+        cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess) {
+      const int v[6] = {d[0], dx_rows<C>(), d[1], smem_dx, d[2], d[3]};
+      for (int i = 0; i < 6; ++i) info[i] = v[i];
+      info[20] = 1;
+      info[21] = sms * d[3];
+      info[22] = static_cast<int>(tiles);
+    }
+  } else {
+    const int smem_dx = static_cast<int>(dxc::Cfg<C>::kSmem);
+    int clusters = 0;
+    if (DxCluster<T, C>::resident(&clusters) == cudaSuccess &&
+        describe(mlp_ln_bwd_dx_cluster_kernel<T, C>, dxc::kT, smem_dx, d)) {
+      const int v[6] = {d[0], dx_rows<C>(), d[1], smem_dx, d[2], d[3]};
+      for (int i = 0; i < 6; ++i) info[i] = v[i];
+      info[20] = dxc::kNB;
+      info[21] = clusters;
+      info[22] = static_cast<int>((tiles < clusters ? tiles : clusters) * dxc::kNB);
+    }
   }
   const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
   if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d)) {
@@ -1512,13 +2307,16 @@ extern "C" {
 
 // Floats of workspace kasf_mlp_ln_bwd needs for M rows, width C and hidden
 // H: the dx pass's partials, one a tile, then the weight pass's, one a row
-// split. 0 for a shape K4 does not take.
+// split (the reduce reads these two), then at C = 256 and 512 the stage
+// launch's f32 weights, W1 and W2^T as [2][H][C / 2 + 4] slices each, and b1
+// (H). 0 for a shape K4 does not take.
 long long kasf_mlp_ln_bwd_workspace(long long M, int C, int H) {
   if (!takes(M, C, H)) return 0;
   return by_width(C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
     return dx_tiles<kC>(M) * 3 * kC +
-           static_cast<long long>(wp::splits<kC>(M, H)) * (2LL * H * kC + H);
+           static_cast<long long>(wp::splits<kC>(M, H)) * (2LL * H * kC + H) +
+           stage_floats<kC>(H);
   });
 }
 
@@ -1572,7 +2370,7 @@ int kasf_mlp_ln_bwd_reduce(int dtype, const void* work, const void* w2, const vo
 }
 
 // The three launches' instantiations for (dtype, C) on the current device at
-// M rows and hidden H, for reports, into info[20] as describe_all lays it
+// M rows and hidden H, for reports, into info[23] as describe_all lays it
 // out. Left untouched for a shape or dtype there is none of, or where the
 // runtime refuses the query.
 void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {

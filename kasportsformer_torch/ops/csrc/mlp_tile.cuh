@@ -544,17 +544,6 @@ struct F32Cluster {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-// Lane b < NB of a warp writes the warp's N row sums into block b's dst
-// (slot rank of stats, the warp's rows)
-template <int NB, int N>
-__device__ __forceinline__ void send_row_sums(const float (&s)[N], const float* dst, int lane) {
-  if (lane < NB) {
-    const unsigned a = kasf_mma::map_rank(dst, lane);
-#pragma unroll
-    for (int i = 0; i < N; ++i) kasf_mma::st_cluster(a + 4 * i, s[i]);
-  }
-}
-
 // aS from x: the block's slice of the tile's rows, loaded straight from
 // global memory (L2 hits: the previous tile prefetched them), as LN(x) *
 // gamma + beta with f32 statistics over all C channels (LN on) or as x.
@@ -592,15 +581,10 @@ __device__ __forceinline__ void stage_rows_cluster(const float* __restrict__ x, 
 #pragma unroll
       for (int u = 0; u < NV; ++u) s[i] += (xv[i][u].x + xv[i][u].y) + (xv[i][u].z + xv[i][u].w);
     }
-    group_sums<32>(s);
-    send_row_sums<S::NB>(s, stats + rank * S::R + r0, lane);
-    kasf_mma::cluster_sync();  // both blocks' row sums are in
+    kasf_mma::cluster_row_sums<S::NB>(s, stats, S::R, r0, rank, lane);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float sum = stats[r0 + i];
-#pragma unroll
-      for (int b = 1; b < S::NB; ++b) sum += stats[b * S::R + r0 + i];
-      const float mean = sum * (1.0f / C);
+      const float mean = s[i] * (1.0f / C);
       s[i] = 0.f;
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
@@ -609,16 +593,10 @@ __device__ __forceinline__ void stage_rows_cluster(const float* __restrict__ x, 
         s[i] += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
       }
     }
-    group_sums<32>(s);
-    const float* sq = stats + S::NB * S::R;
-    send_row_sums<S::NB>(s, sq + rank * S::R + r0, lane);
-    kasf_mma::cluster_sync();  // both blocks' squared deviations are in
+    kasf_mma::cluster_row_sums<S::NB>(s, stats + S::NB * S::R, S::R, r0, rank, lane);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float sum = sq[r0 + i];
-#pragma unroll
-      for (int b = 1; b < S::NB; ++b) sum += sq[b * S::R + r0 + i];
-      const float rstd = rsqrtf(sum * (1.0f / C) + eps);
+      const float rstd = rsqrtf(s[i] * (1.0f / C) + eps);
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
         const float4 v = xv[i][u];

@@ -1,9 +1,9 @@
 // Warp-level tensor-core and copy primitives for Hopper (sm_90a) kernels:
 // 16-byte cp.async copies into shared memory, bulk copies on the TMA
 // engine completing on an mbarrier (and L2 prefetches), thread-block
-// cluster barriers and stores into a cluster peer's shared memory,
-// ldmatrix fragment loads and the m16n8k16 bf16 mma.sync with f32
-// accumulators.
+// cluster barriers, stores into a cluster peer's shared memory and row sums
+// across a cluster, ldmatrix fragment loads and the m16n8k16 bf16 mma.sync
+// with f32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row): a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k),
@@ -152,6 +152,34 @@ __device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsig
       "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Each of a warp's N row sums, first over its 32 lanes (every lane ends with
+// the sum) and then over the NB blocks of the cluster: lane b < NB stores the
+// warp's sums into block b's slot `rank` (slots of `stride` floats at
+// `slots`, the warp's rows from `row0`); after a cluster barrier each block
+// adds the NB slots in rank order, so every block gets the same bits. Every
+// thread of every block of the cluster calls it (the barrier is aligned).
+template <int NB, int N>
+__device__ __forceinline__ void cluster_row_sums(float (&s)[N], const float* slots, int stride,
+                                                 int row0, unsigned rank, int lane) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+  if (lane < NB) {
+    const unsigned a = map_rank(slots + rank * stride + row0, lane);
+#pragma unroll
+    for (int i = 0; i < N; ++i) st_cluster(a + 4 * i, s[i]);
+  }
+  cluster_sync();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float sum = slots[row0 + i];
+#pragma unroll
+    for (int b = 1; b < NB; ++b) sum += slots[b * stride + row0 + i];
+    s[i] = sum;
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -55,11 +55,17 @@ from L2, so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 registers, shared memory and spills as the runtime sees them, and the blocks
 of a launch over m rows.
 
-K4 is three launches, each a template on C: a dx pass (112-row tiles at
-C = 128, 56 at 256, 32 at 512, exact f32 on the CUDA cores from either
-dtype, the weights through a cp.async ring in chunks of 4096 / C hidden
-columns), a weight pass (one block per hidden chunk of 8192 / C columns and
-row split, walking the split's tiles of 40, 24 or 16 rows with the next
+K4 is three launches, each a template on C, exact f32 on the CUDA cores
+from either dtype. The dx pass at C = 128 runs one block a 112-row tile,
+the weights through a cp.async ring in chunks of 32 hidden columns. At 256
+and 512 a small stage launch first writes W1 and W2 transposed, in float32
+and cut into channel halves, into the workspace; the dx pass then runs a
+thread-block cluster of two blocks a tile (112 or 56 rows), each over half
+the channels and each weight chunk by one bulk copy: fc1's and dh's partial
+sums meet by a reduce-scatter through distributed shared memory, each block
+finishes dz for half of a chunk's 32 columns and sends it to the other, and
+each keeps da for its own channels. The other two launches are a weight
+pass (one block per hidden chunk of 8192 / C columns and row split, walking the split's tiles of 40, 24 or 16 rows with the next
 tile's rows in flight by a bulk copy and dW1, G = g^T h and db1 kept in
 registers, exact f32 too) and a reduce that sums both passes' partials in
 index order: one wave of blocks, each thread a float4 of the
@@ -291,15 +297,16 @@ def fused_mlp_kernel_info(dtype: torch.dtype, c: int, m: int = 58752) -> dict:
 
 _BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
                 "blocks_per_sm")
+_BWD_DX_MORE = ("cluster", "resident", "grid")  # info[20:23]
 _BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
                "spill_bytes", "blocks_per_sm")
 _BWD_R_KEYS = ("threads", "blocks", "registers", "smem_bytes", "spill_bytes",
                "blocks_per_sm")
 # K4's partition of the rows at each width C: (dx pass rows a tile, weight
 # pass rows a tile, weight pass hidden columns a block), as
-# csrc/mlp_ln_bwd.cu's dxp::Cfg<C>::kR, wp::Cfg<C>::kR and wp::Cfg<C>::kJ
-# make them; wp::kSMs
-_BWD_TILES = {128: (112, 40, 64), 256: (56, 24, 32), 512: (32, 16, 16)}
+# csrc/mlp_ln_bwd.cu's dxp::Cfg<128>::kR or dxc::Cfg<C>::kR (a cluster's
+# tile), wp::Cfg<C>::kR and wp::Cfg<C>::kJ make them; wp::kSMs
+_BWD_TILES = {128: (112, 40, 64), 256: (112, 24, 32), 512: (56, 16, 16)}
 _SMS = 132
 
 
@@ -311,12 +318,16 @@ def fused_mlp_ln_bwd_partition(m: int, hidden: int, c: int = 128) -> dict:
     tiles (trailing splits may be empty and leave zeros), one partial each.
     The workspace holds the dx partials (dx_tiles, 3, C), then the weight
     partials, each dW1 (hidden, C), G = g^T h (C, hidden) and db1
-    (hidden)."""
+    (hidden), which the reduce reads, then `stage` floats: at C = 256 and
+    512 the stage launch's float32 W1 and W2^T, each as two channel halves
+    of (hidden, C / 2 + 4) (rows padded as the dx pass's chunk buffers are),
+    and b1."""
     dx_rows, w_rows, chunk = _BWD_TILES[c]
     w_tiles = -(-m // w_rows)
     splits = max(1, min(w_tiles, _SMS // (hidden // chunk)))
     return dict(dx_rows=dx_rows, dx_tiles=-(-m // dx_rows),
-                w_rows=w_rows, splits=splits, per_split=-(-w_tiles // splits))
+                w_rows=w_rows, splits=splits, per_split=-(-w_tiles // splits),
+                stage=0 if c == 128 else 2 * hidden * (c + 8) + hidden)
 
 
 def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
@@ -326,22 +337,27 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     "reduce": ...}. Each has threads a block, registers a thread, shared
     memory a block (dynamic in the passes, static in the reduce), local
     memory (spills) a thread in bytes and blocks resident a SM; `rows` is a
-    pass's row tile (the dx pass runs ceil(m / rows) blocks), the weight
-    pass also has `chunk`, its hidden columns a block, and `splits`, its row
-    splits for m rows and this hidden width (a grid of hidden / chunk x
+    pass's row tile (the dx pass has ceil(m / rows) tiles); the dx pass also
+    has `cluster`, the blocks that share a tile (1 at C = 128, 2 at 256 and
+    512), `resident`, the clusters (at C = 128 blocks) the card holds at
+    once, and `grid`, the blocks of its launch over m rows (a tile each at
+    C = 128; at most `resident` clusters, each walking tiles, beyond); the
+    weight pass has `chunk`, its hidden columns a block, and `splits`, its
+    row splits for m rows and this hidden width (a grid of hidden / chunk x
     splits blocks); the reduce has `blocks`, its grid at this hidden width.
     Builds the kernel if needed; launches nothing."""
     lib = _build.library("mlp_ln_bwd")
-    n = len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)
+    n = (len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)
+         + len(_BWD_DX_MORE))
     info = (ctypes.c_int * n)(*([-1] * n))
     fn = lib.kasf_mlp_ln_bwd_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], c, m, hidden, info)
-    return {"dx_pass": dict(zip(_BWD_DX_KEYS, info[:6])),
+    return {"dx_pass": dict(zip(_BWD_DX_KEYS + _BWD_DX_MORE, info[:6] + info[20:])),
             "weight_pass": dict(zip(_BWD_W_KEYS, info[6:14])),
-            "reduce": dict(zip(_BWD_R_KEYS, info[14:]))}
+            "reduce": dict(zip(_BWD_R_KEYS, info[14:20]))}
 
 
 def _bwd_workspace_size(m: int, hidden: int, c: int = 128) -> int:

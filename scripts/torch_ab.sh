@@ -35,7 +35,7 @@ case "${1:-}" in
       echo "=== run $n: $side ($tree)"
       (cd "$tree" && python3 chip_smoke.py --phases "$2" --out "$out/$n$side") \
         > "$out/$n$side/log.txt" 2>&1 || { echo "run $n ($side) failed"; failed=$((failed + 1)); }
-      grep -E "K2 (spatial|temporal)|by launch|K4 M=|K4 reduce|K3 M|K5 M|128-clip forward|profile|of which|by group|train step|SM clock|phases" \
+      grep -E "K2 (spatial|temporal)|by launch|K4 M=|K4 C/H|dx pass cluster|K4 reduce|K3 M|K5 M|128-clip forward|profile|of which|by group|train step|SM clock|phases" \
         "$out/$n$side/log.txt" || true
     done
     exit "$failed"

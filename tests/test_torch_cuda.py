@@ -924,8 +924,9 @@ def test_fused_mlp_ln_bwd_kernel_zoo_widths(cuda, dtype, c, hidden, eps, m):
 @pytest.mark.parametrize("c", [256, 512])
 @pytest.mark.parametrize("edge", ["dx R-1", "dx R+1", "w R", "w R+1", "empty splits"])
 def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
-    """Each pass's tile of R rows at the zoo's widths (56 and 32 rows in the
-    dx pass, 24 and 16 in the weight pass) and one row either side, and 17
+    """Each pass's tile of R rows at the zoo's widths (112 and 56 rows in the
+    dx pass's cluster tile, 24 and 16 in the weight pass) and one row either
+    side, and 17
     weight-pass tiles over the 16 row splits of 8 hidden chunks (H = 256 at
     C = 256, 128 at 512): the last splits stay empty and their zero
     partials enter the reduce."""
@@ -967,7 +968,10 @@ def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, 
 
 def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
     """The Python mirror of K4's partition at C = 256 and 512 against the
-    library's, and the workspace's size; no pass spills at either width."""
+    library's, and the workspace's size (the partials, then the stage
+    launch's float32 weights); the dx pass runs clusters of two, at most as
+    many as the card holds, each walking tiles; no pass spills at either
+    width."""
     for c in (256, 512):
         for m in (1, 300, 1377, 14688):
             for hidden in (64, 512, 1024, 2048):
@@ -977,10 +981,31 @@ def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
                     info["dx_pass"]["rows"], info["weight_pass"]["rows"],
                     info["weight_pass"]["splits"]), (c, m, hidden)
                 assert _bwd_workspace_size(m, hidden, c) == (
-                    p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden))
+                    p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
+                    + p["stage"])
+                dx = info["dx_pass"]
+                assert dx["cluster"] == 2 and dx["resident"] >= 1, dx
+                assert dx["grid"] == 2 * min(p["dx_tiles"], dx["resident"]), dx
         for dtype in (torch.float32, torch.bfloat16):
             for launch in fused_mlp_ln_bwd_kernel_info(dtype, 14688, 1024, c=c).values():
                 assert launch["spill_bytes"] == 0 and launch["registers"] > 0, launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("edge", ["one wave", "one tile more"])
+def test_fused_mlp_ln_bwd_kernel_zoo_wave_edges(cuda, dtype, c, edge):
+    """The cluster dx pass at exactly as many tiles as clusters the card
+    holds at once (each cluster one tile), and one tile more (one cluster
+    walks two, its weights streaming on across the tiles): all eight
+    gradients against the plain version, a rerun bitwise equal."""
+    info = fused_mlp_ln_bwd_kernel_info(dtype, 14688, 1024, c=c)["dx_pass"]
+    tiles = info["resident"] + (edge == "one tile more")
+    m = tiles * info["rows"]
+    assert fused_mlp_ln_bwd_partition(m, 1024, c)["dx_tiles"] == tiles
+    args = _mlp_args(cuda, m, dtype, c, 1024)
+    g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype)
 
 
 def test_fused_mlp_ln_bwd_c128_digests_unchanged(cuda):

@@ -275,17 +275,23 @@ def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     pytest.param(1377, 512, 128, 1e-5, id="1377-512"),
     pytest.param(320, 128, 128, 1e-5, id="320-128"),
     pytest.param(300, 1024, 256, 1e-5, id="300-1024-c256"),
-    pytest.param(300, 1024, 512, 1e-6, id="300-1024-c512")])
+    pytest.param(300, 1024, 512, 1e-6, id="300-1024-c512"),
+    pytest.param(111, 1024, 256, 1e-5, id="111-1024-c256"),
+    pytest.param(113, 1024, 256, 1e-5, id="113-1024-c256"),
+    pytest.param(55, 1024, 512, 1e-6, id="55-1024-c512"),
+    pytest.param(57, 1024, 512, 1e-6, id="57-1024-c512")])
 def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     """The reduce's plain version on partials built over K4's own partition
     (a ragged M = 300 at H = 128: 3 dx tiles, 8 splits of one 40-row tile;
     M = 1,377 at H = 512: 13 dx tiles, 16 splits of 3 tiles, the last four
     empty; M = 320, a multiple of 8; M = 300 at the zoo's widths: DSTFormer's
-    256/1024, 6 dx tiles of 56 rows and 4 splits of 4 24-row tiles, and
-    MixSTE's 512/1024 at eps 1e-6, 10 dx tiles of 32 rows and 2 splits of 10
-    16-row tiles) against the JAX package's K4 gradients:
-    `jax.vjp(_mlp_ln_xla)` and, where its row blocks divide M (a multiple of
-    8), the Pallas backward kernel (interpret mode)."""
+    256/1024, 3 dx tiles of the cluster's 112 rows and 4 splits of 4 24-row
+    tiles, and MixSTE's 512/1024 at eps 1e-6, 6 dx tiles of 56 rows and 2
+    splits of 10 16-row tiles; and one row either side of a dx tile at both:
+    M = 111 and 113 at 256/1024, 55 and 57 at 512/1024) against the JAX
+    package's K4 gradients: `jax.vjp(_mlp_ln_xla)` and, where its row blocks
+    divide M (a multiple of 8), the Pallas backward kernel (interpret
+    mode)."""
     a = _mlp_inputs(m, c, hidden)
     g = RNG.standard_normal((m, c)).astype(np.float32)
     args = _torch_mlp_args(a)
@@ -293,7 +299,8 @@ def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     empty = p["splits"] - -(-(-(-m // p["w_rows"])) // p["per_split"])
     assert (p["dx_tiles"], p["splits"], empty) == {
         (300, 128): (3, 8, 0), (1377, 128): (13, 16, 4), (320, 128): (3, 8, 0),
-        (300, 256): (6, 4, 0), (300, 512): (10, 2, 0)}[m, c]
+        (300, 256): (3, 4, 0), (300, 512): (6, 2, 0), (111, 256): (1, 4, 1),
+        (113, 256): (2, 4, 1), (55, 512): (1, 2, 0), (57, 512): (2, 2, 0)}[m, c]
     got = fused_mlp_ln_bwd_reduce_reference(_k4_workspace(args, _t(g), eps),
                                             *args[5:], m)
     wants = [_jax_mlp_grads(a, g, eps)[1:]]
