@@ -83,8 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
      M = 14,688 and 1,377, both dtypes, all eight gradients, a rerun bitwise
      equal, the call's and each launch's time against its bound (there a
      stage launch writes the dx pass's f32 weights first, and the dx pass
-     runs clusters of two blocks: its cluster size, clusters resident,
-     tiles and waves beside); C = 64 and 1024 raise. In phases 6 and 7 the
+     and the weight pass run clusters of two blocks: each pass's cluster
+     size, clusters resident, tiles and waves beside, the weight pass's
+     chunk and row splits too); C = 64 and 1024 raise. In phases 6 and 7 the
      plain version runs in float32 on the kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
@@ -424,13 +425,13 @@ def k4_widths() -> tuple:
 
 
 # K4's launches, by the kernel names the profiler reports: at C = 256 and
-# 512 a stage launch (the dx pass's f32 weights) first; the dx pass is one
-# block a tile at C = 128 and a cluster of two at 256 and 512 (and one
-# block a tile at every width in a tree from before the cluster, kept for
-# A/B runs), so it goes by both kernels' names
+# 512 a stage launch (both passes' f32 weights) first; each pass is one
+# block a tile (a hidden chunk and row split) at C = 128 and a cluster of two
+# at 256 and 512 (and one block at every width in a tree from before its
+# cluster, kept for A/B runs), so each goes by both kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
                ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel")),
-               ("weight pass", ("mlp_ln_bwd_w_kernel",)),
+               ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel")),
                ("reduce", ("mlp_ln_bwd_reduce_kernel",)))
 
 
@@ -1632,7 +1633,7 @@ def check_k4(dev, out_dir: str) -> dict:
     for (m, dname), ms in per.items():
         log(f"   K4 M={m:6d} {dname:8s} by launch, bound (share): "
             + k4_launch_bounds(m, 128, 512, dname, ms) + "; "
-            + k4_dx_tiling(dname, m, 128, 512))
+            + k4_dx_tiling(dname, m, 128, 512) + "; " + k4_w_tiling(dname, m, 128, 512))
     if hasattr(mlp_ops, "fused_mlp_ln_bwd_reduce"):
         check_k4_reduce(dev, gen, per)
     else:  # the parent tree of an A/B, from before the reduce had an entry
@@ -1692,6 +1693,27 @@ def k4_dx_tiling(dname: str, m: int, c: int, h: int) -> str:
             f"{info['rows']}-row tiles {tiles}, waves {tiles / info['resident']:.2f}")
 
 
+def k4_w_tiling(dname: str, m: int, c: int, h: int) -> str:
+    """The weight pass's instantiation at this shape, as the library reports
+    it: blocks a cluster (a hidden chunk and row split), its row tile, hidden
+    chunk and splits, the clusters (at C = 128 blocks) the card holds at once
+    and the waves its launch makes on those."""
+    import torch
+
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd_kernel_info
+
+    dt = getattr(torch, dname)
+    info = (fused_mlp_ln_bwd_kernel_info(dt, m, h) if c == 128 else
+            fused_mlp_ln_bwd_kernel_info(dt, m, h, c=c))["weight_pass"]
+    text = (f"weight pass {info['rows']}-row tiles, chunk {info['chunk']}, "
+            f"splits {info['splits']}")
+    if "resident" not in info:  # a tree from before the report had the key
+        return text
+    clusters = info["grid"] // info["cluster"]
+    return (f"{text}, cluster {info['cluster']}, clusters resident {info['resident']}, "
+            f"grid {clusters} clusters, waves {clusters / info['resident']:.2f}")
+
+
 def check_k4_zoo(dev, gen, tol: dict) -> dict:
     """K4 at the zoo's widths (C/H 256/1024 for DSTFormer, 512/1024 with
     MixSTE's LayerNorm eps of 1e-6) at the train step's M = 14,688 and a
@@ -1737,7 +1759,7 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
                 log("     by launch (profiler, ms a launch): " + "; ".join(
                     f"{label} {t:.4f}" for label, t in per.items())
                     + "; bound (share): " + k4_launch_bounds(m, c, h, dname, per))
-                log("     " + k4_dx_tiling(dname, m, c, h))
+                log("     " + k4_dx_tiling(dname, m, c, h) + "; " + k4_w_tiling(dname, m, c, h))
     refused = 0
     for c in (64, 1024):
         args = mlp_args(dev, gen, 8, torch.float32, c, 256)

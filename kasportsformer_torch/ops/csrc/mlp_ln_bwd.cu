@@ -37,10 +37,12 @@
 //  * dx pass: at C = 128 one block a 112-row tile (1.); at 256 and 512 a
 //    thread-block cluster of two blocks a tile, each over half the channels,
 //    after a stage launch that lays the weights out for it (1b.).
-//  * weight pass: chunks of 8192 / C = 64, 32, 16 hidden columns (dW1c and
-//    G_c stay 8,192 floats a block, 64 registers a thread, and 128 blocks at
-//    H = 512 / 1024), tiles of 40, 24, 16 rows; fc1 and dh over 2, 4, 8
-//    channel splits of 64, each into its own buffer, summed in split order.
+//  * weight pass: at C = 128 one block per (hidden chunk of 64, row split),
+//    40-row tiles (2.); at 256 and 512 a thread-block cluster of two blocks
+//    per (chunk, split), each over half the channels, chunks of 64 and 32
+//    columns and tiles of 48 and 32 rows (2b.). Either way dW1c and G_c are
+//    8,192 floats a block, 64 registers a thread, and 128 blocks at the
+//    models' H.
 //  * reduce: channel blocks as before; a hidden block's 8 dW1 rows are
 //    C / 128 float4s a thread; the dx chains read partials of C channels.
 //
@@ -86,8 +88,9 @@
 //     W1 and W2^T in f32 into the workspace as channel halves, [2][H][C/2 +
 //     4] each (rows padded as the chunk buffers are; W2 transposed through
 //     shared memory, bf16 widened; in bf16 also b1), so that a block's slice
-//     of a hidden chunk of either is one contiguous run: one bulk copy. Then
-//     the dx pass (mlp_ln_bwd_dx_cluster_kernel): a cluster of two blocks
+//     of a hidden chunk of either is one contiguous run: one bulk copy (the
+//     weight pass reads them too, 2b.). Then the dx pass
+//     (mlp_ln_bwd_dx_cluster_kernel): a cluster of two blocks
 //     takes a tile, block b the channels CS b .. CS b + CS - 1 (CS = C / 2):
 //     112 rows of 128 channels a block at C = 256 (the C = 128 block's rows x
 //     channels), 56 of 256 at 512, so da's 7 x 8 register tile a thread
@@ -143,8 +146,8 @@
 //       and dh ~6.4k (3,584 of FMA issue each at the pipe's full rate), da
 //       ~5.2k, dz ~0.6k, the two exchange waits ~0.35k; 51 % of the pass's
 //       6*M*C*H bound (55-56 % at 256/1024).
-//  2. weight pass (mlp_ln_bwd_w_kernel): one block per (hidden chunk of 64,
-//     row split); the split's 40-row tiles in order; per tile a = LN(x) *
+//  2. weight pass at C = 128 (mlp_ln_bwd_w_kernel): one block per (hidden
+//     chunk of 64, row split); the split's 40-row tiles in order; per tile a = LN(x) *
 //     gamma + beta, z = a W1c^T + b1c, dh = g (ls2 * W2c), dz = dh * GELU'(z)
 //     and h = GELU(z) recomputed, and dW1c += dz^T a, G_c += g^T h and db1c
 //     += dz accumulated in registers over all of the split's tiles, then
@@ -196,6 +199,59 @@
 //       bank conflicts and no transposed store.
 //     - Epilogue: float4 stores of dW1c and G_c; db1c summed over the 8 row
 //       groups in order.
+//  2b. at C = 256 and 512 (mlp_ln_bwd_w_cluster_kernel): a cluster of two
+//     blocks per (hidden chunk, row split), launched with cudaLaunchKernelEx
+//     and a cluster dimension; block b takes the channels CS b .. CS b + CS
+//     - 1 (CS = C / 2) of the split's tiles. Its dW1c (kJ x CS) and G_c (CS x
+//     kJ) stay 8,192 floats, so its chunk is kJ = 8192 / CS: 64 columns at
+//     C = 256 (the C = 128 block's tile, 128 channels x 64 columns), 32 at
+//     512, twice the one-block chunks at those widths before, so each block
+//     stages and normalises half the rows per FLOP. Grid: H / kJ chunks x
+//     splits clusters, splits = min(tiles, 132 / (2 H / kJ)): 16 x 4 at C/H
+//     256/1024 and 32 x 2 at 512/1024, 128 blocks, one wave (the card holds
+//     66 clusters of two). 8*M*C*H FLOP: 0.4597 ms at 256/1024, 0.9195 at
+//     512/1024 (M = 14,688, 67 TFLOP/s).
+//     - Rows: the block's half of a tile's x and g rows by two tensor copies
+//       (cp.async.bulk.tensor, one strided box each, from tensor maps the
+//       launcher encodes: rows past M land as zeros), the next tile's in
+//       flight. Tiles of 48 rows at 256, 32 at 512, from the shared-memory
+//       budget (about 217 KB a block in f32, of 232,448 B). In f32 at 512,
+//       dh and G_c read g where its tensor copy lands (two buffers, the
+//       tiles in turn, in gS's room), so staging copies half the bytes
+//       (3.5 % faster there). LN's statistics
+//       span all C channels: each block sums its half of a row, then the
+//       squared deviations from the half's mean (kLR = 16 or 8 lanes a row,
+//       so 4 or 3 shuffles a sum), and sends the pair to the other block by
+//       st.async, and widens g while the pairs travel; both combine the
+//       halves in rank order (the variance of two equal groups), so both
+//       hold the same bits. (kasf_mma::cluster_row_sums, K3's and the dx
+//       pass's exchange, takes two cluster barriers a tile: ~1k cycles an
+//       arrive against a ~17k-cycle tile here. Taking the next tile's sums
+//       a tile ahead, off the tile's critical path, measured no faster.)
+//     - Weights: the chunk's W1 and W2^T rows over the block's channels, by
+//       two bulk copies from the stage launch's slices (1b.), once a block;
+//       ls2 folded into W2^T in place.
+//     - fc1 (warps 0-3) and dh (warps 4-7) over the block's channels for
+//       all kJ columns, one register layout: lane (s, p, q) takes rows q + 8
+//       i, columns p + kPG u (u < 8) and a kKS-th of the channels (kKS = 2,
+//       4 lanes), 6 x 8 and 4 x 8 outputs, a step 8 W and kRT X float4s for
+//       32 kRT FMAs; a fixed tree of shuffles reduce-scatters the kKS lanes'
+//       partial sums, leaving each lane kE columns of each block's half. A
+//       lane keeps its own block's (`own`) and sends the other block's by
+//       st.async into that block's recv, on its mbarrier.
+//     - The owner of a column adds the two blocks' partial z (b1 after) and
+//       dh in rank order and forms h = GELU(z) and dz = dh GELU'(z) once per
+//       hidden value in the cluster (db1 summed there); it writes both into
+//       its hS, dzS and sends them into the other block's.
+//     - Outer products as at C = 128 (outer_tile, here unrolled by 8):
+//       warps 0-3 dW1c += dz^T a, warps 4-7 G_c += g^T h, over the block's
+//       channels and the whole chunk, in registers over the split.
+//     - No cluster barrier sits in the tile loop: every exchange completes
+//       bytes on the receiver's mbarrier. Four block barriers a tile.
+//     - Epilogue: each block writes its channels of the split's partial
+//       (dW1 rows, G columns) and db1 of its columns, in the C = 128 layout,
+//       so the reduce reads one partial a split as before; no atomics.
+//     - A tile's cycles by phase: scripts/k4_w_stamps.py.
 //     Registers, spills and blocks a SM of both passes: kasf_mlp_ln_bwd_info
 //     and chip_smoke.py phase 7's report (a spill in either fails it); each
 //     launch's device time and share of its own bound: phase 7's profile.
@@ -230,6 +286,7 @@
 //       of g. Reruns are bitwise equal.
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info; the reduce
 //     alone on a caller's workspace: kasf_mlp_ln_bwd_reduce.
+#include <cuda.h>  // CUtensorMap and its encoder's signature (called through the runtime)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -1406,11 +1463,11 @@ mlp_ln_bwd_dx_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// The weights the cluster dx pass reads, in f32 into the workspace, as
-// [kNB][H][CS + 4] slices: w1s[b][j][c] = W1[j][CS b + c] and w2s[b][j][c] =
-// W2[CS b + c][j], so that a chunk's slice of either, padded as the chunk
-// buffers are, is one contiguous run (one bulk copy); in bf16 also b1
-// widened (in f32 the dx pass reads b1 where it is). A block a 32 x 32 tile
+// The weights the cluster passes read (dx and weight pass), in f32 into the
+// workspace, as [kNB][H][CS + 4] slices: w1s[b][j][c] = W1[j][CS b + c] and
+// w2s[b][j][c] = W2[CS b + c][j], so that a chunk's slice of either, padded
+// as the chunk buffers are, is one contiguous run (one bulk copy); in bf16
+// also b1 widened (in f32 the passes read b1 where it is). A block a 32 x 32 tile
 // of W2 (transposed through shared memory) and the same tile of W1; block 0
 // also b1. Bound by bytes: W1 and W2 read and written once (4 MB each way
 // in f32 at C/H 512/1024).
@@ -1450,25 +1507,24 @@ constexpr int kT = 256;          // threads a block: 8 warps
 constexpr int kRG = kT / 32;     // row groups: group q owns rows q + 8 i
 constexpr int kSMs = 132;        // the H100's: splits = min(tiles, 132 / chunks)
 
-// The weight pass's tile at width C: a block's hidden chunk kJ scales with
-// 128 / C, so that dW1c and G_c (kJ x C each) stay 8,192 floats a block and
-// 64 registers a thread, and the grid of H / kJ chunks x splits stays 128
-// blocks at the models' H; rows a tile shrink so that the stages fit: 40
-// rows and chunks of 64 at C = 128, 24 and 32 at 256, 16 and 16 at 512.
+// The weight pass's one-block tile, at C = 128 (C = 256 and 512 take the
+// cluster tile, wpc::Cfg): 40 rows and a hidden chunk of 64 columns, so
+// that dW1c and G_c (kJ x C each) are 8,192 floats a block, 64 registers a
+// thread, and the grid of H / kJ chunks x splits is 128 blocks at H = 512.
 template <int C>
 struct Cfg {
-  static_assert(C == 128 || C == 256 || C == 512, "model widths 128, 256, 512");
-  static constexpr int kR = C == 128 ? 40 : C == 256 ? 24 : 16;  // rows a tile
+  static_assert(C == 128, "the one-block width");
+  static constexpr int kR = 40;         // rows a tile
   static constexpr int kJ = 8192 / C;   // hidden columns a block (its chunk)
-  static constexpr int kRT = kR / kRG;  // 5, 3, 2 rows a thread
+  static constexpr int kRT = kR / kRG;  // 5 rows a thread
   static constexpr int kQ = C / 128;    // float4s of a row a lane stages
   // fc1 and dh: kNS channel splits of kKH channels, each on kJ threads of 8
   // row groups x kJ / 8 column groups, each into its own buffer
-  static constexpr int kNS = 128 / kJ;  // 2, 4, 8
+  static constexpr int kNS = 128 / kJ;  // 2
   static constexpr int kKH = C / kNS;   // 64
   // GELU and dz: kV neighbouring columns a thread, kCols threads a row,
   // kRGz row groups of kRTz rows
-  static constexpr int kV = kJ >= 64 ? 2 : 1;
+  static constexpr int kV = 2;
   static constexpr int kCols = kJ / kV;
   static constexpr int kRGz = kT / kCols;
   static constexpr int kRTz = kR / kRGz;
@@ -1695,17 +1751,14 @@ __device__ __forceinline__ void split_product(const float* X, const float* Wc, f
   }
 }
 
-// kV neighbouring floats of shared memory: loaded, added to v, stored (one
-// float2 access at kV = 2)
+// two neighbouring floats of shared memory: loaded, added to v, stored (one
+// float2 access)
 template <int kV>
 __device__ __forceinline__ void load_cols(const float* p, float (&v)[kV]) {
-  if constexpr (kV == 2) {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-  } else {
-    v[0] = p[0];
-  }
+  static_assert(kV == 2, "a float2");
+  const float2 f = *reinterpret_cast<const float2*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
 }
 template <int kV>
 __device__ __forceinline__ void add_cols(const float* p, float (&v)[kV]) {
@@ -1716,10 +1769,8 @@ __device__ __forceinline__ void add_cols(const float* p, float (&v)[kV]) {
 }
 template <int kV>
 __device__ __forceinline__ void store_cols(float* p, const float (&v)[kV]) {
-  if constexpr (kV == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    p[0] = v[0];
+  static_assert(kV == 2, "a float2");
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 
 // acc[a][b] += P[r][a] Q[r][b] over the tile's R rows, where the thread's a
@@ -1743,8 +1794,8 @@ __device__ __forceinline__ void outer_tile(const float* P, const float* Q,
 
 }  // namespace wp
 
-// One block per (hidden chunk of wp::Cfg<C>::kJ, row split); the split's
-// tiles through a raw stage that one thread fills by bulk copies; warps 0-3
+// At C = 128: one block per (hidden chunk of wp::Cfg<C>::kJ, row split); the
+// split's tiles through a raw stage that one thread fills by bulk copies; warps 0-3
 // run fc1 and warps 4-7 dh, each over kNS channel splits, all take GELU and
 // dz, then warps 0-3 accumulate dW1c and warps 4-7 G_c in registers; the
 // split's partial at the end.
@@ -1791,13 +1842,7 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
   // warp's rows)
   const int jc = tid % K::kCols, qz = tid / K::kCols;
   float b1p[kV];
-  if constexpr (kV == 2) {
-    const float2 b = *reinterpret_cast<const float2*>(b1s + 2 * jc);
-    b1p[0] = b.x;
-    b1p[1] = b.y;
-  } else {
-    b1p[0] = b1s[jc];
-  }
+  load_cols<kV>(b1s + 2 * jc, b1p);
 
   // fc1 / dh (thread idx of warps 0-3 or 4-7): channel split kh = idx / kJ,
   // row group q8 = (idx % kJ) / (kJ / 8), column group idx % (kJ / 8).
@@ -1885,6 +1930,527 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
     float s = 0.f;
     for (int q = 0; q < K::kRGz; ++q) s += red[q * kJ + tid];
     base[2LL * H * C + j0 + tid] = s;
+  }
+}
+
+// ---- 2b. weight pass at C = 256 and 512: a thread-block cluster of two
+// blocks a (hidden chunk, row split), each over half the channels
+namespace wpc {
+
+using dxp::ld4;
+using dxp::st4;
+using wp::raw4;
+using wp::rows_sum;
+
+constexpr int kT = 256;  // threads a block: 8 warps
+constexpr int kNB = 2;   // blocks a cluster
+
+// Block b of a cluster holds channels CS b .. CS b + CS - 1 of its split's
+// rows and accumulates dW1c (kJ x CS) and G_c (CS x kJ) over them: 8,192
+// floats each, 64 registers a thread, as the C = 128 block does. So its
+// chunk is kJ = 8192 / CS hidden columns (64 at C = 256, 32 at 512), twice
+// the one-block tile's at the same registers; block b finishes z, h and dz
+// of columns kHalf b .. kHalf b + kHalf - 1 of it. Rows a tile from the
+// shared-memory budget: 48 at C = 256, 32 at 512.
+template <int C>
+struct Cfg {
+  static_assert(C == 256 || C == 512, "the cluster widths");
+  static constexpr int CS = C / kNB;             // channels a block: 128, 256
+  static constexpr int kJ = 8192 / CS;           // hidden columns a chunk: 64, 32
+  static constexpr int kHalf = kJ / kNB;         // ... a block finishes: 32, 16
+  static constexpr int kR = C == 256 ? 48 : 32;  // rows a tile
+  static constexpr int kRG = 8;                  // row groups: group q rows q + 8 i
+  static constexpr int kRT = kR / kRG;           // 6, 4
+  // fc1 (warps 0-3) and dh (warps 4-7): lane (s, p, q) of kKS x kPG x 8
+  // takes rows q + 8 i, columns p + kPG u (u < 8) and a kKS-th of the
+  // block's channels, the float4s 8 b + kG s + e (e < kG) of each run of 8:
+  // a warp's X loads touch 4 (C = 256) or 8 float4s on distinct banks, its W
+  // loads 16 (two wavefronts, the fewest)
+  static constexpr int kKS = CS / 64;            // 2, 4
+  static constexpr int kG = 8 / kKS;             // 4, 2
+  static constexpr int kPG = kJ / 8;             // 8, 4
+  static constexpr int kE = 4 / kKS;             // columns of each block a lane keeps of
+                                                 // a reduce-scatter: 2, 1
+  static constexpr int kLR = C == 256 ? 16 : 8;  // lanes that stage a row (kRT kLR / 32 rows)
+  static constexpr int kLdA = CS + 4;            // aS, gS rows
+  static constexpr int kLdW = dxc::Cfg<C>::kLdW1;  // W1, W2^T slice rows (the stage launch's)
+  // shared memory (floats): aS, gS [kR][kLdA] (LN(x) * gamma + beta, g) |
+  // W1, ls2 * W2^T [kJ][kLdW] (the chunk's rows over the block's channels) |
+  // own [2][kR][kHalf] (z, dh of this block's columns over its channels) |
+  // recv [2][kR][kHalf] (the same over the other block's channels) | hS,
+  // dzS [kR][kJ] | ln [kR] float2 (the other block's LN sums) | mbarriers
+  // (raw, weights, ln, recv, hz) | the raw stage [2][kR][CS] (x, g) in the
+  // input dtype, 128-byte aligned for the tensor copies. Where kDirectG
+  // (below), gS's room goes to a second g buffer after the stage, and the
+  // offsets after aS move down by kR kLdA.
+  static constexpr int kOffG = kR * kLdA;
+  static constexpr int kOffW1 = 2 * kR * kLdA;
+  static constexpr int kOffW2 = kOffW1 + kJ * kLdW;
+  static constexpr int kOffOwn = kOffW2 + kJ * kLdW;
+  static constexpr int kOffRecv = kOffOwn + 2 * kR * kHalf;
+  static constexpr int kOffH = kOffRecv + 2 * kR * kHalf;
+  static constexpr int kOffDz = kOffH + kR * kJ;
+  static constexpr int kOffLn = kOffDz + kR * kJ;
+  static constexpr int kOffBar = kOffLn + 2 * kR;
+  static constexpr int kBars = 5;
+  static constexpr int kOffRaw = (kOffBar + 2 * kBars + 31) / 32 * 32;
+  // bytes that complete a phase of the weights', ln's, recv's and hz's mbarriers
+  static constexpr unsigned kWBytes = sizeof(float) * 2 * kJ * kLdW;
+  static constexpr unsigned kLnBytes = sizeof(float2) * kR;
+  static constexpr unsigned kXBytes = sizeof(float) * 2 * kR * kHalf;
+  static_assert(kRT * kRG == kR && kKS * kPG * kRG == 128 && 32 % (kKS * kPG) == 0 &&
+                    kR * kHalf % kT == 0 && kT % kHalf == 0 && kRT * kLR % 32 == 0 &&
+                    CS / 4 % kLR == 0,
+                "the thread layouts cover the tile");
+  static_assert(kOffG % 4 == 0 && kOffW1 % 4 == 0 && kOffW2 % 4 == 0 && kLdA % 4 == 0 &&
+                    kLdW % 4 == 0 && kOffLn % 2 == 0 && kOffBar % 2 == 0,
+                "16-byte alignment of the float4s and bulk copies, 8 of the mbarriers");
+  static_assert(kT <= kR * kLdA, "the epilogue's db1 sums fit in aS");
+};
+
+template <typename T, int C>
+__host__ __device__ constexpr unsigned raw_bytes() {
+  return sizeof(T) * 2 * Cfg<C>::kR * Cfg<C>::CS;
+}
+// In f32 at C = 512 dh and G_c read g where its tensor copy lands: two
+// buffers of kR x CS floats, the tiles' in turn, in place of gS and g's raw
+// stage (the same room), so a tile's staging copies half the bytes; dh's g
+// loads then take two wavefronts a step where gS's take one (its rows are not
+// padded). Elsewhere g is widened into gS as the tile is staged.
+template <typename T, int C>
+constexpr bool kDirectG = std::is_same<T, float>::value && C == 512;
+template <typename T, int C>
+__host__ __device__ constexpr int ldg() {  // g rows: dh's X, G_c's P
+  return kDirectG<T, C> ? Cfg<C>::CS : Cfg<C>::kLdA;
+}
+template <typename T, int C>
+__host__ __device__ constexpr int off_shift() {  // floats from gS's room to the second g buffer
+  return kDirectG<T, C> ? Cfg<C>::kR * Cfg<C>::kLdA : 0;
+}
+template <typename T, int C>
+constexpr size_t smem_bytes() {
+  constexpr size_t kB = sizeof(float) * (Cfg<C>::kOffRaw - off_shift<T, C>()) +
+                        raw_bytes<T, C>() +
+                        (kDirectG<T, C> ? sizeof(float) * Cfg<C>::kR * Cfg<C>::CS : 0);
+  static_assert(kB <= 232448, "shared memory");
+  static_assert((Cfg<C>::kOffRaw - off_shift<T, C>()) % 32 == 0, "the stage 128-byte aligned");
+  return kB;
+}
+
+// 4 bytes into the shared memory of a block of the cluster (addr from
+// map_rank), completing on that block's mbarrier at bar (from map_rank too)
+__device__ __forceinline__ void st_async1(unsigned addr, float v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+// One thread: a box of rows row0.. and channels c0.. of the matrix `map`
+// describes into shared memory by the TMA engine, completing on bar; rows
+// past the matrix land as zeros
+__device__ __forceinline__ void tensor_rows(void* dst, const CUtensorMap* map, int c0, int row0,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(kasf_mma::smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(row0),
+      "r"(kasf_mma::smem_addr(bar))
+      : "memory");
+}
+
+// One thread: the block's channels of the tile's rows row0.. of x and of g
+// into the raw stage by two tensor copies (one strided box each) that
+// complete on bar. The fence in mbar_expect orders the stage's last reads.
+template <int C, typename T>
+__device__ __forceinline__ void fetch_rows(T* raw, const CUtensorMap* xm, const CUtensorMap* gm,
+                                           long long row0, unsigned rank,
+                                           unsigned long long* bar, unsigned buf) {
+  using K = Cfg<C>;
+  kasf_mma::mbar_expect(bar, raw_bytes<T, C>());
+  tensor_rows(raw, xm, rank * K::CS, static_cast<int>(row0), bar);
+  tensor_rows(raw + (1 + (kDirectG<T, C> ? buf : 0)) * K::kR * K::CS, gm, rank * K::CS,
+              static_cast<int>(row0), bar);
+}
+
+// aS = LN(x) * gamma + beta and gS = g over the block's channels, from the
+// raw stage. kLR neighbouring lanes take a row (warp w rows w + 8 (lane /
+// kLR + 32 / kLR i)), lane l the float4s l % kLR + kLR k of it, so a row's
+// sums take log2 kLR shuffles. LN's statistics span all C channels: each
+// block sums its half of a row, then the squared deviations from the half's
+// mean, and sends the pair to the other block (st.async on its ln
+// mbarrier); both combine the two halves in rank order (the variance of two
+// equal groups), so both get the same bits. g is widened into gS while the
+// pairs travel (unless kDirectG). Rows past M are zeros (the tensor copy
+// fills them): a = beta and g = 0, so they add nothing.
+template <int C, typename T>
+__device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS,
+                                           const float* __restrict__ gamma,
+                                           const float* __restrict__ beta, const float2* lnS,
+                                           unsigned ln_far, unsigned ln_bar,
+                                           unsigned long long* bar, unsigned par, unsigned rank,
+                                           float eps, int warp, int lane) {
+  using K = Cfg<C>;
+  constexpr int CS = K::CS, kLR = K::kLR, kN = CS / 4 / kLR, kRL = K::kRT * kLR / 32;
+  const int l = lane % kLR, r0 = warp + K::kRG * (lane / kLR);
+  float4 xv[kRL][kN];
+#pragma unroll
+  for (int i = 0; i < kRL; ++i)
+#pragma unroll
+    for (int k = 0; k < kN; ++k)
+      xv[i][k] = raw4(raw + (r0 + K::kRG * 32 / kLR * i) * CS + 4 * (l + kLR * k));
+  float s[kRL], m2[kRL];
+#pragma unroll
+  for (int i = 0; i < kRL; ++i) {
+    s[i] = quad_sum(xv[i][0]);
+#pragma unroll
+    for (int k = 1; k < kN; ++k) s[i] += quad_sum(xv[i][k]);
+    s[i] = group_sum<kLR>(s[i]);
+    const float mb = s[i] * (1.0f / CS);
+    m2[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const float4 d = xv[i][k];
+      m2[i] += quad_sq(make_float4(d.x - mb, d.y - mb, d.z - mb, d.w - mb));
+    }
+    m2[i] = group_sum<kLR>(m2[i]);
+  }
+  if (l == 0)
+#pragma unroll
+    for (int i = 0; i < kRL; ++i)
+      kasf_mma::st_async2(ln_far + sizeof(float2) * (r0 + K::kRG * 32 / kLR * i),
+                          make_float2(s[i], m2[i]), ln_bar);
+  if constexpr (!kDirectG<T, C>) {
+#pragma unroll
+    for (int i = 0; i < kRL; ++i)
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        const int r = r0 + K::kRG * 32 / kLR * i, c = 4 * (l + kLR * k);
+        st4(gS + r * K::kLdA + c, raw4(raw + (K::kR + r) * CS + c));
+      }
+  }
+  float4 gm[kN], bt[kN];  // the lane's channels of gamma and beta, in flight with the sums
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    gm[k] = ld4(gamma + 4 * (l + kLR * k));
+    bt[k] = ld4(beta + 4 * (l + kLR * k));
+  }
+  kasf_mma::mbar_wait_cluster(bar, par);  // the other block's sums are in
+  const bool first = rank == 0;
+#pragma unroll
+  for (int i = 0; i < kRL; ++i) {
+    const int r = r0 + K::kRG * 32 / kLR * i;
+    const float2 o = lnS[r];
+    const float s0 = first ? s[i] : o.x, s1 = first ? o.x : s[i];
+    const float q0 = first ? m2[i] : o.y, q1 = first ? o.y : m2[i];
+    const float mean = (s0 + s1) * (1.0f / C);
+    const float d = s1 * (1.0f / CS) - s0 * (1.0f / CS);
+    const float rstd = rsqrtf(((q0 + q1) + d * d * (0.5f * CS)) * (1.0f / C) + eps);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const float4 x = xv[i][k], g = gm[k], b = bt[k];
+      st4(aS + r * K::kLdA + 4 * (l + kLR * k),
+          make_float4(fmaf((x.x - mean) * rstd, g.x, b.x), fmaf((x.y - mean) * rstd, g.y, b.y),
+                      fmaf((x.z - mean) * rstd, g.z, b.z), fmaf((x.w - mean) * rstd, g.w, b.w)));
+    }
+  }
+}
+
+// acc[i][u] = the block's channels' share of X[q + 8 i] . W[p + kPG u]: X
+// row-major (aS, or gS), W a chunk's rows (W1, or ls2 * W2^T), both over the
+// block's CS channels; the lane takes the float4s 8 b + kG s + e (e < kG) of
+// each run of 8, in order. A step reads 8 W and kRT X float4s for 32 kRT
+// FMAs.
+template <int C, int kLdX>
+__device__ __forceinline__ void rows_dot8(const float* X, const float* W,
+                                          float (&acc)[Cfg<C>::kRT][8], int q, int p, int s) {
+  using K = Cfg<C>;
+#pragma unroll
+  for (int i = 0; i < K::kRT; ++i)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[i][u] = 0.f;
+  const float* xq = X + q * kLdX + 4 * K::kG * s;
+  const float* wq = W + p * K::kLdW + 4 * K::kG * s;
+#pragma unroll 2
+  for (int b = 0; b < K::CS / 32; ++b)
+#pragma unroll
+    for (int e = 0; e < K::kG; ++e) {
+      const int f = 32 * b + 4 * e;  // float offset of the step's float4
+      float4 w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) w[u] = ld4(wq + K::kPG * u * K::kLdW + f);
+#pragma unroll
+      for (int i = 0; i < K::kRT; ++i) {
+        const float4 a = ld4(xq + K::kRG * i * kLdX + f);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc[i][u] = fmaf(a.x, w[u].x, acc[i][u]);
+          acc[i][u] = fmaf(a.y, w[u].y, acc[i][u]);
+          acc[i][u] = fmaf(a.z, w[u].z, acc[i][u]);
+          acc[i][u] = fmaf(a.w, w[u].w, acc[i][u]);
+        }
+      }
+    }
+}
+
+// The kKS lanes of a (row group, column group) hold partial sums of the same
+// RT x 8 outputs over their channels: a fixed tree of shuffles leaves lane s
+// with the sums over the block's channels of columns u = kE s + e (lo,
+// block 0's columns) and u + 4 (hi, block 1's), e < kE = 4 / KS.
+template <int KS, int RT>
+__device__ __forceinline__ void scatter8(const float (&a)[RT][8], float (&lo)[RT][4 / KS],
+                                         float (&hi)[RT][4 / KS], int s) {
+  if constexpr (KS == 2) {
+    const bool t1 = s & 1;  // keeps u & 2 == 2
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 4 * h + e;
+          const float give = __shfl_xor_sync(0xffffffffu, t1 ? a[i][u] : a[i][u + 2], 1);
+          const float v = (t1 ? a[i][u + 2] : a[i][u]) + give;
+          if (h) hi[i][e] = v;
+          else lo[i][e] = v;
+        }
+  } else {
+    static_assert(KS == 4, "two or four channel splits");
+    const bool t2 = s & 2, t1 = s & 1;
+    float m[RT][4];  // columns 4 h + e + 2 t2 over this lane's pair of splits
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 4 * h + e;
+          const float give = __shfl_xor_sync(0xffffffffu, t2 ? a[i][u] : a[i][u + 2], 2);
+          m[i][2 * h + e] = (t2 ? a[i][u + 2] : a[i][u]) + give;
+        }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float give = __shfl_xor_sync(0xffffffffu, t1 ? m[i][2 * h] : m[i][2 * h + 1], 1);
+        const float v = (t1 ? m[i][2 * h + 1] : m[i][2 * h]) + give;
+        if (h) hi[i][0] = v;
+        else lo[i][0] = v;
+      }
+  }
+}
+
+// acc[a][b] += P[r][a] Q[r][b] over the tile's R rows, as wp::outer_tile
+// (the C = 128 pass's), with eight rows' loads in flight: 1 % faster here
+template <int R, int kLdP, int kHalfP, int kLdQ, int kHalfQ>
+__device__ __forceinline__ void outer_rows(const float* P, const float* Q, float (&acc)[8][8]) {
+#pragma unroll 8
+  for (int r = 0; r < R; ++r) {
+    const float4 p0 = ld4(P + r * kLdP), p1 = ld4(P + r * kLdP + kHalfP);
+    const float4 q0 = ld4(Q + r * kLdQ), q1 = ld4(Q + r * kLdQ + kHalfQ);
+    const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const float qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(pv[a], qv[b], acc[a][b]);
+  }
+}
+
+}  // namespace wpc
+
+// At C = 256 and 512: a cluster of two blocks per (hidden chunk of
+// wpc::Cfg<C>::kJ, row split), block b over the channels CS b .. CS b + CS -
+// 1 of the split's tiles. The chunk's W1 and W2^T rows over the block's
+// channels come once, by two bulk copies from the stage launch's slices (ls2
+// folded into W2^T in place); the next tile's rows over the block's
+// channels land by two tensor copies (strided boxes) while a tile is
+// multiplied. Per tile:
+//  1. the rows: LN's statistics combined across the cluster (stage_rows).
+//  2. fc1 (warps 0-3) and dh (warps 4-7) over the block's channels for all
+//     kJ columns; a reduce-scatter over the lanes that split the channels;
+//     each lane sends the other block's columns (partial z, dh) into its
+//     recv by st.async and keeps its own in `own`.
+//  3. z = the two blocks' partials in rank order + b1, dh likewise, then h =
+//     GELU(z) and dz = dh GELU'(z) once for each of the block's columns (db1
+//     summed there), into hS and dzS and by st.async into the other block's.
+//  4. warps 0-3 dW1c += dz^T a, warps 4-7 G_c += g^T h over the block's
+//     channels for the whole chunk, in registers over the split.
+// Each exchange completes bytes on the receiver's mbarrier (ln's, recv's,
+// hz's), so no cluster barrier sits in the tile loop; thread 0 arms each
+// phase once the last has completed (bytes may land before it), and the
+// k-th tile completes phase k. Write-after-read hazards follow the data
+// flow: a block sends what fills a buffer of the other's for tile k + 1
+// only after it received what that block sent once it had read the buffer
+// for tile k. Each block writes its channels of the split's partial (dW1,
+// G) and db1 of its columns; reruns are bitwise equal, no atomics.
+template <typename T, int C>
+__global__ void __launch_bounds__(wpc::kT, 1)
+mlp_ln_bwd_w_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap gmap,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            const float* __restrict__ w1s_g, const float* __restrict__ w2s_g,
+                            const float* __restrict__ b1, const float* __restrict__ ls2,
+                            float* __restrict__ part, long long M, int H, float eps) {
+  using namespace wpc;
+  using K = Cfg<C>;
+  using kasf_mma::map_rank;
+  using kasf_mma::mbar_arm;
+  using kasf_mma::mbar_wait_cluster;
+  constexpr int kR = K::kR, CS = K::CS, kJ = K::kJ, kHalf = K::kHalf, kRT = K::kRT;
+  constexpr int kLdA = K::kLdA, kE = K::kE;
+  extern __shared__ __align__(128) float4 wsmem4[];
+  float* aS = reinterpret_cast<float*>(wsmem4);
+  constexpr int kSh = off_shift<T, C>(), kLdG = ldg<T, C>();
+  float* const gS0 = aS + K::kOffG;  // g widened, unless kDirectG
+  float* w1c = aS + K::kOffW1 - kSh;
+  float* w2c = aS + K::kOffW2 - kSh;
+  float* own = aS + K::kOffOwn - kSh;
+  float* recv = aS + K::kOffRecv - kSh;
+  float* hS = aS + K::kOffH - kSh;
+  float* dzS = aS + K::kOffDz - kSh;
+  const float2* lnS = reinterpret_cast<const float2*>(aS + K::kOffLn - kSh);
+  auto* bar = reinterpret_cast<unsigned long long*>(aS + K::kOffBar - kSh);
+  T* raw = reinterpret_cast<T*>(aS + K::kOffRaw - kSh);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned rank = kasf_mma::cluster_rank(), other = rank ^ 1u;
+  const int j0 = blockIdx.x / kNB * kJ;
+  const long long n_tiles = (M + kR - 1) / kR;
+  const long long per = (n_tiles + gridDim.y - 1) / gridDim.y;
+  const long long t_begin = blockIdx.y * per;
+  const long long t_end = t_begin + per < n_tiles ? t_begin + per : n_tiles;
+  if (tid == 0) {
+    for (int b = 0; b < K::kBars; ++b) kasf_mma::mbar_init(bar + b);
+    mbar_arm(bar + 2, K::kLnBytes);  // tile 0's exchanges
+    mbar_arm(bar + 3, K::kXBytes);
+    mbar_arm(bar + 4, K::kXBytes);
+  }
+  kasf_mma::cluster_sync();  // both blocks of the cluster run, their mbarriers initialised
+  const unsigned ln_far = map_rank(lnS, other), ln_bar = map_rank(bar + 2, other);
+  const unsigned recv_far = map_rank(recv, other), recv_bar = map_rank(bar + 3, other);
+  const unsigned h_far = map_rank(hS, other), dz_far = map_rank(dzS, other);
+  const unsigned hz_bar = map_rank(bar + 4, other);
+  if (tid == 0 && t_begin < t_end) {
+    constexpr unsigned kSlice = sizeof(float) * kJ * K::kLdW;
+    const long long off = (static_cast<long long>(rank) * H + j0) * K::kLdW;
+    mbar_arm(bar + 1, K::kWBytes);
+    kasf_mma::bulk_load(w1c, w1s_g + off, kSlice, bar + 1);
+    kasf_mma::bulk_load(w2c, w2s_g + off, kSlice, bar + 1);
+    fetch_rows<C>(raw, &xmap, &gmap, t_begin * kR, rank, bar, 0u);
+  }
+  // GELU and db1: the thread's column lc of the block's half, rows tid / kHalf + kT / kHalf k
+  const int lc = tid % kHalf;
+  const float bias = b1[j0 + rank * kHalf + lc];
+  // fc1 / dh: lane (s, p, q)
+  constexpr int kLanesQ = K::kKS * K::kPG;  // lanes a row group
+  const int s = lane % K::kKS, p = lane / K::kKS % K::kPG;
+  const int q = lane / kLanesQ + 32 / kLanesQ * (warp & 3);
+  const bool fc1 = warp < 4;
+  // outer products, as at C = 128: warps 0-3 hold dW1c[4 g8 + v (+ kJ / 2)]
+  // [4 g16 + v (+ CS / 2)], warps 4-7 G_c[4 g16 + v (+ CS / 2)][4 g8 + v (+ kJ / 2)]
+  const int idx = tid & 127;
+  const int g8 = idx / 8 % (kJ / 8), g16 = 8 * (idx / kJ) + (idx & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  float db1a = 0.f;
+  if (t_begin < t_end) {
+    kasf_mma::mbar_wait(bar + 1, 0);  // the weights landed: ls2 into W2^T
+    for (int e = tid; e < kJ * CS / 4; e += kT) {
+      const int j = e / (CS / 4), c = 4 * (e % (CS / 4));
+      const float4 w = ld4(w2c + j * K::kLdW + c), l = ld4(ls2 + rank * CS + c);
+      st4(w2c + j * K::kLdW + c, make_float4(w.x * l.x, w.y * l.y, w.z * l.z, w.w * l.w));
+    }
+  }
+  for (long long t = t_begin; t < t_end; ++t) {
+    const unsigned par = static_cast<unsigned>((t - t_begin) & 1);
+    // tile t's g: its tensor copy's buffer, or its widened copy
+    float* const gS = kDirectG<T, C> ? reinterpret_cast<float*>(raw) + (1 + par) * kR * CS : gS0;
+    kasf_mma::mbar_wait(bar, par);
+    __syncthreads();  // tile t's rows landed; the last tile's products done
+    stage_rows<C>(raw, aS, gS, gamma + rank * CS, beta + rank * CS, lnS, ln_far, ln_bar, bar + 2,
+                  par, rank, eps, warp, lane);
+    if (tid == 0) mbar_arm(bar + 2, K::kLnBytes);  // the next tile's
+    __syncthreads();  // a and g in; the stage is free
+    if (tid == 0 && t + 1 < t_end)
+      fetch_rows<C>(raw, &xmap, &gmap, (t + 1) * kR, rank, bar, par ^ 1u);
+    {
+      float pa[kRT][8], lo[kRT][kE], hi[kRT][kE];
+      if constexpr (kLdG == kLdA) {  // one copy of the loop: two were 11 % slower at 256
+        rows_dot8<C, kLdA>(fc1 ? aS : gS, fc1 ? w1c : w2c, pa, q, p, s);
+      } else {
+        if (fc1)
+          rows_dot8<C, kLdA>(aS, w1c, pa, q, p, s);
+        else
+          rows_dot8<C, kLdG>(gS, w2c, pa, q, p, s);
+      }
+      scatter8<K::kKS>(pa, lo, hi, s);
+      const int buf = fc1 ? 0 : kR * kHalf;
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int o = buf + (q + K::kRG * i) * kHalf + p + K::kPG * (kE * s + e);
+          own[o] = rank == 0 ? lo[i][e] : hi[i][e];
+          st_async1(recv_far + sizeof(float) * o, rank == 0 ? hi[i][e] : lo[i][e], recv_bar);
+        }
+    }
+    mbar_wait_cluster(bar + 3, par);  // the other block's partials are in
+    __syncthreads();                  // and this block's
+    if (tid == 0) mbar_arm(bar + 3, K::kXBytes);
+#pragma unroll
+    for (int k = 0; k < kR * kHalf / kT; ++k) {
+      const int e = tid + k * kT, f = kR * kHalf + e;
+      const float z = (rank == 0 ? own[e] + recv[e] : recv[e] + own[e]) + bias;
+      const float d = rank == 0 ? own[f] + recv[f] : recv[f] + own[f];
+      const float2 hg = wp::gelu_and_grad(z);
+      const float dz = d * hg.y;
+      db1a += dz;
+      const int o = e / kHalf * kJ + rank * kHalf + lc;
+      hS[o] = hg.x;
+      dzS[o] = dz;
+      st_async1(h_far + sizeof(float) * o, hg.x, hz_bar);
+      st_async1(dz_far + sizeof(float) * o, dz, hz_bar);
+    }
+    mbar_wait_cluster(bar + 4, par);  // the other block's h and dz are in
+    __syncthreads();                  // and this block's
+    if (tid == 0) mbar_arm(bar + 4, K::kXBytes);
+    if (fc1)
+      outer_rows<kR, kJ, kJ / 2, kLdA, CS / 2>(dzS + 4 * g8, aS + 4 * g16, acc);
+    else
+      outer_rows<kR, kLdG, CS / 2, kJ, kJ / 2>(gS + 4 * g16, hS + 4 * g8, acc);
+  }
+
+  // the split's partial over this block's channels: dW1c rows, G_c columns;
+  // db1 of this block's columns
+  float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * C + H);
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const float4 lo = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    const float4 hi = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
+    if (fc1) {
+      const int j = 4 * g8 + (a & 3) + (a < 4 ? 0 : kJ / 2);
+      float* row = base + static_cast<long long>(j0 + j) * C + rank * CS + 4 * g16;
+      st4(row, lo);
+      st4(row + CS / 2, hi);
+    } else {
+      const int c = rank * CS + 4 * g16 + (a & 3) + (a < 4 ? 0 : CS / 2);
+      float* row = base + static_cast<long long>(H) * C + static_cast<long long>(c) * H + j0 +
+                   4 * g8;
+      st4(row, lo);
+      st4(row + kJ / 2, hi);
+    }
+  }
+  __syncthreads();  // aS is free
+  aS[tid] = db1a;   // [tid / kHalf][lc]
+  __syncthreads();
+  if (tid < kHalf) {
+    float sum = 0.f;
+    for (int r = 0; r < kT / kHalf; ++r) sum += aS[r * kHalf + tid];
+    base[2LL * H * C + j0 + rank * kHalf + tid] = sum;
   }
 }
 
@@ -2100,57 +2666,120 @@ long long stage_floats(int H) {
   else return 2LL * dxc::kNB * H * dxc::Cfg<C>::kLdW1 + H;
 }
 
-constexpr int kMaxDevices = 64;
+// the weight pass's rows a tile and row splits for M rows and hidden H:
+// splits = min(tiles, 132 / blocks a split), at least one (one wave)
+template <int C>
+constexpr int w_rows() {
+  if constexpr (C == 128) return wp::Cfg<C>::kR;
+  else return wpc::Cfg<C>::kR;
+}
+template <int C>
+int w_splits(long long M, int H) {
+  if constexpr (C == 128) {
+    return wp::splits<C>(M, H);
+  } else {
+    const long long s = wp::kSMs / (wpc::kNB * (H / wpc::Cfg<C>::kJ));
+    const long long t = (M + w_rows<C>() - 1) / w_rows<C>();
+    return static_cast<int>(s < 1 ? 1 : s < t ? s : t);
+  }
+}
 
-// The cluster dx pass's instantiation: its dynamic shared-memory limit
-// raised, and the clusters of two the device holds at once
-// (cudaOccupancyMaxActiveClusters; a cluster lives within one GPC), once per
-// device. A launch of `clusters` clusters on `stream` is cfg's.
-template <typename T, int C>
-struct DxCluster {
+constexpr int kMaxDevices = 64;
+static_assert(dxc::kNB == 2 && wpc::kNB == 2 && dxc::kT == 256 && wpc::kT == 256,
+              "both cluster kernels: clusters of two blocks of 256 threads");
+
+// A launch of `grid` blocks of 256 threads in clusters of two (grid.x a
+// multiple of two) with `smem` bytes of dynamic shared memory on `stream`,
+// for cudaLaunchKernelEx
+struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  DxCluster(unsigned clusters, cudaStream_t stream) : attr{}, cfg{} {
+  ClusterLaunch(dim3 grid, size_t smem, cudaStream_t stream) : attr{}, cfg{} {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = dxc::kNB;
+    attr[0].val.clusterDim.x = 2;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(clusters * dxc::kNB);
-    cfg.blockDim = dim3(dxc::kT);
-    cfg.dynamicSmemBytes = dxc::Cfg<C>::kSmem;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(256);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
-  static cudaError_t resident(int* clusters) {
-    static int held[kMaxDevices];  // one array per instantiation; 0: not yet
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (held[dev] == 0) {
-      const auto kernel = mlp_ln_bwd_dx_cluster_kernel<T, C>;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(dxc::Cfg<C>::kSmem));
-      int n = 0;
-      DxCluster one(1, nullptr);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &one.cfg);
-      if (err != cudaSuccess) return err;
-      if (n < 1) return cudaErrorInvalidConfiguration;
-      held[dev] = n;
-    }
-    *clusters = held[dev];
-    return cudaSuccess;
-  }
 };
+
+// The clusters of two blocks of `kernel` (at `smem` bytes) the device holds
+// at once (cudaOccupancyMaxActiveClusters; a cluster lives within one GPC),
+// its dynamic shared-memory limit raised first; once per device, into held
+template <typename K>
+cudaError_t clusters_held(K kernel, size_t smem, int (&held)[kMaxDevices], int* clusters) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (held[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    int n = 0;
+    ClusterLaunch one(dim3(2), smem, nullptr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &one.cfg);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    held[dev] = n;
+  }
+  *clusters = held[dev];
+  return cudaSuccess;
+}
+template <typename T, int C>
+cudaError_t dx_clusters(int* clusters) {
+  static int held[kMaxDevices];  // one array per instantiation; 0: not yet
+  return clusters_held(mlp_ln_bwd_dx_cluster_kernel<T, C>, dxc::Cfg<C>::kSmem, held, clusters);
+}
+template <typename T, int C>
+cudaError_t w_clusters(int* clusters) {
+  static int held[kMaxDevices];
+  return clusters_held(mlp_ln_bwd_w_cluster_kernel<T, C>, wpc::smem_bytes<T, C>(), held,
+                       clusters);
+}
+
+// The TMA engine's description of the (M, C) row-major matrix at `base`
+// for boxes of `rows` rows x `cols` channels, for cp.async.bulk.tensor;
+// the driver's encoder is reached through the runtime's entry point, so the
+// library links no driver library
+template <typename T>
+cudaError_t row_map(CUtensorMap* map, const void* base, long long M, int C, int cols, int rows) {
+  using Encode = decltype(&cuTensorMapEncodeTiled);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * sizeof(T)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // The reduce over a.work as the two passes leave it for M rows and hidden H
 template <typename T, int C>
 cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream) {
   const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
   mlp_ln_bwd_reduce_kernel<T, C><<<rd::blocks<C>(H), rd::kTB, 0, stream>>>(
-      a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, wp::splits<C>(M, H),
+      a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, w_splits<C>(M, H),
       static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
       a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
   return cudaGetLastError();
@@ -2177,7 +2806,7 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
         x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), a.work, M, H, eps);
   } else {
     int resident = 0;
-    const cudaError_t err = DxCluster<T, C>::resident(&resident);
+    const cudaError_t err = dx_clusters<T, C>(&resident);
     if (err != cudaSuccess) return err;
     constexpr bool kF32 = std::is_same<T, float>::value;
     const long long slices = 1LL * dxc::kNB * H * dxc::Cfg<C>::kLdW1;  // floats a matrix
@@ -2188,7 +2817,8 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
                                                                             b1f, H);
     const cudaError_t staged = cudaGetLastError();
     if (staged != cudaSuccess) return staged;
-    DxCluster<T, C> l(static_cast<unsigned>(tiles < resident ? tiles : resident), stream);
+    const long long clusters = tiles < resident ? tiles : resident;
+    ClusterLaunch l(dim3(static_cast<unsigned>(clusters * dxc::kNB)), dxc::Cfg<C>::kSmem, stream);
     cudaLaunchKernelEx(&l.cfg, mlp_ln_bwd_dx_cluster_kernel<T, C>, x, g, a.gamma, a.beta, w1s,
                        kF32 ? reinterpret_cast<const float*>(b1) : b1f, w2s, a.ls2,
                        static_cast<T*>(a.dx), a.work, M, H, eps);
@@ -2196,24 +2826,50 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
   return cudaGetLastError();
 }
 
+// The weight pass into its row splits' partials at part_w: at C = 128 one
+// block a (hidden chunk, split); at 256 and 512 a cluster of two a (chunk,
+// split), reading the stage launch's weights, x and g through tensor maps
+template <typename T, int C>
+cudaError_t launch_w(const Args& a, float* part_w, const float* stage, long long M, int H,
+                     float eps, cudaStream_t stream) {
+  const int splits = w_splits<C>(M, H);
+  if constexpr (C == 128) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(wp::smem_bytes<T, C>()));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_w_kernel<T, C><<<dim3(H / wp::Cfg<C>::kJ, splits), wp::kT,
+                                wp::smem_bytes<T, C>(), stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+        static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
+        a.ls2, part_w, M, H, eps);
+  } else {
+    using K = wpc::Cfg<C>;
+    int held = 0;
+    CUtensorMap xm, gm;
+    cudaError_t err = w_clusters<T, C>(&held);  // raises its shared-memory limit
+    if (err == cudaSuccess) err = row_map<T>(&xm, a.x, M, C, K::CS, K::kR);
+    if (err == cudaSuccess) err = row_map<T>(&gm, a.g, M, C, K::CS, K::kR);
+    if (err != cudaSuccess) return err;
+    const long long slices = 1LL * wpc::kNB * H * K::kLdW;  // floats a matrix of the stage
+    const float* b1 = std::is_same<T, float>::value ? static_cast<const float*>(a.b1)
+                                                    : stage + 2 * slices;
+    ClusterLaunch l(dim3(wpc::kNB * (H / K::kJ), splits), wpc::smem_bytes<T, C>(), stream);
+    err = cudaLaunchKernelEx(&l.cfg, mlp_ln_bwd_w_cluster_kernel<T, C>, xm, gm, a.gamma, a.beta,
+                             stage, stage + slices, b1, a.ls2, part_w, M, H, eps);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int C>
 cudaError_t launch(const Args& a, long long M, int H, float eps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(wp::smem_bytes<T, C>()));
-  if (err != cudaSuccess) return err;
   const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
-  const int splits = wp::splits<C>(M, H);
   float* part_w = a.work + tiles * 3 * C;
-  float* stage = part_w + static_cast<long long>(splits) * (2LL * H * C + H);
-  err = launch_dx<T, C>(a, stage, M, H, eps, stream);
+  float* stage = part_w + static_cast<long long>(w_splits<C>(M, H)) * (2LL * H * C + H);
+  cudaError_t err = launch_dx<T, C>(a, stage, M, H, eps, stream);
   if (err != cudaSuccess) return err;
-  mlp_ln_bwd_w_kernel<T, C><<<dim3(H / wp::Cfg<C>::kJ, splits), wp::kT,
-                              wp::smem_bytes<T, C>(), stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
-      static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
-      a.ls2, part_w, M, H, eps);
-  err = cudaGetLastError();
+  err = launch_w<T, C>(a, part_w, stage, M, H, eps, stream);
   if (err != cudaSuccess) return err;
   return launch_reduce<T, C>(a, M, H, stream);
 }
@@ -2239,6 +2895,15 @@ bool describe(K kernel, int threads, int smem, int* info) {
   return true;
 }
 
+// the device's SMs, 0 where the runtime refuses
+inline int device_sms() {
+  int sms = 0, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
 // info[0..5]: the dx pass as {threads, rows a tile, registers, shared
 // memory bytes, spill bytes, blocks a SM}; info[6..13]: the weight pass as
 // {threads, rows a tile, hidden columns a block, row splits for M rows and
@@ -2246,27 +2911,37 @@ bool describe(K kernel, int threads, int smem, int* info) {
 // info[14..19]: the reduce as {threads, blocks for hidden H, registers,
 // shared memory bytes, spill bytes, blocks a SM}; info[20..22]: the dx pass
 // again, {blocks a cluster (a tile), clusters the device holds at once (one
-// block each at C = 128), blocks of its launch over M rows}
+// block each at C = 128), blocks of its launch over M rows}; info[23..25]:
+// the weight pass again, {blocks a cluster (a hidden chunk and split),
+// clusters the device holds at once (one block each at C = 128), blocks of
+// its launch}
 template <typename T, int C>
 void describe_all(long long M, int H, int* info) {
   int d[5];
   const long long tiles = dx_tiles<C>(M);
+  const int splits = w_splits<C>(M, H);
   if constexpr (C == 128) {
     const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
-    int sms = 0, dev = 0;
-    if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d) &&
-        cudaGetDevice(&dev) == cudaSuccess &&
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess) {
+    const int sms = device_sms();
+    if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d) && sms > 0) {
       const int v[6] = {d[0], dx_rows<C>(), d[1], smem_dx, d[2], d[3]};
       for (int i = 0; i < 6; ++i) info[i] = v[i];
       info[20] = 1;
       info[21] = sms * d[3];
       info[22] = static_cast<int>(tiles);
     }
+    const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
+    if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d) && sms > 0) {
+      const int v[8] = {d[0], w_rows<C>(), wp::Cfg<C>::kJ, splits, d[1], smem_w, d[2], d[3]};
+      for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
+      info[23] = 1;
+      info[24] = sms * d[3];
+      info[25] = H / wp::Cfg<C>::kJ * splits;
+    }
   } else {
     const int smem_dx = static_cast<int>(dxc::Cfg<C>::kSmem);
     int clusters = 0;
-    if (DxCluster<T, C>::resident(&clusters) == cudaSuccess &&
+    if (dx_clusters<T, C>(&clusters) == cudaSuccess &&
         describe(mlp_ln_bwd_dx_cluster_kernel<T, C>, dxc::kT, smem_dx, d)) {
       const int v[6] = {d[0], dx_rows<C>(), d[1], smem_dx, d[2], d[3]};
       for (int i = 0; i < 6; ++i) info[i] = v[i];
@@ -2274,12 +2949,15 @@ void describe_all(long long M, int H, int* info) {
       info[21] = clusters;
       info[22] = static_cast<int>((tiles < clusters ? tiles : clusters) * dxc::kNB);
     }
-  }
-  const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
-  if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d)) {
-    const int v[8] = {d[0], wp::Cfg<C>::kR, wp::Cfg<C>::kJ, wp::splits<C>(M, H), d[1], smem_w,
-                      d[2], d[3]};
-    for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
+    const int smem_w = static_cast<int>(wpc::smem_bytes<T, C>());
+    if (w_clusters<T, C>(&clusters) == cudaSuccess &&
+        describe(mlp_ln_bwd_w_cluster_kernel<T, C>, wpc::kT, smem_w, d)) {
+      const int v[8] = {d[0], w_rows<C>(), wpc::Cfg<C>::kJ, splits, d[1], smem_w, d[2], d[3]};
+      for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
+      info[23] = wpc::kNB;
+      info[24] = clusters;
+      info[25] = wpc::kNB * (H / wpc::Cfg<C>::kJ) * splits;
+    }
   }
   if (describe(mlp_ln_bwd_reduce_kernel<T, C>, rd::kTB, 0, d)) {
     const int v[6] = {d[0], rd::blocks<C>(H), d[1], d[4], d[2], d[3]};
@@ -2315,7 +2993,7 @@ long long kasf_mlp_ln_bwd_workspace(long long M, int C, int H) {
   return by_width(C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
     return dx_tiles<kC>(M) * 3 * kC +
-           static_cast<long long>(wp::splits<kC>(M, H)) * (2LL * H * kC + H) +
+           static_cast<long long>(w_splits<kC>(M, H)) * (2LL * H * kC + H) +
            stage_floats<kC>(H);
   });
 }
@@ -2370,7 +3048,7 @@ int kasf_mlp_ln_bwd_reduce(int dtype, const void* work, const void* w2, const vo
 }
 
 // The three launches' instantiations for (dtype, C) on the current device at
-// M rows and hidden H, for reports, into info[23] as describe_all lays it
+// M rows and hidden H, for reports, into info[26] as describe_all lays it
 // out. Left untouched for a shape or dtype there is none of, or where the
 // runtime refuses the query.
 void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {

@@ -65,9 +65,16 @@ the channels and each weight chunk by one bulk copy: fc1's and dh's partial
 sums meet by a reduce-scatter through distributed shared memory, each block
 finishes dz for half of a chunk's 32 columns and sends it to the other, and
 each keeps da for its own channels. The other two launches are a weight
-pass (one block per hidden chunk of 8192 / C columns and row split, walking the split's tiles of 40, 24 or 16 rows with the next
-tile's rows in flight by a bulk copy and dW1, G = g^T h and db1 kept in
-registers, exact f32 too) and a reduce that sums both passes' partials in
+pass and a reduce. The weight pass walks a row split's tiles with the next
+tile's rows in flight and keeps dW1, G = g^T h and db1 of a hidden chunk in
+registers over the split, exact f32 too: at C = 128 one block per (chunk of
+64 columns, split), 40-row tiles by bulk copies; at 256 and 512 a
+thread-block cluster of two blocks per (chunk, split), each over half the
+channels (chunks of 64 and 32 columns, tiles of 48 and 32 rows, its rows by
+strided tensor copies, its weights from the stage launch): LayerNorm's row
+sums and fc1's and dh's partial sums meet through distributed shared memory
+in rank order, each block finishes h and dz for half the chunk's columns
+and sends them to the other. The reduce sums both passes' partials in
 index order: one wave of blocks, each thread a float4 of the
 weight partials with 16 splits' loads written before its adds, and a ninth
 warp summing the dx partials' chains, a lane each, from a stage that the
@@ -300,31 +307,35 @@ _BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
 _BWD_DX_MORE = ("cluster", "resident", "grid")  # info[20:23]
 _BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
                "spill_bytes", "blocks_per_sm")
+_BWD_W_MORE = ("cluster", "resident", "grid")  # info[23:26]
 _BWD_R_KEYS = ("threads", "blocks", "registers", "smem_bytes", "spill_bytes",
                "blocks_per_sm")
 # K4's partition of the rows at each width C: (dx pass rows a tile, weight
-# pass rows a tile, weight pass hidden columns a block), as
-# csrc/mlp_ln_bwd.cu's dxp::Cfg<128>::kR or dxc::Cfg<C>::kR (a cluster's
-# tile), wp::Cfg<C>::kR and wp::Cfg<C>::kJ make them; wp::kSMs
-_BWD_TILES = {128: (112, 40, 64), 256: (112, 24, 32), 512: (56, 16, 16)}
+# pass rows a tile, weight pass hidden columns a chunk, weight pass blocks a
+# chunk), as csrc/mlp_ln_bwd.cu's dxp::Cfg<128>::kR or dxc::Cfg<C>::kR (a
+# cluster's tile), wp::Cfg<128> or wpc::Cfg<C> (kR, kJ; a cluster of two
+# at 256 and 512) make them; wp::kSMs
+_BWD_TILES = {128: (112, 40, 64, 1), 256: (112, 48, 64, 2), 512: (56, 32, 32, 2)}
 _SMS = 132
 
 
 def fused_mlp_ln_bwd_partition(m: int, hidden: int, c: int = 128) -> dict:
     """K4's partition of m rows at this hidden width and width c, as its
-    library makes it (`wp::splits` in csrc/mlp_ln_bwd.cu): the dx pass's
+    library makes it (`w_splits` in csrc/mlp_ln_bwd.cu): the dx pass's
     `dx_tiles` tiles of `dx_rows` rows, one partial each; the weight pass's
     tiles of `w_rows` rows in `splits` row splits of `per_split` consecutive
-    tiles (trailing splits may be empty and leave zeros), one partial each.
+    tiles (trailing splits may be empty and leave zeros), one partial each:
+    as many splits as 132 SMs hold of the hidden / chunk blocks (clusters
+    of two at C = 256 and 512) a split takes.
     The workspace holds the dx partials (dx_tiles, 3, C), then the weight
     partials, each dW1 (hidden, C), G = g^T h (C, hidden) and db1
     (hidden), which the reduce reads, then `stage` floats: at C = 256 and
     512 the stage launch's float32 W1 and W2^T, each as two channel halves
     of (hidden, C / 2 + 4) (rows padded as the dx pass's chunk buffers are),
     and b1."""
-    dx_rows, w_rows, chunk = _BWD_TILES[c]
+    dx_rows, w_rows, chunk, cluster = _BWD_TILES[c]
     w_tiles = -(-m // w_rows)
-    splits = max(1, min(w_tiles, _SMS // (hidden // chunk)))
+    splits = max(1, min(w_tiles, _SMS // (cluster * (hidden // chunk))))
     return dict(dx_rows=dx_rows, dx_tiles=-(-m // dx_rows),
                 w_rows=w_rows, splits=splits, per_split=-(-w_tiles // splits),
                 stage=0 if c == 128 else 2 * hidden * (c + 8) + hidden)
@@ -342,21 +353,25 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     512), `resident`, the clusters (at C = 128 blocks) the card holds at
     once, and `grid`, the blocks of its launch over m rows (a tile each at
     C = 128; at most `resident` clusters, each walking tiles, beyond); the
-    weight pass has `chunk`, its hidden columns a block, and `splits`, its
-    row splits for m rows and this hidden width (a grid of hidden / chunk x
-    splits blocks); the reduce has `blocks`, its grid at this hidden width.
-    Builds the kernel if needed; launches nothing."""
+    weight pass has `chunk`, its hidden columns a block (a cluster's, each
+    block over half the channels, at 256 and 512), `splits`, its row
+    splits for m rows and this hidden width, `cluster`, the blocks that
+    share a chunk and split (1 at C = 128, 2 at 256 and 512), `resident`,
+    the clusters the card holds at once, and `grid`, the blocks of its
+    launch (hidden / chunk x splits clusters, one wave); the reduce has
+    `blocks`, its grid at this hidden width. Builds the kernel if needed;
+    launches nothing."""
     lib = _build.library("mlp_ln_bwd")
     n = (len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)
-         + len(_BWD_DX_MORE))
+         + len(_BWD_DX_MORE) + len(_BWD_W_MORE))
     info = (ctypes.c_int * n)(*([-1] * n))
     fn = lib.kasf_mlp_ln_bwd_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], c, m, hidden, info)
-    return {"dx_pass": dict(zip(_BWD_DX_KEYS + _BWD_DX_MORE, info[:6] + info[20:])),
-            "weight_pass": dict(zip(_BWD_W_KEYS, info[6:14])),
+    return {"dx_pass": dict(zip(_BWD_DX_KEYS + _BWD_DX_MORE, info[:6] + info[20:23])),
+            "weight_pass": dict(zip(_BWD_W_KEYS + _BWD_W_MORE, info[6:14] + info[23:26])),
             "reduce": dict(zip(_BWD_R_KEYS, info[14:20]))}
 
 

@@ -95,15 +95,16 @@ extern "C" int kasf_stamps(unsigned long long* host, int reset) {
 """
 
 
-def stamped_sources(out: Path) -> None:
-    """The repository's csrc with the stamps in the cluster dx pass."""
+def stamped_sources(out: Path, kernel: str = _KERNEL, edits: list = EDITS) -> None:
+    """The repository's csrc with the stamps (`edits`) in the kernel whose
+    signature starts with `kernel`: by default the cluster dx pass."""
     src = ROOT / "kasportsformer_torch" / "ops" / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(src, out)
     text = (src / "mlp_ln_bwd.cu").read_text()
-    if text.count(_KERNEL) != 1:
-        raise SystemExit("the cluster dx pass is not in mlp_ln_bwd.cu")
-    for anchor, replacement in EDITS:
+    if text.count(kernel) != 1:
+        raise SystemExit(f"{kernel.split('(')[0]} is not in mlp_ln_bwd.cu")
+    for anchor, replacement in edits:
         if text.count(anchor) != 1:
             raise SystemExit(f"anchor not found once in mlp_ln_bwd.cu: {anchor!r}")
         text = text.replace(anchor, replacement)

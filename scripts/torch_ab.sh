@@ -9,10 +9,12 @@
 #                                          log and reports under dir/<n><side>
 #                                          (default chiprun_out/ab)
 #   scripts/torch_ab.sh digest             on the card: K4 on seeded inputs at
-#                                          M = 14,688 in P and in N, and the
-#                                          SHA-1 of each of its eight gradients,
-#                                          so a launch left unchanged shows as
-#                                          equal digests of what it alone feeds
+#                                          M = 14,688 in P and in N, at C/H
+#                                          128/512, 256/1024 and 512/1024 (eps
+#                                          1e-6), and the SHA-1 of each of its
+#                                          eight gradients, so a launch left
+#                                          unchanged shows as equal digests of
+#                                          what it alone feeds
 # A run that fails is reported and the turns go on; the exit code is the
 # number of runs that failed.
 set -uo pipefail
@@ -64,6 +66,22 @@ for dt in (torch.float32, torch.bfloat16):
     print(str(dt), " ".join(
         f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
         for n, t in zip(names, out)))
+# the zoo's widths from a generator of their own, so the flagship's inputs
+# above stay those of its digests in tests/test_torch_cuda.py
+gen = torch.Generator(device="cuda").manual_seed(10)
+for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
+    for dt in (torch.float32, torch.bfloat16):
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(*shape, device="cuda", generator=gen)
+        x, g = randn(14688, c).to(dt), randn(14688, c).to(dt)
+        args = (x, 1 + randn(c, scale=0.1), randn(c, scale=0.1),
+                randn(h, c, scale=c ** -0.5).to(dt), randn(h, scale=0.1).to(dt),
+                randn(c, h, scale=h ** -0.5).to(dt), randn(c, scale=0.1).to(dt),
+                torch.rand(c, device="cuda", generator=gen))
+        out = fused_mlp_ln_bwd(*args, g, eps)
+        print(f"C/H {c}/{h}", str(dt), " ".join(
+            f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
+            for n, t in zip(names, out)))
 PY
       ) || failed=1
     done

@@ -922,21 +922,27 @@ def test_fused_mlp_ln_bwd_kernel_zoo_widths(cuda, dtype, c, hidden, eps, m):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [256, 512])
-@pytest.mark.parametrize("edge", ["dx R-1", "dx R+1", "w R", "w R+1", "empty splits"])
+@pytest.mark.parametrize("edge", ["dx R-1", "dx R+1", "w R-1", "w R", "w R+1",
+                                  "split-1", "split+1", "empty splits"])
 def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
     """Each pass's tile of R rows at the zoo's widths (112 and 56 rows in the
-    dx pass's cluster tile, 24 and 16 in the weight pass) and one row either
-    side, and 17
-    weight-pass tiles over the 16 row splits of 8 hidden chunks (H = 256 at
-    C = 256, 128 at 512): the last splits stay empty and their zero
-    partials enter the reduce."""
-    hidden = 8 * 8192 // c if edge == "empty splits" else 1024
+    dx pass's cluster tile, 48 and 32 in the weight pass's) and one row
+    either side; one row either side of the weight pass's splits of one
+    tile each at H = 1,024 (4 splits at C = 256, 2 at 512: the last tile of
+    one more split holds a row, and a trailing split is empty); and 17
+    weight-pass tiles over the 16 row splits of 4 hidden chunks of clusters
+    of two (H = 256 at C = 256, 128 at 512): the last splits' clusters stay
+    without rows and their zero partials enter the reduce."""
+    hidden = 4 * 8192 // (c // 2) if edge == "empty splits" else 1024
     info = fused_mlp_ln_bwd_kernel_info(dtype, 14688, hidden, c=c)
     r_dx, r_w = info["dx_pass"]["rows"], info["weight_pass"]["rows"]
-    m = {"dx R-1": r_dx - 1, "dx R+1": r_dx + 1, "w R": r_w, "w R+1": r_w + 1,
+    n = fused_mlp_ln_bwd_partition(10 ** 6, hidden, c)["splits"]  # as many as the card takes
+    m = {"dx R-1": r_dx - 1, "dx R+1": r_dx + 1, "w R-1": r_w - 1, "w R": r_w,
+         "w R+1": r_w + 1, "split-1": n * r_w - 1, "split+1": n * r_w + 1,
          "empty splits": 17 * r_w}[edge]
     if edge == "empty splits":
         p = fused_mlp_ln_bwd_partition(m, hidden, c)
+        assert p["splits"] == 16 and info["weight_pass"]["cluster"] == 2, (p, info)
         assert (p["splits"] - 1) * p["per_split"] >= -(-m // r_w), p
     args = _mlp_args(cuda, m, dtype, c, hidden)
     g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
@@ -970,8 +976,9 @@ def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
     """The Python mirror of K4's partition at C = 256 and 512 against the
     library's, and the workspace's size (the partials, then the stage
     launch's float32 weights); the dx pass runs clusters of two, at most as
-    many as the card holds, each walking tiles; no pass spills at either
-    width."""
+    many as the card holds, each walking tiles; the weight pass clusters of
+    two, a (hidden chunk, row split) each, at most one block a SM; no pass
+    spills at either width."""
     for c in (256, 512):
         for m in (1, 300, 1377, 14688):
             for hidden in (64, 512, 1024, 2048):
@@ -983,9 +990,11 @@ def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
                 assert _bwd_workspace_size(m, hidden, c) == (
                     p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
                     + p["stage"])
-                dx = info["dx_pass"]
+                dx, wp = info["dx_pass"], info["weight_pass"]
                 assert dx["cluster"] == 2 and dx["resident"] >= 1, dx
                 assert dx["grid"] == 2 * min(p["dx_tiles"], dx["resident"]), dx
+                assert wp["cluster"] == 2 and wp["resident"] >= 1, wp
+                assert wp["grid"] == 2 * hidden // wp["chunk"] * p["splits"] <= 132, wp
         for dtype in (torch.float32, torch.bfloat16):
             for launch in fused_mlp_ln_bwd_kernel_info(dtype, 14688, 1024, c=c).values():
                 assert launch["spill_bytes"] == 0 and launch["registers"] > 0, launch
@@ -1006,6 +1015,21 @@ def test_fused_mlp_ln_bwd_kernel_zoo_wave_edges(cuda, dtype, c, edge):
     args = _mlp_args(cuda, m, dtype, c, 1024)
     g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
     _bwd_matches_plain(args, g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,eps", [(256, 1e-5), (512, 1e-6)])
+def test_fused_mlp_ln_bwd_zoo_reruns_bitwise_equal(cuda, dtype, c, eps):
+    """K4 at the zoo's widths and the train step's M = 14,688, H = 1,024:
+    three runs give all eight gradients bit for bit (the weight pass's
+    clusters add the two blocks' partial sums in rank order, each split's
+    partial has one writer, and the reduce sums them in index order)."""
+    args = _mlp_args(cuda, 14688, dtype, c, 1024)
+    g = torch.randn(14688, c, device="cuda", generator=cuda).to(dtype)
+    first = fused_mlp_ln_bwd(*args, g, eps)
+    for _ in range(2):
+        again = fused_mlp_ln_bwd(*args, g, eps)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_fused_mlp_ln_bwd_c128_digests_unchanged(cuda):

@@ -139,17 +139,17 @@ def test_masked_sdpa_bwd_refuses_cpu_tensors():
 # ------------------------------------------------------------ K4
 
 
-def _mlp_inputs(m: int, c: int = 128, hidden: int = 512):
+def _mlp_inputs(m: int, c: int = 128, hidden: int = 512, rng=RNG):
     f = np.float32
     return dict(
-        x=RNG.standard_normal((m, c)).astype(f),
-        gamma=(1.0 + 0.1 * RNG.standard_normal(c)).astype(f),
-        beta=(0.1 * RNG.standard_normal(c)).astype(f),
-        w1=(RNG.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
-        b1=(RNG.standard_normal(hidden) * 0.05).astype(f),
-        w2=(RNG.standard_normal((hidden, c)) * 0.05).astype(f),
-        b2=(RNG.standard_normal(c) * 0.05).astype(f),
-        ls2=RNG.uniform(0.1, 1.0, c).astype(f),
+        x=rng.standard_normal((m, c)).astype(f),
+        gamma=(1.0 + 0.1 * rng.standard_normal(c)).astype(f),
+        beta=(0.1 * rng.standard_normal(c)).astype(f),
+        w1=(rng.standard_normal((c, hidden)) * 0.05).astype(f),  # JAX (in, out)
+        b1=(rng.standard_normal(hidden) * 0.05).astype(f),
+        w2=(rng.standard_normal((hidden, c)) * 0.05).astype(f),
+        b2=(rng.standard_normal(c) * 0.05).astype(f),
+        ls2=rng.uniform(0.1, 1.0, c).astype(f),
     )
 
 
@@ -246,7 +246,7 @@ def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     their partition: a dx partial (sum da * xhat, sum da, sum g) a dx tile
     (112 rows at C = 128), then a weight partial (dW1 = dz^T a, G = g^T h,
     db1 = sum dz) a row split of consecutive weight-pass tiles (40 rows at
-    C = 128; an empty split's zeros)."""
+    C = 128, 48 at 256, 32 at 512; an empty split's zeros)."""
     x, gamma, beta, w1, b1, w2, b2, ls2 = args
     m, c = x.shape
     hidden = w1.shape[0]
@@ -285,22 +285,46 @@ def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     (a ragged M = 300 at H = 128: 3 dx tiles, 8 splits of one 40-row tile;
     M = 1,377 at H = 512: 13 dx tiles, 16 splits of 3 tiles, the last four
     empty; M = 320, a multiple of 8; M = 300 at the zoo's widths: DSTFormer's
-    256/1024, 3 dx tiles of the cluster's 112 rows and 4 splits of 4 24-row
-    tiles, and MixSTE's 512/1024 at eps 1e-6, 6 dx tiles of 56 rows and 2
-    splits of 10 16-row tiles; and one row either side of a dx tile at both:
-    M = 111 and 113 at 256/1024, 55 and 57 at 512/1024) against the JAX
-    package's K4 gradients: `jax.vjp(_mlp_ln_xla)` and, where its row blocks
-    divide M (a multiple of 8), the Pallas backward kernel (interpret
-    mode)."""
-    a = _mlp_inputs(m, c, hidden)
-    g = RNG.standard_normal((m, c)).astype(np.float32)
+    256/1024, 3 dx tiles of the cluster's 112 rows and 4 splits of two of
+    the weight pass's 48-row tiles, the last with one, and MixSTE's
+    512/1024 at eps 1e-6, 6 dx tiles of 56 rows and 2 splits of 5 32-row
+    tiles; and one row either side of a dx tile at both: M = 111 and 113 at
+    256/1024, 55 and 57 at 512/1024) against the JAX package's K4
+    gradients."""
+    _check_reduce_reference(m, hidden, c, eps, {
+        (300, 128): (3, 8, 0), (1377, 128): (13, 16, 4), (320, 128): (3, 8, 0),
+        (300, 256): (3, 4, 0), (300, 512): (6, 2, 0), (111, 256): (1, 3, 0),
+        (113, 256): (2, 3, 0), (55, 512): (1, 2, 0), (57, 512): (2, 2, 0)}[m, c], RNG)
+
+
+@pytest.mark.parametrize("m,c,eps", [
+    (47, 256, 1e-5), (49, 256, 1e-5), (191, 256, 1e-5), (193, 256, 1e-5),
+    (31, 512, 1e-6), (33, 512, 1e-6), (63, 512, 1e-6), (65, 512, 1e-6)])
+def test_fused_mlp_ln_bwd_reduce_reference_matches_jax_at_weight_pass_edges(m, c, eps):
+    """As above at H = 1,024, one row either side of a weight-pass tile of
+    the cluster pass (48 rows at C = 256, 32 at 512: M = 47 and 49, 31 and
+    33) and of its splits of one tile each (4 splits at 256, 2 at 512: M =
+    191 and 193, 63 and 65; the last of 193's splits empty). Inputs from a
+    generator of their own, so the file's other tests keep theirs."""
+    _check_reduce_reference(m, 1024, c, eps, {
+        (47, 256): (1, 1, 0), (49, 256): (1, 2, 0), (191, 256): (2, 4, 0),
+        (193, 256): (2, 4, 1), (31, 512): (1, 1, 0), (33, 512): (1, 2, 0),
+        (63, 512): (2, 2, 0), (65, 512): (2, 2, 0)}[m, c],
+        np.random.default_rng(m * c))
+
+
+def _check_reduce_reference(m: int, hidden: int, c: int, eps: float, tiles: tuple,
+                            rng) -> None:
+    """The reduce's plain version on partials built over K4's partition for
+    m rows, whose (dx tiles, weight splits, empty splits) must be `tiles`,
+    against `jax.vjp(_mlp_ln_xla)` and, where its row blocks divide m (a
+    multiple of 8), the Pallas backward kernel (interpret mode)."""
+    a = _mlp_inputs(m, c, hidden, rng)
+    g = rng.standard_normal((m, c)).astype(np.float32)
     args = _torch_mlp_args(a)
     p = fused_mlp_ln_bwd_partition(m, hidden, c)
     empty = p["splits"] - -(-(-(-m // p["w_rows"])) // p["per_split"])
-    assert (p["dx_tiles"], p["splits"], empty) == {
-        (300, 128): (3, 8, 0), (1377, 128): (13, 16, 4), (320, 128): (3, 8, 0),
-        (300, 256): (3, 4, 0), (300, 512): (6, 2, 0), (111, 256): (1, 4, 1),
-        (113, 256): (2, 4, 1), (55, 512): (1, 2, 0), (57, 512): (2, 2, 0)}[m, c]
+    assert (p["dx_tiles"], p["splits"], empty) == tiles
     got = fused_mlp_ln_bwd_reduce_reference(_k4_workspace(args, _t(g), eps),
                                             *args[5:], m)
     wants = [_jax_mlp_grads(a, g, eps)[1:]]
