@@ -46,7 +46,7 @@ Phases (any failure exits non-zero and prints no result line):
      then, with the model in bfloat16, the 40-frame and 128-clip requests;
      the launch counts are read around each dtype's serving alone.
   5b. the zoo at full width (MixSTE, DSTFormer, MotionAGFormer base,
-     use_tcn, hierarchical and graph_only), each on the card through the
+     use_tcn, hierarchical, graph_only and XS), each on the card through the
      kernels against the CPU through the plain versions (B=4, f32 within
      1e-3; a model whose CPU f32 forward lies further than 1e-4 from its
      float64 forward, graph_only, layer by layer within 1e-3 of each layer's
@@ -61,13 +61,14 @@ Phases (any failure exits non-zero and prints no result line):
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
      plain and scaled_dot_product_attention-backward times (kernel and SDPA
      in turns), each row's tiles, waves, share of its bound and its time
-     over SDPA's; then the zoo's train shapes at batch 32, DSTFormer's heads
-     of 32 (flat spatial stream, grouped temporal view with a transposed
-     gradient) and MixSTE's of 64 (flat spatial and temporal streams), both
-     dtypes, a rerun bitwise equal, with the same times and shares; heads of
-     128 and C = 1024 raise; K2's registers, shared memory, spills, tile and
-     grid an instantiation (D = 16, 32, 64) to --out/chip_smoke_k2_kernel.txt
-     (a spill fails the phase).
+     over SDPA's; then the zoo's train shapes at batch 32, MotionAGFormer's
+     heads of 8 (C = 64: (B,T,J,C) and its temporal permutation with a
+     transposed gradient), DSTFormer's of 32 (flat spatial stream, grouped
+     temporal view with a transposed gradient) and MixSTE's of 64 (flat
+     spatial and temporal streams), both dtypes, a rerun bitwise equal, with
+     the same times and shares; heads of 128 and 4 and C = 1024 raise; K2's
+     registers, shared memory, spills, tile and grid an instantiation (D = 8,
+     16, 32, 64) to --out/chip_smoke_k2_kernel.txt (a spill fails the phase).
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
@@ -79,14 +80,15 @@ Phases (any failure exits non-zero and prints no result line):
      limit), its time, bound and share beside torch.sum over the weight
      partials (a yardstick of that part only), and its device time after
      other kernels (warm, a rewritten workspace, matmuls, a flushed L2).
-     Then K4 at the zoo's widths (C/H 256/1024, and 512/1024 at eps 1e-6) at
-     M = 14,688 and 1,377, both dtypes, all eight gradients, a rerun bitwise
-     equal, the call's and each launch's time against its bound (there a
-     stage launch writes the dx pass's f32 weights first, and the dx pass
-     and the weight pass run clusters of two blocks: each pass's cluster
-     size, clusters resident, tiles and waves beside, the weight pass's
-     chunk and row splits too); C = 64 and 1024 raise. In phases 6 and 7 the
-     plain version runs in float32 on the kernel's own inputs.
+     Then K4 at the zoo's widths (C/H 64/256, 256/1024, and 512/1024 at eps
+     1e-6) at M = 14,688 and 1,377, both dtypes, all eight gradients, a
+     rerun bitwise equal, the call's and each launch's time against its
+     bound (at 256 and 512 a stage launch writes the dx pass's f32 weights
+     first, and the dx pass and the weight pass run clusters of two blocks;
+     at 64 the one-block passes: each pass's cluster size, clusters
+     resident, tiles and waves beside, the weight pass's chunk and row
+     splits too); C = 32 and 1024, and H = 192 at C = 64, raise. In phases 6
+     and 7 the plain version runs in float32 on the kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -96,21 +98,26 @@ Phases (any failure exits non-zero and prints no result line):
      ms/step, clips/s, peak memory, device busy share and a profiler table
      (the profiles of phases 4 and 9 with the SM clock they ran at);
      then 50 steps on one batch, whose loss must fall.
-  9b. the zoo trains on the card (MixSTE, DSTFormer at full width, drop_path
-     0 as the config sets it): the B=4 train-mode loss and every parameter's
-     gradient on the card against the CPU (each within 1e-3 of its module's
-     largest CPU entry, the loss within 1e-5), 16 / 20 K2 and K4 launches a
-     backward; the float32 step at batch 32 (median ms over 12 steps,
-     clips/s, peak memory, profiler table by kernel group); one epoch of
-     MixSTE through the CLI's `train` on phase 10's synthetic store, then
-     `evaluate`, the launches read around `train`.
+  9b. the zoo trains on the card (MixSTE, DSTFormer and MotionAGFormer base,
+     use_tcn, hierarchical, graph_only and XS at full width, drop_path 0 as
+     the config sets it): the B=4 train-mode loss and every parameter's
+     gradient on the card against the CPU, the CPU's top-k adjacencies and
+     ReLU gates replayed (each within 1e-3 of its module's largest CPU
+     entry, the loss within 1e-5), the expected K2 and K4 launches a backward;
+     the float32 step at batch 32 of MixSTE, DSTFormer, MotionAGFormer-XS
+     and hierarchical (median ms over 12 steps, clips/s, peak memory,
+     profiler table by kernel group); one epoch of MixSTE through the CLI's
+     `train` on phase 10's synthetic store, then `evaluate`, the launches
+     read around `train`.
  10. training, the second main path: `train` through the CLI's entry point
      on a seeded synthetic .npz clip store (256 train, 64 test clips) for 2
      epochs, each evaluated, then `evaluate` of the best checkpoint, which
      must give its epoch's MPJPE; the launch counts are read around `train`.
 The last lines: the card, one JSON object per kernel table, and
 {"ok": true, "device": {...}}; a run of a subset (--phases) ends with the
-card and the phases' verdict instead. Long reports (the compiler's register report,
+card and the phases' verdict instead. A run in which a phase failed ends,
+on stdout and last on stderr, with each failed phase and the last line of
+its exception, and exits 1. Long reports (the compiler's register report,
 the profiler table) go to --out, by default chip_smoke_out/.
 """
 
@@ -134,10 +141,23 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 FAILED: list[str] = []
+# each failed phase's exception, the last line of its traceback
+FAILURES: dict[str, str] = {}
 
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def report_failures(what: str) -> None:
+    """Name the failed phases and their exceptions on stdout and, last of
+    all, on stderr, whose end is what a caller that shows only the tail of
+    the error stream (after the CLI's own logging) reads."""
+    lines = [f"chip_smoke: FAILED: {what}"] + [
+        f"  {name}: {FAILURES[name]}" for name in FAILED]
+    for line in lines:
+        log(line)
+    print("\n".join(lines), file=sys.stderr, flush=True)
 
 
 def phase(name: str):
@@ -154,6 +174,7 @@ def phase(name: str):
                 traceback.print_exc()
                 log(f"   {name}: FAILED")
                 FAILED.append(name)
+                FAILURES[name] = traceback.format_exc().strip().splitlines()[-1]
                 return None
         return run
     return deco
@@ -416,12 +437,13 @@ def write_k4_report(out_dir: str) -> None:
 
 
 def k4_widths() -> tuple:
-    """K4's (C, H): the flagship's, then the zoo's (DSTFormer, MixSTE) where
-    the tree's K4 takes them (an older tree's, kept for A/B runs, does not)."""
+    """K4's (C, H): the flagship's, then the zoo's (MotionAGFormer-XS and
+    hierarchical, DSTFormer, MixSTE) where the tree's K4 takes them (an
+    older tree's, kept for A/B runs, does not)."""
     from kasportsformer_torch.ops.mlp import _WIDTHS
 
-    return ((128, 512),) + (((256, 1024), (512, 1024))
-                            if 512 in _WIDTHS["mlp_ln_bwd"] else ())
+    return ((128, 512),) + tuple((c, h) for c, h in ((64, 256), (256, 1024), (512, 1024))
+                                 if c in _WIDTHS["mlp_ln_bwd"])
 
 
 # K4's launches, by the kernel names the profiler reports: at C = 256 and
@@ -1195,6 +1217,8 @@ def check_serving(dev, model) -> dict:
 
 # full width: each family's published widths (the JAX configs' defaults)
 # over the flagship's YAML, 27 frames, MotionAGFormer in all four variants
+# and as MotionAGFormer-XS (Mehraban et al., WACV 2024, Table 1: 12 layers of
+# 64 channels, 8 heads of 8, MLP ratio 4)
 _MAG = dict(model_name="MotionAGFormer", dim_feat=128, n_layers=16,
             num_heads=8, mlp_ratio=4.0)
 ZOO = {"MixSTE": dict(model_name="MixSTE", dim_in=2, dim_feat=512, n_layers=8,
@@ -1204,14 +1228,22 @@ ZOO = {"MixSTE": dict(model_name="MixSTE", dim_in=2, dim_feat=512, n_layers=8,
        "MotionAGFormer": _MAG,
        "MotionAGFormer use_tcn": dict(_MAG, use_tcn=True),
        "MotionAGFormer hierarchical": dict(_MAG, hierarchical=True),
-       "MotionAGFormer graph_only": dict(_MAG, graph_only=True)}
-# K1 and K3 launches per forward: a block's attention core and MLP tail
-# (MixSTE 2 x 8 blocks; DSTFormer 4 half blocks x 5; MotionAGFormer 2
-# attention and 4 former modules x 16 layers, graph_only 2 graph modules)
+       "MotionAGFormer graph_only": dict(_MAG, graph_only=True),
+       "MotionAGFormer-XS": dict(_MAG, dim_feat=64, n_layers=12)}
+# K1 and K3 launches per forward, and K2 and K4 per backward: a block's
+# attention core and MLP tail (MixSTE 2 x 8 blocks; DSTFormer 4 half blocks
+# x 5; MotionAGFormer 2 attention and 4 former modules x 16 layers (12 in
+# XS), graph_only 2 graph modules)
 ZOO_LAUNCHES = {"MixSTE": (16, 16), "DSTFormer": (20, 20),
                 "MotionAGFormer": (32, 64), "MotionAGFormer use_tcn": (32, 64),
                 "MotionAGFormer hierarchical": (32, 64),
-                "MotionAGFormer graph_only": (32, 32)}
+                "MotionAGFormer graph_only": (32, 32),
+                "MotionAGFormer-XS": (24, 48)}
+# the MotionAGFormer configurations phase 9b trains, and those it times at
+# batch 32 beside MixSTE and DSTFormer (the 64-channel ones, K2 at heads of
+# 8 and K4 at C = 64)
+MAG_ZOO = tuple(n for n in ZOO if n.startswith("MotionAGFormer"))
+ZOO_STEPS = ("MixSTE", "DSTFormer", "MotionAGFormer-XS", "MotionAGFormer hierarchical")
 
 
 def zoo_config(name: str):
@@ -1492,18 +1524,22 @@ def check_k2(dev, out_dir: str) -> dict:
 
 
 def check_k2_zoo(dev, gen, tol: dict) -> dict:
-    """K2 at the zoo's train shapes (batch 32, 27 frames): DSTFormer's heads
-    of 32 (C = 256: the flat spatial stream and the grouped temporal view,
-    its gradient a transposed view) and MixSTE's of 64 (C = 512: flat
-    spatial and temporal streams), both dtypes, against the plain version in
-    float32 and a rerun bitwise equal, with the kernel's, the plain
-    version's and SDPA's backward times; then shapes outside K2's range
-    (heads of 128, C = 1024) raise."""
+    """K2 at the zoo's train shapes (batch 32, 27 frames): MotionAGFormer-XS's
+    and hierarchical's heads of 8 (C = 64: (B, T, J, C) spatially and its
+    (B, J, T, C) permutation temporally, the gradient a transposed view),
+    DSTFormer's heads of 32 (C = 256: the flat spatial stream and the
+    grouped temporal view, its gradient a transposed view) and MixSTE's of
+    64 (C = 512: flat spatial and temporal streams), both dtypes, against
+    the plain version in float32 and a rerun bitwise equal, with the
+    kernel's, the plain version's and SDPA's backward times; then shapes
+    outside K2's range (heads of 128 and of 4, C = 1024) raise."""
     import torch
     import torch.nn.functional as F
 
     from kasportsformer_torch.ops.attention import (masked_sdpa_bwd,
                                                     masked_sdpa_bwd_reference)
+
+    from kasportsformer_torch.ops import attention
 
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1511,12 +1547,12 @@ def check_k2_zoo(dev, gen, tol: dict) -> dict:
         for name, ((qq, kk, vv), heads) in zoo_sdpa_views(dev, gen, dt, 32).items():
             c = qq.shape[-1]
             d = c // heads
-            if d == 8:  # MotionAGFormer hierarchical: not K2's
+            if d not in attention.LIMITS["masked_sdpa_bwd"][0]:  # an older tree's
                 continue
             scale = d ** -0.5
             if qq.dim() == 3:  # a flat stream enters as the view (1, M, N, C)
                 qq, kk, vv = (z[None] for z in (qq, kk, vv))
-            if "temporal D=32" in name:  # DSTFormer's grouped view
+            if "temporal D=" in name and qq.shape[0] == 32:  # a permuted view
                 gg = torch.randn(32, 27, 17, c, device=dev, generator=gen).to(dt).transpose(1, 2)
             else:
                 gg = torch.randn(qq.shape, device=dev, generator=gen).to(dt)
@@ -1554,13 +1590,14 @@ def check_k2_zoo(dev, gen, tol: dict) -> dict:
     w = torch.randn(2, 3, 17, 1024, device=dev)
     refused = 0
     for call in (lambda: masked_sdpa_bwd(q, q, q, q, 0.1, 2),   # heads of 128
+                 lambda: masked_sdpa_bwd(*(q[..., :64],) * 4, 0.1, 16),  # of 4
                  lambda: masked_sdpa_bwd(w, w, w, w, 0.1, 16)):  # C = 1024
         try:
             call()
         except ValueError:
             refused += 1
-    log(f"   K2 at D=128 and at C=1024: {refused} of 2 refused")
-    if refused != 2:
+    log(f"   K2 at D=128, at D=4 and at C=1024: {refused} of 3 refused")
+    if refused != 3:
         raise AssertionError("K2 took a shape outside its range")
     return rows
 
@@ -1715,20 +1752,23 @@ def k4_w_tiling(dname: str, m: int, c: int, h: int) -> str:
 
 
 def check_k4_zoo(dev, gen, tol: dict) -> dict:
-    """K4 at the zoo's widths (C/H 256/1024 for DSTFormer, 512/1024 with
-    MixSTE's LayerNorm eps of 1e-6) at the train step's M = 14,688 and a
-    ragged 1,377, both dtypes: all eight gradients against the plain version
-    in float32, a rerun bitwise equal, the whole call's time, the plain
-    version's, the bound, and each launch's device time against its own
-    bound; then widths outside K4's range (C = 64, 1024) raise."""
+    """K4 at the zoo's widths (C/H 64/256 for MotionAGFormer-XS and
+    hierarchical, 256/1024 for DSTFormer, 512/1024 with MixSTE's LayerNorm
+    eps of 1e-6) at the train step's M = 14,688 and a ragged 1,377, both
+    dtypes: all eight gradients against the plain version in float32, a
+    rerun bitwise equal, the whole call's time, the plain version's, the
+    bound, and each launch's device time against its own bound; then shapes
+    outside K4's range (C = 32 and 1024, and H = 192 at C = 64) raise."""
     import torch
 
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd, fused_mlp_ln_bwd_reference
 
+    eps_of = {64: 1e-5, 256: 1e-5, 512: 1e-6}
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
+        for c, h in k4_widths()[1:]:
+            eps = eps_of[c]
             for m in (14688, 1377):
                 args = mlp_args(dev, gen, m, dt, c, h)
                 g = torch.randn(m, c, device=dev, generator=gen).to(dt)
@@ -1761,15 +1801,15 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
                     + "; bound (share): " + k4_launch_bounds(m, c, h, dname, per))
                 log("     " + k4_dx_tiling(dname, m, c, h) + "; " + k4_w_tiling(dname, m, c, h))
     refused = 0
-    for c in (64, 1024):
-        args = mlp_args(dev, gen, 8, torch.float32, c, 256)
+    for c, h in ((32, 256), (1024, 256), (64, 192)):
+        args = mlp_args(dev, gen, 8, torch.float32, c, h)
         try:
             fused_mlp_ln_bwd(*args, args[0], 1e-5)
         except ValueError:
             refused += 1
-    log(f"   K4 at C=64 and at C=1024: {refused} of 2 refused")
-    if refused != 2:
-        raise AssertionError("K4 took a width outside its range")
+    log(f"   K4 at C=32, at C=1024 and at C/H=64/192: {refused} of 3 refused")
+    if refused != 3:
+        raise AssertionError("K4 took a shape outside its range")
     return rows
 
 
@@ -1815,7 +1855,8 @@ def check_k4_reduce(dev, gen, per: dict) -> None:
                     f"K4 reduce alone M={m} {dname}: bitwise equal "
                     f"{dict(zip(_MLP_GRADS[1:7], same))}, dls2 err {err:.2e}")
             ms = time_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 50)
-            launch = k4_launch_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 20)["reduce"]
+            launch = k4_launch_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 20).get(
+                "reduce", float("nan"))  # nan: the profiler saw no launch
             plain = time_ms(lambda: fused_mlp_ln_bwd_reduce_reference(*args), 5)
             part_w = work[n_dx:].view(p["splits"], -1)
             lib = time_ms(lambda: torch.sum(part_w, 0), 50)
@@ -1845,7 +1886,7 @@ def check_k4_reduce(dev, gen, per: dict) -> None:
         def call():
             prefix()
             fused_mlp_ln_bwd_reduce(work, w2, w2[:, 0], ls2, 14688)
-        return k4_launch_ms(call, 20)["reduce"]
+        return k4_launch_ms(call, 20).get("reduce", float("nan"))
 
     times = {"inside K4 (after the weight pass)": per[(14688, "float32")].get(
                  "reduce", float("nan")),
@@ -1972,17 +2013,23 @@ def check_grads(dev) -> dict:
 
 @phase("phase 9b: zoo train step on the card")
 def check_zoo_train(dev, out_dir: str) -> dict:
-    """MixSTE and DSTFormer trained on the card at full width, drop_path 0
-    as the config sets it (so every MLP tail takes K3 and K4): (1) each
-    model's train-mode loss and every parameter's gradient at B = 4 on the
-    card (kernels) against the CPU (plain versions), same perturbed weights,
-    each gradient within 1e-3 of its module's largest CPU entry and the loss
-    within 1e-5 relative, K2 and K4 launches counted per backward; (2) the
-    float32 train step at the config's batch 32: median ms over 12 steps,
-    clips/s, peak memory and a profiler table by kernel group, the launches
-    read around the 12 steps; (3) one epoch of MixSTE through the CLI's
-    `train` on phase 10's synthetic store, then `evaluate`, the launches
-    read around `train`."""
+    """The zoo trained on the card at full width, drop_path 0 as the config
+    sets it (so every MLP tail takes K3 and K4): (1) MixSTE's, DSTFormer's
+    and the five MotionAGFormer configurations' (base, use_tcn,
+    hierarchical, graph_only, XS) train-mode loss and every parameter's
+    gradient at B = 4 on the card (kernels) against the CPU (plain
+    versions), same perturbed weights, the CPU's top-k adjacencies and ReLU
+    gates replayed, each gradient within 1e-3 of its module's largest CPU
+    entry and the loss within 1e-5 relative, K2 and K4 launches counted per
+    backward (graph_only too: its chain of GCN layers amplifies the forward's
+    rounding to 6e-4 of the output, phase 5b, but not its replayed
+    gradients past this limit); (2) the
+    float32 train step at the config's batch 32 of MixSTE, DSTFormer,
+    MotionAGFormer-XS and hierarchical: median ms over 12 steps, clips/s,
+    peak memory and a profiler table by kernel group, the launches read
+    around the 12 steps; (3) one epoch of MixSTE through the CLI's `train` on
+    phase 10's synthetic store, then `evaluate`, the launches read around
+    `train`."""
     import numpy as np
     import torch
 
@@ -1994,7 +2041,7 @@ def check_zoo_train(dev, out_dir: str) -> dict:
                                                  make_train_step)
 
     res = {}
-    for i, name in enumerate(("MixSTE", "DSTFormer")):
+    for i, name in enumerate(("MixSTE", "DSTFormer") + MAG_ZOO):
         cfg = zoo_config(name)
         if cfg.drop_path != 0.0:
             raise AssertionError(f"{name}: the config's drop_path is {cfg.drop_path}")
@@ -2004,11 +2051,16 @@ def check_zoo_train(dev, out_dir: str) -> dict:
         x = clip_batch(torch.Generator().manual_seed(41 + i), 4)
         y = label_batch(torch.Generator().manual_seed(43 + i), 4)
         w = torch.ones(4)
+        adjacencies: list = []
+        gates: list = []
         t0 = time.perf_counter()
-        want = make_grads_fn(cpu_model, gcfg)(x, y, w)
+        with adjacency_tape(record=adjacencies), relu_gate_tape(record=gates):
+            want = make_grads_fn(cpu_model, gcfg)(x, y, w)
         cpu_s = time.perf_counter() - t0
         k2, k4 = masked_sdpa_bwd.launches, fused_mlp_ln_bwd.launches
-        got = make_grads_fn(model, gcfg)(x.to(dev), y.to(dev), w.to(dev))
+        with adjacency_tape(replay=adjacencies) as flips, \
+                relu_gate_tape(replay=gates) as gate_flips:
+            got = make_grads_fn(model, gcfg)(x.to(dev), y.to(dev), w.to(dev))
         torch.cuda.synchronize()
         d = (masked_sdpa_bwd.launches - k2, fused_mlp_ln_bwd.launches - k4)
         loss_rel = abs(got["loss_total"].item() - want["loss_total"].item()) / abs(
@@ -2024,7 +2076,9 @@ def check_zoo_train(dev, out_dir: str) -> dict:
             f"CPU gradient (limit 1e-3): median {errs[len(errs) // 2]:.2e}, worst "
             f"five: " + "; ".join(f"{n} {e:.2e} (over its own |g| max {s:.2e}: {o:.2e})"
                                   for e, o, s, n in rows[:5])
-            + f"; CPU forward+backward {cpu_s:.2f} s")
+            + f"; top-k entries chosen differently: {flips[0]} of {flips[1]}, ReLU "
+            f"gates set differently: {gate_flips[0]} of {gate_flips[1]} (both "
+            f"replayed from the CPU); CPU forward+backward {cpu_s:.2f} s")
         if not (d == ZOO_LAUNCHES[name] and missing == cpu_missing
                 and loss_rel <= 1e-5 and rows[0][0] <= 1e-3):
             raise AssertionError(f"{name}: gradients off the CPU's")
@@ -2035,7 +2089,7 @@ def check_zoo_train(dev, out_dir: str) -> dict:
     arrays = {"inputs": torch.as_tensor(train.inputs, device=dev),
               "labels": torch.as_tensor(train.labels, device=dev)}
     plans = np.arange(320).reshape(10, 32)
-    for name in ("MixSTE", "DSTFormer"):
+    for name in ZOO_STEPS:
         cfg = zoo_config(name)  # the public config: batch 32, float32
         model = build_model(cfg, device=dev)
         opt = make_optimizer(model, cfg)
@@ -2062,7 +2116,7 @@ def check_zoo_train(dev, out_dir: str) -> dict:
                     "fused_mlp_ln_bwd": fused_mlp_ln_bwd.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         med = statistics.median(times)
-        busy = profile_steps(one, 3, f"train_{name}", out_dir)
+        busy = profile_steps(one, 3, f"train_{name.replace(' ', '_')}", out_dir)
         finite = all(bool(torch.isfinite(v)) for v in losses)
         log(f"   {name} train step float32, batch 32: median {med:.1f} ms over 12 "
             f"steps (min {min(times):.1f}, max {max(times):.1f}), {32e3 / med:.1f} "
@@ -2377,13 +2431,17 @@ def main() -> int:
     log(f"== total {time.perf_counter() - t_start:.1f} s")
     if args.phases is not None:
         log(card)
-        log(f"chip_smoke: phases {sorted(want, key=PHASES.index)} "
-            + (f"FAILED: {FAILED}" if FAILED else "ok"))
-        return 1 if FAILED else 0
-    if FAILED or not (k1 and k3 and k5 and k5_launches and zoo_k and launches
-                      and zoo and zoo_launches and k2 and k4 and zoo_train
-                      and train_launches):
-        log(f"chip_smoke: FAILED phases: {FAILED}")
+        if FAILED:
+            report_failures(f"phases {FAILED} of {sorted(want, key=PHASES.index)}")
+            return 1
+        log(f"chip_smoke: phases {sorted(want, key=PHASES.index)} ok")
+        return 0
+    results = {"2": k1, "3": k3, "3b": k5, "3c": k5_launches, "3d": zoo_k,
+               "5": launches, "5b": zoo, "5c": zoo_launches, "6": k2, "7": k4,
+               "9b": zoo_train, "10": train_launches}
+    empty = [f"phase {p}" for p, r in results.items() if not r]
+    if FAILED or empty:
+        report_failures(f"phases {FAILED}; phases without a result {empty}")
         return 1
 
     # rows at the main paths' shapes, f32 (and K3's bf16 flagship row): the
@@ -2452,6 +2510,18 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=zoo_train["MixSTE"]["cli_launches"]["fused_mlp_ln_bwd"],
              **k4[(14688, "float32", 512)]),
+        # MotionAGFormer-XS's batch-32 steps (phase 9b): K2 at heads of 8, K4
+        # at C/H 64/256
+        dict(name="masked_sdpa_bwd[zoo D=8]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:365",
+             launches=zoo_train["MotionAGFormer-XS"]["launches"]["masked_sdpa_bwd"],
+             **k2[("MAG spatial D=8", "float32")]),
+        dict(name="fused_mlp_ln_bwd[zoo C=64]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:284",
+             launches=zoo_train["MotionAGFormer-XS"]["launches"]["fused_mlp_ln_bwd"],
+             **k4[(14688, "float32", 64)]),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -30,11 +30,11 @@ from kasportsformer_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (head widths, largest C, largest N) each kernel takes, as its launcher
-# checks them: K1 the flagship's 16 and the zoo's 8 (MotionAGFormer
-# hierarchical), 32 (DSTFormer) and 64 (MixSTE), any number of heads up to
-# C = 512, N up to its 32-row stage; K2 the same but for heads of 8
+# checks them: K1 and K2 the flagship's 16 and the zoo's 8 (MotionAGFormer-XS
+# and hierarchical), 32 (DSTFormer) and 64 (MixSTE), any number of heads up
+# to C = 512, N up to their 32-row stage
 LIMITS = {"masked_sdpa": ((8, 16, 32, 64), 512, 32),
-          "masked_sdpa_bwd": ((16, 32, 64), 512, 32)}
+          "masked_sdpa_bwd": ((8, 16, 32, 64), 512, 32)}
 
 
 def masked_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,8 +201,8 @@ def masked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through `MaskedSdpaFunction`: K1 forward (head widths 8, 16, 32 and 64),
     which accepts strided views (channel stride 1; an operand whose rows are
     not 16-byte aligned is copied first) and returns a contiguous output, and
-    K2 backward (head widths 16, 32 and 64). `masked_sdpa.launches` counts
-    K1 launches."""
+    K2 backward (the same head widths). `masked_sdpa.launches` counts K1
+    launches."""
     if q.device.type == "cpu":
         return masked_sdpa_reference(q, k, v, scale, num_heads)
     if q.dim() == 3:
@@ -231,7 +231,7 @@ def masked_sdpa_kernel_info(dtype: torch.dtype, d: int) -> dict:
 
 def masked_sdpa_bwd_kernel_info(dtype: torch.dtype, n: int = 32,
                                 d: int = 16) -> dict:
-    """K2's instantiation for `dtype`, head width `d` (16, 32 or 64) and
+    """K2's instantiation for `dtype`, head width `d` (8, 16, 32 or 64) and
     N = `n` (one a block of four rows) on the current CUDA device, as the
     runtime reports it: threads a block, registers a thread, dynamic shared memory a block,
     local memory (spills) a thread in bytes, blocks resident a SM, the tile

@@ -19,8 +19,8 @@
 //
 // Design:
 //  * Unit of work: one (sequence, head group) tile, HG = 64 / D heads (W = 64
-//    channels; a last group of fewer heads, C not a multiple of 64, loads and
-//    computes only its heads). Persistent blocks (SMs x 2, at most one a
+//    channels; four heads of 8, W = 32, at D = 8; a last group of fewer
+//    heads, C not a multiple of W, loads and computes only its heads). Persistent blocks (SMs x 2, at most one a
 //    tile) walk the tiles in order through a two-stage ring: while tile t
 //    computes, the block's last warp copies tile t + grid into the other
 //    stage by 16-byte cp.async.cg copies (kasf_mma::cp_async16) and each of
@@ -74,10 +74,21 @@
 //    recomputing would read k and v once more for every key of every row.
 //  * Head width D is a template parameter, instantiated at D = 16 (the
 //    flagship's: four heads a tile), 32 (DSTFormer: two) and 64 (MixSTE:
-//    one), every NB and both dtypes: a tile is always 64 channels, so the
-//    ring, its loader, the stages and the block of 256 threads are the same
-//    at every D (P^T and dS^T shrink with the heads), and pass 2's lanes
-//    (16 NB and 8 NB of them) too.
+//    one), every NB and both dtypes: a tile is 64 channels, so the ring,
+//    its loader, the stages and the block of 256 threads are the same at
+//    every D (P^T and dS^T shrink with the heads), and pass 2's lanes (16 NB
+//    and 8 NB of them) too.
+//  * D = 8 (MotionAGFormer-XS and hierarchical: C = 64 over 8 heads) takes
+//    a tile of four heads, 32 channels: P^T and dS^T of four heads as at D =
+//    16 beside half the ring, ~74 KB a block, so two or more blocks a SM
+//    still overlap one's loads with another's products. (A 64-channel tile
+//    of eight heads would need ~144 KB, one block a SM, the layout that
+//    measured 10-20 % slower at D = 16.) Pass 1 gives a (head, row block)
+//    four lanes as at D = 16, each over the whole 8-channel head: two float4
+//    dots a key and row, no lane map of its own. Pass 2's lanes are 2 NB and
+//    NB a head. A sequence of C = 64 is two tiles, so the grid walks twice
+//    the tiles of half the bytes. The instantiations at D = 16, 32 and 64
+//    are the code before D = 8 was added.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -109,10 +120,10 @@ struct BwdStrides {
 
 template <typename T, int D>
 struct Tile {
-  static_assert(D == 16 || D == 32 || D == 64, "heads of 16, 32 or 64 channels");
-  static constexpr int HG = 64 / D;                // heads a group
-  static constexpr int W = HG * D;                 // channels a group: 64
-  static constexpr int kSplit = D / 16;            // pass 1's lanes a (head, row block): 4 kSplit
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64, "heads of 8, 16, 32 or 64 channels");
+  static constexpr int HG = D == 8 ? 4 : 64 / D;   // heads a group
+  static constexpr int W = HG * D;                 // channels a group: 64 (32 at D = 8)
+  static constexpr int kSplit = D == 8 ? 1 : D / 16;  // pass 1's lanes a (head, row block): 4 kSplit
   static constexpr int kThreads = 256;
   static constexpr int kMinBlocks = 2;             // blocks a SM, as shared memory allows
   static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // 16 bytes
@@ -664,6 +675,7 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const void
                          void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
                          int H, float scale, cudaStream_t stream) {
   switch (C / H) {
+    case 8: return launch_rows<T, 8>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
     case 16: return launch_rows<T, 16>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
     case 32: return launch_rows<T, 32>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
     case 64: return launch_rows<T, 64>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
@@ -673,6 +685,7 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const void
 
 template <typename T>
 void describe_width(int d, int n, int* info) {
+  if (d == 8) describe_rows<T, 8>(n, info);
   if (d == 16) describe_rows<T, 16>(n, info);
   if (d == 32) describe_rows<T, 32>(n, info);
   if (d == 64) describe_rows<T, 64>(n, info);
@@ -682,7 +695,7 @@ void describe_width(int d, int n, int* info) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Heads of D = C / H in {16, 32, 64},
+// dtype: 0 = float32, 1 = bfloat16. Heads of D = C / H in {8, 16, 32, 64},
 // C <= 512, 1 <= N <= 32, any B G.
 // strides: 16 int64 in elements, the four leading strides of q, k, v and g
 // in that order (channel stride 1); every pointer and the three outer

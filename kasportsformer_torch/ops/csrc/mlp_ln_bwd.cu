@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel kasportsformer_tpu/ops/mlp.py:_mlp_ln_bwd_kernel
 // (wrapper fused_mlp_ln_bwd_pallas, VJP _fused_mlp_ln_bwd). The forward (K3)
-// is, over M token rows of width C (128, 256 or 512) and a hidden width H:
+// is, over M token rows of width C (64, 128, 256 or 512) and a hidden width H:
 //     a = LN(x) * gamma + beta,  z = a W1^T + b1,  h = GELU(z)
 //     out = x + ls2 * (h W2^T + b2)
 // with W1 (H, C), W2 (C, H) in the torch nn.Linear layout. For the output
@@ -30,21 +30,31 @@
 // Tail rows of a ragged M are loaded as zeros; their g is zero, so dh, dz
 // and every contribution of theirs vanish.
 //
-// Widths. Each launch is a template on C, instantiated at 128 (the
-// flagship), 256 (DSTFormer) and 512 (MixSTE); the numbers below are C =
-// 128's, whose instantiations compute bit for bit what they did before the
-// template.
+// Widths. Each launch is a template on C, instantiated at 64
+// (MotionAGFormer-XS and hierarchical), 128 (the flagship), 256 (DSTFormer)
+// and 512 (MixSTE); the numbers below are C = 128's, whose instantiations
+// compute bit for bit what they did before the template.
 //  * dx pass: at C = 128 one block a 112-row tile (1.); at 256 and 512 a
 //    thread-block cluster of two blocks a tile, each over half the channels,
-//    after a stage launch that lays the weights out for it (1b.).
+//    after a stage launch that lays the weights out for it (1b.). At C = 64
+//    the C = 128 block with 112-row tiles (a 224-row tile, the C = 128
+//    tile's rows x channels, would not fit beside the weights): da's
+//    register tile is 7 rows x 4 channels a thread (half of C = 128's),
+//    fc1's and dh's loops run half the channels, and a half warp stages a
+//    row (two rows a warp at once); ~132 KB of shared memory a block.
 //  * weight pass: at C = 128 one block per (hidden chunk of 64, row split),
 //    40-row tiles (2.); at 256 and 512 a thread-block cluster of two blocks
 //    per (chunk, split), each over half the channels, chunks of 64 and 32
 //    columns and tiles of 48 and 32 rows (2b.). Either way dW1c and G_c are
 //    8,192 floats a block, 64 registers a thread, and 128 blocks at the
-//    models' H.
+//    models' H. At C = 64 the C = 128 block with a chunk of 128 columns
+//    (so H a multiple of 128) and 56-row tiles: one channel split of fc1
+//    and dh, 7 rows x 8 columns a thread; the outer products' register
+//    tiles as at C = 128; 2 x 66 blocks at H = 256.
 //  * reduce: channel blocks as before; a hidden block's 8 dW1 rows are
-//    C / 128 float4s a thread; the dx chains read partials of C channels.
+//    C / 128 float4s a thread (at C = 64 half a float4: threads 128-255 of
+//    warps 0-7 idle, the block's 128 float4s one a thread); the dx chains
+//    read partials of C channels.
 //
 //  1. dx pass (mlp_ln_bwd_dx_kernel): fc1 recomputed, dh, dz, da and dx; the
 //     tile's partial sums of da*xhat, da and g per channel to a workspace.
@@ -346,11 +356,11 @@ using kasf_mma::cp_async16;
 
 constexpr int kT = 256;  // threads a block: 8 warps
 
-// The dx pass's one-block tile, at C = 128 (C = 256 and 512 take the
+// The dx pass's one-block tile, at C = 64 and 128 (C = 256 and 512 take the
 // cluster tile, dxc::Cfg): 112 rows and hidden chunks of 32 columns.
 template <int C>
 struct Cfg {
-  static_assert(C == 128, "the one-block width");
+  static_assert(C == 64 || C == 128, "the one-block widths");
   static constexpr int kR = 112;  // rows a tile
   static constexpr int kKC = 32;  // hidden columns a chunk
   // fc1 and dh (128 threads each): kKS neighbouring lanes split the
@@ -366,9 +376,12 @@ struct Cfg {
   static constexpr int kK = C / (4 * kCG);             // 2
   static constexpr int kRG = kT / kCG;                 // 16
   static constexpr int kRT = kR / kRG;                 // 7
-  // staging: a warp's rows w, w + 8, ..., kBatch at a time; lane l holds
-  // the float4s 4l + 128 q of a row
-  static constexpr int kQ = C / 128;
+  // staging: a warp's rows w, w + 8, ..., kBatch lane groups' rows at a
+  // time; kLanes lanes hold a row (all 32 at C = 128, a half warp at 64),
+  // lane l the float4s 4 (l % kLanes) + 128 q of its row
+  static constexpr int kLanes = C / 4 < 32 ? C / 4 : 32;
+  static constexpr int kSub = 32 / kLanes;             // rows a warp stages at once
+  static constexpr int kQ = C < 128 ? 1 : C / 128;
   static constexpr int kWarpRows = kR / (kT / 32);     // 14
   static constexpr int kBatch = 7;
   static constexpr int kLdA = C + 4;     // aS, dS rows: LN(x) * gamma + beta, g * ls2
@@ -388,7 +401,7 @@ struct Cfg {
   static constexpr int kW1B = kW1F + kKC;         // a widened W1 chunk and its b1
   static constexpr int kOffW2f = 2 * kW1B;        // from kOffRing
   static constexpr int kOffStageH = kOffW2f + kW2F;
-  static_assert(kR % kRG == 0 && kRG1 * kRT1 == kR && kWarpRows % kBatch == 0 &&
+  static_assert(kR % kRG == 0 && kRG1 * kRT1 == kR && kWarpRows % (kSub * kBatch) == 0 &&
                     kR % (kT / 32) == 0 && kKC * C % (8 * kT) == 0 && kKC % 8 == 0,
                 "the threads divide the tile and the chunk evenly");
   static_assert(kOffStat % 4 == 0 && kOffRing % 4 == 0 && kStageF % 4 == 0 && kW1B % 4 == 0 &&
@@ -500,7 +513,9 @@ __device__ __forceinline__ void widen_chunk(float* w1f, float* w2f, const bf16* 
 
 // Stage the tile: aS = LN(x) * gamma + beta, dS = g * ls2 (row-major), and
 // each row's mean and rstd. Warp w takes rows w, w + 8, ...; lane l holds
-// channels 4l..4l+3 (+ 128 q). Tail rows (>= M) are zeros: a = beta, do = 0.
+// channels 4l..4l+3 (+ 128 q) at C >= 128; at C = 64 the half warp l / 16
+// takes every other of those rows, lane l channels 4 (l % 16)... Tail rows
+// (>= M) are zeros: a = beta, do = 0.
 template <int C, typename T>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __restrict__ g,
                                            const float* __restrict__ gamma,
@@ -510,34 +525,36 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __r
                                            long long row0, long long M, float eps, int warp,
                                            int lane) {
   using K = Cfg<C>;
-  constexpr int kB = K::kBatch, kQ = K::kQ;  // rows of a warp's in flight together
+  constexpr int kB = K::kBatch, kQ = K::kQ;  // rows of a lane's in flight together
+  constexpr int kL = K::kLanes, kS = K::kSub;
+  const int cl = lane % kL, sub = lane / kL;  // at C = 128: lane, 0
   float4 gm[kQ], bt[kQ], ls[kQ];
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
-    gm[q] = ld4(gamma + 4 * lane + 128 * q);
-    bt[q] = ld4(beta + 4 * lane + 128 * q);
-    ls[q] = ld4(ls2 + 4 * lane + 128 * q);
+    gm[q] = ld4(gamma + 4 * cl + 128 * q);
+    bt[q] = ld4(beta + 4 * cl + 128 * q);
+    ls[q] = ld4(ls2 + 4 * cl + 128 * q);
   }
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 1
-  for (int h = 0; h < K::kWarpRows / kB; ++h) {
+  for (int h = 0; h < K::kWarpRows / (kS * kB); ++h) {
     float4 xv[kB][kQ], gv[kB][kQ];
 #pragma unroll
     for (int i = 0; i < kB; ++i) {  // the loads of the batch's rows in flight together
-      const long long row = row0 + warp + (kT / 32) * (h * kB + i);
+      const long long row = row0 + warp + (kT / 32) * ((h * kB + i) * kS + sub);
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
-        xv[i][q] = row < M ? load4(x + row * C + 4 * lane + 128 * q) : zero;
-        gv[i][q] = row < M ? load4(g + row * C + 4 * lane + 128 * q) : zero;
+        xv[i][q] = row < M ? load4(x + row * C + 4 * cl + 128 * q) : zero;
+        gv[i][q] = row < M ? load4(g + row * C + 4 * cl + 128 * q) : zero;
       }
     }
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
-      const int r = warp + (kT / 32) * (h * kB + i);
+      const int r = warp + (kT / 32) * ((h * kB + i) * kS + sub);
       float s = quad_sum(xv[i][0]);
 #pragma unroll
       for (int q = 1; q < kQ; ++q) s += quad_sum(xv[i][q]);
-      const float mean = warp_sum(s) * (1.0f / C);
+      const float mean = group_sum<kL>(s) * (1.0f / C);
       float4 xc[kQ];
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
@@ -547,17 +564,17 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, const T* __r
       float sq = quad_sq(xc[0]);
 #pragma unroll
       for (int q = 1; q < kQ; ++q) sq += quad_sq(xc[q]);
-      const float rstd = 1.0f / sqrtf(warp_sum(sq) * (1.0f / C) + eps);
+      const float rstd = 1.0f / sqrtf(group_sum<kL>(sq) * (1.0f / C) + eps);
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
         const float4 c = xc[q], gmq = gm[q], btq = bt[q], lsq = ls[q], gq = gv[i][q];
-        st4(aS + r * K::kLdA + 4 * lane + 128 * q,
+        st4(aS + r * K::kLdA + 4 * cl + 128 * q,
             make_float4(fmaf(c.x * rstd, gmq.x, btq.x), fmaf(c.y * rstd, gmq.y, btq.y),
                         fmaf(c.z * rstd, gmq.z, btq.z), fmaf(c.w * rstd, gmq.w, btq.w)));
-        st4(dS + r * K::kLdA + 4 * lane + 128 * q,
+        st4(dS + r * K::kLdA + 4 * cl + 128 * q,
             make_float4(gq.x * lsq.x, gq.y * lsq.y, gq.z * lsq.z, gq.w * lsq.w));
       }
-      if (lane == 0) {
+      if (cl == 0) {
         sMean[r] = mean;
         sRstd[r] = rstd;
       }
@@ -1507,17 +1524,22 @@ constexpr int kT = 256;          // threads a block: 8 warps
 constexpr int kRG = kT / 32;     // row groups: group q owns rows q + 8 i
 constexpr int kSMs = 132;        // the H100's: splits = min(tiles, 132 / chunks)
 
-// The weight pass's one-block tile, at C = 128 (C = 256 and 512 take the
-// cluster tile, wpc::Cfg): 40 rows and a hidden chunk of 64 columns, so
-// that dW1c and G_c (kJ x C each) are 8,192 floats a block, 64 registers a
-// thread, and the grid of H / kJ chunks x splits is 128 blocks at H = 512.
+// The weight pass's one-block tile, at C = 64 and 128 (C = 256 and 512 take
+// the cluster tile, wpc::Cfg): 40 rows and a hidden chunk of 64 columns at
+// C = 128, so that dW1c and G_c (kJ x C each) are 8,192 floats a block, 64
+// registers a thread, and the grid of H / kJ chunks x splits is 128 blocks at
+// H = 512; at C = 64 the same 8,192 floats are a chunk of 128 columns (H a
+// multiple of 128), and tiles of 56 rows: 2 x 66 blocks at H = 256, 4 tiles
+// (224 rows) a split at M = 14,688 against the ideal 222.5.
 template <int C>
 struct Cfg {
-  static_assert(C == 128, "the one-block width");
-  static constexpr int kR = 40;         // rows a tile
+  static_assert(C == 64 || C == 128, "the one-block widths");
+  static constexpr int kR = C == 64 ? 56 : 40;  // rows a tile
   static constexpr int kJ = 8192 / C;   // hidden columns a block (its chunk)
-  static constexpr int kRT = kR / kRG;  // 5 rows a thread
-  static constexpr int kQ = C / 128;    // float4s of a row a lane stages
+  static constexpr int kRT = kR / kRG;  // 5 rows a thread (7 at C = 64)
+  // staging: kLanes lanes a row (a half warp at C = 64), kQ float4s a lane
+  static constexpr int kLanes = C / 4 < 32 ? C / 4 : 32;
+  static constexpr int kQ = C < 128 ? 1 : C / 128;
   // fc1 and dh: kNS channel splits of kKH channels, each on kJ threads of 8
   // row groups x kJ / 8 column groups, each into its own buffer
   static constexpr int kNS = 128 / kJ;  // 2
@@ -1637,34 +1659,39 @@ __device__ __forceinline__ float4 raw4(const bf16* p) {
                      kasf_mma::bf16_hi(v.y));
 }
 
-// each of the warp's row sums over its 32 lanes (warp_sum's order)
-template <int R>
+// each of the lane group's row sums over its L neighbouring lanes (at L = 32
+// warp_sum's order)
+template <int L, int R>
 __device__ __forceinline__ void rows_sum(float (&s)[R]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = L / 2; off > 0; off >>= 1)
 #pragma unroll
     for (int i = 0; i < R; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
 }
 
 // aS = LN(x) * gamma + beta and gS = g from the raw stage. Warp w takes rows
-// w + 8i; lane l holds channels 4l..4l+3 (+ 128 q). Rows >= M are zeros.
+// w + 8i; lane l holds channels 4l..4l+3 (+ 128 q) at C = 128; at C = 64 the
+// half warp l / 16 takes every other of those rows (the second half none of
+// the last at an odd kRT), lane l channels 4 (l % 16)... Rows >= M are zeros.
 template <int C, typename T>
 __device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS,
                                            const float4 (&gm)[Cfg<C>::kQ],
                                            const float4 (&bt)[Cfg<C>::kQ], long long row0,
                                            long long M, float eps, int warp, int lane) {
   using K = Cfg<C>;
-  constexpr int kRT = K::kRT, kQ = K::kQ;
+  constexpr int kQ = K::kQ, kL = K::kLanes, kS = 32 / kL;
+  constexpr int kRT = (K::kRT + kS - 1) / kS;  // rows a lane holds
+  const int cl = lane % kL, sub = lane / kL;    // at C = 128: lane, 0
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 xv[kRT][kQ], gv[kRT][kQ];
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
-    const int r = warp + kRG * i;
-    const bool valid = row0 + r < M;
+    const int r = warp + kRG * (kS * i + sub);
+    const bool valid = kS * i + sub < K::kRT && row0 + r < M;
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
-      xv[i][q] = valid ? raw4(raw + r * C + 4 * lane + 128 * q) : zero;
-      gv[i][q] = valid ? raw4(raw + (K::kR + r) * C + 4 * lane + 128 * q) : zero;
+      xv[i][q] = valid ? raw4(raw + r * C + 4 * cl + 128 * q) : zero;
+      gv[i][q] = valid ? raw4(raw + (K::kR + r) * C + 4 * cl + 128 * q) : zero;
     }
   }
   // the rows' statistics reduce together, one shuffle of each row a step,
@@ -1676,7 +1703,7 @@ __device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS,
 #pragma unroll
     for (int q = 1; q < kQ; ++q) s[i] += quad_sum(xv[i][q]);
   }
-  rows_sum(s);
+  rows_sum<kL>(s);
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
     const float mean = s[i] * (1.0f / C);
@@ -1689,18 +1716,19 @@ __device__ __forceinline__ void stage_rows(const T* raw, float* aS, float* gS,
 #pragma unroll
     for (int q = 1; q < kQ; ++q) s[i] += quad_sq(xv[i][q]);
   }
-  rows_sum(s);
+  rows_sum<kL>(s);
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
-    const int r = warp + kRG * i;
+    if (kS * i + sub >= K::kRT) continue;  // past the warp's rows (C = 64 only)
+    const int r = warp + kRG * (kS * i + sub);
     const float rstd = rsqrtf(s[i] * (1.0f / C) + eps);
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
       const float4 xc = xv[i][q], gmq = gm[q], btq = bt[q];
-      st4(aS + r * K::kLdA + 4 * lane + 128 * q,
+      st4(aS + r * K::kLdA + 4 * cl + 128 * q,
           make_float4(fmaf(xc.x * rstd, gmq.x, btq.x), fmaf(xc.y * rstd, gmq.y, btq.y),
                       fmaf(xc.z * rstd, gmq.z, btq.z), fmaf(xc.w * rstd, gmq.w, btq.w)));
-      st4(gS + r * K::kLdA + 4 * lane + 128 * q, gv[i][q]);
+      st4(gS + r * K::kLdA + 4 * cl + 128 * q, gv[i][q]);
     }
   }
 }
@@ -1835,8 +1863,8 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float4 gm[K::kQ], bt[K::kQ];
 #pragma unroll
   for (int q = 0; q < K::kQ; ++q) {
-    gm[q] = ld4(gamma + 4 * lane + 128 * q);
-    bt[q] = ld4(beta + 4 * lane + 128 * q);
+    gm[q] = ld4(gamma + 4 * (lane % K::kLanes) + 128 * q);
+    bt[q] = ld4(beta + 4 * (lane % K::kLanes) + 128 * q);
   }
   // GELU's columns kV jc.. of rows qz + kRGz i (at C = 128 a lane's pair of a
   // warp's rows)
@@ -2647,10 +2675,10 @@ struct Args {
   float *dgamma, *dbeta, *dw1, *db1, *dw2, *db2, *dls2, *work;
 };
 
-// the dx pass's rows a tile: one block's at C = 128, a cluster's beyond
+// the dx pass's rows a tile: one block's at C = 64 and 128, a cluster's beyond
 template <int C>
 constexpr int dx_rows() {
-  if constexpr (C == 128) return dxp::Cfg<C>::kR;
+  if constexpr (C <= 128) return dxp::Cfg<C>::kR;
   else return dxc::Cfg<C>::kR;
 }
 template <int C>
@@ -2662,7 +2690,7 @@ long long dx_tiles(long long M) {
 // padded slices (dxc::Cfg::kLdW1 floats a row), b1
 template <int C>
 long long stage_floats(int H) {
-  if constexpr (C == 128) return 0;
+  if constexpr (C <= 128) return 0;
   else return 2LL * dxc::kNB * H * dxc::Cfg<C>::kLdW1 + H;
 }
 
@@ -2670,12 +2698,12 @@ long long stage_floats(int H) {
 // splits = min(tiles, 132 / blocks a split), at least one (one wave)
 template <int C>
 constexpr int w_rows() {
-  if constexpr (C == 128) return wp::Cfg<C>::kR;
+  if constexpr (C <= 128) return wp::Cfg<C>::kR;
   else return wpc::Cfg<C>::kR;
 }
 template <int C>
 int w_splits(long long M, int H) {
-  if constexpr (C == 128) {
+  if constexpr (C <= 128) {
     return wp::splits<C>(M, H);
   } else {
     const long long s = wp::kSMs / (wpc::kNB * (H / wpc::Cfg<C>::kJ));
@@ -2785,7 +2813,7 @@ cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// The dx pass: at C = 128 one block a tile; at 256 and 512 the stage launch,
+// The dx pass: at C = 64 and 128 one block a tile; at 256 and 512 the stage launch,
 // then clusters of two, at most one wave of them, walking the tiles
 template <typename T, int C>
 cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps,
@@ -2796,7 +2824,7 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);
   const T* w2 = static_cast<const T*>(a.w2);
-  if constexpr (C == 128) {
+  if constexpr (C <= 128) {
     const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(dxp::smem_bytes<T, C>()));
@@ -2826,14 +2854,14 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
   return cudaGetLastError();
 }
 
-// The weight pass into its row splits' partials at part_w: at C = 128 one
-// block a (hidden chunk, split); at 256 and 512 a cluster of two a (chunk,
+// The weight pass into its row splits' partials at part_w: at C = 64 and 128
+// one block a (hidden chunk, split); at 256 and 512 a cluster of two a (chunk,
 // split), reading the stage launch's weights, x and g through tensor maps
 template <typename T, int C>
 cudaError_t launch_w(const Args& a, float* part_w, const float* stage, long long M, int H,
                      float eps, cudaStream_t stream) {
   const int splits = w_splits<C>(M, H);
-  if constexpr (C == 128) {
+  if constexpr (C <= 128) {
     const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(wp::smem_bytes<T, C>()));
@@ -2920,7 +2948,7 @@ void describe_all(long long M, int H, int* info) {
   int d[5];
   const long long tiles = dx_tiles<C>(M);
   const int splits = w_splits<C>(M, H);
-  if constexpr (C == 128) {
+  if constexpr (C <= 128) {
     const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
     const int sms = device_sms();
     if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d) && sms > 0) {
@@ -2965,16 +2993,18 @@ void describe_all(long long M, int H, int* info) {
   }
 }
 
-// the shapes K4 takes: C in {128, 256, 512}, H a multiple of 64 up to 2048
+// the shapes K4 takes: C in {64, 128, 256, 512}, H a multiple of 64 up to
+// 2048 (of 128 at C = 64: the weight pass's chunk)
 bool takes(long long M, int C, int H) {
-  return M >= 1 && (C == 128 || C == 256 || C == 512) && H >= 64 && H % 64 == 0 &&
-         H <= 4 * rd::kItemsMax;
+  return M >= 1 && (C == 64 || C == 128 || C == 256 || C == 512) && H >= 64 &&
+         H % (C == 64 ? 128 : 64) == 0 && H <= 4 * rd::kItemsMax;
 }
 
-// f<C>() at the width C takes, for the three widths
+// f<C>() at the width C takes, for the four widths
 template <typename F>
 auto by_width(int C, F&& f) {
-  return C == 128 ? f(std::integral_constant<int, 128>{})
+  return C == 64    ? f(std::integral_constant<int, 64>{})
+         : C == 128 ? f(std::integral_constant<int, 128>{})
          : C == 256 ? f(std::integral_constant<int, 256>{})
                     : f(std::integral_constant<int, 512>{});
 }
@@ -3000,9 +3030,9 @@ long long kasf_mlp_ln_bwd_workspace(long long M, int C, int H) {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, w1, b1, w2, b2, dx); gamma, beta,
 // ls2, the parameter gradients and the workspace are float32. All tensors
-// contiguous and 16-byte aligned: x, g, dx (M, C) with C in {128, 256,
+// contiguous and 16-byte aligned: x, g, dx (M, C) with C in {64, 128, 256,
 // 512}; w1 and dw1 (H, C); w2 and dw2 (C, H) with H a multiple of 64 up to
-// 2048. Returns cudaGetLastError() after the last of the three launches (0
+// 2048 (of 128 at C = 64). Returns cudaGetLastError() after the last of the three launches (0
 // on success).
 int kasf_mlp_ln_bwd(int dtype, const void* x, const void* g, const void* gamma,
                     const void* beta, const void* w1, const void* b1, const void* w2,

@@ -17,9 +17,9 @@ the JAX VJP `_fused_mlp_ln_bwd`); an input it cannot take raises. On a CPU
 tensor it runs `fused_mlp_ln_reference` under plain autograd. The kernel
 masks the tail rows of a ragged M, so any number of rows works. It evaluates
 GELU with erf in every dtype (the TPU kernel's bf16 path used the tanh form,
-up to 4.8e-4 away). K3 takes C in {64, 128, 256, 512} (the flagship's 128
-and the zoo's widths) and K4 C in {128, 256, 512} (the flagship, DSTFormer
-and MixSTE).
+up to 4.8e-4 away). K3 and K4 take C in {64, 128, 256, 512} (the flagship's
+128 and the zoo's widths: MotionAGFormer-XS and hierarchical, DSTFormer,
+MixSTE); K4 at C = 64 a hidden width that is a multiple of 128.
 
 K3's tile: a block takes tiles of R token rows, normalises each once into
 shared memory, and walks the hidden width in chunks of 64 columns, so the
@@ -56,8 +56,8 @@ registers, shared memory and spills as the runtime sees them, and the blocks
 of a launch over m rows.
 
 K4 is three launches, each a template on C, exact f32 on the CUDA cores
-from either dtype. The dx pass at C = 128 runs one block a 112-row tile,
-the weights through a cp.async ring in chunks of 32 hidden columns. At 256
+from either dtype. The dx pass at C = 64 and 128 runs one block a 112-row
+tile, the weights through a cp.async ring in chunks of 32 hidden columns. At 256
 and 512 a small stage launch first writes W1 and W2 transposed, in float32
 and cut into channel halves, into the workspace; the dx pass then runs a
 thread-block cluster of two blocks a tile (112 or 56 rows), each over half
@@ -68,7 +68,8 @@ each keeps da for its own channels. The other two launches are a weight
 pass and a reduce. The weight pass walks a row split's tiles with the next
 tile's rows in flight and keeps dW1, G = g^T h and db1 of a hidden chunk in
 registers over the split, exact f32 too: at C = 128 one block per (chunk of
-64 columns, split), 40-row tiles by bulk copies; at 256 and 512 a
+64 columns, split), 40-row tiles by bulk copies (at C = 64 chunks of 128
+columns and 56-row tiles); at 256 and 512 a
 thread-block cluster of two blocks per (chunk, split), each over half the
 channels (chunks of 64 and 32 columns, tiles of 48 and 32 rows, its rows by
 strided tensor copies, its weights from the stage launch): LayerNorm's row
@@ -103,13 +104,18 @@ import torch.nn.functional as F
 from kasportsformer_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# model widths each kernel is built for: K3 and K5 the flagship's 128 and the
-# zoo's 64 (MotionAGFormer hierarchical), 256 (DSTFormer) and 512 (MixSTE);
-# K4 the same but for 64
-_WIDTHS = {"mlp_ln": (64, 128, 256, 512), "mlp_ln_bwd": (128, 256, 512),
+# model widths each kernel is built for: the flagship's 128 and the zoo's 64
+# (MotionAGFormer-XS and hierarchical), 256 (DSTFormer) and 512 (MixSTE)
+_WIDTHS = {"mlp_ln": (64, 128, 256, 512), "mlp_ln_bwd": (64, 128, 256, 512),
            "mlp": (64, 128, 256, 512)}
 _CHUNK = 64
 _MAX_HIDDEN = 2048
+
+
+def _hidden_step(what: str, c: int) -> int:
+    """The hidden widths a kernel takes at width c are multiples of this:
+    64, but 128 for K4 at C = 64 (its weight pass's chunk)."""
+    return 2 * _CHUNK if what == "mlp_ln_bwd" and c == 64 else _CHUNK
 
 
 def fused_mlp_ln_reference(x: torch.Tensor, gamma: torch.Tensor,
@@ -195,11 +201,12 @@ def _check_linears(what: str, x, w1, b1, w2, b2) -> None:
         raise TypeError(f"{what} kernels take float32 or bfloat16, got {dt}")
     c = x.shape[-1]
     hidden = w1.shape[0]
+    step = _hidden_step(what, c)
     if (c not in _WIDTHS[what] or tuple(w1.shape) != (hidden, c)
-            or tuple(w2.shape) != (c, hidden) or hidden % _CHUNK
+            or tuple(w2.shape) != (c, hidden) or hidden % step
             or not 0 < hidden <= _MAX_HIDDEN):
         raise ValueError(f"{what} kernel takes C in {_WIDTHS[what]} and a "
-                         f"hidden width that is a multiple of {_CHUNK} up to "
+                         f"hidden width that is a multiple of {step} up to "
                          f"{_MAX_HIDDEN}; got x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if b1.numel() != hidden or b2.numel() != c:
@@ -312,10 +319,11 @@ _BWD_R_KEYS = ("threads", "blocks", "registers", "smem_bytes", "spill_bytes",
                "blocks_per_sm")
 # K4's partition of the rows at each width C: (dx pass rows a tile, weight
 # pass rows a tile, weight pass hidden columns a chunk, weight pass blocks a
-# chunk), as csrc/mlp_ln_bwd.cu's dxp::Cfg<128>::kR or dxc::Cfg<C>::kR (a
-# cluster's tile), wp::Cfg<128> or wpc::Cfg<C> (kR, kJ; a cluster of two
+# chunk), as csrc/mlp_ln_bwd.cu's dxp::Cfg<C>::kR or dxc::Cfg<C>::kR (a
+# cluster's tile), wp::Cfg<C> or wpc::Cfg<C> (kR, kJ; a cluster of two
 # at 256 and 512) make them; wp::kSMs
-_BWD_TILES = {128: (112, 40, 64, 1), 256: (112, 48, 64, 2), 512: (56, 32, 32, 2)}
+_BWD_TILES = {64: (112, 56, 128, 1), 128: (112, 40, 64, 1), 256: (112, 48, 64, 2),
+              512: (56, 32, 32, 2)}
 _SMS = 132
 
 
@@ -338,7 +346,7 @@ def fused_mlp_ln_bwd_partition(m: int, hidden: int, c: int = 128) -> dict:
     splits = max(1, min(w_tiles, _SMS // (cluster * (hidden // chunk))))
     return dict(dx_rows=dx_rows, dx_tiles=-(-m // dx_rows),
                 w_rows=w_rows, splits=splits, per_split=-(-w_tiles // splits),
-                stage=0 if c == 128 else 2 * hidden * (c + 8) + hidden)
+                stage=0 if c <= 128 else 2 * hidden * (c + 8) + hidden)
 
 
 def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
@@ -349,14 +357,15 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     memory a block (dynamic in the passes, static in the reduce), local
     memory (spills) a thread in bytes and blocks resident a SM; `rows` is a
     pass's row tile (the dx pass has ceil(m / rows) tiles); the dx pass also
-    has `cluster`, the blocks that share a tile (1 at C = 128, 2 at 256 and
-    512), `resident`, the clusters (at C = 128 blocks) the card holds at
-    once, and `grid`, the blocks of its launch over m rows (a tile each at
-    C = 128; at most `resident` clusters, each walking tiles, beyond); the
+    has `cluster`, the blocks that share a tile (1 at C = 64 and 128, 2 at
+    256 and 512), `resident`, the clusters (at C <= 128 blocks) the card
+    holds at once, and `grid`, the blocks of its launch over m rows (a tile
+    each at C <= 128; at most `resident` clusters, each walking tiles,
+    beyond); the
     weight pass has `chunk`, its hidden columns a block (a cluster's, each
     block over half the channels, at 256 and 512), `splits`, its row
     splits for m rows and this hidden width, `cluster`, the blocks that
-    share a chunk and split (1 at C = 128, 2 at 256 and 512), `resident`,
+    share a chunk and split (1 at C <= 128, 2 at 256 and 512), `resident`,
     the clusters the card holds at once, and `grid`, the blocks of its
     launch (hidden / chunk x splits clusters, one wave); the reduce has
     `blocks`, its grid at this hidden width. Builds the kernel if needed;
@@ -486,11 +495,12 @@ def fused_mlp_ln_bwd_reduce(work: torch.Tensor, w2: torch.Tensor, b2: torch.Tens
     if dt not in _DTYPE_CODE:
         raise TypeError(f"mlp_ln_bwd reduce takes float32 or bfloat16, got {dt}")
     c, hidden = w2.shape
-    if (c not in _WIDTHS["mlp_ln_bwd"] or hidden % _CHUNK
+    step = _hidden_step("mlp_ln_bwd", c)
+    if (c not in _WIDTHS["mlp_ln_bwd"] or hidden % step
             or not 0 < hidden <= _MAX_HIDDEN or b2.numel() != c
             or ls2.numel() != c or m < 1):
         raise ValueError(f"mlp_ln_bwd reduce takes w2 (C, hidden), C in "
-                         f"{_WIDTHS['mlp_ln_bwd']}, hidden a multiple of {_CHUNK} "
+                         f"{_WIDTHS['mlp_ln_bwd']}, hidden a multiple of {step} "
                          f"up to {_MAX_HIDDEN}, b2 and ls2 of C elements and "
                          f"m >= 1; got w2 {tuple(w2.shape)}, b2 {b2.numel()}, "
                          f"ls2 {ls2.numel()}, m {m}")
@@ -536,7 +546,7 @@ class FusedMlpLnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ops = ctx.saved_tensors
-        _check("mlp_ln_bwd", *ops)  # K4 has no C = 64
+        _check("mlp_ln_bwd", *ops)  # K4 at C = 64 takes H in multiples of 128
         xc = ops[0]
         gc = _prep(g.reshape(xc.shape), xc.dtype)
         dx, *rest = _launch_bwd(ops, gc, ctx.eps)
@@ -551,9 +561,9 @@ def fused_mlp_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """x + ls2 * MLP(LN(x)) over the last axis of x (..., C).
 
     CPU tensors take the plain version (plain autograd); CUDA tensors go
-    through `FusedMlpLnFunction` (K3 forward, K4 backward; K4 at C = 128,
-    256 and 512, so a tail of width 64 under autograd raises in the
-    backward). Pass ls2 = ones for a tail without LayerScale.
+    through `FusedMlpLnFunction` (K3 forward, K4 backward; a tail of width
+    64 whose hidden width is not a multiple of 128 raises in the backward).
+    Pass ls2 = ones for a tail without LayerScale.
     `fused_mlp_ln.launches` counts K3 launches."""
     if x.device.type == "cpu":
         return fused_mlp_ln_reference(x, gamma, beta, w1, b1, w2, b2, ls2, eps)

@@ -14,7 +14,11 @@
 #                                          1e-6), and the SHA-1 of each of its
 #                                          eight gradients, so a launch left
 #                                          unchanged shows as equal digests of
-#                                          what it alone feeds
+#                                          what it alone feeds; then K2 at
+#                                          heads of 16, 32 and 64 (8 heads,
+#                                          batch 32, 27 x 17) and the SHA-1 of
+#                                          dq, dk and dv; a width the tree's
+#                                          kernels do not take is skipped
 # A run that fails is reported and the turns go on; the exit code is the
 # number of runs that failed.
 set -uo pipefail
@@ -82,6 +86,22 @@ for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
         print(f"C/H {c}/{h}", str(dt), " ".join(
             f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
             for n, t in zip(names, out)))
+# K2 at the head widths of the flagship and the zoo, the temporal view of a
+# (B, T, J, C) qkv projection with a transposed gradient
+from kasportsformer_torch.ops import attention
+
+gen = torch.Generator(device="cuda").manual_seed(11)
+for d in (16, 32, 64):
+    if d not in attention.LIMITS["masked_sdpa_bwd"][0]:
+        continue
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(32, 27, 17, 24 * d, device="cuda", generator=gen).to(dt)
+        g = torch.randn(32, 27, 17, 8 * d, device="cuda", generator=gen).to(dt)
+        q, k, v = (z.transpose(1, 2) for z in qkv.split(8 * d, dim=-1))
+        out = attention.masked_sdpa_bwd(q, k, v, g.transpose(1, 2), d ** -0.5, 8)
+        print(f"K2 D={d}", str(dt), " ".join(
+            f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
+            for n, t in zip(("dq", "dk", "dv"), out)))
 PY
       ) || failed=1
     done

@@ -214,7 +214,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_mlp_ln(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0])
     with pytest.raises(ValueError, match="C in"):
         fused_mlp(x, w, w[:, 0], w.T, x[0])
-    x, w = x[:, :64], w[:, :64]  # K4 has no C = 64
+    x, w = x[:, :64], w[:192, :64]  # K4 at C = 64 takes hidden multiples of 128
     with pytest.raises(ValueError, match="C in"):
         fused_mlp_ln_bwd(x, x[0], x[0], w, w[:, 0], w.T, x[0], x[0], x)
 
@@ -863,22 +863,26 @@ def test_autograd_functions_match_plain_autograd(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["D32 flat", "D32 grouped", "D64 flat", "D64 temporal"])
+@pytest.mark.parametrize("name", ["D8 spatial", "D8 temporal", "D32 flat", "D32 grouped",
+                                  "D64 flat", "D64 temporal"])
 def test_masked_sdpa_bwd_kernel_zoo_widths(cuda, dtype, name):
     """K2 at the zoo's heads, as its models hand them over at batch 4:
-    DSTFormer's 8 heads of 32 (C = 256) on the flat (B*F, J, C) stream
-    (entering as (1, M, N, C)) and on the grouped (B, J, F, C) view of its
-    temporal attention with a transposed gradient, MixSTE's 8 heads of 64
+    MotionAGFormer-XS's and hierarchical's 8 heads of 8 (C = 64) on
+    (B, T, J, C) and on its (B, J, T, C) permutation with a transposed
+    gradient; DSTFormer's 8 heads of 32 (C = 256) on the flat (B*F, J, C)
+    stream (entering as (1, M, N, C)) and on the grouped (B, J, F, C) view of
+    its temporal attention with a transposed gradient, MixSTE's 8 heads of 64
     (C = 512) on flat spatial and temporal streams; column slices of one qkv
     projection; a rerun bitwise equal."""
-    d = 32 if name.startswith("D32") else 64
+    d = int(name.split()[0][1:])
     c, b = 8 * d, 4
-    shape = {"D32 flat": (1, b * 27, 17), "D32 grouped": (b, 27, 17),
+    shape = {"D8 spatial": (b, 27, 17), "D8 temporal": (b, 27, 17),
+             "D32 flat": (1, b * 27, 17), "D32 grouped": (b, 27, 17),
              "D64 flat": (1, b * 27, 17), "D64 temporal": (1, b * 17, 27)}[name]
     qkv = torch.randn(*shape, 3 * c, device="cuda", generator=cuda).to(dtype)
     g = torch.randn(*shape, c, device="cuda", generator=cuda).to(dtype)
     q, k, v = qkv.split(c, dim=-1)
-    if name == "D32 grouped":
+    if name in ("D32 grouped", "D8 temporal"):
         q, k, v, g = (z.transpose(1, 2) for z in (q, k, v, g))
     got = _bwd_holds((q, k, v, g), 8, dtype, d ** -0.5)
     again = masked_sdpa_bwd(q, k, v, g, d ** -0.5, 8)
@@ -886,54 +890,61 @@ def test_masked_sdpa_bwd_kernel_zoo_widths(cuda, dtype, name):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,heads", [(32, 8), (32, 3), (64, 8), (64, 1)])
+@pytest.mark.parametrize("d,heads", [(8, 8), (8, 5), (32, 8), (32, 3), (64, 8), (64, 1)])
 @pytest.mark.parametrize("n", [1, 2, 16, 17, 27, 32])
 def test_masked_sdpa_bwd_kernel_rows_and_wide_heads(cuda, dtype, d, heads, n):
-    """Every N the 32-row stage pads at heads of 32 (C = 256, and C = 96: a
-    last head group of one head) and 64 (C = 512 and one head), on strided,
-    permuted views: a lane of pass 1 takes keys kl + 4 (D / 16) k, so every
-    key block and padded key is covered."""
+    """Every N the 32-row stage pads at heads of 8 (C = 64, and C = 40: a
+    last group of one of the 32-channel tile's four heads), 32 (C = 256, and
+    C = 96: a last head group of one head) and 64 (C = 512 and one head), on
+    strided, permuted views: a lane of pass 1 takes keys kl + 4 (D / 16) k
+    (kl + 4 k at D = 8), so every key block and padded key is covered."""
     _bwd_holds(_bwd_views(cuda, 3, 5, n, heads, dtype, d), heads, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [8, 32, 64])
 def test_masked_sdpa_bwd_kernel_wide_heads_walk_the_grid(cuda, dtype, d):
-    """One tile past the persistent grid at heads of 32 and 64, so one block
-    walks two tiles and the ring refills a stage; no instantiation spills."""
+    """One tile past the persistent grid at heads of 8, 32 and 64, so one
+    block walks two tiles and the ring refills a stage; no instantiation
+    spills. A tile is 64 channels (32 at D = 8: four heads)."""
     info = masked_sdpa_bwd_kernel_info(dtype, 27, d=d)
-    assert info["spill_bytes"] == 0 and info["tile_heads"] == 64 // d, info
+    assert info["spill_bytes"] == 0 and info["tile_heads"] == (4 if d == 8 else 64 // d), info
     args = tuple(torch.randn(info["grid"] + 1, 1, 27, d * info["tile_heads"],
                              device="cuda", generator=cuda).to(dtype) for _ in range(4))
     _bwd_holds(args, info["tile_heads"], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,hidden,eps", [(256, 1024, 1e-5), (512, 1024, 1e-6)])
+@pytest.mark.parametrize("c,hidden,eps", [(64, 256, 1e-5), (256, 1024, 1e-5),
+                                          (512, 1024, 1e-6)])
 @pytest.mark.parametrize("m", [14688, 1377, 5])
 def test_fused_mlp_ln_bwd_kernel_zoo_widths(cuda, dtype, c, hidden, eps, m):
-    """K4 at DSTFormer's 256/1024 and MixSTE's 512/1024 (LayerNorm eps
-    1e-6): the train step's M = 14,688, a ragged 1,377 and 5 rows; all eight
-    gradients against the plain version, a rerun bitwise equal."""
+    """K4 at MotionAGFormer-XS's and hierarchical's 64/256, DSTFormer's
+    256/1024 and MixSTE's 512/1024 (LayerNorm eps 1e-6): the train step's
+    M = 14,688, a ragged 1,377 and 5 rows; all eight gradients against the
+    plain version, a rerun bitwise equal."""
     args = _mlp_args(cuda, m, dtype, c, hidden)
     g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
     _bwd_matches_plain(args, g, dtype, eps)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("c", [64, 256, 512])
 @pytest.mark.parametrize("edge", ["dx R-1", "dx R+1", "w R-1", "w R", "w R+1",
                                   "split-1", "split+1", "empty splits"])
 def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
-    """Each pass's tile of R rows at the zoo's widths (112 and 56 rows in the
-    dx pass's cluster tile, 48 and 32 in the weight pass's) and one row
-    either side; one row either side of the weight pass's splits of one
-    tile each at H = 1,024 (4 splits at C = 256, 2 at 512: the last tile of
-    one more split holds a row, and a trailing split is empty); and 17
-    weight-pass tiles over the 16 row splits of 4 hidden chunks of clusters
-    of two (H = 256 at C = 256, 128 at 512): the last splits' clusters stay
-    without rows and their zero partials enter the reduce."""
-    hidden = 4 * 8192 // (c // 2) if edge == "empty splits" else 1024
+    """Each pass's tile of R rows at the zoo's widths (112, 112 and 56 rows in
+    the dx pass's tile at C = 64, 256 and 512, 56, 48 and 32 in the weight
+    pass's) and one row either side; one row either side of the weight
+    pass's splits of one tile each at H = 1,024 (16 splits at C = 64, 4 at
+    256, 2 at 512: the last tile of one more split holds a row, and a
+    trailing split is empty); and 17 weight-pass tiles over the 16 row
+    splits of 8 blocks a split (hidden chunks of 128 at C = 64, H = 1,024;
+    4 chunks of clusters of two, H = 256 at C = 256, 128 at 512): the last
+    splits' blocks stay without rows and their zero partials enter the
+    reduce."""
+    cluster = 1 if c == 64 else 2
+    hidden = 8 * (8192 * cluster // c) // cluster if edge == "empty splits" else 1024
     info = fused_mlp_ln_bwd_kernel_info(dtype, 14688, hidden, c=c)
     r_dx, r_w = info["dx_pass"]["rows"], info["weight_pass"]["rows"]
     n = fused_mlp_ln_bwd_partition(10 ** 6, hidden, c)["splits"]  # as many as the card takes
@@ -942,7 +953,7 @@ def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
          "empty splits": 17 * r_w}[edge]
     if edge == "empty splits":
         p = fused_mlp_ln_bwd_partition(m, hidden, c)
-        assert p["splits"] == 16 and info["weight_pass"]["cluster"] == 2, (p, info)
+        assert p["splits"] == 16 and info["weight_pass"]["cluster"] == cluster, (p, info)
         assert (p["splits"] - 1) * p["per_split"] >= -(-m // r_w), p
     args = _mlp_args(cuda, m, dtype, c, hidden)
     g = torch.randn(m, c, device="cuda", generator=cuda).to(dtype)
@@ -951,12 +962,13 @@ def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,hidden,c", [(14688, 1024, 256), (14688, 1024, 512),
-                                        (1377, 64, 512), (300, 2048, 256)])
+                                        (1377, 64, 512), (300, 2048, 256),
+                                        (14688, 256, 64), (1377, 2048, 64)])
 def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, hidden, c):
-    """K4's reduce alone at C = 256 and 512 on seeded partials against its
-    plain version: six gradients bit for bit, dls2 within K4's limit, a
+    """K4's reduce alone at C = 64, 256 and 512 on seeded partials against
+    its plain version: six gradients bit for bit, dls2 within K4's limit, a
     rerun bitwise equal; a hidden block's eight dW1 rows are C / 128 float4s
-    a thread."""
+    a thread (half a float4 at C = 64)."""
     p = fused_mlp_ln_bwd_partition(m, hidden, c)
     n = p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
     work = torch.randn(n, device="cuda", generator=cuda)
@@ -1000,6 +1012,29 @@ def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):
                 assert launch["spill_bytes"] == 0 and launch["registers"] > 0, launch
 
 
+def test_fused_mlp_ln_bwd_partition_matches_library_at_c64(cuda):
+    """The Python mirror of K4's partition at C = 64 against the library's,
+    and the workspace's size (the partials; no stage launch): one block a
+    dx tile, one a (hidden chunk of 128, row split) in the weight pass, one
+    wave; no launch spills in either dtype."""
+    for m in (1, 56, 300, 1377, 14688):
+        for hidden in (128, 256, 1024, 2048):
+            p = fused_mlp_ln_bwd_partition(m, hidden, 64)
+            info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, hidden, c=64)
+            assert (p["dx_rows"], p["w_rows"], p["splits"]) == (
+                info["dx_pass"]["rows"], info["weight_pass"]["rows"],
+                info["weight_pass"]["splits"]), (m, hidden)
+            assert p["stage"] == 0 and _bwd_workspace_size(m, hidden, 64) == (
+                p["dx_tiles"] * 3 * 64 + p["splits"] * (2 * hidden * 64 + hidden))
+            dx, wp = info["dx_pass"], info["weight_pass"]
+            assert dx["cluster"] == 1 and dx["grid"] == p["dx_tiles"], dx
+            assert wp["cluster"] == 1 and wp["chunk"] == 128, wp
+            assert wp["grid"] == hidden // 128 * p["splits"] <= 132, wp
+    for dtype in (torch.float32, torch.bfloat16):
+        for launch in fused_mlp_ln_bwd_kernel_info(dtype, 14688, 256, c=64).values():
+            assert launch["spill_bytes"] == 0 and launch["registers"] > 0, launch
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [256, 512])
 @pytest.mark.parametrize("edge", ["one wave", "one tile more"])
@@ -1018,7 +1053,7 @@ def test_fused_mlp_ln_bwd_kernel_zoo_wave_edges(cuda, dtype, c, edge):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,eps", [(256, 1e-5), (512, 1e-6)])
+@pytest.mark.parametrize("c,eps", [(64, 1e-5), (256, 1e-5), (512, 1e-6)])
 def test_fused_mlp_ln_bwd_zoo_reruns_bitwise_equal(cuda, dtype, c, eps):
     """K4 at the zoo's widths and the train step's M = 14,688, H = 1,024:
     three runs give all eight gradients bit for bit (the weight pass's
@@ -1059,15 +1094,24 @@ def test_fused_mlp_ln_bwd_c128_digests_unchanged(cuda):
 
 
 def test_widened_backward_kernels_reject_what_they_do_not_take(cuda):
-    """K2 raises on heads of 128 and on C = 1024 (heads of 64); K4 on a
-    width outside (128, 256, 512); the reduce alone likewise."""
+    """K2 raises on heads of 128 and of 4 and on C = 1024 (heads of 64); K4
+    on a width outside (64, 128, 256, 512) and at C = 64 on a hidden width
+    that is not a multiple of 128; the reduce alone likewise."""
     q = torch.randn(2, 3, 17, 256, device="cuda", generator=cuda)
     with pytest.raises(ValueError, match="heads of width"):
         masked_sdpa_bwd(q, q, q, q, 0.25, 2)
+    with pytest.raises(ValueError, match="heads of width"):
+        masked_sdpa_bwd(q[..., :64], q[..., :64], q[..., :64], q[..., :64], 0.25, 16)
     w = torch.randn(2, 3, 17, 1024, device="cuda", generator=cuda)
     with pytest.raises(ValueError, match="C <= 512"):
         masked_sdpa_bwd(w, w, w, w, 0.25, 16)
-    for c in (64, 1024):
+    args = _mlp_args(cuda, 8, torch.float32, 64, 192)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_mlp_ln_bwd(*args, args[0], 1e-5)
+    w2 = torch.zeros(64, 192, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_mlp_ln_bwd_reduce(torch.zeros(10, device="cuda"), w2, w2[:, 0], w2[:, 0], 8)
+    for c in (32, 1024):
         args = _mlp_args(cuda, 8, torch.float32, c, 256)
         with pytest.raises(ValueError, match="C in"):
             fused_mlp_ln_bwd(*args, args[0], 1e-5)

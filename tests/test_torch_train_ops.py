@@ -115,6 +115,30 @@ def test_masked_sdpa_autograd_matches_jax_on_strided_views(mode):
                                atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_masked_sdpa_bwd_reference_matches_jax_at_heads_of_8(mode):
+    """The plain backward at MotionAGFormer-XS's and hierarchical's 8 heads
+    of 8 (C = 64) against `jax.vjp(masked_sdpa_xla)`, the formulation the
+    JAX package runs at that width: column slices of one qkv projection on
+    (B, T, J, C) and, temporal, their (B, J, T, C) permutation (N = 27) with
+    the gradient of that layout. These are the shapes at which the card
+    tests hold the kernel to this plain version. float32 on both sides:
+    within atol 1e-5, rtol 1e-4. Inputs from a generator of their own, so
+    the file's other tests keep theirs."""
+    rng = np.random.default_rng(8)
+    qkv = rng.standard_normal((2, 27, 17, 192)).astype(np.float32)
+    g = rng.standard_normal((2, 27, 17, 64)).astype(np.float32)
+    qn, kn, vn = (qkv[..., i * 64:(i + 1) * 64] for i in range(3))
+    q, k, v = _t(qkv).split(64, dim=-1)
+    gt = _t(g)
+    if mode == "temporal":
+        qn, kn, vn, g = (z.transpose(0, 2, 1, 3) for z in (qn, kn, vn, g))
+        q, k, v, gt = (z.transpose(1, 2) for z in (q, k, v, gt))
+    got = masked_sdpa_bwd_reference(q, k, v, gt, 8 ** -0.5, 8)
+    for a, w in zip(got, _jax_sdpa_vjp(qn, kn, vn, g, 8 ** -0.5, 8)):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-5, rtol=1e-4)
+
+
 def test_masked_sdpa_bwd_large_interhead_spread():
     """The x60 head-0 spread: the backward stays finite and matches."""
     q, k, v, g = (RNG.standard_normal((1, 4, 17, 128)).astype(np.float32)
@@ -170,11 +194,11 @@ def _jax_mlp_grads(a: dict, g: np.ndarray, eps: float = 1e-5) -> list[np.ndarray
     return out
 
 
-def _check_mlp_bwd_reference(m: int, c: int, hidden: int, eps: float) -> None:
+def _check_mlp_bwd_reference(m: int, c: int, hidden: int, eps: float, rng=RNG) -> None:
     """The plain K4 backward against `jax.vjp(_mlp_ln_xla)` and the Pallas
     backward kernel (interpret mode) at this width and LayerNorm eps."""
-    a = _mlp_inputs(m, c, hidden)
-    g = RNG.standard_normal((m, c)).astype(np.float32)
+    a = _mlp_inputs(m, c, hidden, rng)
+    g = rng.standard_normal((m, c)).astype(np.float32)
     got = fused_mlp_ln_bwd_reference(*_torch_mlp_args(a), _t(g), eps)
     want = _jax_mlp_grads(a, g, eps)
     kernel = [np.asarray(z) for z in fused_mlp_ln_bwd_pallas(
@@ -190,11 +214,17 @@ def test_fused_mlp_ln_bwd_reference_matches_jax():
     _check_mlp_bwd_reference(256, 128, 512, 1e-5)
 
 
-@pytest.mark.parametrize("c,hidden,eps", [(256, 1024, 1e-5), (512, 1024, 1e-6)])
+@pytest.mark.parametrize("c,hidden,eps", [(256, 1024, 1e-5), (512, 1024, 1e-6),
+                                          (64, 256, 1e-5)])
 def test_fused_mlp_ln_bwd_reference_matches_jax_at_zoo_widths(c, hidden, eps):
-    """DSTFormer's tail (256/1024) and MixSTE's (512/1024, LayerNorm eps
-    1e-6), the widths K4 takes beside the flagship's, at 64 rows."""
-    _check_mlp_bwd_reference(64, c, hidden, eps)
+    """DSTFormer's tail (256/1024), MixSTE's (512/1024, LayerNorm eps 1e-6)
+    and MotionAGFormer-XS's and hierarchical's (64/256, where the JAX
+    package itself takes `_mlp_ln_xla`: its kernels gate on C % 128 == 0),
+    the widths K4 takes beside the flagship's, at 64 rows. The C = 64 case
+    draws from a generator of its own, so the file's later tests keep their
+    inputs."""
+    _check_mlp_bwd_reference(64, c, hidden, eps,
+                             np.random.default_rng(c) if c == 64 else RNG)
 
 
 def test_fused_mlp_ln_autograd_matches_jax_ragged_rows():
@@ -245,8 +275,8 @@ def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """The workspace K4's two passes leave, built in plain float32 torch over
     their partition: a dx partial (sum da * xhat, sum da, sum g) a dx tile
     (112 rows at C = 128), then a weight partial (dW1 = dz^T a, G = g^T h,
-    db1 = sum dz) a row split of consecutive weight-pass tiles (40 rows at
-    C = 128, 48 at 256, 32 at 512; an empty split's zeros)."""
+    db1 = sum dz) a row split of consecutive weight-pass tiles (56 rows at
+    C = 64, 40 at 128, 48 at 256, 32 at 512; an empty split's zeros)."""
     x, gamma, beta, w1, b1, w2, b2, ls2 = args
     m, c = x.shape
     hidden = w1.shape[0]
@@ -279,7 +309,9 @@ def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     pytest.param(111, 1024, 256, 1e-5, id="111-1024-c256"),
     pytest.param(113, 1024, 256, 1e-5, id="113-1024-c256"),
     pytest.param(55, 1024, 512, 1e-6, id="55-1024-c512"),
-    pytest.param(57, 1024, 512, 1e-6, id="57-1024-c512")])
+    pytest.param(57, 1024, 512, 1e-6, id="57-1024-c512"),
+    pytest.param(300, 256, 64, 1e-5, id="300-256-c64"),
+    pytest.param(113, 256, 64, 1e-5, id="113-256-c64")])
 def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     """The reduce's plain version on partials built over K4's own partition
     (a ragged M = 300 at H = 128: 3 dx tiles, 8 splits of one 40-row tile;
@@ -289,27 +321,37 @@ def test_fused_mlp_ln_bwd_reduce_reference_matches_jax(m, hidden, c, eps):
     the weight pass's 48-row tiles, the last with one, and MixSTE's
     512/1024 at eps 1e-6, 6 dx tiles of 56 rows and 2 splits of 5 32-row
     tiles; and one row either side of a dx tile at both: M = 111 and 113 at
-    256/1024, 55 and 57 at 512/1024) against the JAX package's K4
+    256/1024, 55 and 57 at 512/1024; at MotionAGFormer's 64/256, M = 300,
+    3 dx tiles of 112 rows and 6 splits of one 56-row tile, and 113, one
+    row past a dx tile, from a generator of their own so that the file's
+    later tests keep their inputs) against the JAX package's K4
     gradients."""
     _check_reduce_reference(m, hidden, c, eps, {
         (300, 128): (3, 8, 0), (1377, 128): (13, 16, 4), (320, 128): (3, 8, 0),
         (300, 256): (3, 4, 0), (300, 512): (6, 2, 0), (111, 256): (1, 3, 0),
-        (113, 256): (2, 3, 0), (55, 512): (1, 2, 0), (57, 512): (2, 2, 0)}[m, c], RNG)
+        (113, 256): (2, 3, 0), (55, 512): (1, 2, 0), (57, 512): (2, 2, 0),
+        (300, 64): (3, 6, 0), (113, 64): (2, 3, 0)}[m, c],
+        np.random.default_rng(m * c) if c == 64 else RNG)
 
 
 @pytest.mark.parametrize("m,c,eps", [
     (47, 256, 1e-5), (49, 256, 1e-5), (191, 256, 1e-5), (193, 256, 1e-5),
-    (31, 512, 1e-6), (33, 512, 1e-6), (63, 512, 1e-6), (65, 512, 1e-6)])
+    (31, 512, 1e-6), (33, 512, 1e-6), (63, 512, 1e-6), (65, 512, 1e-6),
+    (55, 64, 1e-5), (57, 64, 1e-5), (895, 64, 1e-5), (897, 64, 1e-5)])
 def test_fused_mlp_ln_bwd_reduce_reference_matches_jax_at_weight_pass_edges(m, c, eps):
     """As above at H = 1,024, one row either side of a weight-pass tile of
     the cluster pass (48 rows at C = 256, 32 at 512: M = 47 and 49, 31 and
     33) and of its splits of one tile each (4 splits at 256, 2 at 512: M =
-    191 and 193, 63 and 65; the last of 193's splits empty). Inputs from a
-    generator of their own, so the file's other tests keep theirs."""
+    191 and 193, 63 and 65; the last of 193's splits empty); at C = 64, of
+    the one-block pass's 56-row tile (M = 55 and 57) and of its 16 splits of
+    one tile (8 hidden chunks of 128: M = 895 and 897, the second 17 tiles
+    over splits of two, the last seven empty). Inputs from a generator of
+    their own, so the file's other tests keep theirs."""
     _check_reduce_reference(m, 1024, c, eps, {
         (47, 256): (1, 1, 0), (49, 256): (1, 2, 0), (191, 256): (2, 4, 0),
         (193, 256): (2, 4, 1), (31, 512): (1, 1, 0), (33, 512): (1, 2, 0),
-        (63, 512): (2, 2, 0), (65, 512): (2, 2, 0)}[m, c],
+        (63, 512): (2, 2, 0), (65, 512): (2, 2, 0), (55, 64): (1, 1, 0),
+        (57, 64): (1, 2, 0), (895, 64): (8, 16, 0), (897, 64): (9, 16, 7)}[m, c],
         np.random.default_rng(m * c))
 
 
