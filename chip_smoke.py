@@ -46,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
      then, with the model in bfloat16, the 40-frame and 128-clip requests;
      the launch counts are read around each dtype's serving alone.
   5b. the zoo at full width (MixSTE, DSTFormer, MotionAGFormer base,
-     use_tcn, hierarchical, graph_only and XS), each on the card through the
+     use_tcn, hierarchical, graph_only and XS, STCFormer, KTPFormer and
+     D3DP's default sampler), each on the card through the
      kernels against the CPU through the plain versions (B=4, f32 within
      1e-3; a model whose CPU f32 forward lies further than 1e-4 from its
      float64 forward, graph_only, layer by layer within 1e-3 of each layer's
@@ -54,8 +55,13 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 forward held as in phase 4), its K1/K3 launches per forward, and
      128-clip forward times; a profiler breakdown of MixSTE's and
      DSTFormer's f32 128-clip forward (device time, K3's and K1's group).
-  5c. serving MixSTE, the zoo's main path: serve() on cuda answers /healthz
-     and a 405-frame /lift, against the CPU; launches read around it.
+     D3DP's sampler also at 2 DDIM steps over 2 proposals, card against CPU
+     on one generator (B=4), and at the paper's 10 steps over 20 proposals,
+     timed on the card alone (B=4, ms per input clip).
+  5c. serving MixSTE, STCFormer, KTPFormer and D3DP (whose eval forward,
+     DDIM sampling, replaces the flip-TTA), the zoo's main path: serve() on
+     cuda answers /healthz and a 405-frame /lift, against the CPU; launches
+     read around it, a model at a time.
   6. K2 masked_sdpa_bwd against its plain version at the train shapes
      (spatial (32,27,17,128), temporal (32,17,27,128) with the gradient a
      transposed view), float32 and bfloat16, and the x60 spread; kernel,
@@ -812,6 +818,7 @@ def perturbed(cfg, seed: int):
 
     gen = torch.Generator().manual_seed(seed)
     model = build_model(cfg, device="cpu", generator=gen)
+    constants = ("norm_adj", "limb_idx", "base_adj", "freqs", "zero_b1", "zero_b2")
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(
                 model.named_buffers()):
@@ -821,8 +828,10 @@ def perturbed(cfg, seed: int):
                 t.uniform_(0.5, 1.5, generator=gen)
             elif "layer_scale" in name:
                 t.uniform_(0.1, 0.5, generator=gen)
-            elif name.endswith("norm_adj") or name.endswith("limb_idx"):
+            elif name.endswith(constants):
                 continue
+            elif name.endswith("gconv.W"):  # KTPFormer's (2, in, out)
+                t.normal_(0.0, t.shape[1] ** -0.5, generator=gen)
             elif name.endswith("weight") and t.dim() == 1:  # LN / BN
                 t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen))
             elif name.endswith("weight") and t.dim() == 2:  # linear
@@ -1229,16 +1238,31 @@ ZOO = {"MixSTE": dict(model_name="MixSTE", dim_in=2, dim_feat=512, n_layers=8,
        "MotionAGFormer use_tcn": dict(_MAG, use_tcn=True),
        "MotionAGFormer hierarchical": dict(_MAG, hierarchical=True),
        "MotionAGFormer graph_only": dict(_MAG, graph_only=True),
-       "MotionAGFormer-XS": dict(_MAG, dim_feat=64, n_layers=12)}
+       "MotionAGFormer-XS": dict(_MAG, dim_feat=64, n_layers=12),
+       # STCFormer's published 6 blocks of 256 (the JAX config's defaults);
+       # KTPFormer keeps MixSTE's trunk (arXiv:2404.00658); D3DP's -cs 512
+       # -dep 8, served as the registry builds it: 1 proposal, 1 DDIM step,
+       # the flip inside the sampler
+       "STCFormer": dict(model_name="STCFormer", dim_feat=256, n_layers=6,
+                         num_heads=8),
+       "KTPFormer": dict(model_name="KTPFormer", dim_feat=512, n_layers=8,
+                         num_heads=8, mlp_ratio=2.0),
+       "D3DP": dict(model_name="D3DP", dim_feat=512, n_layers=8, num_heads=8,
+                    mlp_ratio=2.0)}
 # K1 and K3 launches per forward, and K2 and K4 per backward: a block's
 # attention core and MLP tail (MixSTE 2 x 8 blocks; DSTFormer 4 half blocks
 # x 5; MotionAGFormer 2 attention and 4 former modules x 16 layers (12 in
-# XS), graph_only 2 graph modules)
+# XS), graph_only 2 graph modules; STCFormer's split attention is plain
+# torch, its 6 MLP tails K3; KTPFormer KPA, TPA and 2 x 8 blocks; D3DP one
+# denoiser call of 2 x 8 blocks on the 8 stacked clips of B=4 and its flip)
 ZOO_LAUNCHES = {"MixSTE": (16, 16), "DSTFormer": (20, 20),
                 "MotionAGFormer": (32, 64), "MotionAGFormer use_tcn": (32, 64),
                 "MotionAGFormer hierarchical": (32, 64),
                 "MotionAGFormer graph_only": (32, 32),
-                "MotionAGFormer-XS": (24, 48)}
+                "MotionAGFormer-XS": (24, 48), "STCFormer": (0, 6),
+                "KTPFormer": (18, 18), "D3DP": (16, 16)}
+# the zoo models phase 5c serves, whose K1/K3 launches the kernels line counts
+ZOO_SERVED = ("MixSTE", "STCFormer", "KTPFormer", "D3DP")
 # the MotionAGFormer configurations phase 9b trains, and those it times at
 # batch 32 beside MixSTE and DSTFormer (the 64-channel ones, K2 at heads of
 # 8 and K4 at C = 64)
@@ -1335,6 +1359,9 @@ def check_zoo_models(dev, out_dir: str) -> dict:
             cpu64 = (want - want64).abs().max().item()
             card64 = (got.cpu() - want64).abs().max().item()
             amplified = cpu64 > 1e-4
+            if amplified and not hasattr(model, "layers"):
+                raise AssertionError(f"{name}: CPU f32 {cpu64} from its f64 "
+                                     "forward, and no layers to hold one by one")
             layers = (layerwise_deviation(model, cpu_model, x, adjacencies)
                       if amplified else None)
             for m in (model, cpu_model):
@@ -1363,7 +1390,7 @@ def check_zoo_models(dev, out_dir: str) -> dict:
             + f"; bf16 vs CPU f32: card {devb:.3e}, CPU "
             f"bf16 {devb_cpu:.3e} (limit 2x); 128-clip forward f32 "
             f"{times['float32']:.2f} ms, bf16 {times['bfloat16']:.2f} ms")
-        if name in ("MixSTE", "DSTFormer"):  # the f32 tile at C = 512, 256
+        if name in ("MixSTE", "DSTFormer", "STCFormer", "KTPFormer", "D3DP"):
             profile(model, xb, torch.float32, out_dir, label=name)
         if d != ZOO_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches per forward {d}")
@@ -1380,16 +1407,66 @@ def check_zoo_models(dev, out_dir: str) -> dict:
         res[name] = {"deviation_f32": dev32, "deviation_f32_f64": card64,
                      "cpu_f32_f64": cpu64, "layerwise": layers,
                      "deviation_bf16": devb, "forward_ms": times}
+        if name == "D3DP":
+            res[name]["samplers"] = check_d3dp_samplers(model, cpu_model, dev)
         del model, cpu_model
     return res
 
 
-@phase("phase 5c: serving MixSTE on the card (the zoo's main path)")
+def check_d3dp_samplers(model, cpu_model, dev) -> dict:
+    """D3DP's sampler at 2 DDIM steps over 2 proposals, f32, card against
+    CPU on one generator (B=4: 16 stacked clips a denoiser call, 2 calls);
+    then the paper's eval sampler, 10 steps over 20 proposals (one call of
+    160 clips a step at B=4), timed on the card alone: its CPU reference
+    would take minutes."""
+    import dataclasses
+
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln
+
+    cfg = model.cfg
+    x = clip_batch(torch.Generator().manual_seed(40), 4)
+    try:
+        for m in (model, cpu_model):
+            m.compute_dtype = torch.float32
+            m.cfg = dataclasses.replace(cfg, sampling_timesteps=2, num_proposals=2)
+        with torch.inference_mode():
+            want = cpu_model.sample(x, torch.Generator().manual_seed(41))
+            k1, k3 = masked_sdpa.launches, fused_mlp_ln.launches
+            got = model.sample(x.to(dev), torch.Generator().manual_seed(41))
+            torch.cuda.synchronize()
+            d = (masked_sdpa.launches - k1, fused_mlp_ln.launches - k3)
+            dev_s = (got.cpu() - want).abs().max().item()
+            model.cfg = dataclasses.replace(cfg, sampling_timesteps=10,
+                                            num_proposals=20)
+            xd = x.to(dev)
+            paper = time_ms(lambda: model.sample(xd), 2, warmup=1)
+    finally:
+        model.cfg = cpu_model.cfg = cfg
+    log(f"   D3DP sampler, 2 DDIM steps x 2 proposals, B=4: output "
+        f"{tuple(got.shape)}, K1/K3 launches {d} (expected (32, 32)); f32 max "
+        f"abs deviation card vs CPU on one generator {dev_s:.3e}; the paper's "
+        f"eval sampler, 10 steps x 20 proposals, B=4: {paper:.2f} ms, "
+        f"{paper / 4:.2f} ms per input clip ({4e3 / paper:.2f} clips/s)")
+    if d != (32, 32):
+        raise AssertionError(f"D3DP sampler: launches {d}")
+    if not (torch.isfinite(got).all() and dev_s <= 1e-3):
+        raise AssertionError(f"D3DP sampler: card vs CPU deviation {dev_s}")
+    return {"deviation_f32": dev_s, "paper_ms": paper,
+            "paper_ms_per_clip": paper / 4}
+
+
+@phase("phase 5c: serving the zoo on the card (the zoo's main path)")
 def check_zoo_serving(dev) -> dict:
-    """serve() builds whatever model it is given: MixSTE at full width, f32,
-    batch 128, answers /healthz and a 405-frame /lift, and the served poses
-    agree with the plain versions on the CPU. The launch counts are read
-    around this phase alone."""
+    """serve() builds whatever model it is given: each of ZOO_SERVED (D3DP's
+    eval forward, DDIM sampling with the flip inside, replaces the service's
+    flip-TTA) at full width, f32, batch 128, answers /healthz and a
+    405-frame /lift, and the served poses agree with the plain versions on
+    the CPU. The counts are set to 0 as this phase starts; it returns each
+    model's K1/K3 launches, and fails if a kernel its forward runs was not
+    launched serving it."""
     import numpy as np
     import torch
 
@@ -1397,42 +1474,49 @@ def check_zoo_serving(dev) -> dict:
     from kasportsformer_torch.ops.mlp import fused_mlp_ln
     from kasportsformer_torch.serving import LiftService, serve
 
-    cpu_model = perturbed(zoo_config("MixSTE"), seed=30)
-    model = copy.deepcopy(cpu_model).to(dev)
     req = {"keypoints": np.random.default_rng(31).uniform(
         0, 1000, (405, 17, 2)).tolist(), "width": 1920, "height": 1080}
+    kpts = np.asarray(req["keypoints"], np.float32)
     masked_sdpa.launches = 0
     fused_mlp_ln.launches = 0
-    srv = serve(model, host="127.0.0.1", port=0, batch_size=128,
-                model_name="MixSTE", device=dev)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    try:
-        status, data, lat = _request(srv.server_address[1], "GET", "/healthz")
-        assert status == 200 and data["model"] == "MixSTE", data
-        assert data["params"] == model.parameter_count(), data
-        log(f"   /healthz {status} {data} in {lat * 1e3:.1f} ms")
-        status, data, lat = _request(srv.server_address[1], "POST", "/lift", req)
-        assert status == 200, (status, data)
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=60)
-    launches = {"masked_sdpa": masked_sdpa.launches,
-                "fused_mlp_ln": fused_mlp_ln.launches}
-    poses = np.asarray(data["poses"], np.float32)
-    kpts = np.asarray(req["keypoints"], np.float32)
-    want = LiftService(cpu_model, batch_size=128, device="cpu").lift_sequence(
-        kpts, req["width"], req["height"])
-    dev405 = float(np.abs(poses - want).max())
-    log(f"   /lift 405 frames: {status}, 15 clips, {lat * 1e3:.1f} ms; served vs "
-        f"CPU plain versions {dev405:.3e}; kernel launches in this phase: "
-        f"{launches}")
-    if not (poses.shape == (405, 17, 3) and np.isfinite(poses).all()
-            and np.abs(poses[:, 0]).max() == 0.0 and dev405 <= 1e-3):
-        raise AssertionError(f"served MixSTE poses: {poses.shape}, {dev405}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    launches = {}
+    for i, name in enumerate(ZOO_SERVED):
+        cpu_model = perturbed(zoo_config(name), seed=30 + 2 * i)
+        model = copy.deepcopy(cpu_model).to(dev)
+        before = (masked_sdpa.launches, fused_mlp_ln.launches)
+        srv = serve(model, host="127.0.0.1", port=0, batch_size=128,
+                    model_name=name, device=dev)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            status, data, lat = _request(srv.server_address[1], "GET", "/healthz")
+            assert status == 200 and data["model"] == name, data
+            assert data["params"] == model.parameter_count(), data
+            log(f"   {name} /healthz {status} {data} in {lat * 1e3:.1f} ms")
+            status, data, lat = _request(srv.server_address[1], "POST", "/lift",
+                                         req)
+            assert status == 200, (name, status, data)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        d = (masked_sdpa.launches - before[0], fused_mlp_ln.launches - before[1])
+        poses = np.asarray(data["poses"], np.float32)
+        want = LiftService(cpu_model, batch_size=128, device="cpu").lift_sequence(
+            kpts, req["width"], req["height"])
+        dev405 = float(np.abs(poses - want).max())
+        log(f"   {name} /lift 405 frames: {status}, 15 clips, {lat * 1e3:.1f} ms; "
+            f"served vs CPU plain versions {dev405:.3e}; K1/K3 launches "
+            f"serving it (warm-up included) {d}")
+        if not (poses.shape == (405, 17, 3) and np.isfinite(poses).all()
+                and np.abs(poses[:, 0]).max() == 0.0 and dev405 <= 1e-3):
+            raise AssertionError(f"served {name} poses: {poses.shape}, {dev405}")
+        if any(want_k and not got_k
+               for want_k, got_k in zip(ZOO_LAUNCHES[name], d)):
+            raise AssertionError(f"{name}: a kernel was not launched: {d}")
+        launches[name] = d
+        del model, cpu_model
+    log(f"   K1/K3 launches in this phase, by model: {launches}")
     return launches
 
 
@@ -2446,8 +2530,12 @@ def main() -> int:
 
     # rows at the main paths' shapes, f32 (and K3's bf16 flagship row): the
     # flagship's serving (K1, K3; the bf16 row's launches from its bf16
-    # serving), the train step (K2, K4), MixSTE's serving (K1, K3 at the
-    # zoo's widest shapes) and K5's layer route; launches from those runs
+    # serving), the train step (K2, K4), the zoo's serving in 5c (K1 at
+    # D = 64, K3 at 512/1024 and, STCFormer's, 256/1024) and K5's layer
+    # route; launches from those runs
+    zoo_k1 = sum(d[0] for d in zoo_launches.values())
+    zoo_k3 = {c: sum(d[1] for n, d in zoo_launches.items()
+                     if ZOO[n]["dim_feat"] == c) for c in (512, 256)}
     kernels = [
         dict(name="masked_sdpa", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
@@ -2481,13 +2569,16 @@ def main() -> int:
         dict(name="masked_sdpa[zoo]", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
              replaces="kasportsformer_tpu/ops/attention.py:227",
-             launches=zoo_launches["masked_sdpa"],
+             launches=zoo_k1,
              **zoo_k[("K1", "MixSTE spatial D=64", "float32")]),
         dict(name="fused_mlp_ln[zoo]", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:202",
-             launches=zoo_launches["fused_mlp_ln"],
-             **zoo_k[("K3", 512, "float32")]),
+             launches=zoo_k3[512], **zoo_k[("K3", 512, "float32")]),
+        dict(name="fused_mlp_ln[zoo C=256]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/mlp_ln.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:202",
+             launches=zoo_k3[256], **zoo_k[("K3", 256, "float32")]),
         # the zoo's training (phase 9b): DSTFormer's widths from its batch-32
         # steps, MixSTE's from its epoch through the CLI
         dict(name="masked_sdpa_bwd[zoo D=32]", route="cuda", dtype="float32",

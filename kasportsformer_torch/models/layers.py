@@ -105,20 +105,28 @@ class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (`model/modules/mlp.py`, dropout-free as
     every shipped config). The FormerModule and the transformer block run
     these parameters through `fused_mlp_ln` instead (`mlp_tail`,
-    `mlp_ln_residual`)."""
+    `mlp_ln_residual`). `bias=False` gives STCFormer's MLP, whose linears
+    have no bias parameters: the fused op gets zero biases, kept as
+    non-persistent buffers (out of the state dict, moved with the module)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, bias: bool = True):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = nn.Linear(dim, hidden, bias=bias)
+        self.fc2 = nn.Linear(hidden, dim, bias=bias)
+        if not bias:
+            self.register_buffer("zero_b1", torch.zeros(hidden), persistent=False)
+            self.register_buffer("zero_b2", torch.zeros(dim), persistent=False)
 
     def weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
         """(fc1.weight, fc1.bias, fc2.weight, fc2.bias) for a fused op whose
         activations are `dtype`: under autograd the float32 parameters as
         they are, so their gradients arrive in float32 (the op makes its
         copies in the activation dtype); outside it the kept copies of
-        `cast`."""
-        ws = (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+        `cast`. A bias-free MLP hands the op its zero buffers, as the JAX
+        `mlp_ln_residual` hands it zeros."""
+        b1, b2 = ((self.fc1.bias, self.fc2.bias) if self.fc1.bias is not None
+                  else (self.zero_b1, self.zero_b2))
+        ws = (self.fc1.weight, b1, self.fc2.weight, b2)
         if torch.is_grad_enabled():
             return ws
         return tuple(cast(t, dtype) for t in ws)
@@ -436,11 +444,11 @@ class TransformerBlock(nn.Module):
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """NCHW convolution with the module's stride, padding and dilation, its
-    weights cast to the activation dtype."""
+    """NCHW convolution with the module's stride, padding, dilation and
+    groups, its weights cast to the activation dtype."""
     bias = None if conv.bias is None else cast(conv.bias, x.dtype)
     return F.conv2d(x, cast(conv.weight, x.dtype), bias, conv.stride,
-                    conv.padding, conv.dilation)
+                    conv.padding, conv.dilation, conv.groups)
 
 
 class TemporalConv(nn.Module):

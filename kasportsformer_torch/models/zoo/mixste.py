@@ -81,10 +81,18 @@ class MixSTE(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        cfg = self.cfg
-        x = x[..., : cfg.in_chans].to(self.compute_dtype)
+        x = x[..., : self.cfg.in_chans].to(self.compute_dtype)
         b, f, n, _ = x.shape
-        dt = x.dtype
+        tokens = L.linear(self.Spatial_patch_to_embedding, x.reshape(b * f, n, -1))
+        tokens = tokens + L.cast(self.Spatial_pos_embed, x.dtype)
+        return self.trunk(tokens, b, f, generator)
+
+    def trunk(self, tokens: torch.Tensor, b: int, f: int,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """The blocks and the head on the embedded spatial tokens
+        (b*f, n, c): (b, f, n, dim_out) in float32."""
+        cfg = self.cfg
+        n, dt = tokens.shape[1], tokens.dtype
         rates = (np.linspace(0, cfg.drop_path_rate, cfg.depth) if self.training
                  else np.zeros(cfg.depth))
 
@@ -99,8 +107,6 @@ class MixSTE(nn.Module):
         def to_spatial(t: torch.Tensor) -> torch.Tensor:  # (b*n,f,c) -> (b*f,n,c)
             return t.reshape(b, n, f, -1).transpose(1, 2).reshape(b * f, n, -1)
 
-        tokens = L.linear(self.Spatial_patch_to_embedding, x.reshape(b * f, n, -1))
-        tokens = tokens + L.cast(self.Spatial_pos_embed, dt)
         tokens = block(self.STEblocks[0], tokens, 0)
         tokens = L.layer_norm(self.Spatial_norm, tokens, _EPS)
 

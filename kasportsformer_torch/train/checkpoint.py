@@ -275,6 +275,77 @@ def dstformer_state_dict_from_jax(params: dict[str, Any], state: dict[str, Any]
     return out
 
 
+def stcformer_state_dict_from_jax(params: dict[str, Any], state: dict[str, Any]
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX zoo STCFormer's `(params, state)` (numpy) -> the port's
+    state_dict in the reference layout: the inverse of the JAX package's
+    `stcformer_state_dict_to_params`."""
+    del state  # STCFormer has none
+    out: dict[str, torch.Tensor] = {}
+    _put_lin(out, "pose_emb", params["pose_emb"])
+    _put_lin(out, "regress_head", params["head"])
+    for i in range(_n_layers(params["blocks"])):
+        p = _layer(params["blocks"], i)
+        key = f"stcformer.stc_block.{i}"
+        _put_ln(out, f"{key}.stc_att.layer_norm", p["norm"])
+        _put_lin(out, f"{key}.stc_att.qkv", p["qkv"])
+        _put_lin(out, f"{key}.stc_att.proj", p["proj"])
+        _put_conv(out, f"{key}.stc_att.sep2_s", p["sep2_s"])
+        _put_conv(out, f"{key}.stc_att.sep2_t", p["sep2_t"])
+        _put(out, f"{key}.stc_att.emb.weight", p["part_embed"])
+        _put_ln(out, f"{key}.layer_norm", p["mlp_norm"])
+        _put_lin(out, f"{key}.mlp.fc1", p["mlp"]["fc1"])
+        _put_lin(out, f"{key}.mlp.fc2", p["mlp"]["fc2"])
+    return out
+
+
+def ktpformer_state_dict_from_jax(params: dict[str, Any], state: dict[str, Any]
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX zoo KTPFormer's `(params, state)` (numpy) -> the port's
+    state_dict in the reference layout, the prior batch norms' running
+    statistics from `state`: the inverse of the JAX package's
+    `ktpformer_state_dict_to_params`."""
+    out: dict[str, torch.Tensor] = {}
+    for key, name in (("kpattention.attn.kpa", "kpa"),
+                      ("tpattention.attn.tpa.gconv1", "tpa1"),
+                      ("tpattention.attn.tpa.gconv2", "tpa2")):
+        g = params[name]["gconv"]
+        for part in ("W", "M", "adj2"):
+            _put(out, f"{key}.gconv.{part}", g[part])
+        _put(out, f"{key}.gconv.bias", g["b"])
+        _put_bn(out, f"{key}.bn", params[name]["bn"], state[name]["bn"])
+    for key, name, pos in (("kpattention", "kpa", "Spatial_pos_embed"),
+                           ("tpattention", "tpa", "Temporal_pos_embed")):
+        _put(out, f"{key}.attn.{pos}", params[f"{name}_pos_embed"])
+        _put_ln(out, f"{key}.attn.norm1", params[f"{name}_norm1"])
+        _put_lin(out, f"{key}.attn.qkv", params[f"{name}_attn"]["qkv"])
+        _put_lin(out, f"{key}.attn.proj", params[f"{name}_attn"]["proj"])
+        _put_ln(out, f"{key}.norm2", params[f"{name}_mlp_norm"])
+        _put_lin(out, f"{key}.mlp.fc1", params[f"{name}_mlp"]["fc1"])
+        _put_lin(out, f"{key}.mlp.fc2", params[f"{name}_mlp"]["fc2"])
+    _put_ln(out, "Spatial_norm", params["spatial_norm"])
+    _put_ln(out, "Temporal_norm", params["temporal_norm"])
+    _put_ln(out, "head.0", params["head_norm"])
+    _put_lin(out, "head.1", params["head"])
+    for stream, name in (("ste", "STEblocks"), ("tte", "TTEblocks")):
+        for i in range(_n_layers(params[stream])):
+            _put_tblock(out, f"{name}.{i}", _layer(params[stream], i))
+    return out
+
+
+def d3dp_state_dict_from_jax(params: dict[str, Any], state: dict[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+    """The JAX zoo D3DP's denoiser `(params, state)` (numpy) -> the port's
+    state_dict in the reference layout, under `pose_estimator.`: the inverse
+    of the JAX package's `d3dp_state_dict_to_params`. The denoiser is MixSTE
+    with a time MLP (`time_mlp.1`, `time_mlp.3`); the diffusion schedule is
+    no parameter: both sides recompute it from `timesteps`."""
+    out = mixste_state_dict_from_jax(params, state)
+    _put_lin(out, "time_mlp.1", params["time_mlp"]["fc1"])
+    _put_lin(out, "time_mlp.3", params["time_mlp"]["fc2"])
+    return {f"pose_estimator.{k}": v for k, v in out.items()}
+
+
 # ------------------------------------------------------------ native
 
 

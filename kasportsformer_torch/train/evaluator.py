@@ -31,8 +31,16 @@ def tta_forward(model: nn.Module, x: torch.Tensor, flip: bool,
     (≙ `train_and_evaluate_sp.py:46-51`). The mirrored clips ride the same
     forward as one doubled batch `[x, flip(x)]`, run in chunks of
     `chunk_size` clips; eval mode has no cross-clip coupling (batch norm uses
-    running statistics), so chunking changes no value."""
+    running statistics), so chunking changes no value.
+
+    A model with an eval forward of its own (D3DP: DDIM sampling and the
+    proposals' mean, its flip-TTA inside the sampler as its config says)
+    defines `eval_predict(x)`, which replaces the generic flip-TTA and
+    chunking (≙ the JAX `tta_forward`; its NaN guard is not ported, see
+    `train/loop.py`)."""
     with torch.inference_mode():
+        if hasattr(model, "eval_predict"):
+            return model.eval_predict(x)
         if not flip:
             return chunked_batch_apply(model, x, chunk_size)
         both = torch.cat([x, joint_flip(x)], dim=0)

@@ -276,8 +276,9 @@ def test_build_model_defaults_to_cuda():
     model = build_model(cfg, device="cpu")
     assert not model.training
     # the zoo registers with the package's import, so the error lists it too
-    with pytest.raises(ValueError, match="available: \\['dstformer', "
-                       "'kasportsformer', 'mixste', 'motionagformer'\\]"):
+    with pytest.raises(ValueError, match="available: \\['d3dp', 'dstformer', "
+                       "'kasportsformer', 'ktpformer', 'mixste', "
+                       "'motionagformer', 'stcformer'\\]"):
         build_model(cfg.replace(model_name="NoSuchModel"), device="cpu")
 
 

@@ -1,8 +1,9 @@
 """kasportsformer_torch's zoo (MotionAGFormer in its four variants, MixSTE,
-DSTFormer) and the layers it brought against the JAX package, on the CPU in
-float32 with the same numpy-drawn weights loaded into both: per module, the
-six models at a small width, the parameter counts at full width, and the
-weight carriers' round trip through the JAX package's converters."""
+DSTFormer, STCFormer, KTPFormer; D3DP has `test_torch_d3dp.py`) and the
+layers it brought against the JAX package, on the CPU in float32 with the
+same numpy-drawn weights loaded into both: per module, the eight models at a
+small width, the parameter counts at full width, and the weight carriers'
+round trip through the JAX package's converters."""
 
 import copy
 import dataclasses
@@ -17,6 +18,8 @@ import jax.numpy as jnp
 import torch
 
 from kasportsformer_tpu.models import layers as JL
+from kasportsformer_tpu.models.zoo import ktpformer as jktp
+from kasportsformer_tpu.models.zoo import stcformer as jstc
 from kasportsformer_tpu.models.zoo.dstformer import (
     DSTFormer as JaxDSTFormer,
     DSTFormerConfig as JaxDSTFormerConfig,
@@ -31,22 +34,28 @@ from kasportsformer_tpu.models.zoo.motionagformer import (
 )
 from kasportsformer_tpu.train.checkpoint import (
     dstformer_state_dict_to_params,
+    ktpformer_state_dict_to_params,
     mixste_state_dict_to_params,
     motionagformer_state_dict_to_params,
+    stcformer_state_dict_to_params,
 )
 from kasportsformer_torch.config import Config
 from kasportsformer_torch.models import layers as TL
 from kasportsformer_torch.models.zoo.dstformer import DSTFormer, DSTFormerConfig
+from kasportsformer_torch.models.zoo.ktpformer import KTPFormer, KTPFormerConfig
 from kasportsformer_torch.models.zoo.mixste import MixSTE, MixSTEConfig
 from kasportsformer_torch.models.zoo.motionagformer import (
     MotionAGFormer,
     MotionAGFormerConfig,
 )
+from kasportsformer_torch.models.zoo.stcformer import STCFormer, STCFormerConfig
 from kasportsformer_torch.serving import LiftService
 from kasportsformer_torch.train.checkpoint import (
     dstformer_state_dict_from_jax,
+    ktpformer_state_dict_from_jax,
     mixste_state_dict_from_jax,
     motionagformer_state_dict_from_jax,
+    stcformer_state_dict_from_jax,
 )
 from kasportsformer_torch.train.loop import make_grads_fn
 from torch_parity import perturb_tree
@@ -84,10 +93,20 @@ FAMILIES = {
                   DSTFormer, DSTFormerConfig(dim_feat=32, dim_rep=64, depth=2,
                                              num_heads=4, mlp_ratio=2.0),
                   dstformer_state_dict_from_jax, dict(depth=2)),
+    "stcformer": (jstc.STCFormer, jstc.STCFormerConfig(n_layers=2, d_hid=32,
+                                                       num_heads=4),
+                  STCFormer, STCFormerConfig(n_layers=2, d_hid=32, num_heads=4),
+                  stcformer_state_dict_from_jax, dict(n_layers=2)),
+    "ktpformer": (jktp.KTPFormer, jktp.KTPFormerConfig(embed_dim=32, depth=2,
+                                                       num_heads=4),
+                  KTPFormer, KTPFormerConfig(embed_dim=32, depth=2, num_heads=4),
+                  ktpformer_state_dict_from_jax, dict(depth=2)),
 }
 _CONVERTERS = {"mag": motionagformer_state_dict_to_params,
                "mixste": mixste_state_dict_to_params,
-               "dstformer": dstformer_state_dict_to_params}
+               "dstformer": dstformer_state_dict_to_params,
+               "stcformer": stcformer_state_dict_to_params,
+               "ktpformer": ktpformer_state_dict_to_params}
 # full width: the configs' defaults, the published widths of each family
 FULL = {
     "mag_base": (JaxMotionAGFormerConfig(), MotionAGFormerConfig()),
@@ -98,6 +117,9 @@ FULL = {
                        MotionAGFormerConfig(graph_only=True)),
     "mixste": (JaxMixSTEConfig(), MixSTEConfig()),
     "dstformer": (JaxDSTFormerConfig(), DSTFormerConfig()),
+    "stcformer": (jstc.STCFormerConfig(), STCFormerConfig()),
+    # MixSTE's trunk, which KTPFormer keeps (the JAX config's default is 256)
+    "ktpformer": (jktp.KTPFormerConfig(embed_dim=512), KTPFormerConfig(embed_dim=512)),
 }
 X = RNG.standard_normal((2, 27, 17, 3)).astype(np.float32)
 
@@ -128,8 +150,12 @@ def models():
     return out
 
 
+def _layer(tree, i: int):
+    return jax.tree.map(lambda a: a[i], tree)
+
+
 def _layer0(tree):
-    return jax.tree.map(lambda a: a[0], tree)
+    return _layer(tree, 0)
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -281,6 +307,87 @@ def test_multi_scale_tcn_matches_jax(models, train):
         np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(ns["var"]), **TOL)
 
 
+def _ktp_prior(models, name: str):
+    """A KTPFormer prior (JAX params and state, the port's module): `kpa` on
+    the 17 joints, `tpa1` on the 27 frames."""
+    _, params, state, port, _ = models["ktpformer"]
+    attn = port.tpattention.attn
+    mod = port.kpattention.attn.kpa if name == "kpa" else attn.tpa.gconv1
+    return params[name], state[name], mod
+
+
+@pytest.mark.parametrize("name", ["kpa", "tpa1"])
+def test_learnable_graph_conv_matches_jax(models, name):
+    """The symmetrised base-plus-learned adjacency, its diagonal and
+    off-diagonal terms gated per node."""
+    p, _, prior = _ktp_prior(models, name)
+    n, c_in = prior.gconv.M.shape[0], prior.gconv.W.shape[1]
+    base = prior.gconv.base_adj.numpy()
+    x = RNG.standard_normal((6, n, c_in)).astype(np.float32)
+    want = jktp._lgc(p["gconv"], jnp.asarray(x), base)
+    with torch.inference_mode():
+        got = prior.gconv(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("name", ["kpa", "tpa1"])
+def test_ktp_prior_matches_jax(models, name, train):
+    """Graph conv, batch norm over the channels and ReLU: eval with the
+    running statistics; train with the batch statistics and the running
+    statistics updated."""
+    p, s, prior = _ktp_prior(models, name)
+    prior = copy.deepcopy(prior).train(train)
+    n, c_in = prior.gconv.M.shape[0], prior.gconv.W.shape[1]
+    x = RNG.standard_normal((6, n, c_in)).astype(np.float32)
+    want, new = jktp._prior(p, s, jnp.asarray(x), prior.gconv.base_adj.numpy(),
+                            train)
+    with torch.no_grad():
+        got = prior(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(prior.bn.running_mean.numpy(),
+                               np.asarray(new["bn"]["mean"]), **TOL)
+    np.testing.assert_allclose(prior.bn.running_var.numpy(),
+                               np.asarray(new["bn"]["var"]), **TOL)
+
+
+def test_ktp_adjacencies_match_jax():
+    port = KTPFormer(KTPFormerConfig(embed_dim=32, depth=1, num_heads=4))
+    np.testing.assert_array_equal(port.kpattention.attn.kpa.gconv.base_adj.numpy(),
+                                  jktp.adj_mx_from_skeleton(17))
+    np.testing.assert_array_equal(
+        port.tpattention.attn.tpa.gconv2.gconv.base_adj.numpy(),
+        jktp.adj_mx_from_skeleton_temporal(27))
+
+
+def test_stc_attention_matches_jax(models):
+    """The interleaved qkv split, the half-width scale, the depthwise
+    convolutions and the part embeddings at 1e-4 / 1e-9."""
+    _, params, _, port, _ = models["stcformer"]
+    x = RNG.standard_normal((2, 27, 17, 32)).astype(np.float32)
+    want = jstc._stc_attention(_layer0(params["blocks"]), jnp.asarray(x), 4)
+    with torch.inference_mode():
+        got = port.stcformer.stc_block[0].stc_att(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_bias_free_mlp_ln_residual_matches_jax(models):
+    """STCFormer's MLP tail: no bias parameters in the module, zero biases
+    handed to `fused_mlp_ln` (as the JAX `mlp_ln_residual` does), with and
+    without autograd."""
+    _, params, _, port, _ = models["stcformer"]
+    block, p = port.stcformer.stc_block[1], _layer(params["blocks"], 1)
+    assert block.mlp.fc1.bias is None and block.mlp.fc2.bias is None
+    x = RNG.standard_normal((2, 27, 17, 32)).astype(np.float32)
+    want = JL.mlp_ln_residual(p["mlp_norm"], p["mlp"], jnp.asarray(x))
+    with torch.inference_mode():
+        got = TL.mlp_ln_residual(block.layer_norm, block.mlp, _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with torch.enable_grad():
+        got = TL.mlp_ln_residual(block.layer_norm, block.mlp, _t(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
 # ---------------------------------------------------------------- models
 
 
@@ -297,7 +404,8 @@ def test_small_model_matches_jax(models, name):
 @pytest.mark.parametrize("name", list(FULL))
 def test_full_width_parameter_count_matches_jax(name):
     """The configs' defaults (MixSTE 512 wide, depth 8; DSTFormer 256 wide,
-    depth 5; MotionAGFormer 16 layers of 128): shapes only, nothing runs."""
+    depth 5; MotionAGFormer 16 layers of 128; STCFormer 6 blocks of 256) and
+    KTPFormer at 512, depth 8: shapes only, nothing runs."""
     jcls, tcls = FAMILIES[name][0], FAMILIES[name][2]
     jcfg, tcfg = FULL[name]
     jmodel = jcls(jcfg)
@@ -329,8 +437,9 @@ def test_zoo_registers_on_first_factory_miss():
     code = (
         "from kasportsformer_torch.config import Config\n"
         "from kasportsformer_torch.models import available_models, build_model\n"
-        "assert available_models() == ['dstformer', 'kasportsformer', 'mixste', "
-        "'motionagformer'], available_models()\n"
+        "assert available_models() == ['d3dp', 'dstformer', 'kasportsformer', "
+        "'ktpformer', 'mixste', 'motionagformer', 'stcformer'], "
+        "available_models()\n"
         "m = build_model(Config(model_name='MixSTE', n_layers=1, dim_feat=32, "
         "num_heads=4), device='cpu')\n"
         "print(type(m).__name__, available_models())\n")
