@@ -91,10 +91,15 @@ Phases (any failure exits non-zero and prints no result line):
      rerun bitwise equal, the call's and each launch's time against its
      bound (at 256 and 512 a stage launch writes the dx pass's f32 weights
      first, and the dx pass and the weight pass run clusters of two blocks;
-     at 64 the one-block passes: each pass's cluster size, clusters
-     resident, tiles and waves beside, the weight pass's chunk and row
-     splits too); C = 32 and 1024, and H = 192 at C = 64, raise. In phases 6
-     and 7 the plain version runs in float32 on the kernel's own inputs.
+     at 64 the dx pass runs two warp groups a block, each over half the
+     hidden width, and the weight pass one block: each pass's cluster size,
+     clusters resident, tiles and waves beside, the dx pass's warp groups
+     and blocks a SM, the weight pass's chunk and row splits too); C = 32
+     and 1024, and H = 192 at C = 64, raise. Last, K4 at C/H 128/512,
+     256/1024 and 512/1024 on seeded inputs in both dtypes gives bit for bit
+     the eight gradients it gave before the C = 64 dx pass became two warp
+     groups (SHA-1 digests, `K4_DIGESTS`). In phases 6 and 7 the plain
+     version runs in float32 on the kernel's own inputs.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -456,9 +461,12 @@ def k4_widths() -> tuple:
 # 512 a stage launch (both passes' f32 weights) first; each pass is one
 # block a tile (a hidden chunk and row split) at C = 128 and a cluster of two
 # at 256 and 512 (and one block at every width in a tree from before its
-# cluster, kept for A/B runs), so each goes by both kernels' names
+# cluster, kept for A/B runs), and the dx pass at C = 64 one block of two
+# warp groups (one block of C = 128's kind in an older tree), so each goes
+# by all its kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
-               ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel")),
+               ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel",
+                            "mlp_ln_bwd_dx_wg_kernel")),
                ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel")),
                ("reduce", ("mlp_ln_bwd_reduce_kernel",)))
 
@@ -1689,6 +1697,71 @@ def check_k2_zoo(dev, gen, tol: dict) -> dict:
 _MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
 
 
+# k4_digests on an H100 before K4's dx pass at C = 64 became two warp groups:
+# the outputs at the other widths, whose launches that change left alone
+K4_DIGESTS = {
+    (128, "float32"): "58156b444940 8096f000dc3e 79a2cd00ff2b c32c2aeb5932 f5be679db688 "
+                      "1847d887a6fd 759b064cbe19 98ad32e8c589",
+    (128, "bfloat16"): "9c78e50c0815 7ec0c39f18e4 8d5f581f0385 172cace851fc dd3e797cde42 "
+                       "bf63323800c2 480f126a9d2c 3fe26bed7ca7",
+    (256, "float32"): "1bf4c3548f34 d170944d38a6 b57c5514f154 960840dd15d8 afe897b16613 "
+                      "db734215e7d2 c530f5618a7d 02ed10f17acb",
+    (256, "bfloat16"): "55d8e5ce63d8 096831a55dc5 1c48c9d59239 665657aba375 35a7f82c2d8c "
+                       "8c25a5f4ea32 3a767d005889 dc605b901c14",
+    (512, "float32"): "970ed3af13d7 c6d7adc49751 d58a45cb3ca9 77758814a2aa 34e8cba4eb00 "
+                      "98a3b1c5aaf2 c6426c40d1ae 0a9ffc010118",
+    (512, "bfloat16"): "5fdcfa21cfec 270ed6936690 4f3bc7777a33 56cb01677628 b8d88ef80c71 "
+                       "270d325c6e9e 2591141c9372 b438502dab92"}
+
+
+def check_k4_digests(dev) -> None:
+    """K4 at C/H 128/512, 256/1024 and 512/1024 in both dtypes gives bit for
+    bit the eight gradients of `K4_DIGESTS`; raises where one differs."""
+    got = k4_digests(dev)
+    changed = [key for key, want in K4_DIGESTS.items() if got[key] != want]
+    log(f"   K4 at C/H 128/512, 256/1024 and 512/1024 (M = 14,688, f32 and bf16): the eight "
+        f"gradients' SHA-1 digests {'equal' if not changed else 'NOT equal'} to those before "
+        f"the C = 64 dx pass became two warp groups" + (f": changed at {changed}" if changed
+                                                         else ""))
+    if changed:
+        raise AssertionError(f"K4's outputs changed at (C, dtype) {changed}")
+
+
+def k4_digests(dev) -> dict:
+    """SHA-1 (12 hex digits) of each of K4's eight gradients at M = 14,688
+    on the seeded inputs of `scripts/torch_ab.sh digest`: C/H 128/512 (eps
+    1e-5, generator seed 9), then 256/1024 (1e-5) and 512/1024 (1e-6) from
+    a generator of their own (seed 10), each in float32 and bfloat16;
+    {(c, dtype name): "dx dgamma ... dls2"}."""
+    import hashlib
+
+    import torch
+
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
+
+    out = {}
+    for seed, widths in ((9, ((128, 512, 1e-5),)), (10, ((256, 1024, 1e-5), (512, 1024, 1e-6)))):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(*shape, device=dev, generator=gen)
+        # torch_ab.sh's order: at 128 the dtypes outermost, at 256 and 512 the widths
+        cases = ([(c, h, eps, dt) for dt in (torch.float32, torch.bfloat16)
+                  for c, h, eps in widths] if seed == 9 else
+                 [(c, h, eps, dt) for c, h, eps in widths
+                  for dt in (torch.float32, torch.bfloat16)])
+        for c, h, eps, dt in cases:
+            x, g = randn(14688, c).to(dt), randn(14688, c).to(dt)
+            args = (x, 1 + randn(c, scale=0.1), randn(c, scale=0.1),
+                    randn(h, c, scale=c ** -0.5).to(dt), randn(h, scale=0.1).to(dt),
+                    randn(c, h, scale=h ** -0.5).to(dt), randn(c, scale=0.1).to(dt),
+                    torch.rand(c, device=dev, generator=gen))
+            grads = fused_mlp_ln_bwd(*args, g, eps)
+            out[(c, str(dt).split(".")[1])] = " ".join(
+                hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12] for t in grads)
+    return out
+
+
 @phase("phase 7: K4 fused_mlp_ln_bwd vs plain")
 def check_k4(dev, out_dir: str) -> dict:
     import torch
@@ -1761,6 +1834,7 @@ def check_k4(dev, out_dir: str) -> dict:
         log("   K4 reduce alone: this tree has no entry for it")
     if len(k4_widths()) > 1:  # an older tree's K4 has C = 128 only
         rows.update(check_k4_zoo(dev, gen, tol))
+        check_k4_digests(dev)
     write_k4_report(out_dir)
     return rows
 
@@ -1798,8 +1872,10 @@ def k4_launch_bounds(m: int, c: int, h: int, dname: str, ms: dict) -> str:
 
 def k4_dx_tiling(dname: str, m: int, c: int, h: int) -> str:
     """The dx pass's instantiation at this shape, as the library reports it:
-    blocks a cluster (a tile), clusters (at C = 128 blocks) the card holds
-    at once, the tiles of m rows and the waves they make on those."""
+    blocks a cluster (a tile), clusters (at C <= 128 blocks) the card holds
+    at once, the tiles of m rows and the waves they make on those; at C = 64
+    also its warp groups (each over a hidden share, with its own ring) and
+    blocks a SM."""
     import torch
 
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd_kernel_info
@@ -1810,8 +1886,13 @@ def k4_dx_tiling(dname: str, m: int, c: int, h: int) -> str:
     tiles = -(-m // info["rows"])
     if "resident" not in info:  # a tree from before the report had the key
         return f"dx pass {info['rows']}-row tiles: {tiles}"
-    return (f"dx pass cluster {info['cluster']}, clusters resident {info['resident']}, "
+    text = (f"dx pass cluster {info['cluster']}, clusters resident {info['resident']}, "
             f"{info['rows']}-row tiles {tiles}, waves {tiles / info['resident']:.2f}")
+    if info.get("groups", 1) > 1:  # C = 64: warp groups over hidden shares
+        text += (f", warp groups {info['groups']} a block of {info['threads']} threads (each "
+                 f"{h // info['groups']} hidden columns in chunks of 32 through its own "
+                 f"two-stage ring), blocks a SM {info['blocks_per_sm']}")
+    return text
 
 
 def k4_w_tiling(dname: str, m: int, c: int, h: int) -> str:

@@ -37,11 +37,10 @@
 //  * dx pass: at C = 128 one block a 112-row tile (1.); at 256 and 512 a
 //    thread-block cluster of two blocks a tile, each over half the channels,
 //    after a stage launch that lays the weights out for it (1b.). At C = 64
-//    the C = 128 block with 112-row tiles (a 224-row tile, the C = 128
-//    tile's rows x channels, would not fit beside the weights): da's
-//    register tile is 7 rows x 4 channels a thread (half of C = 128's),
-//    fc1's and dh's loops run half the channels, and a half warp stages a
-//    row (two rows a warp at once); ~132 KB of shared memory a block.
+//    one block a 112-row tile too, as two warp groups over hidden halves
+//    (1c.): C = 128's block there ran half the work per thread (da 7 x 4,
+//    fc1 and dh over 64 channels) between the same three block barriers a
+//    chunk, 42 % of its bound.
 //  * weight pass: at C = 128 one block per (hidden chunk of 64, row split),
 //    40-row tiles (2.); at 256 and 512 a thread-block cluster of two blocks
 //    per (chunk, split), each over half the channels, chunks of 64 and 32
@@ -156,6 +155,38 @@
 //       and dh ~6.4k (3,584 of FMA issue each at the pipe's full rate), da
 //       ~5.2k, dz ~0.6k, the two exchange waits ~0.35k; 51 % of the pass's
 //       6*M*C*H bound (55-56 % at 256/1024).
+//  1c. at C = 64 (mlp_ln_bwd_dx_wg_kernel): one block of 256 threads a 112-row
+//     tile, one block a SM (198 KB of shared memory), ceil(M / 112) blocks
+//     (132 at M = 14,688, one wave). All 256 threads stage the tile's rows
+//     (aS = LN(x) * gamma + beta, dS = g * ls2; a half warp a row); then
+//     warp group g (threads 128 g ..) takes hidden columns g H / 2 ..
+//     (g + 1) H / 2 - 1 in chunks of 32 and does all of a chunk's work itself:
+//     fc1 and dh in the one-block pass's 7 x 4 layouts (in one loop over the
+//     channels, dxg::fc1_dh), dz = dh GELU'(z), and da += dz W1c as 7
+//     rows x 8 channels a thread (8 W1 + 7 dz float4s per 224 FMAs, as at C =
+//     128, where the one-block layout gave 7 x 4 here). Each group has its
+//     own zS, hS and cp.async ring (the one-block pass's chunk layouts, two
+//     f32 stages, or in bf16 two widened W1 chunks, a widened W2 chunk and a
+//     bf16 stage) and synchronises on its own named barrier (bar.sync 1 + g,
+//     128), three a chunk instead of three block barriers. The two halves of
+//     da meet once: after a block barrier group 0 writes its da into aS and
+//     group 1 into dS, and after another every thread adds aS + dS (one
+//     order, so reruns are bitwise equal) for the one-block pass's epilogue
+//     layout at C = 64 (16 lanes a row, 4 channels each) and runs that
+//     epilogue (dxp::dx_epilogue), its sums through group 0's zS. The
+//     partials keep the (tile, 3, C) layout. 0.0496 ms at M = 14,688 in
+//     f32, 43.5 % of its 6*M*C*H bound of 0.0216 ms (bf16 0.0484;
+//     chip_smoke.py phase 7 on an H100 80GB HBM3 at 700 W).
+//     - dz takes GELU' with erf by Abramowitz and Stegun 7.1.26 (|error| <=
+//       1.5e-7, dxg::gelu_grad): with erff and expf the dz step was ~13 % of
+//       a tile (scripts/k4_dx_stamps.py --c 64).
+//     - What bounds it: the two groups run their chunks in step, each
+//       scheduler one warp of each; group 0 alone over all of H (one warp a
+//       scheduler) is only ~20 % slower than both groups over half each, so
+//       the schedulers' issue, not a wait, sets the pace
+//       (scripts/k4_dx_variants.py). Taking the groups out of step, dz in
+//       registers (fc1 and dh on one layout, W2 permuted), the next chunk's
+//       copies issued later and unrolling by 1 or 4 measured no faster.
 //  2. weight pass at C = 128 (mlp_ln_bwd_w_kernel): one block per (hidden
 //     chunk of 64, row split); the split's 40-row tiles in order; per tile a = LN(x) *
 //     gamma + beta, z = a W1c^T + b1c, dh = g (ls2 * W2c), dz = dh * GELU'(z)
@@ -357,7 +388,9 @@ using kasf_mma::cp_async16;
 constexpr int kT = 256;  // threads a block: 8 warps
 
 // The dx pass's one-block tile, at C = 64 and 128 (C = 256 and 512 take the
-// cluster tile, dxc::Cfg): 112 rows and hidden chunks of 32 columns.
+// cluster tile, dxc::Cfg): 112 rows and hidden chunks of 32 columns. At C =
+// 64 the warp-group pass (dxg) takes its rows, chunk layouts, fc1 and dh
+// layouts and epilogue from here.
 template <int C>
 struct Cfg {
   static_assert(C == 64 || C == 128, "the one-block widths");
@@ -440,8 +473,9 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 }
 
 // Start copying hidden chunk j0 (W1 rows j0.., W2 columns j0.., b1) into a
-// ring stage, raw, in 16-byte pieces; one group (empty past the last chunk)
-template <int C>
+// ring stage, raw, in 16-byte pieces, by NT threads (tid < NT); one group
+// (empty past the last chunk)
+template <int C, int NT = kT>
 __device__ __forceinline__ void fetch_chunk(float* st, const float* __restrict__ w1,
                                             const float* __restrict__ w2,
                                             const float* __restrict__ b1, int j0, int H,
@@ -449,20 +483,20 @@ __device__ __forceinline__ void fetch_chunk(float* st, const float* __restrict__
   using K = Cfg<C>;
   if (j0 < H) {
 #pragma unroll
-    for (int i = 0; i < K::kKC * C / 4 / kT; ++i) {
-      const int e = tid + i * kT, j = e / (C / 4), c4 = e % (C / 4);
+    for (int i = 0; i < K::kKC * C / 4 / NT; ++i) {
+      const int e = tid + i * NT, j = e / (C / 4), c4 = e % (C / 4);
       cp_async16(st + j * K::kLdW1 + c4 * 4, w1 + (j0 + j) * C + c4 * 4);
     }
 #pragma unroll
-    for (int i = 0; i < C * K::kKC / 4 / kT; ++i) {
-      const int e = tid + i * kT, c = e / (K::kKC / 4), j4 = e % (K::kKC / 4);
+    for (int i = 0; i < C * K::kKC / 4 / NT; ++i) {
+      const int e = tid + i * NT, c = e / (K::kKC / 4), j4 = e % (K::kKC / 4);
       cp_async16(st + K::kW1F + c * K::kKC + j4 * 4, w2 + c * H + j0 + j4 * 4);
     }
     if (tid < K::kKC / 4) cp_async16(st + K::kW1F + K::kW2F + tid * 4, b1 + j0 + tid * 4);
   }
   kasf_mma::cp_async_commit();
 }
-template <int C>
+template <int C, int NT = kT>
 __device__ __forceinline__ void fetch_chunk(bf16* st, const bf16* __restrict__ w1,
                                             const bf16* __restrict__ w2,
                                             const bf16* __restrict__ b1, int j0, int H,
@@ -470,13 +504,13 @@ __device__ __forceinline__ void fetch_chunk(bf16* st, const bf16* __restrict__ w
   using K = Cfg<C>;
   if (j0 < H) {
 #pragma unroll
-    for (int i = 0; i < K::kKC * C / 8 / kT; ++i) {
-      const int e = tid + i * kT, j = e / (C / 8), c8 = e % (C / 8);
+    for (int i = 0; i < K::kKC * C / 8 / NT; ++i) {
+      const int e = tid + i * NT, j = e / (C / 8), c8 = e % (C / 8);
       cp_async16(st + j * K::kLdW1h + c8 * 8, w1 + (j0 + j) * C + c8 * 8);
     }
 #pragma unroll
-    for (int i = 0; i < C * K::kKC / 8 / kT; ++i) {
-      const int e = tid + i * kT, c = e / (K::kKC / 8), j8 = e % (K::kKC / 8);
+    for (int i = 0; i < C * K::kKC / 8 / NT; ++i) {
+      const int e = tid + i * NT, c = e / (K::kKC / 8), j8 = e % (K::kKC / 8);
       cp_async16(st + K::kW1H + c * K::kKC + j8 * 8, w2 + c * H + j0 + j8 * 8);
     }
     if (tid < K::kKC / 8) cp_async16(st + K::kW1H + K::kW2H + tid * 8, b1 + j0 + tid * 8);
@@ -493,19 +527,19 @@ __device__ __forceinline__ void widen8(float* dst, const bf16* src) {
                            kasf_mma::bf16_lo(v.w), kasf_mma::bf16_hi(v.w)));
 }
 
-// A landed bf16 chunk widened (all threads): W1 rows to w1f (b1 after
-// them, at kW1F), W2 columns to w2f, in the f32 chunk's layouts
-template <int C>
+// A landed bf16 chunk widened by NT threads (tid < NT): W1 rows to w1f (b1
+// after them, at kW1F), W2 columns to w2f, in the f32 chunk's layouts
+template <int C, int NT = kT>
 __device__ __forceinline__ void widen_chunk(float* w1f, float* w2f, const bf16* st, int tid) {
   using K = Cfg<C>;
 #pragma unroll
-  for (int i = 0; i < K::kKC * C / 8 / kT; ++i) {
-    const int e = tid + i * kT, j = e / (C / 8), c8 = e % (C / 8);
+  for (int i = 0; i < K::kKC * C / 8 / NT; ++i) {
+    const int e = tid + i * NT, j = e / (C / 8), c8 = e % (C / 8);
     widen8(w1f + j * K::kLdW1 + c8 * 8, st + j * K::kLdW1h + c8 * 8);
   }
 #pragma unroll
-  for (int i = 0; i < C * K::kKC / 8 / kT; ++i) {
-    const int e = tid + i * kT;
+  for (int i = 0; i < C * K::kKC / 8 / NT; ++i) {
+    const int e = tid + i * NT;
     widen8(w2f + e * 8, st + K::kW1H + e * 8);
   }
   if (tid < K::kKC / 8) widen8(w1f + K::kW1F + tid * 8, st + K::kW1H + K::kW2H + tid * 8);
@@ -695,6 +729,111 @@ __device__ __forceinline__ void da_chunk(const float* zS, const float* w1c,
   }
 }
 
+// The tile's epilogue: dx per row, and the tile's partial sums of da *
+// xhat, da and g per channel into part (block blockIdx.x's). Thread (row
+// group q4, channel group p4) of K's layout holds da for rows q4 + kRG i and
+// channels 4 p4 + 4 kCG k .. + 3; redS is kRG * 3 * C floats of shared
+// memory that no thread reads any more.
+template <typename K, int C, typename T>
+__device__ __forceinline__ void dx_epilogue(const float (&da)[K::kRT][4 * K::kK],
+                                            const T* __restrict__ x, const T* __restrict__ g,
+                                            const float* __restrict__ gamma,
+                                            const float* sMean, const float* sRstd, float* redS,
+                                            T* __restrict__ dx, float* __restrict__ part,
+                                            long long row0, long long M, int q4, int p4,
+                                            int tid) {
+  // ---- dx per row (the kCG lanes of a row group hold the row's C channels)
+  // and the thread's sums of da * xhat, da and g over its valid rows
+  constexpr int kE = 4 * K::kK;  // channels a thread: 4p + 4 kCG k + v
+  float gam[kE];
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k) {
+    const float4 gk = ld4(gamma + 4 * K::kCG * k + 4 * p4);
+    gam[4 * k] = gk.x;
+    gam[4 * k + 1] = gk.y;
+    gam[4 * k + 2] = gk.z;
+    gam[4 * k + 3] = gk.w;
+  }
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float sx[kE], sd[kE], sg[kE];
+#pragma unroll
+  for (int k = 0; k < kE; ++k) sx[k] = sd[k] = sg[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K::kRT; ++i) {
+    const int r = q4 + K::kRG * i;
+    const long long row = row0 + r;
+    const bool valid = row < M;
+    const float mean = sMean[r], rstd = sRstd[r];
+    const T* xr = x + row * C + 4 * p4;
+    const T* gr = g + row * C + 4 * p4;
+    float4 xa[K::kK], ga[K::kK];  // x's float4s, then g's
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k) xa[k] = valid ? load4(xr + 4 * K::kCG * k) : zero;
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k) ga[k] = valid ? load4(gr + 4 * K::kCG * k) : zero;
+    float xv[kE], gv[kE];
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k) {
+      xv[4 * k] = xa[k].x;
+      xv[4 * k + 1] = xa[k].y;
+      xv[4 * k + 2] = xa[k].z;
+      xv[4 * k + 3] = xa[k].w;
+      gv[4 * k] = ga[k].x;
+      gv[4 * k + 1] = ga[k].y;
+      gv[4 * k + 2] = ga[k].z;
+      gv[4 * k + 3] = ga[k].w;
+    }
+    float xh[kE], dxh[kE], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
+      xh[k] = (xv[k] - mean) * rstd;
+      dxh[k] = da[i][k] * gam[k];
+      m1 += dxh[k];
+      m2 = fmaf(dxh[k], xh[k], m2);
+    }
+    m1 = group_sum<K::kCG>(m1) * (1.0f / C);
+    m2 = group_sum<K::kCG>(m2) * (1.0f / C);
+    float o[kE];
+#pragma unroll
+    for (int k = 0; k < kE; ++k) o[k] = gv[k] + rstd * (dxh[k] - m1 - xh[k] * m2);
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < K::kK; ++k)
+        store4(dx + row * C + 4 * K::kCG * k + 4 * p4,
+               make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]));
+#pragma unroll
+      for (int k = 0; k < kE; ++k) {
+        sx[k] = fmaf(da[i][k], xh[k], sx[k]);
+        sd[k] += da[i][k];
+        sg[k] += gv[k];
+      }
+    }
+  }
+  // the tile's sums over the kRG row groups, in order, through redS
+  float* red = redS + q4 * 3 * C + 4 * p4;  // [row group][3][C]
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + 4 * K::kCG * k, make_float4(sx[4 * k], sx[4 * k + 1], sx[4 * k + 2], sx[4 * k + 3]));
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + C + 4 * K::kCG * k,
+        make_float4(sd[4 * k], sd[4 * k + 1], sd[4 * k + 2], sd[4 * k + 3]));
+#pragma unroll
+  for (int k = 0; k < K::kK; ++k)
+    st4(red + 2 * C + 4 * K::kCG * k,
+        make_float4(sg[4 * k], sg[4 * k + 1], sg[4 * k + 2], sg[4 * k + 3]));
+  __syncthreads();
+  for (int c = tid; c < C; c += kT) {
+    float t[3] = {0.f, 0.f, 0.f};
+    for (int q = 0; q < K::kRG; ++q)
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3) t[k3] += redS[(q * 3 + k3) * C + c];
+#pragma unroll
+    for (int k3 = 0; k3 < 3; ++k3)
+      part[(static_cast<long long>(blockIdx.x) * 3 + k3) * C + c] = t[k3];
+  }
+}
+
 }  // namespace dxp
 
 // One block per tile of dxp::Cfg<C>::kR rows; the hidden width in chunks of
@@ -786,97 +925,244 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
     da_chunk<K>(zS, w1c, da, q4, p4);
   }
 
-  // ---- dx per row (the kCG lanes of a row group hold the row's C channels)
-  // and the thread's sums of da * xhat, da and g over its valid rows
-  constexpr int kE = 4 * K::kK;  // channels a thread: 4p + 4 kCG k + v
-  float gam[kE];
+  dx_epilogue<K, C>(da, x, g, gamma, sMean, sRstd, aS, dx, part, row0, M, q4, p4, tid);
+}
+
+// ---- 1c. dx pass at C = 64: one block a 112-row tile, two warp groups over
+// hidden halves
+namespace dxg {
+
+constexpr int kT = 256;   // threads a block: two warp groups
+constexpr int kGT = 128;  // threads a warp group
+
+// The tile, the row staging, the chunk ring and fc1's and dh's layouts are
+// dxp::Cfg<64>'s (P); a warp group keeps da for the whole tile, kRT rows x
+// 4 kK channels a thread (kCG lanes hold a row's 64 channels), and has its
+// own zS, hS and ring after aS, dS, mean and rstd.
+struct Cfg {
+  using P = dxp::Cfg<64>;
+  static constexpr int C = 64;
+  static constexpr int kR = P::kR, kKC = P::kKC, kLdA = P::kLdA, kLdW1 = P::kLdW1,
+                       kLdZ = P::kLdZ;
+  static constexpr int kCG = 8;            // lanes a row
+  static constexpr int kK = C / (4 * kCG);  // 2 float4s a lane: channels 4p + 32k
+  static constexpr int kRG = kGT / kCG;     // 16 row groups
+  static constexpr int kRT = kR / kRG;      // 7 rows a thread
+  // floats: aS, dS | mean, rstd | each group's zS, hS and ring; a ring is
+  // two f32 stages, or two widened W1 chunks (with b1), one widened W2
+  // chunk and one bf16 stage (the larger, so both dtypes share offsets)
+  static constexpr int kZF = kR * kLdZ;  // a zS or hS
+  static constexpr int kOffStat = 2 * kR * kLdA;
+  static constexpr int kOffGroup = kOffStat + 2 * kR;
+  static constexpr int kRingF = 2 * P::kStageF;
+  static constexpr int kRingH = P::kOffStageH + P::kStageH / 2;
+  static constexpr int kRing = kRingF > kRingH ? kRingF : kRingH;
+  static constexpr int kGroupF = 2 * kZF + kRing;
+  static constexpr size_t kSmem = sizeof(float) * (kOffGroup + 2 * kGroupF);
+  static_assert(kR % kRG == 0 && kK * 4 * kCG == C && P::kKS == 1 &&
+                    P::kRG1 * P::kCG1 == kGT && P::kStageH % 8 == 0,
+                "a warp group's threads divide the tile and the chunk evenly");
+  static_assert(kOffGroup % 4 == 0 && kZF % 4 == 0 && kRing % 4 == 0,
+                "16-byte alignment of the shared buffers");
+  static_assert(kRG * 3 * C <= 2 * kZF, "the epilogue's sums fit in group 0's zS and hS");
+  static_assert(kSmem <= 232448, "one block a SM");
+};
+
+// bar.sync on warp group grp's own barrier (1 + grp; 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "n"(kGT) : "memory");
+}
+
+// GELU'(z) = Phi(z) + z phi(z), with erf by Abramowitz and Stegun 7.1.26,
+// erf(x) = 1 - t (a1 + t (a2 + ... + t a5)) exp(-x^2), t = 1 / (1 + p x),
+// x = |z| / sqrt 2 (|error| <= 1.5e-7, as close as erff's few ulps), so
+// that exp(-z^2 / 2) serves both terms: ~20 instructions and no branch
+// against ~40 for erff and expf (the dz step was ~13 % of a tile's cycles)
+__device__ __forceinline__ float gelu_grad(float z) {
+  const float e = expf(-0.5f * z * z);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(z), 1.0f));
+  const float p =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float half_erf = fmaf(-0.5f * p, e, 0.5f);  // erf(x) / 2
+  return 0.5f + copysignf(half_erf, z) + z * e * 0.39894228040143268f;
+}
+
+// fc1 and dh of a chunk in one loop, in dxp::fc1_chunk's and dh_chunk's
+// layouts and each sum's order (so their bits): thread (row group q,
+// column group p) keeps z for rows q + 16 i, columns p + 8 u and dh for the
+// same rows, columns 4p..4p+3, 56 accumulators over one pass of the 64
+// channels (2 % faster than the two loops one after the other,
+// scripts/k4_dx_variants.py); z + b1 into zS, dh into hS
+__device__ __forceinline__ void fc1_dh(const float* aS, const float* dS, const float* w1c,
+                                       const float* w2c, const float* b1c, float* zS, float* hS,
+                                       int q, int p) {
+  using P = dxp::Cfg<64>;
+  float z[P::kRT1][4], h[P::kRT1][4];
 #pragma unroll
-  for (int k = 0; k < K::kK; ++k) {
-    const float4 gk = ld4(gamma + 4 * K::kCG * k + 4 * p4);
-    gam[4 * k] = gk.x;
-    gam[4 * k + 1] = gk.y;
-    gam[4 * k + 2] = gk.z;
-    gam[4 * k + 3] = gk.w;
-  }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float sx[kE], sd[kE], sg[kE];
+  for (int i = 0; i < P::kRT1; ++i)
 #pragma unroll
-  for (int k = 0; k < kE; ++k) sx[k] = sd[k] = sg[k] = 0.f;
+    for (int u = 0; u < 4; ++u) z[i][u] = h[i][u] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < 64; c += 4) {
+    float4 w[4], v[4];  // W1 rows p + 8u, W2 rows c + u
 #pragma unroll
-  for (int i = 0; i < K::kRT; ++i) {
-    const int r = q4 + K::kRG * i;
-    const long long row = row0 + r;
-    const bool valid = row < M;
-    const float mean = sMean[r], rstd = sRstd[r];
-    const T* xr = x + row * C + 4 * p4;
-    const T* gr = g + row * C + 4 * p4;
-    float4 xa[K::kK], ga[K::kK];  // x's float4s, then g's
+    for (int u = 0; u < 4; ++u) w[u] = dxp::ld4(w1c + (p + P::kCG1 * u) * P::kLdW1 + c);
 #pragma unroll
-    for (int k = 0; k < K::kK; ++k) xa[k] = valid ? load4(xr + 4 * K::kCG * k) : zero;
+    for (int u = 0; u < 4; ++u) v[u] = dxp::ld4(w2c + (c + u) * P::kKC + 4 * p);
 #pragma unroll
-    for (int k = 0; k < K::kK; ++k) ga[k] = valid ? load4(gr + 4 * K::kCG * k) : zero;
-    float xv[kE], gv[kE];
+    for (int i = 0; i < P::kRT1; ++i) {
+      const float4 a = dxp::ld4(aS + (q + P::kRG1 * i) * P::kLdA + c);
+      const float4 d = dxp::ld4(dS + (q + P::kRG1 * i) * P::kLdA + c);
 #pragma unroll
-    for (int k = 0; k < K::kK; ++k) {
-      xv[4 * k] = xa[k].x;
-      xv[4 * k + 1] = xa[k].y;
-      xv[4 * k + 2] = xa[k].z;
-      xv[4 * k + 3] = xa[k].w;
-      gv[4 * k] = ga[k].x;
-      gv[4 * k + 1] = ga[k].y;
-      gv[4 * k + 2] = ga[k].z;
-      gv[4 * k + 3] = ga[k].w;
-    }
-    float xh[kE], dxh[kE], m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < kE; ++k) {
-      xh[k] = (xv[k] - mean) * rstd;
-      dxh[k] = da[i][k] * gam[k];
-      m1 += dxh[k];
-      m2 = fmaf(dxh[k], xh[k], m2);
-    }
-    m1 = group_sum<K::kCG>(m1) * (1.0f / C);
-    m2 = group_sum<K::kCG>(m2) * (1.0f / C);
-    float o[kE];
-#pragma unroll
-    for (int k = 0; k < kE; ++k) o[k] = gv[k] + rstd * (dxh[k] - m1 - xh[k] * m2);
-    if (valid) {
-#pragma unroll
-      for (int k = 0; k < K::kK; ++k)
-        store4(dx + row * C + 4 * K::kCG * k + 4 * p4,
-               make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]));
-#pragma unroll
-      for (int k = 0; k < kE; ++k) {
-        sx[k] = fmaf(da[i][k], xh[k], sx[k]);
-        sd[k] += da[i][k];
-        sg[k] += gv[k];
+      for (int u = 0; u < 4; ++u) {
+        z[i][u] = fmaf(a.x, w[u].x, z[i][u]);
+        h[i][u] = fmaf(d.x, dxp::lane4(v[0], u), h[i][u]);
+        z[i][u] = fmaf(a.y, w[u].y, z[i][u]);
+        h[i][u] = fmaf(d.y, dxp::lane4(v[1], u), h[i][u]);
+        z[i][u] = fmaf(a.z, w[u].z, z[i][u]);
+        h[i][u] = fmaf(d.z, dxp::lane4(v[2], u), h[i][u]);
+        z[i][u] = fmaf(a.w, w[u].w, z[i][u]);
+        h[i][u] = fmaf(d.w, dxp::lane4(v[3], u), h[i][u]);
       }
     }
   }
-  // the tile's sums over the kRG row groups, in order; aS and dS are free
-  // (last read before the final chunk's second barrier)
-  float* red = aS + q4 * 3 * C + 4 * p4;  // [row group][3][C]
 #pragma unroll
-  for (int k = 0; k < K::kK; ++k)
-    st4(red + 4 * K::kCG * k, make_float4(sx[4 * k], sx[4 * k + 1], sx[4 * k + 2], sx[4 * k + 3]));
+  for (int u = 0; u < 4; ++u) {
+    const float bias = b1c[p + P::kCG1 * u];
 #pragma unroll
-  for (int k = 0; k < K::kK; ++k)
-    st4(red + C + 4 * K::kCG * k,
-        make_float4(sd[4 * k], sd[4 * k + 1], sd[4 * k + 2], sd[4 * k + 3]));
-#pragma unroll
-  for (int k = 0; k < K::kK; ++k)
-    st4(red + 2 * C + 4 * K::kCG * k,
-        make_float4(sg[4 * k], sg[4 * k + 1], sg[4 * k + 2], sg[4 * k + 3]));
-  __syncthreads();
-  for (int c = tid; c < C; c += kT) {
-    float t[3] = {0.f, 0.f, 0.f};
-    for (int q = 0; q < K::kRG; ++q)
-#pragma unroll
-      for (int k3 = 0; k3 < 3; ++k3) t[k3] += aS[(q * 3 + k3) * C + c];
-#pragma unroll
-    for (int k3 = 0; k3 < 3; ++k3)
-      part[(static_cast<long long>(blockIdx.x) * 3 + k3) * C + c] = t[k3];
+    for (int i = 0; i < P::kRT1; ++i)
+      zS[(q + P::kRG1 * i) * P::kLdZ + p + P::kCG1 * u] = z[i][u] + bias;
   }
+#pragma unroll
+  for (int i = 0; i < P::kRT1; ++i)
+    dxp::st4(hS + (q + P::kRG1 * i) * P::kLdZ + 4 * p,
+             make_float4(h[i][0], h[i][1], h[i][2], h[i][3]));
+}
+
+}  // namespace dxg
+
+// One block per 112-row tile at C = 64. All 256 threads stage the tile's rows
+// (aS = LN(x) * gamma + beta, dS = g * ls2); then warp group grp (threads
+// 128 grp ..) walks hidden columns grp H / 2 .. (grp + 1) H / 2 - 1 in
+// chunks of 32 through its own cp.async ring, taking fc1, dh, dz and da +=
+// dz W1c itself on its own named barrier. The two groups' da meet once,
+// through aS and dS, added in one fixed order; the epilogue is the
+// one-block pass's at C = 64.
+template <typename T>
+__global__ void __launch_bounds__(dxg::kT, 1)
+mlp_ln_bwd_dx_wg_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        const T* __restrict__ w1, const T* __restrict__ b1,
+                        const T* __restrict__ w2, const float* __restrict__ ls2,
+                        T* __restrict__ dx, float* __restrict__ part, long long M, int H,
+                        float eps) {
+  using K = dxg::Cfg;
+  using P = K::P;
+  constexpr int C = K::C, kGT = dxg::kGT;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  float* aS = reinterpret_cast<float*>(smem4);
+  float* dS = aS + K::kR * K::kLdA;
+  float* sMean = aS + K::kOffStat;
+  float* sRstd = sMean + K::kR;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid / kGT, gt = tid % kGT;  // warp group, thread in it
+  float* zS = aS + K::kOffGroup + grp * K::kGroupF;
+  float* hS = zS + K::kZF;
+  float* ring = hS + K::kZF;
+  // f32: chunk k lands in stage k & 1, at ring + (k & 1) kStageF. bf16: the
+  // widened W1 chunks (with b1) at ring and ring + kW1B, the W2 chunk at ring
+  // + kOffW2f, the bf16 stage after it
+  auto stage = [&](int k) {
+    return reinterpret_cast<T*>(kF32 ? ring + (k & 1) * P::kStageF : ring + P::kOffStageH);
+  };
+  const int jb = grp * (H / 2), je = jb + H / 2;  // the group's hidden columns
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * K::kR;
+  dxp::fetch_chunk<C, kGT>(stage(0), w1, w2, b1, jb, H, gt);
+  dxp::stage_rows<C>(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, row0, M, eps, warp, lane);
+  if constexpr (!kF32) kasf_mma::cp_async_wait<0>();
+  __syncthreads();  // the rows are staged; bf16: each group's first chunk landed
+  if constexpr (!kF32) {
+    dxp::widen_chunk<C, kGT>(ring, ring + P::kOffW2f, stage(0), gt);
+    dxg::group_sync(grp);  // the bf16 stage is free
+    dxp::fetch_chunk<C, kGT>(stage(1), w1, w2, b1, jb + K::kKC, H, gt);
+  }
+
+  // fc1 / dh layout: row group gt / 8, column group gt % 8 (dxp's at C = 64);
+  // da layout: row group gt / kCG, channel group gt % kCG
+  const int p1 = gt % P::kCG1, q1 = gt / P::kCG1;
+  const int q4 = gt / K::kCG, p4 = gt % K::kCG;
+  float da[K::kRT][4 * K::kK];
+#pragma unroll
+  for (int i = 0; i < K::kRT; ++i)
+#pragma unroll
+    for (int k = 0; k < 4 * K::kK; ++k) da[i][k] = 0.f;
+
+  for (int j0 = jb, k = 0; j0 < je; j0 += K::kKC, ++k) {
+    // chunk k's W1, W2 and b1 in f32
+    const float* w1c = kF32 ? reinterpret_cast<const float*>(stage(k)) : ring + (k & 1) * P::kW1B;
+    const float* w2c = kF32 ? w1c + P::kW1F : ring + P::kOffW2f;
+    const float* b1c = w1c + (kF32 ? P::kW1F + P::kW2F : P::kW1F);
+    if constexpr (kF32) kasf_mma::cp_async_wait<0>();
+    dxg::group_sync(grp);  // this chunk is in; the last chunk's zS and stage are consumed
+    if constexpr (kF32)
+      if (j0 + K::kKC < je) dxp::fetch_chunk<C, kGT>(stage(k + 1), w1, w2, b1, j0 + K::kKC, H, gt);
+    dxg::fc1_dh(aS, dS, w1c, w2c, b1c, zS, hS, q1, p1);
+    if constexpr (!kF32) kasf_mma::cp_async_wait<0>();
+    dxg::group_sync(grp);  // z and dh in; bf16: the next chunk landed, W2's buffer free
+    // dz = dh * GELU'(z + b1) in place of z, a pair of columns at a time
+    constexpr int kPairs = K::kR * K::kKC / 2;
+    static_assert(kPairs % kGT == 0, "the group's threads divide the chunk's pairs");
+#pragma unroll
+    for (int i = 0; i < kPairs / kGT; ++i) {
+      const int e = gt + i * kGT, r = e / (K::kKC / 2), j2 = e % (K::kKC / 2) * 2;
+      const float2 z = *reinterpret_cast<const float2*>(zS + r * K::kLdZ + j2);
+      const float2 h = *reinterpret_cast<const float2*>(hS + r * K::kLdZ + j2);
+      *reinterpret_cast<float2*>(zS + r * K::kLdZ + j2) =
+          make_float2(h.x * dxg::gelu_grad(z.x), h.y * dxg::gelu_grad(z.y));
+    }
+    if constexpr (!kF32)  // the next chunk
+      if (j0 + K::kKC < je)
+        dxp::widen_chunk<C, kGT>(ring + ((k + 1) & 1) * P::kW1B, ring + P::kOffW2f, stage(k + 1),
+                                 gt);
+    dxg::group_sync(grp);  // dz in; bf16: the next chunk widened, the bf16 stage free
+    if constexpr (!kF32)
+      if (j0 + 2 * K::kKC < je)
+        dxp::fetch_chunk<C, kGT>(stage(k + 2), w1, w2, b1, j0 + 2 * K::kKC, H, gt);
+    dxp::da_chunk<K>(zS, w1c, da, q4, p4);
+  }
+
+  // ---- the two groups' da, added once: group 0's through aS, group 1's
+  // through dS (free once both groups are past their last chunk), then
+  // da = aS + dS in the epilogue's layout (16 lanes a row, 4 channels each)
+  __syncthreads();
+  float* mine = grp ? dS : aS;
+#pragma unroll
+  for (int i = 0; i < K::kRT; ++i)
+#pragma unroll
+    for (int k = 0; k < K::kK; ++k)
+      dxp::st4(mine + (q4 + K::kRG * i) * K::kLdA + 4 * K::kCG * k + 4 * p4,
+               make_float4(da[i][4 * k], da[i][4 * k + 1], da[i][4 * k + 2], da[i][4 * k + 3]));
+  __syncthreads();
+  const int qe = tid / P::kCG, pe = tid % P::kCG;
+  float dae[P::kRT][4 * P::kK];
+  static_assert(P::kK == 1 && P::kRG * P::kCG == dxp::kT, "the epilogue's layout");
+#pragma unroll
+  for (int i = 0; i < P::kRT; ++i) {
+    const int o = (qe + P::kRG * i) * K::kLdA + 4 * pe;
+    const float4 a = dxp::ld4(aS + o), b = dxp::ld4(dS + o);
+    dae[i][0] = a.x + b.x;
+    dae[i][1] = a.y + b.y;
+    dae[i][2] = a.z + b.z;
+    dae[i][3] = a.w + b.w;
+  }
+  // the sums go through group 0's zS and hS, which no thread reads any more
+  dxp::dx_epilogue<P, C>(dae, x, g, gamma, sMean, sRstd, aS + K::kOffGroup, dx, part, row0, M,
+                         qe, pe, tid);
 }
 
 // ---- 1b. dx pass at C = 256 and 512: a thread-block cluster of two blocks a
@@ -2813,8 +3099,9 @@ cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// The dx pass: at C = 64 and 128 one block a tile; at 256 and 512 the stage launch,
-// then clusters of two, at most one wave of them, walking the tiles
+// The dx pass: at C = 64 one block of two warp groups a tile, at 128 one
+// block a tile; at 256 and 512 the stage launch, then clusters of two, at
+// most one wave of them, walking the tiles
 template <typename T, int C>
 cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps,
                       cudaStream_t stream) {
@@ -2824,7 +3111,15 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
   const T* w1 = static_cast<const T*>(a.w1);
   const T* b1 = static_cast<const T*>(a.b1);
   const T* w2 = static_cast<const T*>(a.w2);
-  if constexpr (C <= 128) {
+  if constexpr (C == 64) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_wg_kernel<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(dxg::Cfg::kSmem));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_dx_wg_kernel<T><<<static_cast<unsigned>(tiles), dxg::kT, dxg::Cfg::kSmem,
+                                 stream>>>(x, g, a.gamma, a.beta, w1, b1, w2, a.ls2,
+                                           static_cast<T*>(a.dx), a.work, M, H, eps);
+  } else if constexpr (C == 128) {
     const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(dxp::smem_bytes<T, C>()));
@@ -2942,21 +3237,28 @@ inline int device_sms() {
 // block each at C = 128), blocks of its launch over M rows}; info[23..25]:
 // the weight pass again, {blocks a cluster (a hidden chunk and split),
 // clusters the device holds at once (one block each at C = 128), blocks of
-// its launch}
+// its launch}; info[26]: the dx pass's warp groups a block, each over its
+// share of the hidden width (two at C = 64, else one)
 template <typename T, int C>
 void describe_all(long long M, int H, int* info) {
   int d[5];
   const long long tiles = dx_tiles<C>(M);
   const int splits = w_splits<C>(M, H);
   if constexpr (C <= 128) {
-    const int smem_dx = static_cast<int>(dxp::smem_bytes<T, C>());
+    const int smem_dx = static_cast<int>(C == 64 ? dxg::Cfg::kSmem : dxp::smem_bytes<T, C>());
     const int sms = device_sms();
-    if (describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d) && sms > 0) {
+    bool dx_known = false;
+    if constexpr (C == 64)
+      dx_known = describe(mlp_ln_bwd_dx_wg_kernel<T>, dxg::kT, smem_dx, d);
+    else
+      dx_known = describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d);
+    if (dx_known && sms > 0) {
       const int v[6] = {d[0], dx_rows<C>(), d[1], smem_dx, d[2], d[3]};
       for (int i = 0; i < 6; ++i) info[i] = v[i];
       info[20] = 1;
       info[21] = sms * d[3];
       info[22] = static_cast<int>(tiles);
+      info[26] = C == 64 ? 2 : 1;
     }
     const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
     if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d) && sms > 0) {
@@ -2976,6 +3278,7 @@ void describe_all(long long M, int H, int* info) {
       info[20] = dxc::kNB;
       info[21] = clusters;
       info[22] = static_cast<int>((tiles < clusters ? tiles : clusters) * dxc::kNB);
+      info[26] = 1;
     }
     const int smem_w = static_cast<int>(wpc::smem_bytes<T, C>());
     if (w_clusters<T, C>(&clusters) == cudaSuccess &&
@@ -3078,7 +3381,7 @@ int kasf_mlp_ln_bwd_reduce(int dtype, const void* work, const void* w2, const vo
 }
 
 // The three launches' instantiations for (dtype, C) on the current device at
-// M rows and hidden H, for reports, into info[26] as describe_all lays it
+// M rows and hidden H, for reports, into info[27] as describe_all lays it
 // out. Left untouched for a shape or dtype there is none of, or where the
 // runtime refuses the query.
 void kasf_mlp_ln_bwd_info(int dtype, int C, long long M, int H, int* info) {

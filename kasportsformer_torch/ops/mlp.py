@@ -57,7 +57,10 @@ of a launch over m rows.
 
 K4 is three launches, each a template on C, exact f32 on the CUDA cores
 from either dtype. The dx pass at C = 64 and 128 runs one block a 112-row
-tile, the weights through a cp.async ring in chunks of 32 hidden columns. At 256
+tile, the weights through a cp.async ring in chunks of 32 hidden columns; at
+C = 64 the block is two warp groups, each over half the hidden width with its
+own ring and named barrier (fc1, dh, dz and da of its chunks), whose halves
+of da are added once, in one order, through shared memory. At 256
 and 512 a small stage launch first writes W1 and W2 transposed, in float32
 and cut into channel halves, into the workspace; the dx pass then runs a
 thread-block cluster of two blocks a tile (112 or 56 rows), each over half
@@ -312,6 +315,7 @@ def fused_mlp_kernel_info(dtype: torch.dtype, c: int, m: int = 58752) -> dict:
 _BWD_DX_KEYS = ("threads", "rows", "registers", "smem_bytes", "spill_bytes",
                 "blocks_per_sm")
 _BWD_DX_MORE = ("cluster", "resident", "grid")  # info[20:23]
+_BWD_DX_GROUPS = ("groups",)  # info[26]
 _BWD_W_KEYS = ("threads", "rows", "chunk", "splits", "registers", "smem_bytes",
                "spill_bytes", "blocks_per_sm")
 _BWD_W_MORE = ("cluster", "resident", "grid")  # info[23:26]
@@ -359,9 +363,10 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     pass's row tile (the dx pass has ceil(m / rows) tiles); the dx pass also
     has `cluster`, the blocks that share a tile (1 at C = 64 and 128, 2 at
     256 and 512), `resident`, the clusters (at C <= 128 blocks) the card
-    holds at once, and `grid`, the blocks of its launch over m rows (a tile
+    holds at once, `grid`, the blocks of its launch over m rows (a tile
     each at C <= 128; at most `resident` clusters, each walking tiles,
-    beyond); the
+    beyond), and `groups`, the warp groups a block, each over its share of
+    the hidden width (2 at C = 64, else 1); the
     weight pass has `chunk`, its hidden columns a block (a cluster's, each
     block over half the channels, at 256 and 512), `splits`, its row
     splits for m rows and this hidden width, `cluster`, the blocks that
@@ -372,14 +377,15 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     launches nothing."""
     lib = _build.library("mlp_ln_bwd")
     n = (len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)
-         + len(_BWD_DX_MORE) + len(_BWD_W_MORE))
+         + len(_BWD_DX_MORE) + len(_BWD_W_MORE) + len(_BWD_DX_GROUPS))
     info = (ctypes.c_int * n)(*([-1] * n))
     fn = lib.kasf_mlp_ln_bwd_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], c, m, hidden, info)
-    return {"dx_pass": dict(zip(_BWD_DX_KEYS + _BWD_DX_MORE, info[:6] + info[20:23])),
+    return {"dx_pass": dict(zip(_BWD_DX_KEYS + _BWD_DX_MORE + _BWD_DX_GROUPS,
+                                info[:6] + info[20:23] + info[26:27])),
             "weight_pass": dict(zip(_BWD_W_KEYS + _BWD_W_MORE, info[6:14] + info[23:26])),
             "reduce": dict(zip(_BWD_R_KEYS, info[14:20]))}
 

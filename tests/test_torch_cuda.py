@@ -1036,6 +1036,69 @@ def test_fused_mlp_ln_bwd_partition_matches_library_at_c64(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 111, 112, 113, 1377, 14688])
+def test_fused_mlp_ln_bwd_c64_warp_groups_match_plain(cuda, dtype, m):
+    """K4 at MotionAGFormer's C/H = 64/256, whose dx pass runs two warp
+    groups over hidden halves: one row, the dx pass's 112-row tile and one
+    row either side, a ragged 1,377 and the train step's 14,688; all eight
+    gradients against the plain version in float32, a rerun bitwise equal."""
+    args = _mlp_args(cuda, m, dtype, 64, 256)
+    g = torch.randn(m, 64, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [128, 2048])
+def test_fused_mlp_ln_bwd_c64_warp_groups_hidden_widths(cuda, dtype, hidden):
+    """The warp groups' halves at the least hidden width C = 64 takes (two
+    chunks of 32 a group) and the most (32 a group), M = 1,377."""
+    args = _mlp_args(cuda, 1377, dtype, 64, hidden)
+    g = torch.randn(1377, 64, device="cuda", generator=cuda).to(dtype)
+    _bwd_matches_plain(args, g, dtype)
+
+
+def test_fused_mlp_ln_bwd_c64_dx_pass_instantiation(cuda):
+    """The C = 64 dx pass as the runtime reports it: 256 threads in two warp
+    groups, 112-row tiles, one block a tile and a SM, no spills."""
+    for dtype in (torch.float32, torch.bfloat16):
+        dx = fused_mlp_ln_bwd_kernel_info(dtype, 14688, 256, c=64)["dx_pass"]
+        assert (dx["threads"], dx["groups"], dx["rows"], dx["blocks_per_sm"]) == (
+            256, 2, 112, 1), dx
+        assert dx["spill_bytes"] == 0 and dx["grid"] == 132, dx
+
+
+def test_fused_mlp_ln_bwd_zoo_digests_unchanged(cuda):
+    """K4 at DSTFormer's 256/1024 and MixSTE's 512/1024 computes bit for bit
+    what it computed before the C = 64 dx pass became two warp groups: SHA-1
+    of the eight gradients on the seeded inputs of `scripts/torch_ab.sh
+    digest` (an H100; the CUDA generator's stream), in both dtypes."""
+    import hashlib
+
+    want = {(256, torch.float32): "1bf4c3548f34 d170944d38a6 b57c5514f154 960840dd15d8 "
+                                  "afe897b16613 db734215e7d2 c530f5618a7d 02ed10f17acb",
+            (256, torch.bfloat16): "55d8e5ce63d8 096831a55dc5 1c48c9d59239 665657aba375 "
+                                   "35a7f82c2d8c 8c25a5f4ea32 3a767d005889 dc605b901c14",
+            (512, torch.float32): "970ed3af13d7 c6d7adc49751 d58a45cb3ca9 77758814a2aa "
+                                  "34e8cba4eb00 98a3b1c5aaf2 c6426c40d1ae 0a9ffc010118",
+            (512, torch.bfloat16): "5fdcfa21cfec 270ed6936690 4f3bc7777a33 56cb01677628 "
+                                   "b8d88ef80c71 270d325c6e9e 2591141c9372 b438502dab92"}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
+        for dt in (torch.float32, torch.bfloat16):
+            def randn(*shape, scale=1.0):
+                return scale * torch.randn(*shape, device="cuda", generator=gen)
+            x, g = randn(14688, c).to(dt), randn(14688, c).to(dt)
+            args = (x, 1 + randn(c, scale=0.1), randn(c, scale=0.1),
+                    randn(h, c, scale=c ** -0.5).to(dt), randn(h, scale=0.1).to(dt),
+                    randn(c, h, scale=h ** -0.5).to(dt), randn(c, scale=0.1).to(dt),
+                    torch.rand(c, device="cuda", generator=gen))
+            out = fused_mlp_ln_bwd(*args, g, eps)
+            got = " ".join(hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]
+                           for t in out)
+            assert got == want[(c, dt)], (c, dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [256, 512])
 @pytest.mark.parametrize("edge", ["one wave", "one tile more"])
 def test_fused_mlp_ln_bwd_kernel_zoo_wave_edges(cuda, dtype, c, edge):

@@ -1,0 +1,61 @@
+"""The `clock64` stamp scripts of K4's passes (`scripts/k4_dx_stamps.py`,
+`scripts/k4_w_stamps.py`) and the dx pass's A/B script
+(`scripts/k4_dx_variants.py`) edit a copy of `csrc/mlp_ln_bwd.cu` at
+anchors in its text and stop on the card if one is gone. Here, on the CPU,
+every variant's anchors are found once in today's source and each phase
+gets its stamp, so the scripts still run on the card."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import k4_dx_stamps  # noqa: E402
+import k4_dx_variants  # noqa: E402
+import k4_w_stamps  # noqa: E402
+
+SOURCE = (ROOT / "kasportsformer_torch" / "ops" / "csrc" / "mlp_ln_bwd.cu").read_text()
+
+
+def _stamped(tmp_path, kernel: str, edits: list) -> str:
+    k4_dx_stamps.stamped_sources(tmp_path / "csrc", kernel, edits)
+    return (tmp_path / "csrc" / "mlp_ln_bwd.cu").read_text()
+
+
+@pytest.mark.parametrize("variant", sorted(k4_dx_stamps.VARIANTS))
+def test_dx_pass_stamps_apply(tmp_path, variant):
+    """Each dx-pass kernel's copy holds one stamp a phase (and the macro's
+    definition), the device array and the reader."""
+    v = k4_dx_stamps.VARIANTS[variant]
+    text = _stamped(tmp_path, v["kernel"], v["edits"])
+    stamps = {f"KASF_STAMP({k})" for k in range(len(v["phases"]))}
+    assert all(text.count(s) >= 1 for s in stamps), variant
+    assert text.count("KASF_STAMP(") == 1 + sum(text.count(s) for s in stamps)
+    assert "kasf_stamp_sums[2][16]" in text and "kasf_stamps(" in text
+    assert len(v["phases"]) <= 16  # the device array's row
+
+
+def test_weight_pass_stamps_apply(tmp_path):
+    text = _stamped(tmp_path, k4_w_stamps._KERNEL, k4_w_stamps.EDITS)
+    for k in range(len(k4_w_stamps.PHASES)):
+        assert f"KASF_STAMP({k})" in text
+
+
+def test_dx_stamps_pick_each_widths_kernel():
+    """C = 64 stamps the warp-group kernel, 128 the one-block one, 256 and
+    512 the cluster one."""
+    assert [k4_dx_stamps.variant_of(c, SOURCE) for c in (64, 128, 256, 512)] == [
+        "wg", "one-block", "cluster", "cluster"]
+
+
+@pytest.mark.parametrize("variant", list(k4_dx_variants.VARIANTS))
+def test_dx_pass_variants_apply(variant):
+    """Each A/B variant's edits (and the cut to C = 64) apply once; every
+    variant but the kernel as it is changes the warp-group kernel."""
+    text = k4_dx_variants.variant_source(k4_dx_variants.VARIANTS[variant][1])
+    assert "mlp_ln_bwd_dx_wg_kernel" in text
+    assert "std::integral_constant<int, 128>" not in text
+    assert (text == k4_dx_variants.variant_source([])) == (variant == "shipped")
