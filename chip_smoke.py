@@ -92,7 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
      bound (at 256 and 512 a stage launch writes the dx pass's f32 weights
      first, and the dx pass and the weight pass run clusters of two blocks;
      at 64 the dx pass runs two warp groups a block, each over half the
-     hidden width, and the weight pass one block: each pass's cluster size,
+     hidden width, and the weight pass one block on the tensor cores in
+     3xTF32, its time also against its FFMA bound and its route's 3xTF32
+     bound: each pass's cluster size,
      clusters resident, tiles and waves beside, the dx pass's warp groups
      and blocks a SM, the weight pass's chunk and row splits too); C = 32
      and 1024, and H = 192 at C = 64, raise. Last, K4 at C/H 128/512,
@@ -111,7 +113,9 @@ Phases (any failure exits non-zero and prints no result line):
      then 50 steps on one batch, whose loss must fall.
   9b. the zoo trains on the card (MixSTE, DSTFormer and MotionAGFormer base,
      use_tcn, hierarchical, graph_only and XS at full width, drop_path 0 as
-     the config sets it): the B=4 train-mode loss and every parameter's
+     the config sets it, and D3DP's diffusion objective at -cs 512 -dep 8,
+     its timesteps and noise drawn on each side from one seed): the B=4
+     train-mode loss and every parameter's
      gradient on the card against the CPU, the CPU's top-k adjacencies and
      ReLU gates replayed (each within 1e-3 of its module's largest CPU
      entry, the loss within 1e-5), the expected K2 and K4 launches a backward;
@@ -149,7 +153,7 @@ import traceback
 
 # published peaks of one H100 SXM (data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
 FAILED: list[str] = []
 # each failed phase's exception, the last line of its traceback
@@ -461,13 +465,15 @@ def k4_widths() -> tuple:
 # 512 a stage launch (both passes' f32 weights) first; each pass is one
 # block a tile (a hidden chunk and row split) at C = 128 and a cluster of two
 # at 256 and 512 (and one block at every width in a tree from before its
-# cluster, kept for A/B runs), and the dx pass at C = 64 one block of two
-# warp groups (one block of C = 128's kind in an older tree), so each goes
-# by all its kernels' names
+# cluster, kept for A/B runs), the dx pass at C = 64 one block of two
+# warp groups and the weight pass at C = 64 one block on the tensor cores
+# (each one block of C = 128's kind in an older tree), so each goes by all
+# its kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
                ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel",
                             "mlp_ln_bwd_dx_wg_kernel")),
-               ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel")),
+               ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel",
+                                "mlp_ln_bwd_w_tc_kernel")),
                ("reduce", ("mlp_ln_bwd_reduce_kernel",)))
 
 
@@ -1262,7 +1268,8 @@ ZOO = {"MixSTE": dict(model_name="MixSTE", dim_in=2, dim_feat=512, n_layers=8,
 # x 5; MotionAGFormer 2 attention and 4 former modules x 16 layers (12 in
 # XS), graph_only 2 graph modules; STCFormer's split attention is plain
 # torch, its 6 MLP tails K3; KTPFormer KPA, TPA and 2 x 8 blocks; D3DP one
-# denoiser call of 2 x 8 blocks on the 8 stacked clips of B=4 and its flip)
+# denoiser call of 2 x 8 blocks: forward on the 8 stacked clips of B=4 and
+# its flip, and in training on the B=4 noised targets, no flip)
 ZOO_LAUNCHES = {"MixSTE": (16, 16), "DSTFormer": (20, 20),
                 "MotionAGFormer": (32, 64), "MotionAGFormer use_tcn": (32, 64),
                 "MotionAGFormer hierarchical": (32, 64),
@@ -1870,6 +1877,18 @@ def k4_launch_bounds(m: int, c: int, h: int, dname: str, ms: dict) -> str:
         f"{bounds[label][0] / ms[label]:.1%})" for label, _ in K4_LAUNCHES if label in ms)
 
 
+def k4_w_tc_bounds(m: int, c: int, h: int, ms: float) -> str:
+    """The C = 64 weight pass's device ms against two bounds of its work in
+    either dtype (it computes in float32): the f32 FFMA bound of its 8*M*C*H
+    FLOP at 67 TFLOP/s, and its route's own, 3xTF32 on the tensor cores: 3 x
+    8*M*C*H FLOP at the dense TF32 rate of 495 TFLOP/s (`PEAK_FLOPS`)."""
+    ffma = 8 * m * c * h / PEAK_FLOPS["float32"] * 1e3
+    tf32 = 3 * 8 * m * c * h / PEAK_FLOPS["tf32"] * 1e3
+    return (f"weight pass {ms:.4f} ms: FFMA bound (8*M*C*H at 67 TFLOP/s) {ffma:.4f} "
+            f"({ffma / ms:.1%}); 3xTF32 bound (24*M*C*H at 495 TFLOP/s) {tf32:.4f} "
+            f"({tf32 / ms:.1%})")
+
+
 def k4_dx_tiling(dname: str, m: int, c: int, h: int) -> str:
     """The dx pass's instantiation at this shape, as the library reports it:
     blocks a cluster (a tile), clusters (at C <= 128 blocks) the card holds
@@ -1965,6 +1984,8 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
                     f"{label} {t:.4f}" for label, t in per.items())
                     + "; bound (share): " + k4_launch_bounds(m, c, h, dname, per))
                 log("     " + k4_dx_tiling(dname, m, c, h) + "; " + k4_w_tiling(dname, m, c, h))
+                if c == 64 and "weight pass" in per:
+                    log("     " + k4_w_tc_bounds(m, c, h, per["weight pass"]))
     refused = 0
     for c, h in ((32, 256), (1024, 256), (64, 192)):
         args = mlp_args(dev, gen, 8, torch.float32, c, h)
@@ -2179,9 +2200,11 @@ def check_grads(dev) -> dict:
 @phase("phase 9b: zoo train step on the card")
 def check_zoo_train(dev, out_dir: str) -> dict:
     """The zoo trained on the card at full width, drop_path 0 as the config
-    sets it (so every MLP tail takes K3 and K4): (1) MixSTE's, DSTFormer's
-    and the five MotionAGFormer configurations' (base, use_tcn,
-    hierarchical, graph_only, XS) train-mode loss and every parameter's
+    sets it (so every MLP tail takes K3 and K4): (1) MixSTE's, DSTFormer's,
+    the five MotionAGFormer configurations' (base, use_tcn, hierarchical,
+    graph_only, XS) and D3DP's (its diffusion objective: the target noised
+    at drawn timesteps, then denoised, the draws from one seeded generator
+    on each side) train-mode loss and every parameter's
     gradient at B = 4 on the card (kernels) against the CPU (plain
     versions), same perturbed weights, the CPU's top-k adjacencies and ReLU
     gates replayed, each gradient within 1e-3 of its module's largest CPU
@@ -2206,7 +2229,7 @@ def check_zoo_train(dev, out_dir: str) -> dict:
                                                  make_train_step)
 
     res = {}
-    for i, name in enumerate(("MixSTE", "DSTFormer") + MAG_ZOO):
+    for i, name in enumerate(("MixSTE", "DSTFormer") + MAG_ZOO + ("D3DP",)):
         cfg = zoo_config(name)
         if cfg.drop_path != 0.0:
             raise AssertionError(f"{name}: the config's drop_path is {cfg.drop_path}")
@@ -2219,13 +2242,17 @@ def check_zoo_train(dev, out_dir: str) -> dict:
         adjacencies: list = []
         gates: list = []
         t0 = time.perf_counter()
+        # a model's draws (D3DP's timesteps and noise) from a generator of
+        # the same seed on each side, on the CPU, so the card's are the CPU's
         with adjacency_tape(record=adjacencies), relu_gate_tape(record=gates):
-            want = make_grads_fn(cpu_model, gcfg)(x, y, w)
+            want = make_grads_fn(cpu_model, gcfg)(
+                x, y, w, torch.Generator().manual_seed(47 + i))
         cpu_s = time.perf_counter() - t0
         k2, k4 = masked_sdpa_bwd.launches, fused_mlp_ln_bwd.launches
         with adjacency_tape(replay=adjacencies) as flips, \
                 relu_gate_tape(replay=gates) as gate_flips:
-            got = make_grads_fn(model, gcfg)(x.to(dev), y.to(dev), w.to(dev))
+            got = make_grads_fn(model, gcfg)(x.to(dev), y.to(dev), w.to(dev),
+                                             torch.Generator().manual_seed(47 + i))
         torch.cuda.synchronize()
         d = (masked_sdpa_bwd.launches - k2, fused_mlp_ln_bwd.launches - k4)
         loss_rel = abs(got["loss_total"].item() - want["loss_total"].item()) / abs(

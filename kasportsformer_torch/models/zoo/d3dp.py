@@ -14,14 +14,20 @@ cosine-schedule DDIM sampler:
   `apply` is;
 * `eval_predict` is the eval protocol's forward: the proposals' mean at the
   last step, (B, F, 17, 3). `train.evaluator.tta_forward`, and with it
-  `LiftService` and `evaluate`, call it in place of their own flip-TTA.
+  `LiftService` and `evaluate`, call it in place of their own flip-TTA;
+* `train_predict` is the train forward (the JAX model's `apply(train=True)`):
+  the target noised at a drawn timestep by `q_sample`, then denoised, (B,
+  F, 17, 3). `train.loop.make_grads_fn` calls it in place of the forward,
+  so the standard loss against the target is D3DP's training objective.
 
 The schedule is float64 numpy, as in the reference: `q_sample` gathers it as
 float32 tables, the DDIM update uses it as Python floats. The sampler's
 noise is drawn on the CPU from a `torch.Generator` (seed 0 unless one is
-given, as the JAX model's default key) and copied to the device through
-pinned memory, so the card and the CPU sample the same noise and the copy
-does not stall the card's queue. Each denoiser pass is one call on the
+given, as the JAX model's default key), and so are the train forward's
+timesteps and noise (from torch's default generator unless one is given);
+both are copied to the device through pinned memory, so the card and the
+CPU draw the same numbers and the copy does not stall the card's queue.
+Each denoiser pass is one call on the
 whole stacked batch: the JAX package's `denoise_chunk`, 64-clip chunks that
 fit the TPU's on-chip memory, is not ported, as one call ran 4-10 % faster
 on an H100 for about 3x the peak memory (`scripts/d3dp_chunk_ab.py`). A
@@ -127,6 +133,14 @@ class Denoiser(MixSTE):
         return self.trunk(tokens, b, f)
 
 
+def on_device(draw: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A CPU draw on `dev`; to a card through pinned memory, so the copy
+    does not wait for the work queued before it."""
+    if dev.type == "cuda" and draw.device.type == "cpu":
+        return draw.pin_memory().to(dev, non_blocking=True)
+    return draw.to(dev)
+
+
 class D3DP(nn.Module):
     """(B, F, J, >=2) -> the DDIM sampler's x_start of every step,
     (B, steps, H, F, J, 3); `eval_predict` gives (B, F, J, 3)."""
@@ -189,15 +203,6 @@ class D3DP(nn.Module):
 
             noise = draws()
         noise = iter(noise)
-
-        def on_device(draw: torch.Tensor) -> torch.Tensor:
-            """A CPU draw on x's device; to a card through pinned memory, so
-            the copy does not wait for the work queued before it."""
-            draw = draw.to(torch.float32)
-            if dev.type == "cuda" and draw.device.type == "cpu":
-                return draw.pin_memory().to(dev, non_blocking=True)
-            return draw.to(dev)
-
         x_2d = x_2d[..., : cfg.in_chans]
         x2d_rep = x_2d[:, None].expand(b, h, f, n, cfg.in_chans).reshape(
             b * h, f, n, cfg.in_chans)
@@ -207,7 +212,7 @@ class D3DP(nn.Module):
         times = np.linspace(-1, cfg.timesteps - 1, cfg.sampling_timesteps + 1)
         times = list(reversed(times.astype(int).tolist()))
         lim = 1.1 * cfg.scale
-        img = on_device(next(noise))
+        img = on_device(next(noise).to(torch.float32), dev)
         preds = []
         for time, time_next in zip(times[:-1], times[1:]):
             t = torch.full((b * h,), time, dtype=torch.long, device=dev)
@@ -233,12 +238,37 @@ class D3DP(nn.Module):
                               / (1 - alpha))
             c = math.sqrt(1 - alpha_next - sigma ** 2)
             img = (x_start * math.sqrt(alpha_next) + c * pred_noise
-                   + sigma * on_device(next(noise)))
+                   + sigma * on_device(next(noise).to(torch.float32), dev))
         return torch.stack(preds, dim=1)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         return self.sample(x, generator)
+
+    def train_predict(self, x: torch.Tensor, y: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      t: torch.Tensor | None = None,
+                      noise: torch.Tensor | None = None) -> torch.Tensor:
+        """The train forward (`diffusionpose.py:565-581`, the JAX model's
+        `apply(train=True)`): the clean target y (B, F, N, 3) noised at
+        timesteps t (B,) drawn uniformly from [0, timesteps) by `q_sample`
+        with standard normal noise of y's shape, clipped to +-1.1 scale and
+        divided by scale, then denoised with x's first `in_chans` channels:
+        (B, F, N, 3). t and noise come from the caller when both are given
+        (the tests inject the JAX package's draws), else from `generator`
+        on the CPU (torch's default generator when None), t first, and are
+        moved to x's device."""
+        cfg = self.cfg
+        dev = x.device
+        if t is None or noise is None:
+            t = torch.randint(0, cfg.timesteps, (x.shape[0],), generator=generator)
+            noise = torch.randn(y.shape, generator=generator)
+        t = on_device(t.to(torch.long), dev)
+        noise = on_device(noise.to(torch.float32), dev)
+        lim = 1.1 * cfg.scale
+        x_t = self.q_sample(y.to(torch.float32) * cfg.scale, t, noise)
+        x_t = x_t.clamp(-lim, lim) / cfg.scale
+        return self.pose_estimator.denoise(x[..., : cfg.in_chans], x_t, t)
 
     def eval_predict(self, x: torch.Tensor) -> torch.Tensor:
         """The eval forward: DDIM-sample (flip-TTA inside the sampler when

@@ -25,8 +25,12 @@
 // card's blocks run in no order, and dW1 alone (256 KB in f32) does not fit
 // in shared memory. So three launches, and no atomics, so that reruns are
 // bitwise equal. Inputs of either dtype are staged in f32 and every product
-// accumulates in f32 on the CUDA cores (TF32 keeps ~3 digits and would break
-// the 1e-4 the gradients are held to); only dx is rounded to the input dtype.
+// accumulates in f32: on the CUDA cores, or at C = 64 in the weight pass on
+// the tensor cores in 3xTF32 (2c.): one TF32 product keeps ~3 digits and
+// would break the 1e-4 the gradients are held to, but each operand split as
+// hi + lo = tf32(x) + tf32(x - hi) and the three products hi hi + hi lo +
+// lo hi summed in f32 are good to ~2^-20 relative, near f32 FMAs' 2^-24,
+// two orders under that limit. Only dx is rounded to the input dtype.
 // Tail rows of a ragged M are loaded as zeros; their g is zero, so dh, dz
 // and every contribution of theirs vanish.
 //
@@ -46,10 +50,11 @@
 //    per (chunk, split), each over half the channels, chunks of 64 and 32
 //    columns and tiles of 48 and 32 rows (2b.). Either way dW1c and G_c are
 //    8,192 floats a block, 64 registers a thread, and 128 blocks at the
-//    models' H. At C = 64 the C = 128 block with a chunk of 128 columns
-//    (so H a multiple of 128) and 56-row tiles: one channel split of fc1
-//    and dh, 7 rows x 8 columns a thread; the outer products' register
-//    tiles as at C = 128; 2 x 66 blocks at H = 256.
+//    models' H. At C = 64 one block per (chunk of 128 columns, so H a
+//    multiple of 128, row split), 56-row tiles, 2 x 66 blocks at H = 256,
+//    its four products on the tensor cores in 3xTF32 (2c.): the C = 128
+//    block's layouts there issued FFMAs at about two thirds of the pipe's
+//    rate.
 //  * reduce: channel blocks as before; a hidden block's 8 dW1 rows are
 //    C / 128 float4s a thread (at C = 64 half a float4: threads 128-255 of
 //    warps 0-7 idle, the block's 128 float4s one a thread); the dx chains
@@ -296,6 +301,55 @@
 //     Registers, spills and blocks a SM of both passes: kasf_mlp_ln_bwd_info
 //     and chip_smoke.py phase 7's report (a spill in either fails it); each
 //     launch's device time and share of its own bound: phase 7's profile.
+//  2c. at C = 64 (mlp_ln_bwd_w_tc_kernel): wp::Cfg<64>'s grid, tiles and
+//     partials (2 x 66 blocks at H = 256 and M = 14,688, 4 tiles of 56 rows
+//     a split, so the reduce is C = 128's), its four products on mma.sync
+//     m16n8k8 with TF32 operands in 3xTF32: each f32 operand x split once
+//     into hi = tf32(x) and lo = x - hi cut to TF32, then lo hi + hi lo + hi
+//     hi into f32 accumulators (kasf_mma::mma_tf32x3), 3 x 8*M*C*H FLOP of
+//     TF32 against 8*M*C*H of f32 FFMA: a bound of 0.0117 ms at 495 TFLOP/s
+//     against 0.0287 at 67. (The C = 128 block's layouts, here 0.0588 ms,
+//     issued FFMAs at about two thirds of the pipe's rate, as the C = 64 dx
+//     pass's did: two warps a scheduler; its tile's products took 20k of
+//     25.4k cycles, scripts/k4_w_stamps.py.)
+//     - Orientation: the chunk's 128 hidden columns are the mma's M side,
+//       16 a warp (warp w columns 16 w ..). z^T = W1c a^T and dh^T = (ls2
+//       W2c)^T g^T take K = the 64 channels (8 k8 steps, k-slots t and t + 4
+//       on channels 8k + 2t and 8k + 2t + 1) and N = the tile's 56 rows (7
+//       n8 steps); dW1c += dz^T a and G_c^T += h^T g take K = the rows and
+//       N = the channels. An n-tile of z^T's accumulators is the A fragment
+//       of a k8 step over its 8 rows (k-slot t row 2t, slot t + 4 row 2t +
+//       1), so h = GELU(z + b1), dz = dh GELU'(z + b1) and db1 are taken in
+//       the registers that hold z^T and dh^T, split there and never stored.
+//     - Operands laid out as the mma reads them, so no register has to be
+//       moved into a fragment: the tile's a = LN(x) gamma + beta and g as
+//       planes of 16-byte units (hi, hi, lo, lo) of two neighbouring
+//       channels, one unit a products 1-2 B fragment's hi and lo pairs (in
+//       3-4 the two rows of a B fragment come from two units); the chunk's
+//       W1c and (ls2 W2c)^T as the A fragments themselves, a warp's 32
+//       fragments of a k8 step 512 contiguous bytes of hi and of lo. (With
+//       (hi, lo) float2 elements the fragments took ~2.5k register moves a
+//       warp a tile against 672 mma, and the pass 0.0553 ms.) The planes'
+//       units are swizzled so every fragment load of a quarter warp falls
+//       on 8 distinct bank groups.
+//     - Weights: warp 1 copies W1c (one run) and W2c (a run a channel) raw
+//       into the ends of their fragments' room by bulk copies on an
+//       mbarrier, issued with tile 0's rows, so they land under tile 0's
+//       LayerNorm; every thread then reads its share of a matrix, a block
+//       barrier, and the split fragments overwrite the raw rows (splitting
+//       W1c while W2c still lands, on an mbarrier of its own, measured no
+//       faster).
+//     - A tile: the rows' wait, LN and the split planes, a block barrier
+//       (thread 0 issues the next tile's rows into the stage), z^T and dh^T
+//       (2 x 168 mma a warp), GELU (erf by Abramowitz and Stegun, as the dx
+//       pass's dz), dW1c and G_c^T (2 x 168), a block barrier. dW1c and G_c^T
+//       stay in 64 accumulator registers a thread over the split.
+//     - Shared memory: planes 2 x 56 rows of 128 floats, fragments 4 x 8,192
+//       floats, the raw stage of 2 x 56 rows, two mbarriers: 217,104 B in
+//       f32, 202,768 in bf16 (both dtypes widen to f32 before the split, so
+//       one path).
+//     - Epilogue: float4 stores of dW1c rows, G_c columns; db1 over the four
+//       lanes of a column in a fixed order: reruns are bitwise equal.
 //  3. reduce (mlp_ln_bwd_reduce_kernel): sum the partials in a fixed order
 //     (the dx pass's per tile, the weight pass's per split) and finish
 //     dgamma, dbeta, dW1, db1, dW2, db2 and dls2. Bound by bytes: 9.4 MB at
@@ -1816,7 +1870,9 @@ constexpr int kSMs = 132;        // the H100's: splits = min(tiles, 132 / chunks
 // registers a thread, and the grid of H / kJ chunks x splits is 128 blocks at
 // H = 512; at C = 64 the same 8,192 floats are a chunk of 128 columns (H a
 // multiple of 128), and tiles of 56 rows: 2 x 66 blocks at H = 256, 4 tiles
-// (224 rows) a split at M = 14,688 against the ideal 222.5.
+// (224 rows) a split at M = 14,688 against the ideal 222.5. (At C = 64 the
+// kernel is mlp_ln_bwd_w_tc_kernel, which takes this tile, chunk and its
+// splits; the C = 64 branches below are no longer instantiated.)
 template <int C>
 struct Cfg {
   static_assert(C == 64 || C == 128, "the one-block widths");
@@ -2244,6 +2300,389 @@ mlp_ln_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ g,
     float s = 0.f;
     for (int q = 0; q < K::kRGz; ++q) s += red[q * kJ + tid];
     base[2LL * H * C + j0 + tid] = s;
+  }
+}
+
+// ---- 2c. weight pass at C = 64 on the tensor cores in 3xTF32: its own
+// layouts and helpers; the tile, chunk and splits are wp::Cfg<64>'s
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using dxp::ld4;
+using dxp::st4;
+using kasf_mma::mma_tf32x3;
+using kasf_mma::split_tf32;
+using P = wp::Cfg<64>;
+
+constexpr int kT = 256;      // 8 warps: warp w holds chunk columns 16 w .. 16 w + 15
+constexpr int C = 64;
+constexpr int kR = P::kR;    // 56 rows a tile: 7 n8 (products 1-2) or k8 (3-4) steps
+constexpr int kJ = P::kJ;    // 128 hidden columns a chunk: 8 m16 tiles, one a warp
+constexpr int kRS = kR / 8;  // 7 row steps
+constexpr int kCS = C / 8;   // 8 channel steps
+// A plane holds a tile's (rows, 64) operand split for 3xTF32: channels 2p
+// and 2p + 1 of row r as one 16-byte unit (hi, hi, lo, lo) at r kLd + 4 (p ^
+// sw(r)), so a unit is a B fragment's hi and lo register pairs when its two
+// k-slots are those channels (products 1-2). The swizzle puts the 8 units a
+// quarter warp loads in one instruction on distinct bank groups: rows g =
+// 2q, 2q + 1 at units 4k + t (t < 4) in products 1-2, rows 2t and 2t + 1 at
+// units 8q + g (g = 2q', 2q' + 1) in products 3-4.
+constexpr int kLd = 2 * C;
+// The weights' planes hold the A fragments themselves: for warp w, k8 step k
+// and lane (g, t) the float4 {X(j, c), X(j + 8, c), X(j, c + 1), X(j + 8, c +
+// 1)}, j = 16 w + g, c = 8k + 2t, of the hi parts at ((8 w + k) 32 + lane) 4,
+// of the lo parts kFrag floats further: a fragment is one 16-byte load, a
+// warp's 32 of them 512 contiguous bytes.
+constexpr int kFrag = kJ * C;  // floats of a matrix's hi (or lo) fragments
+constexpr int kOffG = kR * kLd;              // the tile's planes: a = LN(x) gamma + beta, g
+constexpr int kOffW1 = 2 * kR * kLd;         // the chunk's W1c (j, c)
+constexpr int kOffW2 = kOffW1 + 2 * kFrag;   // and (ls2 W2c)^T (j, c)
+constexpr int kOffRaw = kOffW2 + 2 * kFrag;  // the next tile's x and g rows, raw
+// the weights' raw rows land at the end of their fragments (W1c [128][64],
+// W2c [64][128] in the input dtype) and are split into them in place
+template <typename T>
+__host__ __device__ constexpr int raw_w() {
+  return 2 * kFrag - kJ * C * static_cast<int>(sizeof(T)) / 4;
+}
+template <typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * kOffRaw + sizeof(T) * 2 * kR * C + 2 * sizeof(unsigned long long);
+}
+static_assert(kR % 8 == 0 && kJ == 16 * (kT / 32) && C == 8 * (kT / 32),
+              "one m16 tile a warp; a warp a k8 step of the weights' split");
+static_assert(kOffW1 % 4 == 0 && kOffRaw % 4 == 0 && raw_w<float>() % 4 == 0 &&
+                  raw_w<bf16>() % 4 == 0,
+              "16-byte alignment of the shared buffers");
+static_assert(smem_bytes<float>() <= 232448, "one block a SM");
+
+// the float offset of unit p (channels 2p, 2p + 1) of row r in a plane
+__device__ __forceinline__ int unit(int r, int p) {
+  return r * kLd + 4 * (p ^ ((((r >> 1) & 3) << 1) ^ ((r & 1) << 2)));
+}
+
+// four neighbouring channels' values (units 2p', 2p' + 1, which the swizzle
+// keeps side by side) split and stored as two units
+__device__ __forceinline__ void store_split4(float* p, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z),
+               d = split_tf32(v.w);
+  st4(p, make_float4(a.x, b.x, a.y, b.y));
+  st4(p + 4, make_float4(c.x, d.x, c.y, d.y));
+}
+
+// a float4's bits as a fragment's four registers
+__device__ __forceinline__ void bits4(float4 v, uint32_t (&r)[4]) {
+  r[0] = __float_as_uint(v.x);
+  r[1] = __float_as_uint(v.y);
+  r[2] = __float_as_uint(v.z);
+  r[3] = __float_as_uint(v.w);
+}
+
+// One warp: the chunk's W1c and W2c (rows j0.. of W1, one contiguous run;
+// columns j0.. of W2, a run of 128 a channel) raw into the ends of their
+// fragments' room by bulk copies on bar
+template <typename T>
+__device__ __forceinline__ void fetch_weights(float* w1F, float* w2F, const T* __restrict__ w1,
+                                              const T* __restrict__ w2, int j0, int H, int lane,
+                                              unsigned long long* bar) {
+  T* r1 = reinterpret_cast<T*>(w1F + raw_w<T>());
+  T* r2 = reinterpret_cast<T*>(w2F + raw_w<T>());
+  if (lane == 0) kasf_mma::mbar_expect(bar, 2 * kJ * C * sizeof(T));
+  __syncwarp();
+  if (lane < 16)  // 8 rows of W1c a lane
+    kasf_mma::bulk_load(r1 + 8 * C * lane, w1 + static_cast<long long>(j0 + 8 * lane) * C,
+                        8 * C * sizeof(T), bar);
+  for (int c = lane; c < C; c += 32)
+    kasf_mma::bulk_load(r2 + kJ * c, w2 + static_cast<long long>(c) * H + j0, kJ * sizeof(T),
+                        bar);
+}
+
+// two neighbouring raw elements as f32
+__device__ __forceinline__ float2 raw2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 raw2(const bf16* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(kasf_mma::bf16_lo(v), kasf_mma::bf16_hi(v));
+}
+
+// a fragment's four values split, its hi and lo float4s stored
+__device__ __forceinline__ void store_frag(float* f, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z),
+               d = split_tf32(v.w);
+  st4(f, make_float4(a.x, b.x, c.x, d.x));
+  st4(f + kFrag, make_float4(a.y, b.y, c.y, d.y));
+}
+
+// The weights' fragments from their raw rows: X = W1c, X(j, c) = W1c[j][c],
+// and X = (ls2 W2c)^T, X(j, c) = ls2[c] W2c[c][j], the A operands of z^T =
+// W1c a^T and dh^T = (ls2 W2c)^T g^T. A matrix's fragments overwrite its raw
+// rows, so every thread reads its share first, a block barrier, then the
+// split stores: W1c, then W2c. Thread (warp W, lane L) takes of W1c the
+// fragments (w = i, lane (g = W, t = L % 4), k = L / 4): rows 16 i + W and +
+// 8, channels 2L, 2L + 1, a warp reading 256 contiguous bytes a row; of W2c
+// the quads q = tid + 256 i, each four fragments (g = g0 .. g0 + 3) of one
+// (w, k, t): four 16-byte reads (channels c, c + 1 at columns j = 16 w + g0
+// and j + 8).
+template <typename T>
+__device__ __forceinline__ void split_weights(float* w1F, float* w2F,
+                                              const float* __restrict__ ls2, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const T* r1 = reinterpret_cast<const T*>(w1F + raw_w<T>());
+  float4 v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 u = raw2(r1 + (16 * i + warp) * C + 2 * lane);
+    const float2 w = raw2(r1 + (16 * i + warp + 8) * C + 2 * lane);
+    v[i] = make_float4(u.x, w.x, u.y, w.y);
+  }
+  __syncthreads();  // W1c's raw rows are read: its fragments may overwrite them
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    store_frag(w1F + ((8 * i + lane / 4) * 32 + 4 * warp + lane % 4) * 4, v[i]);
+  const T* r2 = reinterpret_cast<const T*>(w2F + raw_w<T>());
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // quad q: g0 = 4 (q & 1), w = 2 (q >> 7) + (q >> 1 & 1)
+    const int q = tid + kT * i, t = q >> 2 & 3, k = q >> 4 & 7;
+    const int c = 8 * k + 2 * t, j = 16 * (2 * (q >> 7) + (q >> 1 & 1)) + 4 * (q & 1);
+    v[4 * i] = wp::raw4(r2 + c * kJ + j);
+    v[4 * i + 1] = wp::raw4(r2 + c * kJ + j + 8);
+    v[4 * i + 2] = wp::raw4(r2 + (c + 1) * kJ + j);
+    v[4 * i + 3] = wp::raw4(r2 + (c + 1) * kJ + j + 8);
+  }
+  __syncthreads();  // W2c's raw rows are read
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = tid + kT * i, t = q >> 2 & 3, k = q >> 4 & 7;
+    const int w = 2 * (q >> 7) + (q >> 1 & 1), g0 = 4 * (q & 1);
+    const float s0 = ls2[8 * k + 2 * t], s1 = ls2[8 * k + 2 * t + 1];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      store_frag(w2F + ((8 * w + k) * 32 + 4 * (g0 + u) + t) * 4,
+                 make_float4(s0 * dxp::lane4(v[4 * i], u), s0 * dxp::lane4(v[4 * i + 1], u),
+                             s1 * dxp::lane4(v[4 * i + 2], u), s1 * dxp::lane4(v[4 * i + 3], u)));
+  }
+}
+
+// aP = LN(x) * gamma + beta and gP = g from the raw stage, split: warp w
+// takes rows w + 8 i, its half warps every other one (the second none of the
+// last); lane l channels 4 (l % 16)... Rows >= M are zeros (a = beta, g = 0).
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* raw, float* aP, float* gP, float4 gm,
+                                           float4 bt, long long row0, long long M, float eps,
+                                           int warp, int lane) {
+  constexpr int kRT = (kR / 8 + 1) / 2;  // rows a lane holds: 4 (the second half warp 3)
+  const int cl = lane % 16, sub = lane / 16;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 xv[kRT], gv[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int r = warp + 8 * (2 * i + sub);
+    const bool valid = 2 * i + sub < kR / 8 && row0 + r < M;
+    xv[i] = valid ? wp::raw4(raw + r * C + 4 * cl) : zero;
+    gv[i] = valid ? wp::raw4(raw + (kR + r) * C + 4 * cl) : zero;
+  }
+  float s[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) s[i] = quad_sum(xv[i]);
+  wp::rows_sum<16>(s);
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const float mean = s[i] * (1.0f / C);
+    const float4 v = xv[i];
+    xv[i] = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
+    s[i] = quad_sq(xv[i]);
+  }
+  wp::rows_sum<16>(s);
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    if (2 * i + sub >= kR / 8) continue;  // past the warp's rows
+    const int r = warp + 8 * (2 * i + sub);
+    const float rstd = rsqrtf(s[i] * (1.0f / C) + eps);
+    const float4 xc = xv[i];
+    const int o = unit(r, 2 * cl);
+    store_split4(aP + o, make_float4(fmaf(xc.x * rstd, gm.x, bt.x), fmaf(xc.y * rstd, gm.y, bt.y),
+                                     fmaf(xc.z * rstd, gm.z, bt.z), fmaf(xc.w * rstd, gm.w, bt.w)));
+    store_split4(gP + o, gv[i]);
+  }
+}
+
+// GELU(z) and GELU'(z) = Phi(z) + z phi(z), with erf by Abramowitz and
+// Stegun 7.1.26 as dxg::gelu_grad takes it (|error| <= 1.5e-7), so that one
+// exp(-z^2 / 2) serves Phi and phi
+__device__ __forceinline__ float2 gelu_and_grad(float z) {
+  const float e = expf(-0.5f * z * z);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(z), 1.0f));
+  const float p =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float cdf = 0.5f + copysignf(fmaf(-0.5f * p, e, 0.5f), z);  // Phi(z)
+  return make_float2(z * cdf, cdf + z * e * 0.39894228040143268f);
+}
+
+}  // namespace tc
+
+// At C = 64 (see 2c. above): one block of 8 warps per (hidden chunk of 128,
+// row split of 56-row tiles), warp w over chunk columns jr = 16 w + g and
+// jr + 8 (g = lane / 4, t = lane % 4). A tile: the rows' LN, a and g split
+// into planes; z^T and dh^T (16 x 56 a warp) on mma.sync m16n8k8 in
+// 3xTF32 from the weights' fragments and the tile's planes, k-slots t and t
+// + 4 of k8 step k on channels 8k + 2t and 8k + 2t + 1 (one unit); h, dz and db1 in
+// the accumulators' registers; dW1c += dz^T a and G_c^T += h^T g on the same
+// mma, their A fragments from those registers, n8 steps 2q and 2q + 1 on
+// channels 16q + 2g and 16q + 2g + 1 (one unit); dW1c and G_c (32 registers
+// each a thread) over the whole split; the split's partial at the end.
+template <typename T>
+__global__ void __launch_bounds__(tc::kT, 1)
+mlp_ln_bwd_w_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const T* __restrict__ w1, const T* __restrict__ b1,
+                       const T* __restrict__ w2, const float* __restrict__ ls2,
+                       float* __restrict__ part, long long M, int H, float eps) {
+  using namespace tc;
+  extern __shared__ float4 smem4[];
+  float* aP = reinterpret_cast<float*>(smem4);
+  float* gP = aP + kOffG;
+  float* w1F = aP + kOffW1;
+  float* w2F = aP + kOffW2;
+  T* raw = reinterpret_cast<T*>(aP + kOffRaw);
+  auto* bars = reinterpret_cast<unsigned long long*>(raw + 2 * kR * C);  // rows, weights
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3, jr = 16 * warp + gq;
+  const int j0 = blockIdx.x * kJ;
+  const long long n_tiles = wp::tiles<C>(M);
+  const long long per = (n_tiles + gridDim.y - 1) / gridDim.y;
+  const long long t_begin = blockIdx.y * per;
+  const long long t_end = t_begin + per < n_tiles ? t_begin + per : n_tiles;
+  if (tid == 0) {
+    kasf_mma::mbar_init(bars);
+    kasf_mma::mbar_init(bars + 1);
+  }
+  __syncthreads();  // both mbarriers are initialised
+  if (tid == 0 && t_begin < t_end) wp::fetch_rows<C>(raw, x, g, t_begin * kR, M, bars);
+  if (warp == 1 && t_begin < t_end) fetch_weights<T>(w1F, w2F, w1, w2, j0, H, lane, bars + 1);
+  const float4 gm = ld4(gamma + 4 * (lane % 16)), bt = ld4(beta + 4 * (lane % 16));
+  const float b1j[2] = {to_f(b1[j0 + jr]), to_f(b1[j0 + jr + 8])};
+
+  float dw[kCS][4], gg[kCS][4];  // dW1c, G_c^T: rows jr, jr + 8; n8 step n channels 16 (n / 2) + 2g + n % 2
+#pragma unroll
+  for (int n = 0; n < kCS; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dw[n][i] = gg[n][i] = 0.f;
+  float db1[2] = {0.f, 0.f};  // columns jr, jr + 8 over the thread's rows
+  for (long long t = t_begin; t < t_end; ++t) {
+    kasf_mma::mbar_wait(bars, static_cast<unsigned>((t - t_begin) & 1));
+    stage_rows<T>(raw, aP, gP, gm, bt, t * kR, M, eps, warp, lane);
+    if (t == t_begin) {  // the weights landed under the first tile's LayerNorm
+      kasf_mma::mbar_wait(bars + 1, 0);
+      split_weights<T>(w1F, w2F, ls2, tid);
+    }
+    __syncthreads();  // the tile's planes (and the weights') in; the stage is free
+    if (tid == 0 && t + 1 < t_end) wp::fetch_rows<C>(raw, x, g, (t + 1) * kR, M, bars);
+
+    // 1-2. z^T = W1c a^T and dh^T = (ls2 W2c)^T g^T: m16 = the warp's
+    // columns, k8 steps over the channels, n8 steps over the rows
+    float z[kRS][4], d[kRS][4];
+#pragma unroll
+    for (int n = 0; n < kRS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[n][i] = d[n][i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kCS; ++k) {
+      const int p = 4 * k + tq;  // channels 8k + 2t (slot t), 8k + 2t + 1 (slot t + 4)
+      uint32_t w1h[4], w1l[4], w2h[4], w2l[4];  // a = {(jr, t), (jr + 8, t), (jr, t + 4), (jr + 8, t + 4)}
+      const int f = ((8 * warp + k) * 32 + lane) * 4;
+      bits4(ld4(w1F + f), w1h);
+      bits4(ld4(w1F + kFrag + f), w1l);
+      bits4(ld4(w2F + f), w2h);
+      bits4(ld4(w2F + kFrag + f), w2l);
+#pragma unroll
+      for (int n = 0; n < kRS; ++n) {
+        const int r = 8 * n + gq;
+        const float4 ua = ld4(aP + unit(r, p)), ug = ld4(gP + unit(r, p));
+        const uint32_t ah[2] = {__float_as_uint(ua.x), __float_as_uint(ua.y)};
+        const uint32_t al[2] = {__float_as_uint(ua.z), __float_as_uint(ua.w)};
+        const uint32_t gh[2] = {__float_as_uint(ug.x), __float_as_uint(ug.y)};
+        const uint32_t gl[2] = {__float_as_uint(ug.z), __float_as_uint(ug.w)};
+        mma_tf32x3(z[n], w1h, w1l, ah, al);
+        mma_tf32x3(d[n], w2h, w2l, gh, gl);
+      }
+    }
+    // h = GELU(z + b1) in place of z, dz = dh GELU'(z + b1) in place of dh;
+    // db1 over the thread's rows in order
+#pragma unroll
+    for (int n = 0; n < kRS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 e = gelu_and_grad(z[n][i] + b1j[i >> 1]);
+        z[n][i] = e.x;
+        d[n][i] *= e.y;
+        db1[i >> 1] += d[n][i];
+      }
+    // 3-4. dW1c += dz^T a and G_c^T += h^T g: k8 step n over rows 8 n..,
+    // slot t row 8 n + 2 t and slot t + 4 row 8 n + 2 t + 1, so the A
+    // fragments are the n-tiles of h and dz; n8 steps over the channels
+#pragma unroll
+    for (int n = 0; n < kRS; ++n) {
+      uint32_t hh[4], hl[4], zh[4], zl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int src = (i & 1) * 2 + (i >> 1);  // a = {c0, c2, c1, c3}
+        const float2 hs = split_tf32(z[n][src]), ds = split_tf32(d[n][src]);
+        hh[i] = __float_as_uint(hs.x);
+        hl[i] = __float_as_uint(hs.y);
+        zh[i] = __float_as_uint(ds.x);
+        zl[i] = __float_as_uint(ds.y);
+      }
+      const int r = 8 * n + 2 * tq;
+#pragma unroll
+      for (int q = 0; q < kCS / 2; ++q) {  // n8 steps 2q, 2q + 1: unit 8q + g of rows r, r + 1
+        const int p = 8 * q + gq;
+        const float4 a0 = ld4(aP + unit(r, p)), a1 = ld4(aP + unit(r + 1, p));
+        const float4 g0 = ld4(gP + unit(r, p)), g1 = ld4(gP + unit(r + 1, p));
+        // n8 step 2q: channel 16q + 2g, the units' first; 2q + 1 the second
+        uint32_t bh[2] = {__float_as_uint(a0.x), __float_as_uint(a1.x)};
+        uint32_t bl[2] = {__float_as_uint(a0.z), __float_as_uint(a1.z)};
+        mma_tf32x3(dw[2 * q], zh, zl, bh, bl);
+        bh[0] = __float_as_uint(a0.y); bh[1] = __float_as_uint(a1.y);
+        bl[0] = __float_as_uint(a0.w); bl[1] = __float_as_uint(a1.w);
+        mma_tf32x3(dw[2 * q + 1], zh, zl, bh, bl);
+        bh[0] = __float_as_uint(g0.x); bh[1] = __float_as_uint(g1.x);
+        bl[0] = __float_as_uint(g0.z); bl[1] = __float_as_uint(g1.z);
+        mma_tf32x3(gg[2 * q], hh, hl, bh, bl);
+        bh[0] = __float_as_uint(g0.y); bh[1] = __float_as_uint(g1.y);
+        bl[0] = __float_as_uint(g0.w); bl[1] = __float_as_uint(g1.w);
+        mma_tf32x3(gg[2 * q + 1], hh, hl, bh, bl);
+      }
+    }
+    __syncthreads();  // the planes are read: the next tile's may replace them
+  }
+
+  // the split's partial: dW1c rows, G_c columns (channels 16q + 4t .. + 3 of
+  // n8 steps 2q, 2q + 1), db1c (the four lanes of a column in a fixed order)
+  float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * C + H);
+  float* gc = base + static_cast<long long>(H) * C;
+#pragma unroll
+  for (int q = 0; q < kCS / 2; ++q) {
+    const int c = 16 * q + 4 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long j = j0 + jr + 8 * h;
+      st4(base + j * C + c, make_float4(dw[2 * q][2 * h], dw[2 * q + 1][2 * h],
+                                        dw[2 * q][2 * h + 1], dw[2 * q + 1][2 * h + 1]));
+      gc[c * H + j] = gg[2 * q][2 * h];
+      gc[(c + 1) * H + j] = gg[2 * q + 1][2 * h];
+      gc[(c + 2) * H + j] = gg[2 * q][2 * h + 1];
+      gc[(c + 3) * H + j] = gg[2 * q + 1][2 * h + 1];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = db1[h];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (tq == 0) base[2LL * H * C + j0 + jr + 8 * h] = s;
   }
 }
 
@@ -3149,14 +3588,24 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
   return cudaGetLastError();
 }
 
-// The weight pass into its row splits' partials at part_w: at C = 64 and 128
-// one block a (hidden chunk, split); at 256 and 512 a cluster of two a (chunk,
+// The weight pass into its row splits' partials at part_w: at C = 64 one
+// block a (hidden chunk, split) on the tensor cores, at 128 one block a
+// (chunk, split) on the CUDA cores; at 256 and 512 a cluster of two a (chunk,
 // split), reading the stage launch's weights, x and g through tensor maps
 template <typename T, int C>
 cudaError_t launch_w(const Args& a, float* part_w, const float* stage, long long M, int H,
                      float eps, cudaStream_t stream) {
   const int splits = w_splits<C>(M, H);
-  if constexpr (C <= 128) {
+  if constexpr (C == 64) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_tc_kernel<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(tc::smem_bytes<T>()));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_w_tc_kernel<T><<<dim3(H / tc::kJ, splits), tc::kT, tc::smem_bytes<T>(), stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+        static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
+        a.ls2, part_w, M, H, eps);
+  } else if constexpr (C == 128) {
     const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_kernel<T, C>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(wp::smem_bytes<T, C>()));
@@ -3260,8 +3709,13 @@ void describe_all(long long M, int H, int* info) {
       info[22] = static_cast<int>(tiles);
       info[26] = C == 64 ? 2 : 1;
     }
-    const int smem_w = static_cast<int>(wp::smem_bytes<T, C>());
-    if (describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d) && sms > 0) {
+    const int smem_w = static_cast<int>(C == 64 ? tc::smem_bytes<T>() : wp::smem_bytes<T, C>());
+    bool w_known = false;
+    if constexpr (C == 64)
+      w_known = describe(mlp_ln_bwd_w_tc_kernel<T>, tc::kT, smem_w, d);
+    else
+      w_known = describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d);
+    if (w_known && sms > 0) {
       const int v[8] = {d[0], w_rows<C>(), wp::Cfg<C>::kJ, splits, d[1], smem_w, d[2], d[3]};
       for (int i = 0; i < 8; ++i) info[6 + i] = v[i];
       info[23] = 1;

@@ -2,8 +2,9 @@
 // 16-byte cp.async copies into shared memory, bulk copies on the TMA
 // engine completing on an mbarrier (and L2 prefetches), thread-block
 // cluster barriers, stores into a cluster peer's shared memory and row sums
-// across a cluster, ldmatrix fragment loads and the m16n8k16 bf16 mma.sync
-// with f32 accumulators.
+// across a cluster, ldmatrix fragment loads, the m16n8k16 bf16 mma.sync
+// with f32 accumulators, and the m16n8k8 TF32 mma.sync with the hi / lo
+// split of an f32 operand for products in 3xTF32.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row): a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k),
@@ -14,6 +15,13 @@
 //  * C (16 x 8, f32): c[0..1] = (row g, cols 2t, 2t+1), c[2..3] = (row g+8,
 //    same cols). Two neighbouring n-tiles of C, packed pairwise to bf16, are
 //    exactly the A fragment of a product over those 16 columns.
+// and of mma.sync.m16n8k8 with TF32 operands (one element a register):
+//  * A (16 x 8, row): a[0] = (row g, k t), a[1] = (row g+8, k t), a[2] =
+//    (row g, k t+4), a[3] = (row g+8, k t+4).
+//  * B (8 x 8, col): b0 = (k t, col g), b1 = (k t+4, col g).
+//  * C as above. An n-tile of C is so the A fragment of a product over its
+//    8 columns with k-slot t taking column 2t and slot t+4 column 2t+1:
+//    a = {c[0], c[2], c[1], c[3]}, its B rows in the same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -197,6 +205,39 @@ __device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x split for 3xTF32, as the bits of two floats: hi = tf32(x) rounded to
+// nearest, ties away from zero (what cvt.rna.tf32.f32 gives for finite x,
+// and how sm_90 computes it: an integer add of half the dropped unit and a
+// mask, here without its inf / NaN guard), and lo = x - hi (exact) with its
+// 13 low bits cut, which the mma would ignore: x = hi + lo to within 2^-21
+// |x|. A NaN x gives a NaN lo, so it still reaches the product.
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  return make_float2(hi, __uint_as_float(__float_as_uint(x - hi) & 0xffffe000u));
+}
+
+// c += a b: m16n8k8, TF32 in, f32 accumulate. Registers only
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, a = ahi + alo and b = bhi + blo split by split_tf32:
+// the two cross terms first, then hi hi, each product exact (11-bit
+// significands) and summed in f32; alo blo (<= 2^-22 |a b|) is dropped, so
+// the product keeps ~f32's precision: ~2^-20 relative against TF32's 2^-11
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(c, alo, bhi[0], bhi[1]);
+  mma_tf32(c, ahi, blo[0], blo[1]);
+  mma_tf32(c, ahi, bhi[0], bhi[1]);
 }
 
 // two floats rounded to bf16, lo in the low half

@@ -191,10 +191,17 @@ def make_grads_fn(model: nn.Module, config: Config):
     real-sample weight sum over the batch's: algebraically the full-batch
     gradient, with the live activations of an m-clip backward. A model whose
     forward takes a `generator` gets `generator`, from which it draws its
-    stochastic-depth masks."""
+    stochastic-depth masks. A model whose train forward needs the target
+    too (D3DP's diffusion objective: the target noised at a drawn timestep,
+    then denoised) defines `train_predict(x, y, generator)`, which is called
+    instead of its forward, as the JAX package's `loss_fn` calls it; a
+    microbatch draws its own timesteps and noise."""
     takes_generator = "generator" in inspect.signature(model.forward).parameters
+    has_train_predict = hasattr(model, "train_predict")
 
-    def forward(x: torch.Tensor, generator: torch.Generator | None):
+    def forward(x: torch.Tensor, y: torch.Tensor, generator: torch.Generator | None):
+        if has_train_predict:
+            return model.train_predict(x, y, generator)
         return model(x, generator=generator) if takes_generator else model(x)
 
     def compute(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor,
@@ -203,14 +210,14 @@ def make_grads_fn(model: nn.Module, config: Config):
         model.train()
         m, b = config.grad_microbatch, x.shape[0]
         if not m or m >= b or b % m:
-            total, comps = _config_loss(config, forward(x, generator), y, weights)
+            total, comps = _config_loss(config, forward(x, y, generator), y, weights)
             total.backward()
             out = {k: v.detach() for k, v in comps.items()}
         else:
             denom = weights.sum().clamp(min=1.0)
             acc: dict[str, torch.Tensor] = {}
             for xc, yc, wc in zip(x.split(m), y.split(m), weights.split(m)):
-                total, comps = _config_loss(config, forward(xc, generator),
+                total, comps = _config_loss(config, forward(xc, yc, generator),
                                             yc, wc)
                 sw = wc.sum()
                 (total * (sw / denom)).backward()

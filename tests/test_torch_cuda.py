@@ -1067,6 +1067,18 @@ def test_fused_mlp_ln_bwd_c64_dx_pass_instantiation(cuda):
         assert dx["spill_bytes"] == 0 and dx["grid"] == 132, dx
 
 
+def test_fused_mlp_ln_bwd_c64_weight_pass_instantiation(cuda):
+    """The C = 64 weight pass as the runtime reports it: 256 threads on the
+    tensor cores (8 warps, one m16 tile of the chunk's 128 hidden columns
+    each), 56-row tiles, one block a (chunk, split) and a SM, one wave of
+    2 x 66 blocks at H = 256, no spills."""
+    for dtype in (torch.float32, torch.bfloat16):
+        wp = fused_mlp_ln_bwd_kernel_info(dtype, 14688, 256, c=64)["weight_pass"]
+        assert (wp["threads"], wp["rows"], wp["chunk"], wp["blocks_per_sm"]) == (
+            256, 56, 128, 1), wp
+        assert wp["spill_bytes"] == 0 and wp["grid"] == 132, wp
+
+
 def test_fused_mlp_ln_bwd_zoo_digests_unchanged(cuda):
     """K4 at DSTFormer's 256/1024 and MixSTE's 512/1024 computes bit for bit
     what it computed before the C = 64 dx pass became two warp groups: SHA-1

@@ -2,6 +2,7 @@
 with the same numpy-drawn weights loaded into both: the schedule, the time
 embedding, the denoiser, q_sample, the DDIM sampler with proposals and the
 fused flip-TTA (the JAX draws injected), the eval protocol's forward, the
+training objective through `make_grads_fn` (the JAX draws injected), the
 weight carrier and serving.
 
 `jnp.exp` and `torch.exp` differ by an ulp on some of the time embedding's
@@ -18,7 +19,9 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from kasportsformer_tpu.config import Config as JConfig
 from kasportsformer_tpu.models.zoo import d3dp as jd3dp
+from kasportsformer_tpu.train import loop as JL
 from kasportsformer_tpu.train.checkpoint import d3dp_state_dict_to_params
 from kasportsformer_torch.config import Config
 from kasportsformer_torch.models import build_model
@@ -26,12 +29,15 @@ from kasportsformer_torch.models.zoo.d3dp import D3DP, D3DPConfig, cosine_beta_s
 from kasportsformer_torch.serving import LiftService
 from kasportsformer_torch.train.checkpoint import d3dp_state_dict_from_jax
 from kasportsformer_torch.train.evaluator import tta_forward
+from kasportsformer_torch.train.loop import make_grads_fn
 from kasportsformer_torch.utils.common import joint_flip
 from torch_parity import perturb_tree
 
 RNG = np.random.default_rng(43)
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
+# the training objective's gradients, as the zoo's in test_torch_zoo_train.py
+GRAD_TOL = dict(atol=1e-6, rtol=1e-4)
 SMALL = dict(embed_dim=32, depth=2, num_heads=4)
 X = RNG.standard_normal((2, 27, 17, 3)).astype(np.float32)
 
@@ -252,3 +258,100 @@ def test_lift_service_serves_d3dp_on_cpu(pair):
     assert poses.shape == (40, 17, 3) and np.isfinite(poses).all()
     assert np.abs(poses[:, 0]).max() == 0.0
     assert float(np.abs(poses[:, 1:]).max()) > 1e-3
+
+
+def jax_train_draws(key: jax.Array, shape: tuple, timesteps: int = 1000):
+    """The JAX train forward's draws from the key `make_grads_fn` hands
+    `train_predict` (`apply(train=True)`: `kt, kn = split(key)`, t from kt,
+    the noise from kn), as the port's tensors."""
+    kt, kn = jax.random.split(key)
+    t = jax.random.randint(kt, (shape[0],), 0, timesteps)
+    return _t(t).long(), _t(jax.random.normal(kn, shape, jnp.float32))
+
+
+def _train_batch(b: int):
+    rng = np.random.default_rng(52)
+    x = rng.uniform(-1, 1, (b, 27, 17, 3)).astype(np.float32)
+    y = (0.3 * rng.standard_normal((b, 27, 17, 3))).astype(np.float32)
+    w = np.ones(b, np.float32)
+    w[-1] = 0.0  # a padded clip
+    return x, y - y[:, :, :1], w
+
+
+@pytest.mark.parametrize("microbatch", [0, 2])
+def test_train_grads_match_jax_make_grads_fn(pair, microbatch):
+    """The diffusion objective through `make_grads_fn`, full batch and in
+    two microbatches of 2 (each its own draws: JAX splits the step's key
+    once per microbatch), JAX's draws injected into the port's
+    `train_predict`: the loss components within 1e-5 relative and every
+    parameter's gradient within GRAD_TOL of JAX's, carried into the torch
+    layout by the port's own weight carrier. D3DP has no batch norm, so no
+    bias's true gradient cancels to zero and none is held otherwise."""
+    jmodel, params, port = pair
+    x, y, w = _train_batch(4)
+    key = jax.random.key(21)
+    cfg = JConfig(batch_size=4, flip=False, grad_microbatch=microbatch)
+    grads, want_c, _ = jax.jit(JL.make_grads_fn(jmodel, cfg))(params, {}, x, y, w, key)
+    want_g = d3dp_state_dict_from_jax(jax.tree.map(np.asarray, grads), {})
+
+    keys = jax.random.split(key, 2) if microbatch else [key]
+    draws = iter([jax_train_draws(k, (4 // len(keys), 27, 17, 3)) for k in keys])
+
+    def injected(xc, yc, generator=None):
+        t, noise = next(draws)
+        return D3DP.train_predict(port, xc, yc, t=t, noise=noise)
+
+    port.zero_grad(set_to_none=True)
+    port.train_predict = injected
+    try:
+        got_c = make_grads_fn(port, Config(batch_size=4, flip=False,
+                                           grad_microbatch=microbatch))(
+            *(torch.from_numpy(a) for a in (x, y, w)))
+    finally:
+        del port.train_predict
+        port.eval()
+    assert next(draws, None) is None  # one draw a microbatch, all used
+    assert set(got_c) == set(want_c)
+    for k, v in want_c.items():
+        assert got_c[k].item() == pytest.approx(float(v), rel=1e-5), k
+    named = dict(port.named_parameters())
+    assert set(named) <= set(want_g)
+    for n, p in named.items():
+        assert p.grad is not None, n
+        np.testing.assert_allclose(p.grad.numpy(), want_g[n].numpy(), **GRAD_TOL,
+                                   err_msg=n)
+    port.zero_grad(set_to_none=True)
+
+
+def test_train_forward_is_the_denoised_pose(pair):
+    """The train forward is one denoised pose a clip, (B, F, 17, 3), not the
+    sampler's (B, steps, H, F, 17, 3): the loss then sees motion, so its
+    velocity term is not zero."""
+    port = pair[2]
+    x, y, w = _train_batch(3)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        pred = port.train_predict(_t(x), _t(y), gen)
+    assert pred.shape == (3, 27, 17, 3) and torch.isfinite(pred).all()
+    comps = make_grads_fn(port, Config(batch_size=3, flip=False, grad_microbatch=0))(
+        _t(x), _t(y), _t(w), torch.Generator().manual_seed(3))
+    port.zero_grad(set_to_none=True)
+    port.eval()
+    assert comps["loss_velocity"].item() > 1e-3
+
+
+def test_train_predict_draws_from_its_generator(pair):
+    """Without injected draws `train_predict` takes t, then the noise, from
+    its generator: the same seed gives the same pose, and so do those draws
+    made by hand and injected; another seed gives another."""
+    port = pair[2]
+    x, y, _ = _train_batch(2)
+    with torch.no_grad():
+        a = port.train_predict(_t(x), _t(y), torch.Generator().manual_seed(5))
+        b = port.train_predict(_t(x), _t(y), torch.Generator().manual_seed(5))
+        c = port.train_predict(_t(x), _t(y), torch.Generator().manual_seed(6))
+        gen = torch.Generator().manual_seed(5)
+        t = torch.randint(0, 1000, (2,), generator=gen)
+        noise = torch.randn((2, 27, 17, 3), generator=gen)
+        d = port.train_predict(_t(x), _t(y), t=t, noise=noise)
+    assert torch.equal(a, b) and torch.equal(a, d) and not torch.equal(a, c)

@@ -1,5 +1,5 @@
 """The `clock64` stamp scripts of K4's passes (`scripts/k4_dx_stamps.py`,
-`scripts/k4_w_stamps.py`) and the dx pass's A/B script
+`scripts/k4_w_stamps.py`, each pass's kernel at every width) and the dx pass's A/B script
 (`scripts/k4_dx_variants.py`) edit a copy of `csrc/mlp_ln_bwd.cu` at
 anchors in its text and stop on the card if one is gone. Here, on the CPU,
 every variant's anchors are found once in today's source and each phase
@@ -38,10 +38,26 @@ def test_dx_pass_stamps_apply(tmp_path, variant):
     assert len(v["phases"]) <= 16  # the device array's row
 
 
-def test_weight_pass_stamps_apply(tmp_path):
-    text = _stamped(tmp_path, k4_w_stamps._KERNEL, k4_w_stamps.EDITS)
-    for k in range(len(k4_w_stamps.PHASES)):
-        assert f"KASF_STAMP({k})" in text
+@pytest.mark.parametrize("variant", sorted(k4_w_stamps.VARIANTS))
+def test_weight_pass_stamps_apply(tmp_path, variant):
+    """Each weight-pass kernel's copy (the cluster kernel at C = 256 and
+    512, the one-block kernel at 128, the 3xTF32 kernel at 64) holds one
+    stamp a phase (and the macro's definition), the device array and the
+    reader; the 3xTF32 kernel's diagnostic edits apply on top of them."""
+    v = k4_w_stamps.VARIANTS[variant]
+    text = _stamped(tmp_path, v["kernel"], v["edits"] + v.get("mma_only", []))
+    stamps = {f"KASF_STAMP({k})" for k in range(len(v["phases"]))}
+    assert all(text.count(s) == 1 for s in stamps), variant
+    assert text.count("KASF_STAMP(") == 1 + len(stamps)
+    assert "kasf_stamp_sums[2][16]" in text and "kasf_stamps(" in text
+    assert len(v["phases"]) <= 16 and set(v["once"]) < set(range(len(v["phases"])))
+
+
+def test_weight_stamps_pick_each_widths_kernel():
+    """C = 64 stamps the 3xTF32 kernel, 128 the one-block one, 256 and 512
+    the cluster one."""
+    assert [k4_w_stamps.variant_of(c, SOURCE) for c in (64, 128, 256, 512)] == [
+        "tc", "one-block", "cluster", "cluster"]
 
 
 def test_dx_stamps_pick_each_widths_kernel():
