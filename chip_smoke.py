@@ -142,6 +142,7 @@ import argparse
 import contextlib
 import copy
 import http.client
+import itertools
 import json
 import os
 import statistics
@@ -466,15 +467,15 @@ def k4_widths() -> tuple:
 # block a tile (a hidden chunk and row split) at C = 128 and a cluster of two
 # at 256 and 512 (and one block at every width in a tree from before its
 # cluster, kept for A/B runs), the dx pass at C = 64 one block of two
-# warp groups and the weight pass at C = 64 one block on the tensor cores
-# (each one block of C = 128's kind in an older tree), so each goes by all
-# its kernels' names
+# warp groups, the weight pass at C = 64 one block on the tensor cores and
+# the reduce at C = 64 its segment kernel (each of C = 128's kind in an
+# older tree), so each goes by all its kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
                ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel",
                             "mlp_ln_bwd_dx_wg_kernel")),
                ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel",
                                 "mlp_ln_bwd_w_tc_kernel")),
-               ("reduce", ("mlp_ln_bwd_reduce_kernel",)))
+               ("reduce", ("mlp_ln_bwd_reduce_kernel", "mlp_ln_bwd_reduce_seg_kernel")))
 
 
 def k4_launch_ms(call, iters: int) -> dict:
@@ -1618,8 +1619,58 @@ def check_k2(dev, out_dir: str) -> dict:
     from kasportsformer_torch.ops import attention
     if 64 in attention.LIMITS["masked_sdpa_bwd"][0]:  # an older tree has D = 16 only
         rows.update(check_k2_zoo(dev, gen, tol))
+        check_k2_digests(dev)
     write_k2_report(out_dir)
     return rows
+
+
+# k2_digests on an H100 before K2's tile at heads of 8 took eight heads: the
+# outputs at the other head widths, whose instantiations that change left alone
+K2_DIGESTS = {
+    (16, "float32"): "e71fbeea5386 06b6bd4608f3 1a8ab6c33868",
+    (16, "bfloat16"): "8f5720e19966 60ffe5abb901 36c215381941",
+    (32, "float32"): "6f58124588bb 71721f088f17 a63594cb7fb5",
+    (32, "bfloat16"): "a53e72a2057a bff9f178506f 6c47a390d624",
+    (64, "float32"): "3f0f91e1518e 544eccee4af0 17376d4cc065",
+    (64, "bfloat16"): "9e59b20a793a f53921278821 f6974a2ec060"}
+
+
+def check_k2_digests(dev) -> None:
+    """K2 at heads of 16, 32 and 64 in both dtypes gives bit for bit the dq,
+    dk and dv of `K2_DIGESTS`; raises where one differs."""
+    got = k2_digests(dev)
+    changed = [key for key, want in K2_DIGESTS.items() if got[key] != want]
+    log(f"   K2 at heads of 16, 32 and 64 (8 heads, batch 32, temporal views, f32 and bf16): "
+        f"dq, dk and dv's SHA-1 digests {'equal' if not changed else 'NOT equal'} to those "
+        f"before the tile at heads of 8 took eight heads" + (f": changed at {changed}"
+                                                              if changed else ""))
+    if changed:
+        raise AssertionError(f"K2's outputs changed at (D, dtype) {changed}")
+
+
+def k2_digests(dev) -> dict:
+    """SHA-1 (12 hex digits) of K2's dq, dk and dv on the seeded inputs of
+    `scripts/torch_ab.sh digest` (generator seed 11): at heads of 16, 32 and
+    64, each in float32 and bfloat16, 8 heads on the temporal views of a
+    (32, 27, 17, 24 D) qkv projection with a transposed gradient;
+    {(d, dtype name): "dq dk dv"}."""
+    import hashlib
+
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for d in (16, 32, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(32, 27, 17, 24 * d, device=dev, generator=gen).to(dt)
+            g = torch.randn(32, 27, 17, 8 * d, device=dev, generator=gen).to(dt)
+            q, k, v = (z.transpose(1, 2) for z in qkv.split(8 * d, dim=-1))
+            grads = masked_sdpa_bwd(q, k, v, g.transpose(1, 2), d ** -0.5, 8)
+            out[(d, str(dt).split(".")[1])] = " ".join(
+                hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12] for t in grads)
+    return out
 
 
 def check_k2_zoo(dev, gen, tol: dict) -> dict:
@@ -2001,9 +2052,12 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
 
 def check_k4_reduce(dev, gen, per: dict) -> None:
     """K4's reduce alone (`fused_mlp_ln_bwd_reduce`) on seeded partials of
-    the step's shapes, held bit for bit against its plain version on the
+    the step's shapes, the flagship's C/H 128/512 and, where the tree's K4
+    takes it, MotionAGFormer-XS's and hierarchical's 64/256 (its segment
+    grid), held bit for bit against its plain version on the
     card (dls2, grouped otherwise, within K4's limit); its time (events, and
-    the profiler's device time a launch), bound, share, grid, registers and
+    the profiler's device time a launch), bound, share, grid (and the SMs
+    it covers), registers and
     spills (a spill fails the phase), beside `torch.sum` over the weight
     partials' split axis, a library yardstick of that part only. Then the
     reduce's device time alone on a warm workspace, after a copy that
@@ -2020,45 +2074,53 @@ def check_k4_reduce(dev, gen, per: dict) -> None:
                                               fused_mlp_ln_bwd_reduce_reference)
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    hidden, grads = 512, 4 * (2 * 128 * 512 + 512 + 5 * 128)
-    for dt in (torch.float32, torch.bfloat16):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widths = [(128, 512)] + [(c, h) for c, h in k4_widths() if c == 64]
+    for (c, hidden), dt, m in itertools.product(widths, (torch.float32, torch.bfloat16),
+                                                (14688, 1377)):
         dname = str(dt).split(".")[1]
-        for m in (14688, 1377):
-            p = fused_mlp_ln_bwd_partition(m, hidden)
-            n_dx = p["dx_tiles"] * 3 * 128
-            work = torch.randn(_bwd_workspace_size(m, hidden), device=dev, generator=gen)
-            w2 = torch.randn(128, hidden, device=dev, generator=gen).mul(
-                hidden ** -0.5).to(dt)
-            b2 = torch.randn(128, device=dev, generator=gen).mul(0.1).to(dt)
-            ls2 = torch.rand(128, device=dev, generator=gen)
-            args = (work, w2, b2, ls2, m)
-            got = fused_mlp_ln_bwd_reduce(*args)
-            want = fused_mlp_ln_bwd_reduce_reference(*args)
-            same = [torch.equal(a, b) for a, b in zip(got[:6], want[:6])]
-            err = sum_err(got[6], want[6])
-            if not all(same) or err > tol[dt]:
-                raise AssertionError(
-                    f"K4 reduce alone M={m} {dname}: bitwise equal "
-                    f"{dict(zip(_MLP_GRADS[1:7], same))}, dls2 err {err:.2e}")
-            ms = time_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 50)
-            launch = k4_launch_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 20).get(
-                "reduce", float("nan"))  # nan: the profiler saw no launch
-            plain = time_ms(lambda: fused_mlp_ln_bwd_reduce_reference(*args), 5)
-            part_w = work[n_dx:].view(p["splits"], -1)
-            lib = time_ms(lambda: torch.sum(part_w, 0), 50)
-            bms, by = bound_ms(4 * work.numel() + w2.numel() * w2.element_size()
-                               + grads, 0, dname)
-            info = fused_mlp_ln_bwd_kernel_info(dt, m, hidden)["reduce"]
-            log(f"   K4 reduce alone M={m:6d} {dname:8s} six gradients bitwise equal "
-                f"to plain, dls2 err {err:.2e} (limit {tol[dt]:.0e}); kernel "
-                f"{ms:.4f} ms (events), {launch:.4f} ms a launch (profiler)  "
-                f"plain {plain:.4f}  bound {bms:.4f} ({by}; {bms / launch:.1%} "
-                f"of a launch)  torch.sum over the weight partials' splits "
-                f"(yardstick of that part only) {lib:.4f}; grid {info['blocks']} "
-                f"x {info['threads']}, registers {info['registers']}, spills "
-                f"{info['spill_bytes']} B, {info['blocks_per_sm']} blocks a SM")
-            if info["spill_bytes"] != 0:
-                raise AssertionError(f"K4 reduce {dname} spills: {info}")
+        grads = 4 * (2 * c * hidden + hidden + 5 * c)
+        p = (fused_mlp_ln_bwd_partition(m, hidden) if c == 128 else
+             fused_mlp_ln_bwd_partition(m, hidden, c))
+        n_dx = p["dx_tiles"] * 3 * c
+        size = (_bwd_workspace_size(m, hidden) if c == 128 else
+                _bwd_workspace_size(m, hidden, c))
+        work = torch.randn(size, device=dev, generator=gen)
+        w2 = torch.randn(c, hidden, device=dev, generator=gen).mul(
+            hidden ** -0.5).to(dt)
+        b2 = torch.randn(c, device=dev, generator=gen).mul(0.1).to(dt)
+        ls2 = torch.rand(c, device=dev, generator=gen)
+        args = (work, w2, b2, ls2, m)
+        got = fused_mlp_ln_bwd_reduce(*args)
+        want = fused_mlp_ln_bwd_reduce_reference(*args)
+        same = [torch.equal(a, b) for a, b in zip(got[:6], want[:6])]
+        err = sum_err(got[6], want[6])
+        if not all(same) or err > tol[dt]:
+            raise AssertionError(
+                f"K4 reduce alone M={m} {dname}: bitwise equal "
+                f"{dict(zip(_MLP_GRADS[1:7], same))}, dls2 err {err:.2e}")
+        ms = time_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 50)
+        launch = k4_launch_ms(lambda: fused_mlp_ln_bwd_reduce(*args), 20).get(
+            "reduce", float("nan"))  # nan: the profiler saw no launch
+        plain = time_ms(lambda: fused_mlp_ln_bwd_reduce_reference(*args), 5)
+        part_w = work[n_dx:].view(p["splits"], -1)
+        lib = time_ms(lambda: torch.sum(part_w, 0), 50)
+        bms, by = bound_ms(4 * work.numel() + w2.numel() * w2.element_size()
+                           + grads, 0, dname)
+        info = (fused_mlp_ln_bwd_kernel_info(dt, m, hidden) if c == 128 else
+                fused_mlp_ln_bwd_kernel_info(dt, m, hidden, c=c))["reduce"]
+        log(f"   K4 reduce alone C/H={c}/{hidden} M={m:6d} {dname:8s} six gradients "
+            f"bitwise equal to plain, dls2 err {err:.2e} (limit {tol[dt]:.0e}); kernel "
+            f"{ms:.4f} ms (events), {launch:.4f} ms a launch (profiler)  "
+            f"plain {plain:.4f}  bound {bms:.4f} ({by}; {bms / launch:.1%} "
+            f"of a launch)  torch.sum over the weight partials' splits "
+            f"(yardstick of that part only) {lib:.4f}; grid {info['blocks']} "
+            f"x {info['threads']} on {sms} SMs ({info['blocks'] / sms:.2f} a SM), "
+            f"registers {info['registers']}, shared memory {info['smem_bytes']} B, "
+            f"spills {info['spill_bytes']} B, {info['blocks_per_sm']} blocks a SM")
+        if info["spill_bytes"] != 0:
+            raise AssertionError(f"K4 reduce C={c} {dname} spills: {info}")
+    hidden = 512
     # the reduce's device time a launch (f32, M = 14,688) after each prefix
     work = torch.randn(_bwd_workspace_size(14688, hidden), device=dev, generator=gen)
     src = work.clone()

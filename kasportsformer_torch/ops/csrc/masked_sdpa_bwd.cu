@@ -19,16 +19,16 @@
 //
 // Design:
 //  * Unit of work: one (sequence, head group) tile, HG = 64 / D heads (W = 64
-//    channels; four heads of 8, W = 32, at D = 8; a last group of fewer
-//    heads, C not a multiple of W, loads and computes only its heads). Persistent blocks (SMs x 2, at most one a
+//    channels; a last group of fewer heads, C not a multiple of W, loads and
+//    computes only its heads). Persistent blocks (SMs x 2, at most one a
 //    tile) walk the tiles in order through a two-stage ring: while tile t
 //    computes, the block's last warp copies tile t + grid into the other
 //    stage by 16-byte cp.async.cg copies (kasf_mma::cp_async16) and each of
 //    its lanes arrives on the stage's mbarrier once its copies have landed
 //    (cp.async.mbarrier.arrive); the other warps compute no tile indices
 //    but the output offset. A stage holds q, k, v and g of a tile, 32 rows
-//    (N padded) x W channels, each row padded by 16 bytes; rows N..31 are
-//    zeroed once and never written again. The loader takes all four leading
+//    (N padded; 4 NB at D = 8) x W channels, each row padded by 16 bytes;
+//    padded rows are zeroed once and never written again. The loader takes all four leading
 //    strides of each operand (column slices of one qkv projection, the
 //    (B,T,J,C)->(B,J,T,C) permutation, a transposed gradient), channel
 //    stride 1, rows on 16-byte boundaries.
@@ -79,16 +79,29 @@
 //    every D (P^T and dS^T shrink with the heads), and pass 2's lanes (16 NB
 //    and 8 NB of them) too.
 //  * D = 8 (MotionAGFormer-XS and hierarchical: C = 64 over 8 heads) takes
-//    a tile of four heads, 32 channels: P^T and dS^T of four heads as at D =
-//    16 beside half the ring, ~74 KB a block, so two or more blocks a SM
-//    still overlap one's loads with another's products. (A 64-channel tile
-//    of eight heads would need ~144 KB, one block a SM, the layout that
-//    measured 10-20 % slower at D = 16.) Pass 1 gives a (head, row block)
-//    four lanes as at D = 16, each over the whole 8-channel head: two float4
-//    dots a key and row, no lane map of its own. Pass 2's lanes are 2 NB and
-//    NB a head. A sequence of C = 64 is two tiles, so the grid walks twice
-//    the tiles of half the bytes. The instantiations at D = 16, 32 and 64
-//    are the code before D = 8 was added.
+//    a tile of eight heads, one sequence's 64 channels, so the launch walks
+//    as many tiles as sequences, each of D = 16's bytes. A tile's time is
+//    set by its lanes' chains of dependent shared-memory reads, not by its
+//    FMAs, and the chains are as long at eight heads as at four: pass 1
+//    gives a (head, row block) four lanes, each over the whole 8-channel
+//    head (two float4 dots a key and row: 160 lanes at N = 17, 224 at 27),
+//    pass 2 2 NB dV, dK lanes a head, as D = 16's four heads have. What kept
+//    eight heads out was shared memory: P^T, dS^T and the ring sized by the
+//    32-row stage took ~144 KB, one block a SM. At D = 8 they are sized by
+//    the instantiation's 4 NB rows (kRows): 70,416 B at N = 17 and 112,912 B
+//    at N = 27 in f32 (114,704 B in bf16), so two blocks a SM overlap one's
+//    loads with the other's products up to N = 28; N = 29..32 takes ~145 KB,
+//    one block a SM. Eight heads put a warp's pass-2 lanes on 16 (head, key
+//    block) pairs, whose reads of P^T and dS^T fell on two groups of banks
+//    (8-way conflicts: a block of four keys is 4 x pitch floats, a multiple
+//    of 16); a float4 of padding a key block and heads 4 mod 8 floats apart
+//    spread them over all eight. Pass 1 packs its groups row blocks
+//    fastest there, so a quarter warp's two groups read the same keys, and
+//    pass 2's dq lanes take four channels, so its lanes fill all eight
+//    warps. 0.0175 / 0.0199 ms spatial / temporal in f32 at batch 32 (XS's
+//    step) against 0.0257 / 0.0250 for four heads a tile, on an H100 80GB
+//    HBM3 at 700 W. The instantiations at D = 16, 32 and 64 compute what
+//    they did before D = 8 was added, bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -109,38 +122,59 @@ using kasf_mma::mbar_init;
 using kasf_mma::mbar_wait;
 using kasf_mma::pack_bf16;
 
-constexpr int kMaxN = 32;   // rows a stage holds: N padded
+constexpr int kMaxN = 32;   // the longest N; rows a stage holds at D >= 16
 constexpr int kMaxC = 512;  // the widest model's channels
 constexpr int kStages = 2;  // the ring of cp.async copies
 constexpr int kMaxDevices = 64;
+constexpr int kSmemPerSM = 233472;  // the H100's shared memory a SM: 228 KB
 
 struct BwdStrides {
   long long q[4], k[4], v[4], g[4];
 };
 
-template <typename T, int D>
+template <typename T, int D, int NB>
 struct Tile {
   static_assert(D == 8 || D == 16 || D == 32 || D == 64, "heads of 8, 16, 32 or 64 channels");
-  static constexpr int HG = D == 8 ? 4 : 64 / D;   // heads a group
-  static constexpr int W = HG * D;                 // channels a group: 64 (32 at D = 8)
+  static_assert(NB >= 1 && 4 * NB <= kMaxN, "blocks of four rows");
+  static constexpr int HG = 64 / D;                // heads a group
+  static constexpr int W = HG * D;                 // channels a group: 64
   static constexpr int kSplit = D == 8 ? 1 : D / 16;  // pass 1's lanes a (head, row block): 4 kSplit
   static constexpr int kThreads = 256;
-  static constexpr int kMinBlocks = 2;             // blocks a SM, as shared memory allows
   static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // 16 bytes
+  // rows a stage holds, N padded: at D = 8 the instantiation's 4 NB, so that
+  // two blocks a SM hold eight heads' P^T, dS^T and ring up to N = 28; at
+  // D = 16, 32 and 64 the 32 of every NB
+  static constexpr int kRows = D == 8 ? 4 * NB : kMaxN;
   static constexpr int kRingPitch = W + kChunk;    // elements a ring row
-  static constexpr int kRingStage = 4 * kMaxN * kRingPitch;  // q, k, v, g
+  static constexpr int kRingStage = 4 * kRows * kRingPitch;  // q, k, v, g
   static constexpr int kPitch = W + 4;             // floats a row of the f32 stage
-  static constexpr int kStage = 4 * kMaxN * kPitch;
-  static constexpr int kPPitch = kMaxN + 4;        // floats a key of P^T, dS^T
-  static constexpr int kPHead = kMaxN * kPPitch + 16;  // a head's: heads 16 banks apart
+  static constexpr int kStage = 4 * kRows * kPitch;
+  // floats a key of P^T, dS^T: 4 mod 8, so a lane's four keys of one store
+  // lie in four distinct groups of four banks (kRows + 4 at 32 rows)
+  static constexpr int kPPitch = D == 8 ? 4 * (NB | 1) : kMaxN + 4;
+  // floats a block of four keys: at D = 8 one float4 more (20 mod 32), so
+  // the key blocks of a warp's pass-2 reads of P^T and dS^T fall on
+  // distinct banks; a head's keys 4 mod 8 floats apart there (16 banks
+  // apart at D >= 16)
+  static constexpr int kPBlock = 4 * kPPitch + (D == 8 ? 4 : 0);
+  static constexpr int kPKeys = kRows / 4 * kPBlock;
+  static constexpr int kPHead = D == 8 ? kPKeys + (kPKeys % 8 == 4 ? 0 : 4)
+                                       : kPKeys + (48 - kPKeys % 32) % 32;
+  // key j's offset in a head's P^T or dS^T
+  __host__ __device__ static constexpr int key(int j) {
+    return (j >> 2) * kPBlock + (j & 3) * kPPitch;
+  }
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kRingBytes = kStages * kRingStage * static_cast<int>(sizeof(T));
   static constexpr int kPBytes = 2 * HG * kPHead * 4;  // P^T and dS^T
   static constexpr int kBarBytes = 16;             // an mbarrier a ring stage
   static constexpr int kStageBytes = kF32 ? 0 : kStage * 4;  // bf16: the widened copy
   static constexpr int kSmem = kRingBytes + kStageBytes + kPBytes + kBarBytes;
+  // blocks a SM, as shared memory allows (1 KB of it reserved a block):
+  // two, or one at D = 8 and N > 28, which may then take 255 registers
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmemPerSM ? 2 : 1;
   static_assert(kF32 == (kRingPitch == kPitch), "an f32 ring stage is the f32 stage");
-  static_assert(D % 8 == 0, "dq's lanes take eight channels of a head");
+  static_assert(D % 8 == 0, "dq's lanes take four or eight channels of a head");
 };
 
 // leading stride a (0..2) of operand z (q, k, v, g)
@@ -169,13 +203,13 @@ __device__ __forceinline__ TileBase tile_base(int t, int groups, int N, int C, i
 // stage by 16-byte cp.async copies (lane l takes chunk l % R of rows
 // l / R, l / R + 32 / R, ..., R the chunks a row), then one arrival each on
 // the stage's mbarrier once its copies have landed
-template <typename T, int D>
+template <typename T, int D, int NB>
 __device__ __forceinline__ void load_tile(T* stage, unsigned long long* bar,
                                           const T* __restrict__ q, const T* __restrict__ k,
                                           const T* __restrict__ v, const T* __restrict__ g,
                                           const BwdStrides& st, const TileBase& tb, int G,
                                           int N, int lane) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   constexpr int kRowChunks = Tl::W / Tl::kChunk;
   constexpr int kRowStep = 32 / kRowChunks;  // rows a pass of the warp
   const int ch = lane % kRowChunks;
@@ -189,9 +223,9 @@ __device__ __forceinline__ void load_tile(T* stage, unsigned long long* bar,
       const long long rs = stride(st, z, 2);
       const T* src = (z == 0 ? q : z == 1 ? k : z == 2 ? v : g) + b * stride(st, z, 0) +
                      gi * stride(st, z, 1) + row * rs + c0;
-      T* dst = stage + (z * kMaxN + row) * Tl::kRingPitch + ch * Tl::kChunk;
+      T* dst = stage + (z * Tl::kRows + row) * Tl::kRingPitch + ch * Tl::kChunk;
 #pragma unroll 4
-      for (int u = 0; u < kMaxN / kRowStep; ++u)
+      for (int u = 0; u < (Tl::kRows + kRowStep - 1) / kRowStep; ++u)
         if (row + u * kRowStep < N)
           cp_async16(dst + u * kRowStep * Tl::kRingPitch, src + u * kRowStep * rs);
     }
@@ -199,26 +233,26 @@ __device__ __forceinline__ void load_tile(T* stage, unsigned long long* bar,
   cp_async_arrive(bar);
 }
 
-// bf16: rows 0..N-1 of a landed ring stage widened into the f32 stage (rows
-// N..31 of the f32 stage stay zero); a thread widens four channels at a time,
+// bf16: rows 0..N-1 of a landed ring stage widened into the f32 stage (its
+// padded rows stay zero); a thread widens four channels at a time,
 // neighbouring threads on neighbouring 16-byte stores
-template <int D>
+template <int D, int NB>
 __device__ __forceinline__ void widen_tile(const __nv_bfloat16* ring, float* stage,
                                            int heads, int N) {
-  using Tl = Tile<__nv_bfloat16, D>;
+  using Tl = Tile<__nv_bfloat16, D, NB>;
   constexpr int kRowQuads = Tl::W / 4;
   constexpr int kRowStep = Tl::kThreads / kRowQuads;
   const int c4 = threadIdx.x % kRowQuads;
   if (c4 >= heads * D / 4) return;
 #pragma unroll
-  for (int u = 0; u < kMaxN / kRowStep; ++u) {
+  for (int u = 0; u < (Tl::kRows + kRowStep - 1) / kRowStep; ++u) {
     const int row = threadIdx.x / kRowQuads + u * kRowStep;
     if (row < N) {
 #pragma unroll
       for (int z = 0; z < 4; ++z) {
         const uint2 w = *reinterpret_cast<const uint2*>(
-            ring + (z * kMaxN + row) * Tl::kRingPitch + 4 * c4);
-        *reinterpret_cast<float4*>(stage + (z * kMaxN + row) * Tl::kPitch + 4 * c4) =
+            ring + (z * Tl::kRows + row) * Tl::kRingPitch + 4 * c4);
+        *reinterpret_cast<float4*>(stage + (z * Tl::kRows + row) * Tl::kPitch + 4 * c4) =
             make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
       }
     }
@@ -270,23 +304,25 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4& x) {
 template <typename T, int D, int NB>
 __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst, int heads,
                                       int N, float scale) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   constexpr float kLog2e = 1.4426950408889634f;
   constexpr int S = Tl::kSplit;
   constexpr int L = 4 * S;              // lanes a (head, row block)
-  constexpr int NK = (NB + S - 1) / S;  // keys a lane: kl + L k < 4 S NK <= kMaxN
-  static_assert(L * NK <= kMaxN, "a lane's keys lie in the stage's rows");
+  constexpr int NK = (NB + S - 1) / S;  // keys a lane: kl + L k < 4 S NK <= kRows
+  static_assert(L * NK <= Tl::kRows, "a lane's keys lie in the stage's rows");
   const int groups = heads * NB;
   if (static_cast<int>(threadIdx.x >> 5) * 8 >= groups * S) return;  // the whole warp is idle
   const int grp = threadIdx.x / L;
   const bool valid = grp < groups;  // invalid groups compute group 0, store nothing
-  const int ib = valid ? grp / heads : 0;
-  const int h = valid ? grp - ib * heads : 0;
+  // heads fastest (at D = 16 a quarter warp's two groups 16 banks apart), at
+  // D = 8 row blocks fastest (a quarter warp's two groups read the same keys)
+  const int ib = !valid ? 0 : D == 8 ? grp % NB : grp / heads;
+  const int h = !valid ? 0 : D == 8 ? grp / NB : grp - ib * heads;
   const int kl = threadIdx.x % L;
   const float* qs = stage + 4 * ib * Tl::kPitch + h * D;
-  const float* gs = qs + 3 * kMaxN * Tl::kPitch;
-  const float* ks = stage + (kMaxN + kl) * Tl::kPitch + h * D;
-  const float* vs = ks + kMaxN * Tl::kPitch;
+  const float* gs = qs + 3 * Tl::kRows * Tl::kPitch;
+  const float* ks = stage + (Tl::kRows + kl) * Tl::kPitch + h * D;
+  const float* vs = ks + Tl::kRows * Tl::kPitch;
 
   float s[4][NK], dp[4][NK];
 #pragma unroll
@@ -361,8 +397,8 @@ __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst,
 #pragma unroll
     for (int r = 0; r < 4; ++r) rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], o);
   if (!valid) return;
-  float* pj = pt + h * Tl::kPHead + kl * Tl::kPPitch + 4 * ib;
-  float* dj = dst + h * Tl::kPHead + kl * Tl::kPPitch + 4 * ib;
+  float* pj = pt + h * Tl::kPHead + 4 * ib;
+  float* dj = dst + h * Tl::kPHead + 4 * ib;
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     float4 ds;
@@ -370,9 +406,9 @@ __device__ __forceinline__ void pass1(const float* stage, float* pt, float* dst,
     ds.y = s[1][k] * (dp[1][k] - rs[1]) * scale;
     ds.z = s[2][k] * (dp[2][k] - rs[2]) * scale;
     ds.w = s[3][k] * (dp[3][k] - rs[3]) * scale;
-    *reinterpret_cast<float4*>(pj + L * k * Tl::kPPitch) =
+    *reinterpret_cast<float4*>(pj + Tl::key(kl + L * k)) =
         make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
-    *reinterpret_cast<float4*>(dj + L * k * Tl::kPPitch) = ds;
+    *reinterpret_cast<float4*>(dj + Tl::key(kl + L * k)) = ds;
   }
 }
 
@@ -398,58 +434,63 @@ __device__ __forceinline__ void outer_step(float4 (&acc)[4], const float4 (&w)[4
     fma4(acc[t], w[t].w, x[3]);
   }
 }
-// dq's operands of step j2 (keys 2 j2, 2 j2 + 1): dS^T of the four rows,
-// eight channels of k
-template <int PP, int P>
+// dq's operands of step j2 (keys 2 j2, 2 j2 + 1): dS^T of the four rows
+// (key j at Tl::key(j)), 4 Q channels of k (pitch P)
+template <typename Tl, int P, int Q>
 __device__ __forceinline__ void load_keys(const float* ds, const float* ks, int j2,
-                                          float4 (&w)[2], float4 (&x)[2][2]) {
+                                          float4 (&w)[2], float4 (&x)[2][Q]) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int j = 2 * j2 + e;
-    w[e] = *reinterpret_cast<const float4*>(ds + j * PP);
-    x[e][0] = *reinterpret_cast<const float4*>(ks + j * P);
-    x[e][1] = *reinterpret_cast<const float4*>(ks + j * P + 4);
+    w[e] = *reinterpret_cast<const float4*>(ds + Tl::key(j));
+#pragma unroll
+    for (int c = 0; c < Q; ++c) x[e][c] = *reinterpret_cast<const float4*>(ks + j * P + 4 * c);
   }
 }
-__device__ __forceinline__ void dq_step(float4 (&acc)[4][2], const float4 (&w)[2],
-                                        const float4 (&x)[2][2]) {
+template <int Q>
+__device__ __forceinline__ void dq_step(float4 (&acc)[4][Q], const float4 (&w)[2],
+                                        const float4 (&x)[2][Q]) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const float wt[4] = {w[e].x, w[e].y, w[e].z, w[e].w};
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      fma4(acc[t][0], wt[t], x[e][0]);
-      fma4(acc[t][1], wt[t], x[e][1]);
-    }
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < Q; ++c) fma4(acc[t][c], wt[t], x[e][c]);
   }
 }
 
 // ---- pass 2, from P^T and dS^T: lanes 0 .. nA - 1 take (head, key block
 // of four, four channels) and sum dV = P^T g and dK = dS^T q over the rows,
 // four rows a step (16-byte reads of P^T and dS^T), the next step's reads
-// issued before this step's FMAs; from the next warp on,
-// lanes take (head, row block of four, eight channels) and sum dq = dS k
-// over the keys. Every sum runs over the padded rows or keys in order
-// (their entries are zero, or finite P and dS of a padded row times a zero
-// row): no guard, no atomics, each output element one fixed sum
+// issued before this step's FMAs; from the next warp on, lanes take
+// (head, row block of four, 4 Q channels: eight, four at D = 8) and sum
+// dq = dS k over the keys. At D = 8 the four-channel dq lanes fill warps
+// 4-7 about as the dV, dK lanes fill warps 0-3, so each scheduler issues
+// one warp of each (eight-channel ones left two schedulers two full warps
+// of the tile's longest chains). Every sum runs over the padded rows or
+// keys in order (their entries are zero, or finite P and dS of a padded
+// row times a zero row): no guard, no atomics, each output element one
+// fixed sum
 template <typename T, int D, int NB>
 __device__ __forceinline__ void pass2(const float* stage, const float* pt, const float* dst,
                                       T* __restrict__ dq, T* __restrict__ dk,
                                       T* __restrict__ dv, const TileBase& tb, int N, int C) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   const int nA = tb.heads * NB * (D / 4);
   const int offB = (nA + 31) & ~31;
-  const int nB = tb.heads * NB * (D / 8);
+  constexpr int Q = D == 8 ? 1 : 2;  // dq's float4s a lane
+  const int nB = tb.heads * NB * (D / (4 * Q));
   const int u = threadIdx.x;
   if (u < nA) {
     const int c4 = u % (D / 4);
     const int hk = u / (D / 4);
     const int h = hk / NB;
     const int kb = hk - h * NB;
-    const float* pth = pt + h * Tl::kPHead + 4 * kb * Tl::kPPitch;
-    const float* dsh = dst + h * Tl::kPHead + 4 * kb * Tl::kPPitch;
+    const float* pth = pt + h * Tl::kPHead + kb * Tl::kPBlock;
+    const float* dsh = dst + h * Tl::kPHead + kb * Tl::kPBlock;
     const float* qs = stage + h * D + 4 * c4;
-    const float* gs = qs + 3 * kMaxN * Tl::kPitch;
+    const float* gs = qs + 3 * Tl::kRows * Tl::kPitch;
     // four rows a step, (P^T, g) then (dS^T, q): the next half's reads
     // are issued before this half's FMAs
     float4 dva[4], dka[4], wa[4], xa[4], wb[4], xb[4];
@@ -473,31 +514,33 @@ __device__ __forceinline__ void pass2(const float* stage, const float* pt, const
       }
     }
   } else if (u >= offB && u - offB < nB) {
-    const int c8 = (u - offB) % (D / 8);
-    const int hr = (u - offB) / (D / 8);
+    const int cq = (u - offB) % (D / (4 * Q));
+    const int hr = (u - offB) / (D / (4 * Q));
     const int h = hr / NB;
     const int rb = hr - h * NB;
     const float* dsh = dst + h * Tl::kPHead + 4 * rb;
-    const float* ks = stage + kMaxN * Tl::kPitch + h * D + 8 * c8;
+    const float* ks = stage + Tl::kRows * Tl::kPitch + h * D + 4 * Q * cq;
     // two keys a step, the next step's reads issued before this step's FMAs
-    float4 acc[4][2], wa[2], ka[2][2], wb[2], kb2[2][2];
+    float4 acc[4][Q], wa[2], ka[2][Q], wb[2], kb2[2][Q];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-    load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, 0, wa, ka);
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < Q; ++c) acc[t][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    load_keys<Tl, Tl::kPitch, Q>(dsh, ks, 0, wa, ka);
 #pragma unroll
     for (int j2 = 0; j2 < 2 * NB; j2 += 2) {
-      load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, j2 + 1, wb, kb2);
-      dq_step(acc, wa, ka);
-      if (j2 + 2 < 2 * NB) load_keys<Tl::kPPitch, Tl::kPitch>(dsh, ks, j2 + 2, wa, ka);
-      dq_step(acc, wb, kb2);
+      load_keys<Tl, Tl::kPitch, Q>(dsh, ks, j2 + 1, wb, kb2);
+      dq_step<Q>(acc, wa, ka);
+      if (j2 + 2 < 2 * NB) load_keys<Tl, Tl::kPitch, Q>(dsh, ks, j2 + 2, wa, ka);
+      dq_step<Q>(acc, wb, kb2);
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const int i = 4 * rb + t;
       if (i < N) {
-        const long long off = tb.o + static_cast<long long>(i) * C + h * D + 8 * c8;
-        store4(dq + off, acc[t][0]);
-        store4(dq + off + 4, acc[t][1]);
+        const long long off = tb.o + static_cast<long long>(i) * C + h * D + 4 * Q * cq;
+#pragma unroll
+        for (int c = 0; c < Q; ++c) store4(dq + off + 4 * c, acc[t][c]);
       }
     }
   }
@@ -506,13 +549,13 @@ __device__ __forceinline__ void pass2(const float* stage, const float* pt, const
 // ------------------------------------------------------------------ kernel
 
 template <typename T, int D, int NB>
-__global__ void __launch_bounds__(Tile<T, D>::kThreads, Tile<T, D>::kMinBlocks)
+__global__ void __launch_bounds__(Tile<T, D, NB>::kThreads, Tile<T, D, NB>::kMinBlocks)
 masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ g,
                        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
                        BwdStrides st, int tiles, int groups, int G, int N, int C, int H,
                        float scale) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   extern __shared__ uint4 smem[];
   char* base = reinterpret_cast<char*>(smem);
   T* ring = reinterpret_cast<T*>(smem);
@@ -524,7 +567,7 @@ masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const bool loader = threadIdx.x >> 5 == Tl::kThreads / 32 - 1;  // the last warp copies
 
-  // zero everything once: rows N..31 of the stages and the P^T, dS^T entries
+  // zero everything once: padded rows of the stages and the P^T, dS^T entries
   // of padded rows and keys stay zero, since nothing of a launch writes them
   for (int e = threadIdx.x; e < (Tl::kSmem - Tl::kBarBytes) / 16; e += Tl::kThreads)
     smem[e] = make_uint4(0u, 0u, 0u, 0u);
@@ -536,15 +579,16 @@ masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int t = blockIdx.x;  // the grid has at most one block a tile
   TileBase cur = tile_base<Tl::HG, Tl::W>(t, groups, N, C, H);
-  if (loader) load_tile<T, D>(ring, bar, q, k, v, g, st, cur, G, N, lane);
+  if (loader) load_tile<T, D, NB>(ring, bar, q, k, v, g, st, cur, G, N, lane);
   for (int it = 0;; ++it) {
     const int next = t + gridDim.x;
     TileBase nb = cur;
     if (next < tiles) {
       nb = tile_base<Tl::HG, Tl::W>(next, groups, N, C, H);
       if (loader)
-        load_tile<T, D>(ring + ((it + 1) % kStages) * Tl::kRingStage, bar + (it + 1) % kStages,
-                        q, k, v, g, st, nb, G, N, lane);
+        load_tile<T, D, NB>(ring + ((it + 1) % kStages) * Tl::kRingStage,
+                            bar + (it + 1) % kStages,
+                            q, k, v, g, st, nb, G, N, lane);
     }
     mbar_wait(bar + it % kStages, (it / kStages) & 1);  // the tile has landed
     const T* landed = ring + (it % kStages) * Tl::kRingStage;
@@ -552,7 +596,7 @@ masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (Tl::kF32) {
       stage = landed;
     } else {
-      widen_tile<D>(landed, wide, cur.heads, N);
+      widen_tile<D, NB>(landed, wide, cur.heads, N);
       __syncthreads();
       stage = wide;
     }
@@ -571,7 +615,7 @@ masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // there first
 template <typename T, int D, int NB>
 cudaError_t resident_blocks(int* blocks) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   static int cached[kMaxDevices];  // one array per instantiation
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -598,7 +642,7 @@ template <typename T, int D, int NB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq,
                    void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
                    int H, float scale, cudaStream_t stream) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   int resident = 0;
   cudaError_t err = resident_blocks<T, D, NB>(&resident);
   if (err != cudaSuccess) return err;
@@ -618,7 +662,7 @@ template <typename T, int D>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* g, void* dq,
                         void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
                         int H, float scale, cudaStream_t stream) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, 1>;  // the copy unit, as at every NB
   // every row of q, k, v, g and the outputs starts on a 16-byte boundary
   for (const void* p : {q, k, v, g, static_cast<const void*>(dq),
                         static_cast<const void*>(dk), static_cast<const void*>(dv)})
@@ -639,7 +683,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
 
 template <typename T, int D, int NB>
 void describe(int* info) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<T, D, NB>;
   cudaFuncAttributes attr{};
   int resident = 0;
   if (cudaFuncGetAttributes(&attr, masked_sdpa_bwd_kernel<T, D, NB>) != cudaSuccess ||

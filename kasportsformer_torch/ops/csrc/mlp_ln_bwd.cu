@@ -379,6 +379,23 @@
 //       row's dot product goes to shared memory; after a barrier one warp a
 //       row sums the shares in a fixed order and adds b2 times warp 8's sum
 //       of g. Reruns are bitwise equal.
+//     - At C = 64 (mlp_ln_bwd_reduce_seg_kernel, namespace rds) the grid
+//       above made 48 blocks at H = 256 (16 channel blocks, 32 hidden blocks
+//       with half their item threads idle) for 8,192 float4 chains 66
+//       splits deep: 16 loads in flight a thread, five rounds of a load's
+//       latency, 0.0077 ms (35 % of its bound on an H100 80GB HBM3 at
+//       700 W). There each of 132 blocks owns one segment of a split's
+//       partial (a G row of H floats, H / 64 rows of dW1, or a quarter of
+//       db1), so the SMs bring equal bytes, and brings that segment of
+//       every split into shared memory at once by bulk copies, eight splits
+//       an mbarrier (n_w H <= 132 x 128 floats, at most 66 KB, by the
+//       weight pass's split rule), so the launch's bytes are all in flight
+//       from its start; warps 0-3 sum two floats a thread in index order
+//       from +0 as the groups land, warp 4 of a G block the channel's dx
+//       chains as warp 8 does above: 0.0047-0.0051 ms on the same card,
+//       the copies alone 0.0041. (Segments of 128 floats of dW1 and db1,
+//       194 blocks, 1.5 a SM, some SMs twice the bytes of others, took
+//       0.0061 ms.)
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info; the reduce
 //     alone on a caller's workspace: kasf_mlp_ln_bwd_reduce.
 #include <cuda.h>  // CUtensorMap and its encoder's signature (called through the runtime)
@@ -3393,6 +3410,198 @@ mlp_ln_bwd_reduce_kernel(const float* __restrict__ part_dx, int n_dx,
   }
 }
 
+// ---- 3, at C = 64: the reduce over segments (its own grid and helpers)
+namespace rds {
+
+using kasf_mma::bulk_load;
+using kasf_mma::mbar_arm;
+using kasf_mma::mbar_init;
+using kasf_mma::mbar_wait;
+
+constexpr int kC = 64;
+constexpr int kW = 2;                  // floats an item thread sums over the splits
+constexpr int kT = 128;                // item threads: warps 0-3
+constexpr int kTB = kT + 32;           // and warp 4: a G block's dx chains
+constexpr int kDb1Blocks = 4;          // db1 in quarters
+constexpr int kBlocks = 2 * kC + kDb1Blocks;  // 132: G rows, dW1 segments, db1 quarters
+constexpr int kGroup = 8;              // splits an mbarrier
+constexpr int kMaxSplits = wp::kSMs;   // splits <= 132 / (H / 128): n_w H <= 132 x 128
+constexpr int kMaxBars = (kMaxSplits + kGroup - 1) / kGroup;
+constexpr int kDxBuf = 3 * 512;        // floats of dx partials staged at a time: 512 tiles
+static_assert(kMaxBars <= 32, "a lane of warp 0 an mbarrier");
+
+// dynamic shared memory: every split's segment of H floats
+inline int smem_bytes(int H, int n_w) { return n_w * H * static_cast<int>(sizeof(float)); }
+
+// kW neighbouring floats of shared or device memory, as f32
+__device__ __forceinline__ void ldv(float (&v)[kW], const float* p) {
+  if constexpr (kW == 4) {
+    const float4 x = dxp::ld4(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  }
+}
+__device__ __forceinline__ void ldv(float (&v)[kW], const __nv_bfloat16* p) {
+  if constexpr (kW == 4) {
+    const float4 x = dxp::load4(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    const unsigned x = *reinterpret_cast<const unsigned*>(p);
+    v[0] = kasf_mma::bf16_lo(x);
+    v[1] = kasf_mma::bf16_hi(x);
+  }
+}
+__device__ __forceinline__ void stv(float* p, const float (&v)[kW]) {
+  if constexpr (kW == 4)
+    dxp::st4(p, make_float4(v[0], v[1], v[2], v[3]));
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+}  // namespace rds
+
+// K4's reduce at C = 64. The block-wide sums of the C = 128 grid (48 blocks
+// at H = 256, 66 splits deep, half their item threads idle on a hidden
+// block) kept 16 splits of loads in flight a thread and went 5 rounds of a
+// load's latency deep. Here each of 132 blocks owns one contiguous segment
+// of a split's partial, H floats (a G row, H / 64 rows of dW1) or a quarter
+// of db1, so each brings the same bytes, and the lanes of warp 0 issue that
+// segment of every split at once as bulk copies (TMA) into shared memory,
+// eight splits an mbarrier: all of the launch's 8.7 MB is in flight from
+// the start, with no register held for it. Warps 0-3 then sum kW floats a
+// thread over the splits in index order from +0 as the groups land
+// (bitwise the plain loop); in a G block warp 4 sums the dx chains of its
+// channel (dgamma, dbeta, g) over the tiles in order, as the C = 128
+// grid's warp 8 does, and warps 0-3 finish dW2 = ls2 G and dls2 (the
+// row's dot with W2 summed over a thread's floats in order, a butterfly a
+// warp, the warps' sums in order; b2 times g's sum added last).
+template <typename T>
+__global__ void __launch_bounds__(rds::kTB)
+mlp_ln_bwd_reduce_seg_kernel(const float* __restrict__ part_dx, int n_dx,
+                             const float* __restrict__ part_w, int n_w,
+                             const T* __restrict__ w2, const T* __restrict__ b2,
+                             const float* __restrict__ ls2, float* __restrict__ dgamma,
+                             float* __restrict__ dbeta, float* __restrict__ dw1,
+                             float* __restrict__ db1, float* __restrict__ dw2,
+                             float* __restrict__ db2, float* __restrict__ dls2, int H) {
+  using namespace rds;
+  constexpr int C = kC;
+  extern __shared__ uint4 seg_raw[];  // [split][len] floats
+  float* seg = reinterpret_cast<float*>(seg_raw);
+  __shared__ __align__(16) float dxs[kDxBuf];  // [chain][tile] of the dx stage
+  __shared__ unsigned long long bars[kMaxBars];
+  __shared__ float parts[kT / 32 + 1];  // a G block: each item warp's dot, sum g
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long stride = 2LL * H * C + H;  // floats of a split's partial
+  const int b = blockIdx.x;
+  const bool g_row = b < C;
+  // the block's segment of each split's partial: its offset and floats
+  long long off;
+  int len = H;
+  if (g_row) {
+    off = static_cast<long long>(H) * C + static_cast<long long>(b) * H;
+  } else if (b < 2 * C) {
+    off = static_cast<long long>(b - C) * H;
+  } else {
+    len = H / kDb1Blocks;
+    off = 2LL * H * C + static_cast<long long>(b - 2 * C) * len;
+  }
+  const int nbars = (n_w + kGroup - 1) / kGroup;
+  if (tid < nbars) mbar_init(&bars[tid], 1);
+  __syncthreads();  // the barriers are initialised
+  if (warp == 0 && lane < nbars) {  // lane l: splits 8 l .. 8 l + 7 on barrier l
+    const int s0 = lane * kGroup, ns = min(kGroup, n_w - s0);
+    mbar_arm(&bars[lane], static_cast<unsigned>(ns * len * sizeof(float)));
+    for (int s = s0; s < s0 + ns; ++s)
+      bulk_load(seg + s * len, part_w + s * stride + off,
+                static_cast<unsigned>(len * sizeof(float)), &bars[lane]);
+  }
+  float bias = 0.f;  // a G row's b2, for thread 0
+  if (warp == kT / 32) {
+    if (!g_row) return;
+    // a lane's chain over the tiles in order: dgamma, dbeta, g of channel b
+    const int per = (kDxBuf / 3) & ~3;
+    float chain = 0.f;
+    for (int n0 = 0; n0 < n_dx; n0 += per) {
+      const int nt = per < n_dx - n0 ? per : n_dx - n0;
+      rd::stage_dx<C>(dxs, part_dx, n0, nt, b, 1, per, lane, 32);
+      kasf_mma::cp_async_commit();
+      kasf_mma::cp_async_wait<0>();
+      __syncwarp();
+      if (lane < 3) chain = rd::add_run(chain, dxs + lane * per, nt);
+      __syncwarp();  // the stage is read before the warp refills it
+    }
+    if (lane == 0) dgamma[b] = chain;
+    if (lane == 1) dbeta[b] = chain;
+    if (lane == 2) {
+      db2[b] = ls2[b] * chain;
+      parts[kT / 32] = chain;
+    }
+  } else {
+    // floats kW f .. of the segment over the splits, eight an mbarrier: the
+    // loads of a group before its adds (past the last split a load repeats
+    // it and its add is skipped). A G row's ls2, b2 and the W2 of a thread's
+    // first floats are read while the copies land
+    float t = 0.f;  // a G row: this thread's share of sum_j W2 * G
+    const float s = g_row ? ls2[b] : 0.f;
+    if (g_row && tid == 0) bias = to_f(b2[b]);
+    float w[kW] = {};
+    if (g_row && tid < len / kW) ldv(w, w2 + static_cast<long long>(b) * H + kW * tid);
+    for (int f = tid; f < len / kW; f += kT) {
+      float acc[kW] = {};
+      for (int g0 = 0; g0 < n_w; g0 += kGroup) {
+        mbar_wait(&bars[g0 / kGroup], 0);
+        float v[kGroup][kW];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u)
+          ldv(v[u], seg + (g0 + u < n_w ? g0 + u : n_w - 1) * len + kW * f);
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u)
+          if (g0 + u < n_w) {
+#pragma unroll
+            for (int c = 0; c < kW; ++c) acc[c] += v[u][c];
+          }
+      }
+      if (g_row) {
+        const long long o = static_cast<long long>(b) * H + kW * f;
+        if (f != tid) ldv(w, w2 + o);
+        float d[kW];
+        float dot = w[0] * acc[0];
+#pragma unroll
+        for (int c = 0; c < kW; ++c) {
+          d[c] = s * acc[c];
+          if (c > 0) dot = fmaf(w[c], acc[c], dot);
+        }
+        stv(dw2 + o, d);
+        t += dot;
+      } else if (b < 2 * C) {
+        stv(dw1 + off + kW * f, acc);
+      } else {
+        stv(db1 + (off - 2LL * H * C) + kW * f, acc);
+      }
+    }
+    if (!g_row) return;
+    t = warp_sum(t);
+    if (lane == 0) parts[warp] = t;
+  }
+  __syncthreads();  // a G block: the warps' dots and sum g in
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kT / 32; ++i) t += parts[i];
+    dls2[b] = fmaf(bias, parts[kT / 32], t);
+  }
+}
+
 struct Args {
   const void *x, *g, *w1, *b1, *w2, *b2;
   const float *gamma, *beta, *ls2;
@@ -3531,10 +3740,23 @@ cudaError_t row_map(CUtensorMap* map, const void* base, long long M, int C, int 
 template <typename T, int C>
 cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream) {
   const long long tiles = dx_tiles<C>(M);  // the dx pass's tiles
-  mlp_ln_bwd_reduce_kernel<T, C><<<rd::blocks<C>(H), rd::kTB, 0, stream>>>(
-      a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, w_splits<C>(M, H),
-      static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
-      a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
+  const int splits = w_splits<C>(M, H);
+  if constexpr (C == 64) {
+    const int smem = rds::smem_bytes(H, splits);
+    if (splits > rds::kMaxSplits) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_ln_bwd_reduce_seg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_reduce_seg_kernel<T><<<rds::kBlocks, rds::kTB, smem, stream>>>(
+        a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, splits,
+        static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
+        a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
+  } else {
+    mlp_ln_bwd_reduce_kernel<T, C><<<rd::blocks<C>(H), rd::kTB, 0, stream>>>(
+        a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, splits,
+        static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
+        a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
+  }
   return cudaGetLastError();
 }
 
@@ -3681,7 +3903,8 @@ inline int device_sms() {
 // {threads, rows a tile, hidden columns a block, row splits for M rows and
 // hidden H, registers, shared memory bytes, spill bytes, blocks a SM};
 // info[14..19]: the reduce as {threads, blocks for hidden H, registers,
-// shared memory bytes, spill bytes, blocks a SM}; info[20..22]: the dx pass
+// shared memory bytes (static and, at C = 64, dynamic), spill bytes,
+// blocks a SM}; info[20..22]: the dx pass
 // again, {blocks a cluster (a tile), clusters the device holds at once (one
 // block each at C = 128), blocks of its launch over M rows}; info[23..25]:
 // the weight pass again, {blocks a cluster (a hidden chunk and split),
@@ -3744,7 +3967,13 @@ void describe_all(long long M, int H, int* info) {
       info[25] = wpc::kNB * (H / wpc::Cfg<C>::kJ) * splits;
     }
   }
-  if (describe(mlp_ln_bwd_reduce_kernel<T, C>, rd::kTB, 0, d)) {
+  if constexpr (C == 64) {
+    const int smem_r = rds::smem_bytes(H, splits);
+    if (describe(mlp_ln_bwd_reduce_seg_kernel<T>, rds::kTB, smem_r, d)) {
+      const int v[6] = {d[0], rds::kBlocks, d[1], d[4] + smem_r, d[2], d[3]};
+      for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
+    }
+  } else if (describe(mlp_ln_bwd_reduce_kernel<T, C>, rd::kTB, 0, d)) {
     const int v[6] = {d[0], rd::blocks<C>(H), d[1], d[4], d[2], d[3]};
     for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
   }

@@ -358,7 +358,8 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     """The instantiations of K4's three launches for `dtype` at width `c`,
     as the runtime reports them: {"dx_pass": ..., "weight_pass": ...,
     "reduce": ...}. Each has threads a block, registers a thread, shared
-    memory a block (dynamic in the passes, static in the reduce), local
+    memory a block (dynamic in the passes, static in the reduce but for its
+    dynamic share at C = 64), local
     memory (spills) a thread in bytes and blocks resident a SM; `rows` is a
     pass's row tile (the dx pass has ceil(m / rows) tiles); the dx pass also
     has `cluster`, the blocks that share a tile (1 at C = 64 and 128, 2 at
@@ -373,7 +374,8 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     share a chunk and split (1 at C <= 128, 2 at 256 and 512), `resident`,
     the clusters the card holds at once, and `grid`, the blocks of its
     launch (hidden / chunk x splits clusters, one wave); the reduce has
-    `blocks`, its grid at this hidden width. Builds the kernel if needed;
+    `blocks`, its grid at this hidden width (132 at C = 64: a block a G
+    row, H floats of dW1 or a quarter of db1). Builds the kernel if needed;
     launches nothing."""
     lib = _build.library("mlp_ln_bwd")
     n = (len(_BWD_DX_KEYS) + len(_BWD_W_KEYS) + len(_BWD_R_KEYS)

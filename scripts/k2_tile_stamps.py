@@ -3,22 +3,25 @@
 
 Run on the card from the repository root:
 
-    python3 scripts/k2_tile_stamps.py [--heads 4|8] [--one-block]
+    python3 scripts/k2_tile_stamps.py [--d 16|8] [--one-block]
 
 It copies `kasportsformer_torch/ops/csrc` to `build/stamps_k2/csrc`, puts
 `clock64` stamps into the copy of `masked_sdpa_bwd.cu` after each phase of a
-tile (with `--heads 8`, also a head group of eight heads in place of the
-shipped one; with `--one-block`, a persistent grid of one block a SM in
-place of the blocks the card holds at once), builds the copy with `ops/_build.py` into
-`build/stamps_k2/kernels` and launches it through `masked_sdpa_bwd` at the
-flagship's train-step shapes (spatial (32, 27, 17, 128), temporal
-(32, 17, 27, 128) with the permuted views), float32 and bfloat16. For each it
-prints the card, the shipped and the stamped kernel's times (CUDA events),
-the stamped kernel's largest error against the plain version in float32,
-and each phase's cycles a tile for threads 0 and 128 (sums over every block
-and tile of the launch, over the tiles). The repository's own sources and
-libraries stay untouched; an anchor that is not found in the source stops
-the script.
+tile (with `--one-block`, also a persistent grid of one block a SM in place
+of the blocks the card holds at once), builds the copy with `ops/_build.py`
+into `build/stamps_k2/kernels` and launches it through `masked_sdpa_bwd` at
+a train step's shapes, 8 heads of width `--d`: the flagship's at 16
+(spatial (32, 27, 17, 128), temporal (32, 17, 27, 128)), MotionAGFormer-XS's
+and hierarchical's at 8 (spatial (32, 27, 17, 64), temporal (32, 17, 27,
+64)); column slices of one qkv projection, temporally their permuted views
+and a transposed gradient; float32 and bfloat16. For each it prints the
+card, the shipped and the stamped kernel's times (CUDA events), the stamped
+kernel's largest error against the plain version in float32, the heads a
+tile, and each phase's cycles a tile for threads 0 and 128 (sums over every
+block and tile of the launch, over the tiles). The repository's own sources
+and libraries stay untouched; an anchor that is not found in the source
+stops the script. The anchors hold in the sources since the D = 8 tile of
+eight heads and in those before it, so the script stamps either tree.
 """
 
 from __future__ import annotations
@@ -48,11 +51,9 @@ EDITS = [
      f"  unsigned long long kasf_st[{_N}] = {{}};\n"
      "#define KASF_STAMP(k) { const long long n_ = clock64(); "
      "kasf_st[k] += n_ - kasf_t0; kasf_t0 = n_; }\n"),
-    _after("                        q, k, v, g, st, nb, G, N, lane);\n    }\n", 0),
+    _after("q, k, v, g, st, nb, G, N, lane);\n    }\n", 0),
     _after("    mbar_wait(bar + it % kStages, (it / kStages) & 1);  // the tile has landed\n", 1),
-    ("      widen_tile<D>(landed, wide, cur.heads, N);\n      __syncthreads();\n",
-     "      widen_tile<D>(landed, wide, cur.heads, N);\n      __syncthreads();\n"
-     "      KASF_STAMP(2)\n"),
+    _after("(landed, wide, cur.heads, N);\n      __syncthreads();\n", 2),
     _after("    pass1<T, D, NB>(stage, pt, dst, cur.heads, N, scale);\n", 3),
     _after("    __syncthreads();  // P^T and dS^T complete\n", 4),
     _after("    pass2<T, D, NB>(stage, pt, dst, dq, dk, dv, cur, N, C);\n", 5),
@@ -76,18 +77,16 @@ extern "C" int kasf_stamps(unsigned long long* host, int reset) {
   return cudaMemcpyFromSymbol(host, kasf_stamp_sums, 32 * sizeof(unsigned long long));
 }
 """
-_HEADS = "  static constexpr int HG = 4;  "
 _GRID = "    cached[dev] = per_sm * sms;\n"
 
 
-def stamped_sources(out: Path, heads: int, one_block: bool) -> None:
-    """The repository's csrc with the stamps in K2 (and `heads` a group, and
-    one block a SM)."""
+def stamped_sources(out: Path, one_block: bool) -> None:
+    """The repository's csrc with the stamps in K2 (and one block a SM)."""
     src = ROOT / "kasportsformer_torch" / "ops" / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(src, out)
     text = (src / "masked_sdpa_bwd.cu").read_text()
-    edits = EDITS + [(_HEADS, _HEADS.replace("4", str(heads)))]
+    edits = list(EDITS)
     if one_block:
         edits.append((_GRID, "    cached[dev] = sms;\n"))
     for anchor, replacement in edits:
@@ -100,7 +99,8 @@ def stamped_sources(out: Path, heads: int, one_block: bool) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--heads", type=int, default=4, choices=(4, 8))
+    parser.add_argument("--d", type=int, default=16, choices=(16, 8),
+                        help="head width: the flagship's 16 or MotionAGFormer-XS's 8")
     parser.add_argument("--one-block", action="store_true")
     args = parser.parse_args()
 
@@ -109,6 +109,7 @@ def main() -> int:
     from chip_smoke import card_line, scaled_err, time_ms
     from kasportsformer_torch.ops import _build
     from kasportsformer_torch.ops.attention import (masked_sdpa_bwd,
+                                                    masked_sdpa_bwd_kernel_info,
                                                     masked_sdpa_bwd_reference)
 
     if not torch.cuda.is_available():
@@ -116,12 +117,13 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(6)
-    heads, scale = 8, 16 ** -0.5
+    heads, scale = 8, args.d ** -0.5
+    c = heads * args.d
     cases = {}
     for dt in (torch.float32, torch.bfloat16):
-        qkv = torch.randn(32, 27, 17, 384, device=dev, generator=gen).to(dt)
-        gfull = torch.randn(32, 27, 17, 128, device=dev, generator=gen).to(dt)
-        q, k, v = qkv.split(128, dim=-1)
+        qkv = torch.randn(32, 27, 17, 3 * c, device=dev, generator=gen).to(dt)
+        gfull = torch.randn(32, 27, 17, c, device=dev, generator=gen).to(dt)
+        q, k, v = qkv.split(c, dim=-1)
         cases[("spatial", dt)] = (q, k, v, gfull)
         cases[("temporal", dt)] = tuple(z.transpose(1, 2) for z in (q, k, v, gfull))
     shipped = {key: time_ms(lambda: masked_sdpa_bwd(*a, scale, heads), 50)
@@ -130,7 +132,7 @@ def main() -> int:
     # the stamped copy: _build reads its source and build directories from
     # these two names, so masked_sdpa_bwd loads the stamped library from here on
     stamps_dir = ROOT / "build" / "stamps_k2"
-    stamped_sources(stamps_dir / "csrc", args.heads, args.one_block)
+    stamped_sources(stamps_dir / "csrc", args.one_block)
     _build.CSRC = stamps_dir / "csrc"
     _build.BUILD_DIR = stamps_dir / "kernels"
     _build._libs.pop("masked_sdpa_bwd", None)
@@ -151,8 +153,9 @@ def main() -> int:
         torch.cuda.synchronize()
         _build.check(lib, read(ctypes.addressof(sums), 0), "read the stamps")
         b, g, n, _ = a[0].shape
-        tiles = b * g * -(-heads // args.heads)
-        print(f"{mode} {str(dt).split('.')[1]} {tuple(a[0].shape)}, {args.heads} heads a "
+        tile_heads = masked_sdpa_bwd_kernel_info(dt, n, d=args.d)["tile_heads"]
+        tiles = b * g * -(-heads // tile_heads)
+        print(f"{mode} {str(dt).split('.')[1]} {tuple(a[0].shape)}, {tile_heads} heads a "
               f"tile{', one block a SM' if args.one_block else ''}: kernel {shipped[(mode, dt)]:.4f} ms, stamped {stamped:.4f} ms "
               f"(err {err:.2e}); cycles a tile (mean of {tiles}), thread 0 / thread 128:")
         total = [0, 0]

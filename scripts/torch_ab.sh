@@ -10,15 +10,15 @@
 #                                          (default chiprun_out/ab)
 #   scripts/torch_ab.sh digest             on the card: K4 on seeded inputs at
 #                                          M = 14,688 in P and in N, at C/H
-#                                          128/512, 256/1024 and 512/1024 (eps
-#                                          1e-6), and the SHA-1 of each of its
-#                                          eight gradients, so a launch left
+#                                          128/512, 256/1024 and 512/1024, and
+#                                          the SHA-1 of each of its eight
+#                                          gradients, so a launch left
 #                                          unchanged shows as equal digests of
 #                                          what it alone feeds; then K2 at
 #                                          heads of 16, 32 and 64 (8 heads,
 #                                          batch 32, 27 x 17) and the SHA-1 of
-#                                          dq, dk and dv; a width the tree's
-#                                          kernels do not take is skipped
+#                                          dq, dk and dv (chip_smoke.k4_digests
+#                                          and k2_digests)
 # A run that fails is reported and the turns go on; the exit code is the
 # number of runs that failed.
 set -uo pipefail
@@ -50,58 +50,14 @@ case "${1:-}" in
     for tree in build/ab/P .; do
       echo "=== $tree"
       (cd "$tree" && python3 - <<'PY'
-import hashlib
+import chip_smoke
 
-import torch
-
-from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
-
-gen = torch.Generator(device="cuda").manual_seed(9)
-for dt in (torch.float32, torch.bfloat16):
-    def randn(*shape, scale=1.0):
-        return scale * torch.randn(*shape, device="cuda", generator=gen)
-    x, g = randn(14688, 128).to(dt), randn(14688, 128).to(dt)
-    args = (x, 1 + randn(128, scale=0.1), randn(128, scale=0.1),
-            randn(512, 128, scale=128 ** -0.5).to(dt), randn(512, scale=0.1).to(dt),
-            randn(128, 512, scale=512 ** -0.5).to(dt), randn(128, scale=0.1).to(dt),
-            torch.rand(128, device="cuda", generator=gen))
-    out = fused_mlp_ln_bwd(*args, g, 1e-5)
-    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
-    print(str(dt), " ".join(
-        f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
-        for n, t in zip(names, out)))
-# the zoo's widths from a generator of their own, so the flagship's inputs
-# above stay those of its digests in tests/test_torch_cuda.py
-gen = torch.Generator(device="cuda").manual_seed(10)
-for c, h, eps in ((256, 1024, 1e-5), (512, 1024, 1e-6)):
-    for dt in (torch.float32, torch.bfloat16):
-        def randn(*shape, scale=1.0):
-            return scale * torch.randn(*shape, device="cuda", generator=gen)
-        x, g = randn(14688, c).to(dt), randn(14688, c).to(dt)
-        args = (x, 1 + randn(c, scale=0.1), randn(c, scale=0.1),
-                randn(h, c, scale=c ** -0.5).to(dt), randn(h, scale=0.1).to(dt),
-                randn(c, h, scale=h ** -0.5).to(dt), randn(c, scale=0.1).to(dt),
-                torch.rand(c, device="cuda", generator=gen))
-        out = fused_mlp_ln_bwd(*args, g, eps)
-        print(f"C/H {c}/{h}", str(dt), " ".join(
-            f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
-            for n, t in zip(names, out)))
-# K2 at the head widths of the flagship and the zoo, the temporal view of a
-# (B, T, J, C) qkv projection with a transposed gradient
-from kasportsformer_torch.ops import attention
-
-gen = torch.Generator(device="cuda").manual_seed(11)
-for d in (16, 32, 64):
-    if d not in attention.LIMITS["masked_sdpa_bwd"][0]:
-        continue
-    for dt in (torch.float32, torch.bfloat16):
-        qkv = torch.randn(32, 27, 17, 24 * d, device="cuda", generator=gen).to(dt)
-        g = torch.randn(32, 27, 17, 8 * d, device="cuda", generator=gen).to(dt)
-        q, k, v = (z.transpose(1, 2) for z in qkv.split(8 * d, dim=-1))
-        out = attention.masked_sdpa_bwd(q, k, v, g.transpose(1, 2), d ** -0.5, 8)
-        print(f"K2 D={d}", str(dt), " ".join(
-            f"{n} {hashlib.sha1(t.float().cpu().numpy().tobytes()).hexdigest()[:12]}"
-            for n, t in zip(("dq", "dk", "dv"), out)))
+# chip_smoke.py is this tree's in both (prepare copies it): the same seeded
+# inputs on each side
+for label, digests in (("K4 C", chip_smoke.k4_digests("cuda")),
+                      ("K2 D", chip_smoke.k2_digests("cuda"))):
+    for (width, dtype), digest in digests.items():
+        print(f"{label}={width} {dtype} {digest}")
 PY
       ) || failed=1
     done

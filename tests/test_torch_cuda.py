@@ -890,14 +890,17 @@ def test_masked_sdpa_bwd_kernel_zoo_widths(cuda, dtype, name):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,heads", [(8, 8), (8, 5), (32, 8), (32, 3), (64, 8), (64, 1)])
+@pytest.mark.parametrize("d,heads", [(8, 8), (8, 5), (8, 12), (32, 8), (32, 3), (64, 8),
+                                     (64, 1)])
 @pytest.mark.parametrize("n", [1, 2, 16, 17, 27, 32])
 def test_masked_sdpa_bwd_kernel_rows_and_wide_heads(cuda, dtype, d, heads, n):
-    """Every N the 32-row stage pads at heads of 8 (C = 64, and C = 40: a
-    last group of one of the 32-channel tile's four heads), 32 (C = 256, and
-    C = 96: a last head group of one head) and 64 (C = 512 and one head), on
-    strided, permuted views: a lane of pass 1 takes keys kl + 4 (D / 16) k
-    (kl + 4 k at D = 8), so every key block and padded key is covered."""
+    """Every N the stage pads at heads of 8 (C = 64; C = 40, a short group
+    of five of the 64-channel tile's eight heads; C = 96, a group of eight
+    then one of four), 32 (C = 256, and C = 96: a last head group of one
+    head) and 64 (C = 512 and one head), on strided, permuted views: a lane
+    of pass 1 takes keys kl + 4 (D / 16) k (kl + 4 k at D = 8), so every key
+    block and padded key is covered; at D = 8 the stage holds the
+    instantiation's 4 NB rows."""
     _bwd_holds(_bwd_views(cuda, 3, 5, n, heads, dtype, d), heads, dtype)
 
 
@@ -906,9 +909,11 @@ def test_masked_sdpa_bwd_kernel_rows_and_wide_heads(cuda, dtype, d, heads, n):
 def test_masked_sdpa_bwd_kernel_wide_heads_walk_the_grid(cuda, dtype, d):
     """One tile past the persistent grid at heads of 8, 32 and 64, so one
     block walks two tiles and the ring refills a stage; no instantiation
-    spills. A tile is 64 channels (32 at D = 8: four heads)."""
+    spills. A tile is 64 channels: eight heads at D = 8, whose 28-row
+    buffers leave two blocks a SM."""
     info = masked_sdpa_bwd_kernel_info(dtype, 27, d=d)
-    assert info["spill_bytes"] == 0 and info["tile_heads"] == (4 if d == 8 else 64 // d), info
+    assert info["spill_bytes"] == 0 and info["tile_heads"] == 64 // d, info
+    assert d != 8 or (info["tile_rows"] == 28 and info["blocks_per_sm"] >= 2), info
     args = tuple(torch.randn(info["grid"] + 1, 1, 27, d * info["tile_heads"],
                              device="cuda", generator=cuda).to(dtype) for _ in range(4))
     _bwd_holds(args, info["tile_heads"], dtype)
@@ -967,8 +972,9 @@ def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
 def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, hidden, c):
     """K4's reduce alone at C = 64, 256 and 512 on seeded partials against
     its plain version: six gradients bit for bit, dls2 within K4's limit, a
-    rerun bitwise equal; a hidden block's eight dW1 rows are C / 128 float4s
-    a thread (half a float4 at C = 64)."""
+    rerun bitwise equal; at 256 and 512 a hidden block's eight dW1 rows are
+    C / 128 float4s a thread, at 64 the segment grid takes H = 256 and 2,048
+    (8 splits, a G row of 512 float4s, 16 a lane)."""
     p = fused_mlp_ln_bwd_partition(m, hidden, c)
     n = p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
     work = torch.randn(n, device="cuda", generator=cuda)
@@ -982,6 +988,36 @@ def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, 
     assert _sum_err(got[6], want[6]) <= TOL["fused_mlp_ln_bwd"][dtype]
     again = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [14688, 1377, 5])
+def test_fused_mlp_ln_bwd_reduce_c64_segments(cuda, dtype, m):
+    """K4's reduce alone at MotionAGFormer-XS's and hierarchical's 64/256 (its
+    segment grid: a block a G row, H floats of dW1 or a quarter of db1, every
+    split's segment by bulk copies) on seeded partials of the train step's 14,688
+    rows (66 splits), a ragged 1,377 and 5 rows (one split, one dx tile):
+    dgamma, dbeta, dw1, db1, dw2 and db2 bit for bit against the plain
+    version, dls2 within K4's limit, a rerun bitwise equal; no spill, and a
+    grid that covers the SMs."""
+    p = fused_mlp_ln_bwd_partition(m, 256, 64)
+    work = torch.randn(_bwd_workspace_size(m, 256, 64), device="cuda", generator=cuda)
+    w2 = torch.randn(64, 256, device="cuda", generator=cuda).to(dtype)
+    b2 = torch.randn(64, device="cuda", generator=cuda).to(dtype)
+    ls2 = torch.rand(64, device="cuda", generator=cuda)
+    got = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    want = fused_mlp_ln_bwd_reduce_reference(work, w2, b2, ls2, m)
+    names = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, w), name
+    assert _sum_err(got[6], want[6]) <= TOL["fused_mlp_ln_bwd"][torch.float32]
+    again = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    red = fused_mlp_ln_bwd_kernel_info(dtype, m, 256, c=64)["reduce"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert red["spill_bytes"] == 0 and red["registers"] > 0, red
+    assert red["blocks"] == 2 * 64 + 4 >= sms, red
+    assert red["smem_bytes"] >= p["splits"] * 256 * 4, (red, p)
 
 
 def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):

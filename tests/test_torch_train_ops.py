@@ -68,18 +68,27 @@ def _jax_sdpa_vjp(q, k, v, g, scale, heads):
     pytest.param(1, 8, 16, id="1-8"), pytest.param(32, 8, 16, id="32-8"),
     pytest.param(17, 5, 16, id="17-5"),
     pytest.param(17, 8, 32, id="17-8-d32"), pytest.param(27, 8, 32, id="27-8-d32"),
-    pytest.param(17, 8, 64, id="17-8-d64"), pytest.param(27, 8, 64, id="27-8-d64")])
+    pytest.param(17, 8, 64, id="17-8-d64"), pytest.param(27, 8, 64, id="27-8-d64"),
+    pytest.param(17, 8, 8, id="17-8-d8"), pytest.param(27, 8, 8, id="27-8-d8"),
+    pytest.param(1, 8, 8, id="1-8-d8"), pytest.param(32, 8, 8, id="32-8-d8"),
+    pytest.param(17, 5, 8, id="17-5-d8"), pytest.param(27, 12, 8, id="27-12-d8")])
 def test_masked_sdpa_bwd_reference_matches_jax(n, heads, d):
     """The plain backward against `jax.vjp(masked_sdpa_xla)` and the Pallas
     backward kernel (interpret mode), in the kernel's head widths: heads of
     16 (the flagship) at the spatial (17) and temporal (27) lengths, the
     shortest and longest N the kernel takes, and 5 heads (C = 80), a last
     head group of one head; 8 heads of 32 (DSTFormer, C = 256) and of 64
-    (MixSTE, C = 512) at both lengths. These are the shapes at which the
-    card tests hold the kernel to this plain version. float32 on both sides:
-    within atol 1e-5, rtol 1e-4."""
+    (MixSTE, C = 512) at both lengths; heads of 8 (MotionAGFormer-XS and
+    hierarchical, C = 64: the kernel's tile of eight heads) at both lengths,
+    the shortest and longest N, and the short last groups of that tile, 5
+    heads (C = 40) and 12 (C = 96: a group of eight, then one of four).
+    These are the shapes at which the card tests hold the kernel to this
+    plain version. float32 on both sides: within atol 1e-5, rtol 1e-4.
+    Heads of 8 draw from a generator of their own, so the file's other
+    tests keep their inputs."""
     c = d * heads
-    q, k, v, g = (RNG.standard_normal((1, 3, n, c)).astype(np.float32)
+    rng = np.random.default_rng(800 + 100 * n + heads) if d == 8 else RNG
+    q, k, v, g = (rng.standard_normal((1, 3, n, c)).astype(np.float32)
                   for _ in range(4))
     got = masked_sdpa_bwd_reference(_t(q), _t(k), _t(v), _t(g), 0.25, heads)
     want = _jax_sdpa_vjp(q, k, v, g, 0.25, heads)
