@@ -30,7 +30,12 @@ Phases (any failure exits non-zero and prints no result line):
   3c. K5's route: Mlp.forward(fused=True) at MixSTE's width, its launches
      counted around it.
   3d. K1 at the zoo's head widths and layouts (D = 8, 32, 64; flat streams,
-     DSTFormer's grouped temporal view) and K3 at C/H 512/1024 (eps 1e-6),
+     DSTFormer's grouped temporal view; D = 8 also at the served batch 256,
+     128 clips and their flips, and at the train step's batch 32), K1 at
+     D = 16, 32 and 64 and at D = 8 in bfloat16 bit for bit against the
+     outputs before f32 at heads of 8 got a kernel of its own
+     (`K1_DIGESTS`), and K3
+     at C/H 512/1024 (eps 1e-6),
      256/1024 and 64/256, with SDPA's time, share and ratio beside K1 as in
      phase 2 and the tile and share beside K3 as in phase 3; shapes outside the
      kernels' range (K1 at D = 128, K3 and K5 at C = 96) raise.
@@ -53,8 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
      float64 forward, graph_only, layer by layer within 1e-3 of each layer's
      largest entry instead; the
      bf16 forward held as in phase 4), its K1/K3 launches per forward, and
-     128-clip forward times; a profiler breakdown of MixSTE's and
-     DSTFormer's f32 128-clip forward (device time, K3's and K1's group).
+     128-clip forward times; a profiler breakdown of the f32 128-clip
+     forward of MixSTE, DSTFormer, STCFormer, KTPFormer, D3DP,
+     MotionAGFormer-XS and hierarchical (device time and busy share, K3's
+     and K1's group).
      D3DP's sampler also at 2 DDIM steps over 2 proposals, card against CPU
      on one generator (B=4), and at the paper's 10 steps over 20 proposals,
      timed on the card alone (B=4, ms per input clip).
@@ -121,7 +128,8 @@ Phases (any failure exits non-zero and prints no result line):
      entry, the loss within 1e-5), the expected K2 and K4 launches a backward;
      the float32 step at batch 32 of MixSTE, DSTFormer, MotionAGFormer-XS
      and hierarchical (median ms over 12 steps, clips/s, peak memory,
-     profiler table by kernel group); one epoch of MixSTE through the CLI's
+     profiler table by kernel group, K1, K2 and K4 launches read around the
+     12 steps); one epoch of MixSTE through the CLI's
      `train` on phase 10's synthetic store, then `evaluate`, the launches
      read around `train`.
  10. training, the second main path: `train` through the CLI's entry point
@@ -284,25 +292,43 @@ def k1_row_line(ms: float, lib: float, bms: float) -> str:
 def write_k1_report(out_dir: str) -> None:
     """K1's compiler report (`-Xptxas -v`: registers, spills) and each
     instantiation's registers, shared memory, spills and blocks a SM as the
-    runtime reports them, to --out/chip_smoke_k1_kernel.txt; one summary line
-    an instantiation to the log."""
+    runtime reports them, and its stage (rows a stage holds of q, k or v,
+    the ring's stages and a stage's bytes; at heads of 8 in float32 one
+    instantiation a block of four rows N is padded to), to
+    --out/chip_smoke_k1_kernel.txt; one summary line an instantiation to the
+    log. Raises if one spills."""
+    import inspect
+
     import torch
 
     from kasportsformer_torch.ops import _build
     from kasportsformer_torch.ops.attention import masked_sdpa_kernel_info
 
-    lines = []
+    # an older tree's report (kept for A/B runs) takes no N and gives no stage
+    by_rows = "n" in inspect.signature(masked_sdpa_kernel_info).parameters
+    lines, spills = [], []
     for dt in (torch.float32, torch.bfloat16):
         for d in (8, 16, 32, 64):
-            info = masked_sdpa_kernel_info(dt, d)
-            line = (f"K1 {str(dt).split('.')[1]:8s} D={d:2d}: " + ", ".join(
-                f"{k} {v}" for k, v in info.items()))
-            lines.append(line)
-            log(f"   {line}")
+            rows = d == 8 and dt == torch.float32 and by_rows
+            for n in (range(4, 33, 4) if rows else (32,)):
+                info = (masked_sdpa_kernel_info(dt, d, n=n) if by_rows else
+                        masked_sdpa_kernel_info(dt, d))
+                if "stages" in info and info["stages"] > 0:
+                    info["stage_bytes"] = info["smem_bytes"] // info["stages"]
+                line = (f"K1 {str(dt).split('.')[1]:8s} D={d:2d}"
+                        + (f" N<={n:2d}" if rows else "") + ": " + ", ".join(
+                            f"{k} {v}" for k, v in info.items()))
+                lines.append(line)
+                if info["spill_bytes"] != 0:
+                    spills.append(line)
+                log(f"   {line}")
+    log(f"   K1 instantiations with local memory (spills): {spills or 'none'}")
     ptxas = _build.PTXAS.get("masked_sdpa", "(built before this process)")
     with open(os.path.join(out_dir, "chip_smoke_k1_kernel.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n== nvcc -Xptxas -v, masked_sdpa.cu\n"
                 + ptxas + "\n")
+    if spills:
+        raise AssertionError(f"K1 instantiations spill: {spills}")
 
 
 def k2_row_line(dt, seqs: int, n: int, heads: int, ms: float, lib: float,
@@ -468,14 +494,16 @@ def k4_widths() -> tuple:
 # at 256 and 512 (and one block at every width in a tree from before its
 # cluster, kept for A/B runs), the dx pass at C = 64 one block of two
 # warp groups, the weight pass at C = 64 one block on the tensor cores and
-# the reduce at C = 64 its segment kernel (each of C = 128's kind in an
-# older tree), so each goes by all its kernels' names
+# the reduce at C = 64 its segment kernel and at 512 its kernel of equal
+# blocks (each of C = 128's kind in an older tree), so each goes by all its
+# kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
                ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel",
                             "mlp_ln_bwd_dx_wg_kernel")),
                ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel",
                                 "mlp_ln_bwd_w_tc_kernel")),
-               ("reduce", ("mlp_ln_bwd_reduce_kernel", "mlp_ln_bwd_reduce_seg_kernel")))
+               ("reduce", ("mlp_ln_bwd_reduce_kernel", "mlp_ln_bwd_reduce_seg_kernel",
+                           "mlp_ln_bwd_reduce_wide_kernel")))
 
 
 def k4_launch_ms(call, iters: int) -> dict:
@@ -719,6 +747,17 @@ def check_k5_route(dev) -> int:
     return launches
 
 
+def mag_sdpa_views(dev, gen, dt, b: int, suffix: str) -> dict:
+    """MotionAGFormer hierarchical's and XS's K1 operands at B = b: strided
+    column slices of one (b, 27, 17, 192) qkv projection over 8 heads of 8,
+    (B,T,J,C) and its temporal permutation; `suffix` ends each name."""
+    import torch
+
+    mag = torch.randn(b, 27, 17, 192, device=dev, generator=gen).to(dt).split(64, dim=-1)
+    return {f"MAG spatial D=8{suffix}": (mag, 8),
+            f"MAG temporal D=8{suffix}": (tuple(z.transpose(1, 2) for z in mag), 8)}
+
+
 def zoo_sdpa_views(dev, gen, dt, b: int = 128):
     """K1's (and K2's) operands as the zoo passes them at B = b, 27 frames:
     strided column slices of one qkv projection, in the layouts of
@@ -732,11 +771,9 @@ def zoo_sdpa_views(dev, gen, dt, b: int = 128):
         qkv = torch.randn(*shape, 3 * c, device=dev, generator=gen).to(dt)
         return qkv.split(c, dim=-1)
 
-    mag = split((b, 27, 17), 64)
     dst = split((b * 27, 17), 256)
     return {
-        "MAG spatial D=8": (mag, 8),
-        "MAG temporal D=8": (tuple(z.transpose(1, 2) for z in mag), 8),
+        **mag_sdpa_views(dev, gen, dt, b, ""),
         "DST spatial D=32": (dst, 8),
         "DST temporal D=32": (tuple(z.reshape(b, 27, 17, 256).transpose(1, 2)
                                     for z in dst), 8),
@@ -761,7 +798,12 @@ def check_zoo_kernels(dev, out_dir: str) -> dict:
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for name, ((qq, kk, vv), heads) in zoo_sdpa_views(dev, gen, dt).items():
+        # the zoo's views at batch 128, then MotionAGFormer's at the served
+        # batch (128 clips and their flips) and at the train step's batch 32
+        views = {**zoo_sdpa_views(dev, gen, dt),
+                 **mag_sdpa_views(dev, gen, dt, 256, " B=256"),
+                 **mag_sdpa_views(dev, gen, dt, 32, " B=32")}
+        for name, ((qq, kk, vv), heads) in views.items():
             c = qq.shape[-1]
             scale = (c // heads) ** -0.5
             got = masked_sdpa(qq, kk, vv, scale, heads)
@@ -783,7 +825,7 @@ def check_zoo_kernels(dev, out_dir: str) -> dict:
             rows[("K1", name, dname)] = dict(shape=list(qq.shape), max_abs_err=(
                 got.float() - want).abs().max().item(), ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
-            log(f"   K1 {name:21s} {dname:8s} {tuple(qq.shape)} err {err:.2e} "
+            log(f"   K1 {name:27s} {dname:8s} {tuple(qq.shape)} err {err:.2e} "
                 f"kernel {ms:.4f} ms  plain {plain:.4f}  sdpa {lib:.4f}  "
                 f"bound {bms:.4f} ({by})  " + k1_row_line(ms, lib, bms))
         for c, h, eps in ((512, 1024, 1e-6), (256, 1024, 1e-5), (64, 256, 1e-5)):
@@ -818,9 +860,74 @@ def check_zoo_kernels(dev, out_dir: str) -> dict:
     log(f"   K1 at D=128, K3 and K5 at C=96: {refused} of 3 refused")
     if refused != 3:
         raise AssertionError("a kernel took a shape outside its range")
+    check_k1_digests(dev)
     write_k1_report(out_dir)
     write_k3_report(out_dir)
     return rows
+
+
+# k1_digests on an H100 before K1 at heads of 8 in float32 got a kernel of
+# its own: the outputs at the other head widths and at heads of 8 in
+# bfloat16, whose code that change left alone
+K1_DIGESTS = {
+    ("flagship spatial D=16", "float32"): "2e1e3053373e",
+    ("flagship temporal D=16", "float32"): "f3118ddbac96",
+    ("DST spatial D=32", "float32"): "e5e6bc69c8ec",
+    ("DST temporal D=32", "float32"): "4904fcbfc476",
+    ("MixSTE spatial D=64", "float32"): "2ced306b9e01",
+    ("MixSTE temporal D=64", "float32"): "ec40dd7af3c9",
+    ("flagship spatial D=16", "bfloat16"): "930a12e921a5",
+    ("flagship temporal D=16", "bfloat16"): "9f9a01bcb7b7",
+    ("MAG spatial D=8", "bfloat16"): "0b1e6b09283b",
+    ("MAG temporal D=8", "bfloat16"): "8b9cfe312e75",
+    ("DST spatial D=32", "bfloat16"): "7ae3aa0cd882",
+    ("DST temporal D=32", "bfloat16"): "676b309bc098",
+    ("MixSTE spatial D=64", "bfloat16"): "539258f58c8a",
+    ("MixSTE temporal D=64", "bfloat16"): "8ecb6f660322"}
+
+
+def check_k1_digests(dev) -> None:
+    """K1 at heads of 16, 32 and 64 in both dtypes, and at heads of 8 in
+    bfloat16, gives bit for bit the outputs of `K1_DIGESTS`; raises where
+    one differs."""
+    got = k1_digests(dev)
+    changed = [key for key, want in K1_DIGESTS.items() if got[key] != want]
+    log(f"   K1 at heads of 16, 32 and 64 (the flagship's and phase 3d's views, f32 and bf16) "
+        f"and of 8 in bf16: "
+        f"the outputs' SHA-1 digests {'equal' if not changed else 'NOT equal'} to those before "
+        f"f32 at heads of 8 got a kernel of its own"
+        + (f": changed at {changed}" if changed else ""))
+    if changed:
+        raise AssertionError(f"K1's outputs changed at (view, dtype) {changed}")
+
+
+def k1_digests(dev) -> dict:
+    """SHA-1 (12 hex digits) of K1's output on the seeded inputs of
+    `scripts/torch_ab.sh digest` (generator seed 17), each dtype in turn:
+    the flagship's (128, 27, 17, 128) over 8 heads of 16 and its temporal
+    view, then phase 3d's views at batch 128, DSTFormer's (heads of 32),
+    MixSTE's (heads of 64) and, in bfloat16 only, MotionAGFormer's (heads
+    of 8); {(view name, dtype name): digest}."""
+    import hashlib
+
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = torch.randn(128, 27, 17, 384, device=dev, generator=gen).to(dt).split(128, -1)
+        views = {"flagship spatial D=16": ((q, k, v), 8),
+                 "flagship temporal D=16": (tuple(z.transpose(1, 2) for z in (q, k, v)), 8),
+                 **zoo_sdpa_views(dev, gen, dt)}
+        for name, ((qq, kk, vv), heads) in views.items():
+            if "D=8" in name and dt == torch.float32:  # f32 at heads of 8 was redesigned
+                continue
+            y = masked_sdpa(qq, kk, vv, (qq.shape[-1] // heads) ** -0.5, heads)
+            out[(name, str(dt).split(".")[1])] = hashlib.sha1(
+                y.float().cpu().numpy().tobytes()).hexdigest()[:12]
+    return out
 
 
 def perturbed(cfg, seed: int):
@@ -1406,7 +1513,8 @@ def check_zoo_models(dev, out_dir: str) -> dict:
             + f"; bf16 vs CPU f32: card {devb:.3e}, CPU "
             f"bf16 {devb_cpu:.3e} (limit 2x); 128-clip forward f32 "
             f"{times['float32']:.2f} ms, bf16 {times['bfloat16']:.2f} ms")
-        if name in ("MixSTE", "DSTFormer", "STCFormer", "KTPFormer", "D3DP"):
+        if name in ("MixSTE", "DSTFormer", "STCFormer", "KTPFormer", "D3DP",
+                    "MotionAGFormer-XS", "MotionAGFormer hierarchical"):
             profile(model, xb, torch.float32, out_dir, label=name)
         if d != ZOO_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches per forward {d}")
@@ -2053,8 +2161,9 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
 def check_k4_reduce(dev, gen, per: dict) -> None:
     """K4's reduce alone (`fused_mlp_ln_bwd_reduce`) on seeded partials of
     the step's shapes, the flagship's C/H 128/512 and, where the tree's K4
-    takes it, MotionAGFormer-XS's and hierarchical's 64/256 (its segment
-    grid), held bit for bit against its plain version on the
+    takes them, MotionAGFormer-XS's and hierarchical's 64/256 (its segment
+    grid) and MixSTE's and D3DP's 512/1024 (its grid of equal blocks), held
+    bit for bit against its plain version on the
     card (dls2, grouped otherwise, within K4's limit); its time (events, and
     the profiler's device time a launch), bound, share, grid (and the SMs
     it covers), registers and
@@ -2075,7 +2184,7 @@ def check_k4_reduce(dev, gen, per: dict) -> None:
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    widths = [(128, 512)] + [(c, h) for c, h in k4_widths() if c == 64]
+    widths = [(128, 512)] + [(c, h) for c, h in k4_widths() if c in (64, 512)]
     for (c, hidden), dt, m in itertools.product(widths, (torch.float32, torch.bfloat16),
                                                 (14688, 1377)):
         dname = str(dt).split(".")[1]
@@ -2083,9 +2192,9 @@ def check_k4_reduce(dev, gen, per: dict) -> None:
         p = (fused_mlp_ln_bwd_partition(m, hidden) if c == 128 else
              fused_mlp_ln_bwd_partition(m, hidden, c))
         n_dx = p["dx_tiles"] * 3 * c
-        size = (_bwd_workspace_size(m, hidden) if c == 128 else
-                _bwd_workspace_size(m, hidden, c))
-        work = torch.randn(size, device=dev, generator=gen)
+        # the two passes' partials (at C = 512 without the stage launch's weights)
+        work = torch.randn(n_dx + p["splits"] * (2 * c * hidden + hidden), device=dev,
+                           generator=gen)
         w2 = torch.randn(c, hidden, device=dev, generator=gen).mul(
             hidden ** -0.5).to(dt)
         b2 = torch.randn(c, device=dev, generator=gen).mul(0.1).to(dt)
@@ -2285,7 +2394,7 @@ def check_zoo_train(dev, out_dir: str) -> dict:
 
     from kasportsformer_torch.data.pipeline import flip_generator
     from kasportsformer_torch.models import build_model
-    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+    from kasportsformer_torch.ops.attention import masked_sdpa, masked_sdpa_bwd
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
     from kasportsformer_torch.train.loop import (make_grads_fn, make_optimizer,
                                                  make_train_step)
@@ -2360,13 +2469,14 @@ def check_zoo_train(dev, out_dir: str) -> dict:
         one()  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        masked_sdpa_bwd.launches = fused_mlp_ln_bwd.launches = 0
+        masked_sdpa.launches = masked_sdpa_bwd.launches = fused_mlp_ln_bwd.launches = 0
         for _ in range(12):
             t0 = time.perf_counter()
             one()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = {"masked_sdpa_bwd": masked_sdpa_bwd.launches,
+        launches = {"masked_sdpa": masked_sdpa.launches,
+                    "masked_sdpa_bwd": masked_sdpa_bwd.launches,
                     "fused_mlp_ln_bwd": fused_mlp_ln_bwd.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         med = statistics.median(times)
@@ -2771,8 +2881,13 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=zoo_train["MixSTE"]["cli_launches"]["fused_mlp_ln_bwd"],
              **k4[(14688, "float32", 512)]),
-        # MotionAGFormer-XS's batch-32 steps (phase 9b): K2 at heads of 8, K4
-        # at C/H 64/256
+        # MotionAGFormer-XS's batch-32 steps (phase 9b): K1 and K2 at heads of
+        # 8 (K1's row at phase 3d's (32, 27, 17, 64)), K4 at C/H 64/256
+        dict(name="masked_sdpa[zoo D=8]", route="cuda", dtype="float32",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:227",
+             launches=zoo_train["MotionAGFormer-XS"]["launches"]["masked_sdpa"],
+             **zoo_k[("K1", "MAG spatial D=8 B=32", "float32")]),
         dict(name="masked_sdpa_bwd[zoo D=8]", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
              replaces="kasportsformer_tpu/ops/attention.py:365",

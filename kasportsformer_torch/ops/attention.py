@@ -214,19 +214,23 @@ def masked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 masked_sdpa.launches = 0
 
 
-def masked_sdpa_kernel_info(dtype: torch.dtype, d: int) -> dict:
-    """K1's instantiation for `dtype` and head width `d` on the current CUDA
-    device, as the runtime reports it: threads a block, registers a thread,
+def masked_sdpa_kernel_info(dtype: torch.dtype, d: int, n: int = 32) -> dict:
+    """K1's instantiation for `dtype`, head width `d` and, at d = 8 in
+    float32, N = `n` (one a block of four rows) on the current CUDA device,
+    as the runtime reports it: threads a block (at most: at d = 8 in float32
+    a launch takes 8 ceil(N / 2) rounded up to a warp), registers a thread,
     dynamic shared memory a block, local memory (spills) a thread in bytes,
-    and blocks resident a SM. Builds the kernel if needed; launches nothing."""
+    blocks resident a SM, the rows a stage holds of q, k or v, and the
+    ring's stages. Builds the kernel if needed; launches nothing."""
     lib = _build.library("masked_sdpa")
-    info = (ctypes.c_int * 5)(*([-1] * 5))
+    info = (ctypes.c_int * 7)(*([-1] * 7))
     fn = lib.kasf_masked_sdpa_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    fn(_DTYPE_CODE[dtype], d, info)
+    fn(_DTYPE_CODE[dtype], d, n, info)
     return dict(zip(("threads", "registers", "smem_bytes", "spill_bytes",
-                     "blocks_per_sm"), info))
+                     "blocks_per_sm", "tile_rows", "stages"), info))
 
 
 def masked_sdpa_bwd_kernel_info(dtype: torch.dtype, n: int = 32,

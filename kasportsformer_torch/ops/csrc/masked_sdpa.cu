@@ -14,7 +14,7 @@
 // Design:
 //  * Unit of work: one (sequence, head group) tile. A head group is
 //    HG = min(8, 128 / D) heads, W = HG * D channels: 128 (64 at D = 8, the
-//    8 heads of MotionAGFormer's hierarchical C = 64). A stage holds q, k and
+//    8 heads of MotionAGFormer's C = 64). A stage holds q, k and
 //    v of one tile, 32 rows (N padded) x W channels: 48 KB in f32, 24 KB in
 //    bf16 (half that at D = 8), each row padded by 16 bytes so that rows start
 //    four banks apart. Rows N..31 are zeroed once and never written again,
@@ -41,7 +41,7 @@
 //    the f32 row sum at the end and rounded once. (wgmma's 64-row tiles
 //    would be mostly padding at 17-27 queries.)
 //  * f32 on the CUDA cores (TF32 would put ~5e-4 on each logit): 256 threads,
-//    P = max(1, D / 16) neighbouring lanes per (head, query row), the pairs
+//    P = D / 16 neighbouring lanes per (head, query row), the pairs
 //    packed over the tile's heads x N valid rows (no lane spent on a padded
 //    row; 8 N pairs of P lanes fill at most 256 threads). A lane takes every
 //    P-th key: it forms those logits in 16-channel chunks of the head (no
@@ -55,6 +55,24 @@
 //    key), and skip key tiles that are all padding. Per tile the
 //    indices are computed once (32-bit) and shared by the loader and the
 //    compute: at these sizes the integer work is a sizeable part of a tile.
+//  * f32 at D = 8 (MotionAGFormer-XS and hierarchical: C = 64 over 8 heads)
+//    has a kernel of its own, masked_sdpa_h8_kernel. The f32 tile above gave
+//    a lane a (head, row) there (120 of 256 threads idle at N = 17) and
+//    padded every stage to 32 rows. Timed apart on an H100 80GB HBM3 at
+//    700 W (scripts/k1_variants.py: copies only, compute only), its compute
+//    took longer than its copies, and the compute was the stage's reads:
+//    each lane read the whole K and V rows of every key, 16-byte vectors
+//    that a quarter warp serves in one pass each. So a lane there takes a
+//    (head, pair of query rows), each K and V row read once for both rows
+//    (half the passes), 8 ceil(N / 2) lanes in whole warps, its logits in
+//    2 x 4 NB registers (NB = ceil(N / 4), one instantiation a block of four
+//    rows, the stage's rows N padded to 4 NB only). A tile is still one
+//    (sequence, head group): tiles of two or four sequences (the bytes of a
+//    128-channel tile or more) and a third stage in flight measured slower,
+//    since neither the copies in flight nor a tile's fixed cost set the
+//    pace. Its walk divides by the head groups and by G by multiply-highs.
+//    bf16 at D = 8 keeps the tensor-core items above: no layout tried beat
+//    them (PERF.md, K1 at heads of 8).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -63,7 +81,20 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using kasf_mma::cp_async16;
+using kasf_mma::cp_async_commit;
+using kasf_mma::cp_async_wait;
+using kasf_mma::ldsm_x2;
+using kasf_mma::ldsm_x2_trans;
+using kasf_mma::ldsm_x4;
+using kasf_mma::ldsm_x4_trans;
+using kasf_mma::mma_k16;
+using kasf_mma::mma_k8;
+using kasf_mma::pack_bf16;
 
 constexpr int kMaxN = 32;   // rows a stage holds: N padded
 constexpr int kStages = 2;  // the cp.async ring
@@ -108,21 +139,6 @@ __device__ __forceinline__ TileBase tile_base(int t, int groups, int G, int H,
   tb.o = b * st.o[0] + g * st.o[1] + c0;
   tb.heads = min(HG, H - grp * HG);
   return tb;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // q, k and v rows 0..N-1 of a tile's head group into a stage. A thread keeps
@@ -174,7 +190,7 @@ __device__ __forceinline__ void compute_f32(const float* stage, float* __restric
                                             const TileBase& tb, long long ostride,
                                             int N, float scale_log2) {
   using Tl = Tile<float, D>;
-  constexpr int DS = D < 16 ? D : 16;  // channels a chunk
+  constexpr int DS = 16;               // channels a chunk
   constexpr int P = D / DS;            // lanes a (head, query row)
   constexpr int KJ = kMaxN / P;        // keys a lane in S: j = jj * P + r
   const int pairs = tb.heads * N;
@@ -292,51 +308,6 @@ __device__ __forceinline__ void compute_f32(const float* stage, float* __restric
 }
 
 // --------------------------------------------------------------- bf16 tile
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b: m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// c += a b: m16n8k8 (D = 8)
-__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2],
-                                       uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
 
 template <int D>
 __device__ __forceinline__ void compute_bf16(const __nv_bfloat16* stage,
@@ -548,7 +519,7 @@ masked_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, D>(stages + ((i + 1) % kStages) * Tl::kStage, q, k, v, st, nb, N);
     }
     cp_async_commit();  // possibly empty: wait_group 1 then still means tile t
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const T* stage = stages + (i % kStages) * Tl::kStage;
     if constexpr (Tl::kF32)
@@ -610,6 +581,289 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- f32 heads of 8
+
+// n / d for 0 <= n < 2^31 by a multiply-high, an add and a shift, d >= 1
+// fixed for a launch and its magic number found on the host: the tile
+// walk's divisions by the head groups and by G
+struct FastDiv {
+  unsigned m = 1;
+  int l = 0;
+  FastDiv() = default;
+  explicit FastDiv(unsigned d) {
+    while ((1ull << l) < d) ++l;
+    m = static_cast<unsigned>((((1ull << l) - d) << 32) / d + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned n) const { return (__umulhi(n, m) + n) >> l; }
+};
+
+// The walk of an f32 launch at D = 8: tiles are (sequence, head group of
+// eight heads) pairs, seq * groups + group
+struct Walk8 {
+  int tiles, groups, G, H;
+  FastDiv by_groups, by_G;
+};
+
+// tile_base of a tile at D = 8, its divisions by multiply-highs
+__device__ __forceinline__ TileBase tile_base8(int t, const Walk8& w, const SdpaStrides& st) {
+  const int seq = static_cast<int>(w.by_groups.div(t));
+  const int grp = t - seq * w.groups;
+  const long long b = w.by_G.div(seq);
+  const long long g = seq - b * w.G;
+  const int c0 = grp * 64;
+  TileBase tb;
+  tb.q = b * st.q[0] + g * st.q[1] + c0;
+  tb.k = b * st.k[0] + g * st.k[1] + c0;
+  tb.v = b * st.v[0] + g * st.v[1] + c0;
+  tb.o = b * st.o[0] + g * st.o[1] + c0;
+  tb.heads = min(8, w.H - grp * 8);
+  return tb;
+}
+
+constexpr int kSmemPerSM = 233472;  // the H100's shared memory a SM: 228 KB
+
+// An f32 tile at D = 8 for N <= 4 NB: one sequence's head group, 64
+// channels, its q, k and v one after another in a stage, rows N padded to
+// 4 NB (a lane's keys: no guard in its loops); padded rows are zeroed once
+// and never written. A lane a (head, pair of query rows): 8 ceil(N / 2)
+// lanes, the block's threads rounded up to a whole warp
+template <int NB>
+struct Tile8 {
+  static constexpr int kRows = 4 * NB;
+  static constexpr int kPitch = 64 + 4;          // floats a stage row
+  static constexpr int kOperand = kRows * kPitch;  // q, k or v
+  static constexpr int kStage = 3 * kOperand;
+  static constexpr int kSmem = kStages * kStage * static_cast<int>(sizeof(float));
+  static constexpr int kMaxThreads = 32 * ((16 * NB + 31) / 32);
+  // blocks a SM as shared memory allows (1 KB of it reserved a block), at
+  // most as many as leave a lane's two rows 128 registers
+  static constexpr int kBySmem = kSmemPerSM / (kSmem + 1024);
+  static constexpr int kByRegs = 65536 / (128 * kMaxThreads);
+  static constexpr int kMinBlocks = kBySmem < kByRegs ? kBySmem : kByRegs;
+  static_assert(kSmem + 1024 <= kSmemPerSM, "a stage ring fits a SM");
+};
+
+// q, k and v rows 0..N-1 of a tile into a stage: a thread keeps one 16-byte
+// chunk column and steps down the rows, so the block reads whole rows,
+// neighbouring threads on neighbouring addresses
+template <int NB>
+__device__ __forceinline__ void load_tile8(float* stage, const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v, const SdpaStrides& st,
+                                           const TileBase& tb, int N) {
+  using Tl = Tile8<NB>;
+  const int ch = threadIdx.x % 16;
+  if (ch >= tb.heads * 2) return;  // past a short last group
+  const int r0 = threadIdx.x / 16, step = blockDim.x / 16;
+#pragma unroll
+  for (int z = 0; z < 3; ++z) {
+    const long long rs = z == 0 ? st.q[2] : (z == 1 ? st.k[2] : st.v[2]);
+    const float* src = (z == 0 ? q + tb.q : (z == 1 ? k + tb.k : v + tb.v)) + ch * 4;
+    float* dst = stage + z * Tl::kOperand + ch * 4;
+    for (int row = r0; row < N; row += step)
+      cp_async16(dst + row * Tl::kPitch, src + row * rs);
+  }
+}
+
+// the 8 channels of a head's row in a stage
+__device__ __forceinline__ void row8(float (&x)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+// a head's 8 output channels of one row, times inv
+__device__ __forceinline__ void store8(float* p, const float (&o)[8], float inv) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(o[0] * inv, o[1] * inv, o[2] * inv, o[3] * inv);
+  reinterpret_cast<float4*>(p)[1] = make_float4(o[4] * inv, o[5] * inv, o[6] * inv, o[7] * inv);
+}
+// a row's logit against a key: its 8 products as four chains of two, summed
+// pairwise
+__device__ __forceinline__ float dot8(const float (&q)[8], const float (&k)[8]) {
+  return (fmaf(q[4], k[4], q[0] * k[0]) + fmaf(q[5], k[5], q[1] * k[1])) +
+         (fmaf(q[6], k[6], q[2] * k[2]) + fmaf(q[7], k[7], q[3] * k[3]));
+}
+
+// lane (h, r) of 8 heads x ceil(N / 2) row pairs, on the CUDA cores: rows
+// i = 2 r and i + 1 against the 4 NB keys of the stage (rows past N are
+// zero), each K and V row read once for both rows, so the stage's reads
+// (16-byte vectors, quarter-warp broadcasts) are half of a lane a row's; the
+// exact max over the N valid keys, 2^(s c - m c), and O = P V over all keys
+// (a padded key's probability and V row are 0). Row i + 1 = N (odd N) is
+// the zero row: computed, not stored
+template <int NB>
+__device__ __forceinline__ void compute8_f32(const float* stage, float* __restrict__ out,
+                                             const TileBase& tb, int h, int i, bool live,
+                                             long long ostride, int N, float scale_log2) {
+  using Tl = Tile8<NB>;
+  constexpr int KJ = 4 * NB;
+  const float* qs = stage + i * Tl::kPitch + h * 8;
+  const float* ks = stage + Tl::kOperand + h * 8;
+  const float* vs = stage + 2 * Tl::kOperand + h * 8;
+  float q0[8], q1[8];
+  row8(q0, qs);
+  row8(q1, qs + Tl::kPitch);
+  float s0[KJ], s1[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    float k[8];
+    row8(k, ks + j * Tl::kPitch);
+    s0[j] = dot8(q0, k);
+    s1[j] = dot8(q1, k);
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (j < N) {
+      m0 = fmaxf(m0, s0[j]);
+      m1 = fmaxf(m1, s1[j]);
+    }
+  const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    s0[j] = j < N ? fast_exp2(fmaf(s0[j], scale_log2, -mc0)) : 0.f;
+    s1[j] = j < N ? fast_exp2(fmaf(s1[j], scale_log2, -mc1)) : 0.f;
+    l0 += s0[j];
+    l1 += s1[j];
+  }
+  float o0[8], o1[8];
+#pragma unroll
+  for (int d = 0; d < 8; ++d) o0[d] = o1[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    float v[8];
+    row8(v, vs + j * Tl::kPitch);
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      o0[d] = fmaf(s0[j], v[d], o0[d]);
+      o1[d] = fmaf(s1[j], v[d], o1[d]);
+    }
+  }
+  if (live) {
+    float* orow = out + tb.o + i * ostride + h * 8;
+    store8(orow, o0, fast_rcp(l0));  // l >= 1: the max logit contributes 2^0
+    if (i + 1 < N) store8(orow + ostride, o1, fast_rcp(l1));
+  }
+}
+
+// Persistent blocks walk the tiles in order through the two-stage ring, as
+// masked_sdpa_kernel does
+template <int NB>
+__global__ void __launch_bounds__(Tile8<NB>::kMaxThreads, Tile8<NB>::kMinBlocks)
+masked_sdpa_h8_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, SdpaStrides st,
+                      Walk8 w, int N, float scale_log2) {
+  using Tl = Tile8<NB>;
+  extern __shared__ uint4 smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+
+  // zero the ring once: padded rows stay zero, cp.async writes rows < N
+  for (int e = threadIdx.x; e < Tl::kSmem / 16; e += blockDim.x)
+    smem[e] = make_uint4(0u, 0u, 0u, 0u);
+  // this lane's head and pair of query rows, the same in every tile; the
+  // lanes past the last pair (a warp's rounding) compute nothing
+  const int pairs = (N + 1) / 2;
+  const bool lane_valid = static_cast<int>(threadIdx.x) < 8 * pairs;
+  const int lane_head = static_cast<int>(threadIdx.x) / pairs;
+  const int lane_row = 2 * (static_cast<int>(threadIdx.x) - lane_head * pairs);
+  __syncthreads();
+
+  int t = blockIdx.x;  // the grid has at most one block a tile
+  TileBase cur = tile_base8(t, w, st);
+  load_tile8<NB>(stages, q, k, v, st, cur, N);
+  cp_async_commit();
+  for (int i = 0;; ++i) {
+    const int next = t + gridDim.x;
+    TileBase nb = cur;
+    if (next < w.tiles) {
+      nb = tile_base8(next, w, st);
+      load_tile8<NB>(stages + ((i + 1) % kStages) * Tl::kStage, q, k, v, st, nb, N);
+    }
+    cp_async_commit();  // possibly empty: wait_group 1 then still means tile t
+    cp_async_wait<1>();
+    __syncthreads();
+    if (lane_valid)
+      compute8_f32<NB>(stages + (i % kStages) * Tl::kStage, out, cur, lane_head, lane_row,
+                       lane_head < cur.heads, st.o[2], N, scale_log2);
+    __syncthreads();  // every warp is done with this stage before it refills
+    if (next >= w.tiles) break;
+    t = next;
+    cur = nb;
+  }
+}
+
+// blocks of the instantiation resident at once on a device, as
+// resident_blocks finds them
+template <int NB>
+cudaError_t resident_blocks8(int* blocks) {
+  using Tl = Tile8<NB>;
+  static int cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaFuncSetAttribute(masked_sdpa_h8_kernel<NB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, masked_sdpa_h8_kernel<NB>, Tl::kMaxThreads, Tl::kSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
+}
+
+template <int NB>
+cudaError_t launch8(const void* q, const void* k, const void* v, void* out,
+                    const SdpaStrides& st, int B, int G, int N, int H, float scale,
+                    cudaStream_t stream) {
+  using Tl = Tile8<NB>;
+  int resident = 0;
+  cudaError_t err = resident_blocks8<NB>(&resident);
+  if (err != cudaSuccess) return err;
+  const int groups = (H + 7) / 8;
+  const long long tiles = static_cast<long long>(B) * G * groups;
+  if (tiles > INT32_MAX - resident) return cudaErrorInvalidValue;
+  Walk8 w;
+  w.tiles = static_cast<int>(tiles);
+  w.groups = groups;
+  w.G = G;
+  w.H = H;
+  w.by_groups = FastDiv(groups);
+  w.by_G = FastDiv(G);
+  const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles : resident);
+  const unsigned threads = 32u * ((8 * ((N + 1) / 2) + 31) / 32);
+  constexpr float kLog2e = 1.4426950408889634f;
+  masked_sdpa_h8_kernel<NB><<<grid, threads, Tl::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), st, w, N, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// K1 at D = 8 in f32: one instantiation a block of four rows N is padded to
+cudaError_t launch8_rows(const void* q, const void* k, const void* v, void* out,
+                         const SdpaStrides& st, int B, int G, int N, int H, float scale,
+                         cudaStream_t stream) {
+  switch ((N + 3) / 4) {
+    case 1: return launch8<1>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 2: return launch8<2>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 3: return launch8<3>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 4: return launch8<4>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 5: return launch8<5>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 6: return launch8<6>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 7: return launch8<7>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 8: return launch8<8>(q, k, v, out, st, B, G, N, H, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_width(const void* q, const void* k, const void* v, void* out,
                          const SdpaStrides& st, int B, int G, int N, int C, int H,
@@ -622,7 +876,11 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, void* out,
     if (st.q[a] % chunk || st.k[a] % chunk || st.v[a] % chunk || st.o[a] % chunk)
       return cudaErrorMisalignedAddress;
   switch (C / H) {
-    case 8: return launch<T, 8>(q, k, v, out, st, B, G, N, H, scale, stream);
+    case 8:
+      if constexpr (std::is_same<T, float>::value)
+        return launch8_rows(q, k, v, out, st, B, G, N, H, scale, stream);
+      else
+        return launch<T, 8>(q, k, v, out, st, B, G, N, H, scale, stream);
     case 16: return launch<T, 16>(q, k, v, out, st, B, G, N, H, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, st, B, G, N, H, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, st, B, G, N, H, scale, stream);
@@ -641,11 +899,49 @@ void describe(int* info) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  info[0] = Tl::kThreads;
-  info[1] = attr.numRegs;
-  info[2] = Tl::kSmem;
-  info[3] = static_cast<int>(attr.localSizeBytes);
-  info[4] = resident / sms;
+  const int v[7] = {Tl::kThreads, attr.numRegs, Tl::kSmem, static_cast<int>(attr.localSizeBytes),
+                    resident / sms, kMaxN, kStages};
+  for (int i = 0; i < 7; ++i) info[i] = v[i];
+}
+
+template <int NB>
+void describe8(int* info) {
+  using Tl = Tile8<NB>;
+  cudaFuncAttributes attr{};
+  int resident = 0;
+  if (cudaFuncGetAttributes(&attr, masked_sdpa_h8_kernel<NB>) != cudaSuccess ||
+      resident_blocks8<NB>(&resident) != cudaSuccess)
+    return;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int v[7] = {Tl::kMaxThreads, attr.numRegs, Tl::kSmem,
+                    static_cast<int>(attr.localSizeBytes), resident / sms, Tl::kRows, kStages};
+  for (int i = 0; i < 7; ++i) info[i] = v[i];
+}
+
+template <typename T>
+void describe_width(int d, int n, int* info) {
+  if (d == 8) {
+    if constexpr (std::is_same<T, float>::value) {
+      switch ((n + 3) / 4) {
+        case 1: describe8<1>(info); break;
+        case 2: describe8<2>(info); break;
+        case 3: describe8<3>(info); break;
+        case 4: describe8<4>(info); break;
+        case 5: describe8<5>(info); break;
+        case 6: describe8<6>(info); break;
+        case 7: describe8<7>(info); break;
+        case 8: describe8<8>(info); break;
+        default: break;
+      }
+    } else {
+      describe<T, 8>(info);
+    }
+  }
+  if (d == 16) describe<T, 16>(info);
+  if (d == 32) describe<T, 32>(info);
+  if (d == 64) describe<T, 64>(info);
 }
 
 }  // namespace
@@ -676,22 +972,17 @@ int kasf_masked_sdpa(int dtype, const void* q, const void* k, const void* v, voi
   return cudaErrorInvalidValue;
 }
 
-// The instantiation for (dtype, head width d) on the current device, for
-// reports: info = {threads a block, registers a thread, dynamic shared
-// memory a block in bytes, local memory (spills) a thread in bytes, blocks
-// resident a SM}. Left untouched for a width or dtype there is none of.
-void kasf_masked_sdpa_info(int dtype, int d, int* info) {
-  switch (dtype * 100 + d) {
-    case 8: describe<float, 8>(info); break;
-    case 16: describe<float, 16>(info); break;
-    case 32: describe<float, 32>(info); break;
-    case 64: describe<float, 64>(info); break;
-    case 108: describe<__nv_bfloat16, 8>(info); break;
-    case 116: describe<__nv_bfloat16, 16>(info); break;
-    case 132: describe<__nv_bfloat16, 32>(info); break;
-    case 164: describe<__nv_bfloat16, 64>(info); break;
-    default: break;
-  }
+// The instantiation for (dtype, head width d, and at d = 8 in float32 the
+// rows N) on the current device, for reports: info = {threads a block (at
+// most: at d = 8 in float32 a launch takes 8 ceil(N / 2) rounded up to a
+// warp), registers a thread, dynamic shared memory a block in bytes, local
+// memory (spills) a thread in bytes, blocks resident a SM, rows a stage
+// holds of q, k or v, stages of the ring}. Left untouched for a width, N or
+// dtype there is none of.
+void kasf_masked_sdpa_info(int dtype, int d, int n, int* info) {
+  if (n < 1 || n > kMaxN) return;
+  if (dtype == 0) describe_width<float>(d, n, info);
+  if (dtype == 1) describe_width<__nv_bfloat16>(d, n, info);
 }
 
 const char* kasf_error_string(int code) {

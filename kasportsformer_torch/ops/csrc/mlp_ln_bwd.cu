@@ -396,6 +396,18 @@
 //       the copies alone 0.0041. (Segments of 128 floats of dW1 and db1,
 //       194 blocks, 1.5 a SM, some SMs twice the bytes of others, took
 //       0.0061 ms.)
+//     - At C = 512 (mlp_ln_bwd_reduce_wide_kernel, namespace rdw) the grid
+//       above made 640 blocks at H = 1024 (512 one-row channel blocks with
+//       two splits to sum a thread, their dx chains staged 4 bytes at a
+//       time; 128 hidden blocks): 0.0107 ms (45 % of its 0.0049 bound on
+//       an H100 80GB HBM3 at 700 W). There 128 blocks each own an equal
+//       share: four G rows (and their channels' dx chains), 4 H floats of
+//       dW1 and H / 128 of db1, brought with the block's W2 rows by bulk
+//       copies, an mbarrier a split and part; warps 0-3 sum G, 4-7 dW1 and
+//       db1, warp 8 copies its channels' dx partials 16 bytes a (tile,
+//       quantity) and lanes 0-11 add the chains: 0.0077 ms in the K4 call
+//       (0.0064-0.0065 alone; its copies alone 0.0062). Every output, dls2
+//       included, is the C = 128 grid's bit for bit.
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info; the reduce
 //     alone on a caller's workspace: kasf_mlp_ln_bwd_reduce.
 #include <cuda.h>  // CUtensorMap and its encoder's signature (called through the runtime)
@@ -3602,6 +3614,188 @@ mlp_ln_bwd_reduce_seg_kernel(const float* __restrict__ part_dx, int n_dx,
   }
 }
 
+// ---- 3, at C = 512: the reduce over equal blocks (its own grid and helpers)
+namespace rdw {
+
+using kasf_mma::bulk_load;
+using kasf_mma::mbar_arm;
+using kasf_mma::mbar_init;
+using kasf_mma::mbar_wait;
+
+constexpr int kC = 512;
+constexpr int kRows = 4;               // G rows a block, whose channels' dx chains it sums
+constexpr int kBlocks = kC / kRows;    // 128: a block each G row group and dW1 segment
+constexpr int kT = 256;                // item threads: warps 0-3 G, warps 4-7 dW1 and db1
+constexpr int kHalf = kT / 2;
+constexpr int kTB = kT + 32;           // and warp 8: the dx chains
+// splits <= 132 / (2 H / 32) by the weight pass's split rule, H >= 64: 33
+constexpr int kMaxSplits = wp::kSMs / (wpc::kNB * (64 / wpc::Cfg<kC>::kJ));
+constexpr int kDxTiles = 512;          // tiles of dx partials staged at a time
+constexpr int kChains = 3 * kRows;     // dgamma, dbeta and g of the block's channels
+constexpr int kMaxRow4 = 2048 / 4;     // float4s of a G row at most
+static_assert(kChains <= 32, "a lane of warp 8 a chain");
+
+// floats of db1 a block: H / 128 rounded up to whole float4s (the last
+// blocks may own none)
+__host__ __device__ inline int db1_len(int H) {
+  return 4 * ((H + 4 * kBlocks - 1) / (4 * kBlocks));
+}
+// floats of a split's segment in shared memory: dW1's 4 H, G's 4 H, db1's
+__host__ __device__ inline int seg_len(int H) { return 8 * H + db1_len(H); }
+// dynamic shared memory: every split's segment, then the block's W2 rows
+template <typename T>
+inline int smem_bytes(int H, int n_w) {
+  return n_w * seg_len(H) * static_cast<int>(sizeof(float)) +
+         kRows * H * static_cast<int>(sizeof(T));
+}
+
+}  // namespace rdw
+
+// K4's reduce at C = 512. The C = 128 grid made 640 blocks at H = 1024 (512
+// one-row channel blocks, 128 hidden blocks), each with two splits to sum a
+// thread, and a channel block's warp 8 staged its 3 x 263 dx values by
+// 4-byte copies 2 KB or 6 KB apart before three lanes added them alone, so
+// the fixed cost a block, not the bytes, set the pace (0.0107 ms, 45 % of
+// its bound on an H100 80GB HBM3 at 700 W). Here each of 128 blocks owns an
+// equal share: G rows 4 b .. 4 b + 3, the 4 H floats of dW1 from 4 H b, and
+// H / 128 floats of db1, and lanes of warp 0 bring that segment of every
+// split, and the block's rows of W2, into shared memory at once by bulk
+// copies, an mbarrier a split for its G (and, with split 0, W2) and one for
+// its dW1 and db1, so all of the launch's bytes are in flight from its
+// start and a split's sums start as it lands (eight splits an mbarrier
+// measured 4 % slower at H = 1,024). Warps 0-3 sum G a float4 a thread over
+// the splits in index order from +0 (dW2 = ls2 G, and each float4's share
+// of sum_j W2 G as the C = 128 grid forms it), warps 4-7 dW1 and db1
+// likewise, and warp 8 copies the dx partials of the block's four channels
+// by 16-byte cp.async, 16 bytes a (tile, quantity), and lanes 0-11 each add
+// one chain over the tiles in order. Every output is the C = 128 grid's,
+// bit for bit: dls2's row sums too, a warp a row in the same order.
+template <typename T>
+__global__ void __launch_bounds__(rdw::kTB)
+mlp_ln_bwd_reduce_wide_kernel(const float* __restrict__ part_dx, int n_dx,
+                              const float* __restrict__ part_w, int n_w,
+                              const T* __restrict__ w2, const T* __restrict__ b2,
+                              const float* __restrict__ ls2, float* __restrict__ dgamma,
+                              float* __restrict__ dbeta, float* __restrict__ dw1,
+                              float* __restrict__ db1, float* __restrict__ dw2,
+                              float* __restrict__ db2, float* __restrict__ dls2, int H) {
+  using namespace rdw;
+  constexpr int C = kC;
+  extern __shared__ uint4 wide_raw[];  // [split][dW1 4 H | G 4 H | db1], then W2's rows
+  float* seg = reinterpret_cast<float*>(wide_raw);
+  __shared__ __align__(16) float dxs[kChains * kDxTiles];  // [tile][quantity][channel]
+  __shared__ float dots[kRows * kMaxRow4];                // each G float4's share of dls2
+  __shared__ float sg[kRows];                             // sum g of each row's channel
+  __shared__ unsigned long long bars[2 * kMaxSplits];     // [split][G and W2, dW1 and db1]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long stride = 2LL * H * C + H;  // floats of a split's partial
+  const int b = blockIdx.x, c0 = b * kRows;
+  const int len = seg_len(H), ld = db1_len(H);
+  const int nd = max(0, min(ld, H - b * ld));  // the block's floats of db1
+  const long long o1 = 4LL * H * b;            // its dW1 segment in a partial, and G's
+  const long long og = static_cast<long long>(H) * C + o1;  // G rows c0.. at H C + c0 H
+  T* w2s = reinterpret_cast<T*>(seg + n_w * len);
+  for (int i = tid; i < 2 * n_w; i += kTB) mbar_init(&bars[i], 1);
+  __syncthreads();  // the barriers are initialised
+  if (warp == 0) {
+    for (int i = lane; i < 2 * n_w; i += 32) {  // barrier 2 s + p: split s, part p
+      const int s = i >> 1;
+      const bool g_part = (i & 1) == 0;
+      const unsigned w2_bytes = kRows * H * sizeof(T);
+      float* dst = seg + s * len;
+      const float* src = part_w + s * stride;
+      if (g_part) {
+        mbar_arm(&bars[i], 16u * H + (s == 0 ? w2_bytes : 0u));
+        if (s == 0) bulk_load(w2s, w2 + static_cast<long long>(c0) * H, w2_bytes, &bars[i]);
+        bulk_load(dst + 4 * H, src + og, 16u * H, &bars[i]);
+      } else {
+        mbar_arm(&bars[i], 4u * (4 * H + nd));
+        bulk_load(dst, src + o1, 16u * H, &bars[i]);
+        if (nd > 0) bulk_load(dst + 8 * H, src + 2LL * H * C + b * ld, 4u * nd, &bars[i]);
+      }
+    }
+  }
+  if (warp < 8) {
+    // a float4 of the segment over the splits, each as it lands
+    const bool g_part = warp < 4;
+    const int t = g_part ? tid : tid - kHalf;
+    const int n4 = g_part ? H : H + nd / 4;  // float4s: G's 4 H floats, or dW1's and db1's
+    const int row4 = H / 4;
+    for (int f = t; f < n4; f += kHalf) {
+      // its offset in a split's segment: G at 4 H, dW1 at 0, db1 at 8 H
+      const int at = 4 * f + (g_part || f >= H ? 4 * H : 0);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < n_w; ++s) {
+        mbar_wait(&bars[2 * s + (g_part ? 0 : 1)], 0);
+        const float4 v = dxp::ld4(seg + s * len + at);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      if (g_part) {  // G[c0 + r][4 j4..]: dW2 = ls2 G, and its share of sum_j W2 G
+        const int r = f / row4;
+        const float4 w = dxp::load4(w2s + 4 * f);
+        const float s = ls2[c0 + r];
+        dxp::st4(dw2 + static_cast<long long>(c0) * H + 4 * f,
+                 make_float4(s * acc.x, s * acc.y, s * acc.z, s * acc.w));
+        dots[f] = fmaf(w.w, acc.w, fmaf(w.z, acc.z, fmaf(w.y, acc.y, w.x * acc.x)));
+      } else if (f < H) {
+        dxp::st4(dw1 + o1 + 4 * f, acc);
+      } else {
+        dxp::st4(db1 + b * ld + 4 * (f - H), acc);
+      }
+    }
+  } else {
+    // warp 8: the dx partials of channels c0 .. c0 + 3, 16 bytes a (tile,
+    // quantity), then lane q kRows + r adds quantity q of channel c0 + r
+    // over the tiles in order
+    float chain = 0.f;
+    for (int n0 = 0; n0 < n_dx; n0 += kDxTiles) {
+      const int nt = min(kDxTiles, n_dx - n0);
+      for (int e = lane; e < 3 * nt; e += 32)
+        kasf_mma::cp_async16(dxs + kRows * e, part_dx + (3LL * n0 + e) * C + c0);
+      kasf_mma::cp_async_commit();
+      kasf_mma::cp_async_wait<0>();
+      __syncwarp();
+      if (lane < kChains) {
+        const float* p = dxs + lane;
+        int n = 0;
+        for (; n + 8 <= nt; n += 8) {
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) v[u] = p[(n + u) * kChains];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) chain += v[u];
+        }
+        for (; n < nt; ++n) chain += p[n * kChains];
+      }
+      __syncwarp();  // the stage is read before the warp refills it
+    }
+    if (lane < kChains) {
+      const int q = lane / kRows, r = lane - q * kRows, c = c0 + r;
+      if (q == 0) {
+        dgamma[c] = chain;
+      } else if (q == 1) {
+        dbeta[c] = chain;
+      } else {
+        db2[c] = ls2[c] * chain;
+        sg[r] = chain;
+      }
+    }
+  }
+  __syncthreads();  // dots and sg in
+  // dls2: warp r sums row r's shares, lane l its float4s l, l + 32, ..., as
+  // the C = 128 grid does
+  if (warp < kRows) {
+    const int row4 = H / 4;
+    float t = 0.f;
+    for (int f = lane; f < row4; f += 32) t += dots[warp * row4 + f];
+    t = warp_sum(t);
+    if (lane == 0) dls2[c0 + warp] = fmaf(to_f(b2[c0 + warp]), sg[warp], t);
+  }
+}
+
 struct Args {
   const void *x, *g, *w1, *b1, *w2, *b2;
   const float *gamma, *beta, *ls2;
@@ -3748,6 +3942,16 @@ cudaError_t launch_reduce(const Args& a, long long M, int H, cudaStream_t stream
         mlp_ln_bwd_reduce_seg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     mlp_ln_bwd_reduce_seg_kernel<T><<<rds::kBlocks, rds::kTB, smem, stream>>>(
+        a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, splits,
+        static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
+        a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
+  } else if constexpr (C == 512) {
+    const int smem = rdw::smem_bytes<T>(H, splits);
+    if (splits > rdw::kMaxSplits) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_ln_bwd_reduce_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_reduce_wide_kernel<T><<<rdw::kBlocks, rdw::kTB, smem, stream>>>(
         a.work, static_cast<int>(tiles), a.work + tiles * 3 * C, splits,
         static_cast<const T*>(a.w2), static_cast<const T*>(a.b2), a.ls2, a.dgamma, a.dbeta,
         a.dw1, a.db1, a.dw2, a.db2, a.dls2, H);
@@ -3903,7 +4107,7 @@ inline int device_sms() {
 // {threads, rows a tile, hidden columns a block, row splits for M rows and
 // hidden H, registers, shared memory bytes, spill bytes, blocks a SM};
 // info[14..19]: the reduce as {threads, blocks for hidden H, registers,
-// shared memory bytes (static and, at C = 64, dynamic), spill bytes,
+// shared memory bytes (static and, at C = 64 and 512, dynamic), spill bytes,
 // blocks a SM}; info[20..22]: the dx pass
 // again, {blocks a cluster (a tile), clusters the device holds at once (one
 // block each at C = 128), blocks of its launch over M rows}; info[23..25]:
@@ -3971,6 +4175,12 @@ void describe_all(long long M, int H, int* info) {
     const int smem_r = rds::smem_bytes(H, splits);
     if (describe(mlp_ln_bwd_reduce_seg_kernel<T>, rds::kTB, smem_r, d)) {
       const int v[6] = {d[0], rds::kBlocks, d[1], d[4] + smem_r, d[2], d[3]};
+      for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
+    }
+  } else if constexpr (C == 512) {
+    const int smem_r = rdw::smem_bytes<T>(H, splits);
+    if (describe(mlp_ln_bwd_reduce_wide_kernel<T>, rdw::kTB, smem_r, d)) {
+      const int v[6] = {d[0], rdw::kBlocks, d[1], d[4] + smem_r, d[2], d[3]};
       for (int i = 0; i < 6; ++i) info[14 + i] = v[i];
     }
   } else if (describe(mlp_ln_bwd_reduce_kernel<T, C>, rd::kTB, 0, d)) {

@@ -2,9 +2,10 @@
 // 16-byte cp.async copies into shared memory, bulk copies on the TMA
 // engine completing on an mbarrier (and L2 prefetches), thread-block
 // cluster barriers, stores into a cluster peer's shared memory and row sums
-// across a cluster, ldmatrix fragment loads, the m16n8k16 bf16 mma.sync
-// with f32 accumulators, and the m16n8k8 TF32 mma.sync with the hi / lo
-// split of an f32 operand for products in 3xTF32.
+// across a cluster, ldmatrix fragment loads (plain and transposed), the
+// m16n8k16 and m16n8k8 bf16 mma.sync with f32 accumulators, and the m16n8k8
+// TF32 mma.sync with the hi / lo split of an f32 operand for products in
+// 3xTF32.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row): a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k),
@@ -195,6 +196,23 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+// the transposed forms: a matrix stored by rows of k (n contiguous) as the
+// "col" B operand
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
 
 // c += a b: m16n8k16, bf16 in, f32 accumulate. Registers only (not
 // volatile), so the compiler may schedule other work around it
@@ -205,6 +223,17 @@ __device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: m16n8k8, bf16 in, f32 accumulate (a head of 8 channels: A
+// (16 x 8, row) a[0] = (row g, k 2t..2t+1), a[1] = (row g+8, same k); B
+// b0 = (k 2t..2t+1, col g)). Registers only
+__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
 // x split for 3xTF32, as the bits of two floats: hi = tf32(x) rounded to

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""K4's reduce at C/H = 64/256 against edited copies of its kernel, in turns.
+"""K4's reduce at C/H = 64/256 or 512/1024 against edited copies of its kernel, in turns.
 
 Run on the card from the repository root:
 
-    python3 scripts/k4_reduce_variants.py [--m 14688] [--rounds 4] [--only NAME ...]
+    python3 scripts/k4_reduce_variants.py [--c 64|512] [--m 14688] [--rounds 4] [--only NAME ...]
 
 Each variant is the repository's `csrc/mlp_ln_bwd.cu` with a few text edits
-to `mlp_ln_bwd_reduce_seg_kernel` (the reduce over segments at C = 64),
+to `mlp_ln_bwd_reduce_seg_kernel` (the reduce over segments at C = 64) or
+`mlp_ln_bwd_reduce_wide_kernel` (the reduce over equal blocks at C = 512),
 built with every other width's dispatch taken out (one nvcc each, all
-started together, into `build/reduce_variants/<name>/kernels`); the
+started together, into `build/reduce_variants/<c>/<name>/kernels`); the
 compiler's registers and spills of the kernel are printed for each. For
 each dtype the script runs the reduce alone (`fused_mlp_ln_bwd_reduce`) on
 seeded partials of M rows with each variant's library in turns (forward,
@@ -156,40 +157,67 @@ VARIANTS = {
 }
 
 
-def variant_source(edits: list) -> str:
+# the reduce at C/H = 512/1024: its own anchors
+_ONLY512 = (_ONLY64[0], "  return f(std::integral_constant<int, 512>{});")
+_CHAINS512 = "    for (int n0 = 0; n0 < n_dx; n0 += kDxTiles) {\n"
+_ADD512 = ("        const float4 v = dxp::ld4(seg + s * len + at);\n        acc.x += v.x;\n"
+           "        acc.y += v.y;\n        acc.z += v.z;\n        acc.w += v.w;\n")
+_WIDE = "  } else if constexpr (C == 512) {\n    const int smem = rdw::smem_bytes<T>(H, splits);\n"
+
+VARIANTS_512 = {
+    "shipped": ("the kernel as it is: 128 blocks, an mbarrier a split and part", []),
+    "C = 128's grid": ("the reduce of C = 128 (640 blocks at H = 1024), as before", [
+        (_WIDE, "  } else if constexpr (C == -1) {\n    const int smem = rdw::smem_bytes<T>(H, splits);\n")]),
+    "diagnostic: no dx chains": ("warp 8 copies and adds no dx partial (wrong dgamma, dbeta, db2, dls2)", [
+        (_CHAINS512, "    for (int n0 = 0; n0 < 0; n0 += kDxTiles) {\n")]),
+    "diagnostic: copies only": ("the item threads wait for the copies and add nothing (wrong)", [
+        (_ADD512, "")]),
+}
+WIDTHS = {64: (256, _ONLY64, VARIANTS, "reduce_seg"),
+          512: (1024, _ONLY512, VARIANTS_512, "reduce_wide")}
+
+
+def variant_source(edits: list, c: int = 64) -> str:
     text = (ROOT / "kasportsformer_torch" / "ops" / "csrc" / "mlp_ln_bwd.cu").read_text()
-    for anchor, replacement in [_ONLY64] + edits:
+    for anchor, replacement in [WIDTHS[c][1]] + edits:
         if text.count(anchor) != 1:
             raise SystemExit(f"anchor not found once in mlp_ln_bwd.cu: {anchor!r}")
         text = text.replace(anchor, replacement)
     return text
 
 
-def ptxas_lines(log: str) -> list[str]:
-    """The compiler's lines on the reduce over segments: its entry and the
-    registers, shared memory and spills reported after it."""
+def ptxas_lines(log: str, key: str = "reduce_seg") -> list[str]:
+    """The compiler's lines on the width's reduce kernel (`key` in its
+    name): its entry and the registers, shared memory and spills reported
+    after it."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
-        if "reduce_seg" in line and "Compiling entry" in line:
+        if key in line and "Compiling entry" in line:
             out += [line.strip()] + [x.strip() for x in lines[i + 1:i + 4]]
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--c", type=int, choices=sorted(WIDTHS), default=64)
     parser.add_argument("--m", type=int, default=14688)
     parser.add_argument("--rounds", type=int, default=4)
-    parser.add_argument("--only", nargs="+", choices=sorted(VARIANTS), default=None)
+    parser.add_argument("--only", nargs="+", default=None)
     args = parser.parse_args()
-    names = args.only or list(VARIANTS)
-    sources = {name: variant_source(VARIANTS[name][1]) for name in names}
+    c = args.c
+    h, _, variants, key = WIDTHS[c]
+    names = args.only or list(variants)
+    unknown = set(names) - set(variants)
+    if unknown:
+        parser.error(f"no variants {sorted(unknown)} at C = {c}; known: {sorted(variants)}")
+    sources = {name: variant_source(variants[name][1], c) for name in names}
 
     import torch
 
     from chip_smoke import card_line, k4_launch_ms
     from kasportsformer_torch.ops import _build
-    from kasportsformer_torch.ops.mlp import (_bwd_workspace_size, fused_mlp_ln_bwd_reduce,
+    from kasportsformer_torch.ops.mlp import (fused_mlp_ln_bwd_partition, fused_mlp_ln_bwd_reduce,
                                               fused_mlp_ln_bwd_reduce_reference)
 
     if not torch.cuda.is_available():
@@ -197,7 +225,7 @@ def main() -> int:
         return 1
     jobs = {}
     for name, text in sources.items():
-        d = ROOT / "build" / "reduce_variants" / re.sub(r"[^A-Za-z0-9]+", "_", name)
+        d = ROOT / "build" / "reduce_variants" / str(c) / re.sub(r"[^A-Za-z0-9]+", "_", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(ROOT / "kasportsformer_torch" / "ops" / "csrc", d / "csrc")
         (d / "csrc" / "mlp_ln_bwd.cu").write_text(text)
@@ -210,14 +238,16 @@ def main() -> int:
         libs[name] = ctypes.CDLL(str(job[2]))
         libs[name].kasf_error_string.argtypes = [ctypes.c_int]
         libs[name].kasf_error_string.restype = ctypes.c_char_p
-        print(f"{name}: " + " | ".join(ptxas_lines(log)), flush=True)
+        print(f"{name}: " + " | ".join(ptxas_lines(log, key)), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
     for dt in (torch.float32, torch.bfloat16):
-        work = torch.randn(_bwd_workspace_size(args.m, 256, 64), device=dev, generator=gen)
-        w2 = torch.randn(64, 256, device=dev, generator=gen).mul(256 ** -0.5).to(dt)
-        b2 = torch.randn(64, device=dev, generator=gen).mul(0.1).to(dt)
-        ls2 = torch.rand(64, device=dev, generator=gen)
+        p = fused_mlp_ln_bwd_partition(args.m, h, c)  # the two passes' partials
+        work = torch.randn(p["dx_tiles"] * 3 * c + p["splits"] * (2 * h * c + h), device=dev,
+                           generator=gen)
+        w2 = torch.randn(c, h, device=dev, generator=gen).mul(h ** -0.5).to(dt)
+        b2 = torch.randn(c, device=dev, generator=gen).mul(0.1).to(dt)
+        ls2 = torch.rand(c, device=dev, generator=gen)
         a = (work, w2, b2, ls2, args.m)
         want = fused_mlp_ln_bwd_reduce_reference(*a)
         res: dict = {}
@@ -234,11 +264,11 @@ def main() -> int:
                 res.setdefault(name, []).append((ms, equal, err, same))
         for name in names:
             r = res[name]
-            print(f"M={args.m} C/H=64/256 {str(dt).split('.')[1]:8s} {name:26s} reduce "
+            print(f"M={args.m} C/H={c}/{h} {str(dt).split('.')[1]:8s} {name:26s} reduce "
                   + " / ".join(f"{ms:.4f}" for ms, *_ in r)
                   + f" ms; six bitwise equal {all(x[1] for x in r)}; dls2 err "
                   f"{max(x[2] for x in r):.1e}; reruns bitwise equal {all(x[3] for x in r)}"
-                  f"  ({VARIANTS[name][0]})", flush=True)
+                  f"  ({variants[name][0]})", flush=True)
     return 0
 
 

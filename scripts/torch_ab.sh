@@ -17,8 +17,10 @@
 #                                          what it alone feeds; then K2 at
 #                                          heads of 16, 32 and 64 (8 heads,
 #                                          batch 32, 27 x 17) and the SHA-1 of
-#                                          dq, dk and dv (chip_smoke.k4_digests
-#                                          and k2_digests)
+#                                          dq, dk and dv; then K1's output at
+#                                          heads of 16, 32 and 64 and its SHA-1
+#                                          (chip_smoke.k4_digests, k2_digests
+#                                          and k1_digests)
 # A run that fails is reported and the turns go on; the exit code is the
 # number of runs that failed.
 set -uo pipefail
@@ -41,7 +43,7 @@ case "${1:-}" in
       echo "=== run $n: $side ($tree)"
       (cd "$tree" && python3 chip_smoke.py --phases "$2" --out "$out/$n$side") \
         > "$out/$n$side/log.txt" 2>&1 || { echo "run $n ($side) failed"; failed=$((failed + 1)); }
-      grep -E "K2 (spatial|temporal)|by launch|K4 M=|K4 C/H|dx pass cluster|K4 reduce|K3 M|K5 M|128-clip forward|profile|of which|by group|train step|SM clock|phases" \
+      grep -E "K1 |K2 (spatial|temporal)|by launch|K4 M=|K4 C/H|dx pass cluster|K4 reduce|K3 M|K5 M|128-clip forward|profile|of which|by group|train step|SM clock|phases" \
         "$out/$n$side/log.txt" || true
     done
     exit "$failed"
@@ -55,7 +57,8 @@ import chip_smoke
 # chip_smoke.py is this tree's in both (prepare copies it): the same seeded
 # inputs on each side
 for label, digests in (("K4 C", chip_smoke.k4_digests("cuda")),
-                      ("K2 D", chip_smoke.k2_digests("cuda"))):
+                      ("K2 D", chip_smoke.k2_digests("cuda")),
+                      ("K1", chip_smoke.k1_digests("cuda"))):
     for (width, dtype), digest in digests.items():
         print(f"{label}={width} {dtype} {digest}")
 PY

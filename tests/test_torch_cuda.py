@@ -12,6 +12,7 @@ from kasportsformer_torch.ops.attention import (
     masked_sdpa_bwd,
     masked_sdpa_bwd_kernel_info,
     masked_sdpa_bwd_reference,
+    masked_sdpa_kernel_info,
     masked_sdpa_reference,
 )
 from kasportsformer_torch.ops.mlp import (
@@ -143,6 +144,53 @@ def test_masked_sdpa_kernel_tiles_off_the_grid(cuda, dtype, b, g, c, heads):
     want = masked_sdpa_reference(q.float(), k.float(), v.float(), d ** -0.5, heads)
     assert (torch.isfinite(got).all()
             and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seqs", [1, 3, 3457])
+@pytest.mark.parametrize("heads", [8, 16])
+@pytest.mark.parametrize("n", [1, 17, 27, 32])
+@pytest.mark.parametrize("view", ["strided", "permuted"])
+def test_masked_sdpa_kernel_heads_of_8_sequence_counts(cuda, dtype, seqs, heads, n, view):
+    """K1 at heads of 8 on odd counts of sequences (1, 3 and 3,457: a grid
+    that walks no whole number of tiles a block), at 8 and 16 heads (one
+    head group a sequence or two, each a tile of its own), at N its
+    instantiations pad differently (1, 17, 27, 32), on column slices of one
+    qkv projection and on their (B,T,J,C)->(B,J,T,C) permutation; against
+    the plain version, and a rerun bitwise equal."""
+    c = 8 * heads
+    if view == "strided":
+        q, k, v = torch.randn(1, seqs, n, 3 * c, device="cuda",
+                              generator=cuda).to(dtype).split(c, dim=-1)
+    else:
+        q, k, v = (z.transpose(1, 2) for z in torch.randn(
+            1, n, seqs, 3 * c, device="cuda", generator=cuda).to(dtype).split(c, dim=-1))
+    before = masked_sdpa.launches
+    got = masked_sdpa(q, k, v, 8 ** -0.5, heads)
+    want = masked_sdpa_reference(q.float(), k.float(), v.float(), 8 ** -0.5, heads)
+    assert masked_sdpa.launches == before + 1 and got.shape == q.shape
+    assert (torch.isfinite(got).all()
+            and _scaled_err(got, want) <= TOL["masked_sdpa"][dtype])
+    assert torch.equal(got, masked_sdpa(q, k, v, 8 ** -0.5, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_sdpa_kernel_heads_of_8_instantiations(cuda, dtype):
+    """K1 at heads of 8 in f32 has one instantiation a block of four rows N
+    is padded to: a tile of one sequence's head group, its stages of N rows
+    (a lane a head and pair of rows), a two-stage ring, at least one block a
+    SM, no spill. bf16 at heads of 8 and every other width keep the
+    128-channel (at heads of 8, 64-channel) tiles of 32 rows."""
+    if dtype == torch.float32:
+        for n in range(4, 33, 4):
+            info = masked_sdpa_kernel_info(dtype, 8, n)
+            assert (info["tile_rows"], info["stages"]) == (n, 2), info
+            assert info["threads"] == 32 * -(-8 * n // 2 // 32), info
+            assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+            assert info["smem_bytes"] == 2 * 3 * n * (64 + 4) * 4, info
+    for d in (8, 16, 32, 64) if dtype == torch.bfloat16 else (16, 32, 64):
+        info = masked_sdpa_kernel_info(dtype, d)
+        assert (info["tile_rows"], info["stages"], info["spill_bytes"]) == (32, 2, 0), info
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -972,9 +1020,11 @@ def test_fused_mlp_ln_bwd_kernel_zoo_tile_edges(cuda, dtype, c, edge):
 def test_fused_mlp_ln_bwd_reduce_alone_bitwise_plain_zoo_widths(cuda, dtype, m, hidden, c):
     """K4's reduce alone at C = 64, 256 and 512 on seeded partials against
     its plain version: six gradients bit for bit, dls2 within K4's limit, a
-    rerun bitwise equal; at 256 and 512 a hidden block's eight dW1 rows are
-    C / 128 float4s a thread, at 64 the segment grid takes H = 256 and 2,048
-    (8 splits, a G row of 512 float4s, 16 a lane)."""
+    rerun bitwise equal; at 256 a hidden block's eight dW1 rows are two
+    float4s a thread, at 512 the grid of equal blocks takes H = 64 (33
+    splits, five mbarriers a part, db1 in sixteen blocks) and 1,024, at 64
+    the segment grid takes H = 256 and 2,048 (8 splits, a G row of 512
+    float4s, 16 a lane)."""
     p = fused_mlp_ln_bwd_partition(m, hidden, c)
     n = p["dx_tiles"] * 3 * c + p["splits"] * (2 * hidden * c + hidden)
     work = torch.randn(n, device="cuda", generator=cuda)
@@ -1018,6 +1068,38 @@ def test_fused_mlp_ln_bwd_reduce_c64_segments(cuda, dtype, m):
     assert red["spill_bytes"] == 0 and red["registers"] > 0, red
     assert red["blocks"] == 2 * 64 + 4 >= sms, red
     assert red["smem_bytes"] >= p["splits"] * 256 * 4, (red, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [31, 33, 55, 57, 63, 65, 14688])
+def test_fused_mlp_ln_bwd_reduce_c512_blocks(cuda, dtype, m):
+    """K4's reduce alone at MixSTE's and D3DP's 512/1024 (its grid of 128
+    equal blocks: four G rows, 4 H floats of dW1 and eight of db1 each, every
+    split's share and the block's W2 rows by bulk copies, the dx partials of
+    its four channels by cp.async) on seeded partials of the ragged M of the
+    plain version's CPU checks (one row either side of a 32-row weight-pass
+    tile, of a 56-row dx tile and of two splits of one tile) and the train
+    step's 14,688: dgamma, dbeta, dw1, db1, dw2 and db2 bit for bit against
+    the plain version, dls2 within K4's limit, a rerun bitwise equal; no
+    spill, 128 blocks."""
+    p = fused_mlp_ln_bwd_partition(m, 1024, 512)
+    n = p["dx_tiles"] * 3 * 512 + p["splits"] * (2 * 1024 * 512 + 1024)  # no stage weights
+    work = torch.randn(n, device="cuda", generator=cuda)
+    w2 = torch.randn(512, 1024, device="cuda", generator=cuda).to(dtype)
+    b2 = torch.randn(512, device="cuda", generator=cuda).to(dtype)
+    ls2 = torch.rand(512, device="cuda", generator=cuda)
+    got = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    want = fused_mlp_ln_bwd_reduce_reference(work, w2, b2, ls2, m)
+    names = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, w), name
+    assert _sum_err(got[6], want[6]) <= TOL["fused_mlp_ln_bwd"][torch.float32]
+    again = fused_mlp_ln_bwd_reduce(work, w2, b2, ls2, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    red = fused_mlp_ln_bwd_kernel_info(dtype, m, 1024, c=512)["reduce"]
+    assert red["spill_bytes"] == 0 and red["registers"] > 0, red
+    assert red["blocks"] == 128, red
+    assert red["smem_bytes"] >= p["splits"] * 8 * 1024 * 4, (red, p)
 
 
 def test_fused_mlp_ln_bwd_partition_matches_library_at_zoo_widths(cuda):

@@ -1,6 +1,7 @@
 """The `clock64` stamp scripts of K4's passes (`scripts/k4_dx_stamps.py`,
-`scripts/k4_w_stamps.py`, each pass's kernel at every width) and the dx pass's A/B script
-(`scripts/k4_dx_variants.py`) edit a copy of `csrc/mlp_ln_bwd.cu` at
+`scripts/k4_w_stamps.py`, each pass's kernel at every width) and the A/B scripts of the dx
+pass and the reduce (`scripts/k4_dx_variants.py`, `scripts/k4_reduce_variants.py`) edit a
+copy of `csrc/mlp_ln_bwd.cu` at
 anchors in its text and stop on the card if one is gone. Here, on the CPU,
 every variant's anchors are found once in today's source and each phase
 gets its stamp, so the scripts still run on the card."""
@@ -15,6 +16,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import k4_dx_stamps  # noqa: E402
 import k4_dx_variants  # noqa: E402
+import k4_reduce_variants  # noqa: E402
 import k4_w_stamps  # noqa: E402
 
 SOURCE = (ROOT / "kasportsformer_torch" / "ops" / "csrc" / "mlp_ln_bwd.cu").read_text()
@@ -75,3 +77,15 @@ def test_dx_pass_variants_apply(variant):
     assert "mlp_ln_bwd_dx_wg_kernel" in text
     assert "std::integral_constant<int, 128>" not in text
     assert (text == k4_dx_variants.variant_source([])) == (variant == "shipped")
+
+
+@pytest.mark.parametrize("c,variant", [(c, v) for c, w in sorted(k4_reduce_variants.WIDTHS.items())
+                                       for v in w[2]])
+def test_reduce_variants_apply(c, variant):
+    """Each A/B variant of the reduce (at C = 64 its segment kernel, at 512
+    its kernel of equal blocks) applies its edits and the cut to that width
+    once; every variant but the kernel as it is changes the source."""
+    text = k4_reduce_variants.variant_source(k4_reduce_variants.WIDTHS[c][2][variant][1], c)
+    assert "std::integral_constant<int, 128>" not in text
+    assert f"return f(std::integral_constant<int, {c}>{{}});" in text
+    assert (text == k4_reduce_variants.variant_source([], c)) == (variant == "shipped")
