@@ -107,8 +107,14 @@ Phases (any failure exits non-zero and prints no result line):
      and 1024, and H = 192 at C = 64, raise. Last, K4 at C/H 128/512,
      256/1024 and 512/1024 on seeded inputs in both dtypes gives bit for bit
      the eight gradients it gave before the C = 64 dx pass became two warp
-     groups (SHA-1 digests, `K4_DIGESTS`). In phases 6 and 7 the plain
-     version runs in float32 on the kernel's own inputs.
+     groups (SHA-1 digests, `K4_DIGESTS`; bf16 at C = 128 since its passes
+     moved to the tensor cores). In phases 6 and 7 the plain version runs
+     in float32 on the kernel's own inputs, but for K4 in bf16 at C = 128:
+     there its tensor-core passes round LN(x), the hidden, do and dz to
+     bf16 as the TPU kernel does, and are held to the plain version run in
+     bf16 (limit 1e-2), their distance from the float32 plain version at
+     most twice that plain version's own; each launch's kernel name,
+     registers and spills are logged.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -116,8 +122,10 @@ Phases (any failure exits non-zero and prints no result line):
      backward.
   9. the train step at the config's batch 32, float32 and bfloat16: median
      ms/step, clips/s, peak memory, device busy share and a profiler table
-     (the profiles of phases 4 and 9 with the SM clock they ran at);
-     then 50 steps on one batch, whose loss must fall.
+     (the profiles of phases 4 and 9 with the SM clock they ran at; K4's
+     launches by kernel name), the K4 calls of the 12 timed steps (none
+     fails the phase); then 50 steps on one batch in each dtype, whose loss
+     must fall.
   9b. the zoo trains on the card (MixSTE, DSTFormer and MotionAGFormer base,
      use_tcn, hierarchical, graph_only and XS at full width, drop_path 0 as
      the config sets it, and D3DP's diffusion objective at -cs 512 -dep 8,
@@ -499,16 +507,18 @@ def k4_widths() -> tuple:
 # kernels' names
 K4_LAUNCHES = (("stage", ("mlp_ln_bwd_stage_kernel",)),
                ("dx pass", ("mlp_ln_bwd_dx_kernel", "mlp_ln_bwd_dx_cluster_kernel",
-                            "mlp_ln_bwd_dx_wg_kernel")),
+                            "mlp_ln_bwd_dx_wg_kernel", "mlp_ln_bwd_dx_mma_kernel")),
                ("weight pass", ("mlp_ln_bwd_w_kernel", "mlp_ln_bwd_w_cluster_kernel",
-                                "mlp_ln_bwd_w_tc_kernel")),
+                                "mlp_ln_bwd_w_tc_kernel", "mlp_ln_bwd_w_mma_kernel")),
                ("reduce", ("mlp_ln_bwd_reduce_kernel", "mlp_ln_bwd_reduce_seg_kernel",
                            "mlp_ln_bwd_reduce_wide_kernel")))
 
 
-def k4_launch_ms(call, iters: int) -> dict:
+def k4_launch_ms(call, iters: int, seen: dict | None = None) -> dict:
     """Device ms per launch of each of K4's kernels over `iters` calls of
-    `call` (torch.profiler; a kernel it does not see is absent)."""
+    `call` (torch.profiler; a kernel it does not see is absent). Where
+    `seen` is given, it gets each launch's kernel names as the profiler
+    reports them."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -524,7 +534,18 @@ def k4_launch_ms(call, iters: int) -> dict:
             if any(name in e.key for name in names):
                 t, n = acc.get(label, (0.0, 0))
                 acc[label] = (t + e.self_device_time_total, n + e.count)
+                if seen is not None:
+                    seen.setdefault(label, set()).add(kernel_name(e.key))
     return {label: t / 1e3 / n for label, (t, n) in acc.items()}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its namespace, template
+    arguments and parameters."""
+    import re
+
+    found = re.search(r"(\w+_kernel)\b", key)
+    return found.group(1) if found else key[:60]
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -1863,13 +1884,31 @@ def check_k2_zoo(dev, gen, tol: dict) -> dict:
 _MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dls2")
 
 
+# K4 in bfloat16 at C = 128 (the tensor-core passes) against the plain
+# version run in bfloat16, a gradient at a time (dx per element scaled by
+# max(1, |y|), the parameter gradients against their largest entry). Both
+# round LN(x), the hidden, do and dz, so they differ where a sum order moves
+# a value across a rounding edge: dx by at most an ulp of its bfloat16
+# (2^-7 relative); dgamma, dbeta, db1 and dls2 by at most 2e-4 and dW1 by
+# 1.4e-3 (M = 1 and 5; 6.3e-4 from M = 39 up), where a kernel that does not
+# round lands at 2.0e-3 or more on each of the five, dW1 at 3.0e-3 or more
+# (NVIDIA H100 80GB HBM3, 700 W, scripts/k4_bf16_limits.py); dW2 = ls2 G and
+# db2 = ls2 sum g from g itself, where the plain version rounds do = g ls2
+# first, so within that rounding and a flip of h's (2^-8; read up to 3.4e-3)
+K4_BF16_LIMITS = {"dx": 1e-2, "dgamma": 1e-3, "dbeta": 1e-3, "dw1": 2e-3, "db1": 1e-3,
+                  "dw2": 2 ** -8, "db2": 2 ** -8, "dls2": 1e-3}
+
+
 # k4_digests on an H100 before K4's dx pass at C = 64 became two warp groups:
-# the outputs at the other widths, whose launches that change left alone
+# the outputs at the other widths, whose launches that change left alone;
+# bfloat16 at C = 128 after its two passes moved to the tensor cores, which
+# round LN(x), the hidden, do and dz to bfloat16 as the TPU kernel does (the
+# CUDA-core passes before them computed in float32 throughout)
 K4_DIGESTS = {
     (128, "float32"): "58156b444940 8096f000dc3e 79a2cd00ff2b c32c2aeb5932 f5be679db688 "
                       "1847d887a6fd 759b064cbe19 98ad32e8c589",
-    (128, "bfloat16"): "9c78e50c0815 7ec0c39f18e4 8d5f581f0385 172cace851fc dd3e797cde42 "
-                       "bf63323800c2 480f126a9d2c 3fe26bed7ca7",
+    (128, "bfloat16"): "fc7c02ccc4c3 c2adb69612cc 8b806c6fcd31 475406a19829 3ec28cd956f4 "
+                       "76cf961ed755 e03611052c51 58172c025a27",
     (256, "float32"): "1bf4c3548f34 d170944d38a6 b57c5514f154 960840dd15d8 afe897b16613 "
                       "db734215e7d2 c530f5618a7d 02ed10f17acb",
     (256, "bfloat16"): "55d8e5ce63d8 096831a55dc5 1c48c9d59239 665657aba375 35a7f82c2d8c "
@@ -1887,8 +1926,8 @@ def check_k4_digests(dev) -> None:
     changed = [key for key, want in K4_DIGESTS.items() if got[key] != want]
     log(f"   K4 at C/H 128/512, 256/1024 and 512/1024 (M = 14,688, f32 and bf16): the eight "
         f"gradients' SHA-1 digests {'equal' if not changed else 'NOT equal'} to those before "
-        f"the C = 64 dx pass became two warp groups" + (f": changed at {changed}" if changed
-                                                         else ""))
+        f"the C = 64 dx pass became two warp groups (bf16 at C = 128: since its passes "
+        f"moved to the tensor cores)" + (f": changed at {changed}" if changed else ""))
     if changed:
         raise AssertionError(f"K4's outputs changed at (C, dtype) {changed}")
 
@@ -1938,9 +1977,13 @@ def check_k4(dev, out_dir: str) -> dict:
                                               fused_mlp_ln_bwd_reference)
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    # against the plain version run in float32 on the same inputs: the
-    # kernel computes in float32 from either dtype and rounds only dx (half
-    # a unit in the last place, <= 3.9e-3 in bfloat16)
+    # float32: against the plain version in float32 on the same inputs
+    # (summation order). bfloat16 (the tensor-core passes): against the
+    # plain version run in bfloat16 on the same inputs, which rounds LN(x),
+    # the hidden, do and dz where the kernel (and the TPU kernel) rounds
+    # them, each gradient at its own limit (K4_BF16_LIMITS); beside it the
+    # kernel's distance from the float32 plain version, at most twice the
+    # bfloat16 plain version's own
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     rows, per = {}, {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1951,15 +1994,28 @@ def check_k4(dev, out_dir: str) -> dict:
             again = fused_mlp_ln_bwd(*args, g, 1e-5)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K4 M={m} {dt}: a rerun is not bitwise equal")
-            want = fused_mlp_ln_bwd_reference(*(a.float() for a in args),
-                                              g.float(), 1e-5)
+            exact = fused_mlp_ln_bwd_reference(*(a.float() for a in args),
+                                               g.float(), 1e-5)
+            want = exact if dt is torch.float32 else fused_mlp_ln_bwd_reference(*args, g, 1e-5)
             # dx per element; the parameter gradients, sums over M rows,
             # against their largest entry
-            errs = [scaled_err(got[0], want[0])] + [
-                sum_err(a, b) for a, b in zip(got[1:], want[1:])]
+            errs = grad_errs(got, want)
+            limits = ([tol[dt]] * 8 if dt is torch.float32 else
+                      [K4_BF16_LIMITS[name] for name in _MLP_GRADS])
             if not (all(torch.isfinite(z).all() for z in got)
-                    and max(errs) <= tol[dt]):
+                    and all(e <= lim for e, lim in zip(errs, limits))):
                 raise AssertionError(f"K4 M={m} {dt}: errs {dict(zip(_MLP_GRADS, errs))}")
+            if dt is torch.bfloat16:
+                log(f"   K4 M={m:6d} bfloat16 from the bfloat16 plain version (limit): "
+                    + ", ".join(f"{n} {e:.2e} ({lim:.1e})"
+                                for n, e, lim in zip(_MLP_GRADS, errs, limits)))
+                far, plain_far = max(grad_errs(got, exact)), max(grad_errs(want, exact))
+                log(f"   K4 M={m:6d} bfloat16 from the float32 plain version: kernel "
+                    f"{far:.2e}, bfloat16 plain version {plain_far:.2e} (limit twice "
+                    f"that, {2 * plain_far:.2e})")
+                if far > 2 * plain_far:
+                    raise AssertionError(f"K4 M={m} bf16: {far:.2e} from the f32 plain "
+                                         f"version, over twice the bf16 plain's {plain_far:.2e}")
             ms = time_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
             plain = time_ms(lambda: fused_mlp_ln_bwd_reference(*args, g, 1e-5), 20)
             dname = str(dt).split(".")[1]
@@ -1976,13 +2032,22 @@ def check_k4(dev, out_dir: str) -> dict:
             rows[(m, dname)] = dict(shape=[m, 128], max_abs_err=max(
                 (a.float() - w).abs().max().item() for a, w in zip(got, want)),
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+            worst = max(range(8), key=lambda i: errs[i] / limits[i])
             log(f"   K4 M={m:6d} {dname:8s} worst err "
-                f"{max(errs):.2e} ({_MLP_GRADS[errs.index(max(errs))]}; limit "
-                f"{tol[dt]:.0e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"{errs[worst]:.2e} ({_MLP_GRADS[worst]}; limit "
+                f"{limits[worst]:.1e}) kernel {ms:.4f} ms  plain {plain:.4f}  "
                 f"bound {bms:.4f} ({by}); rerun bitwise equal")
-            per[(m, dname)] = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20)
+            seen: dict = {}
+            per[(m, dname)] = k4_launch_ms(lambda: fused_mlp_ln_bwd(*args, g, 1e-5), 20, seen)
             log("     by launch (profiler, ms a launch): " + "; ".join(
                 f"{label} {t:.4f}" for label, t in per[(m, dname)].items()))
+            info = fused_mlp_ln_bwd_kernel_info(dt, m, 512)
+            log("     kernels: " + "; ".join(
+                f"{label} {'/'.join(sorted(seen.get(label, ())))}" + (
+                    f" ({info[key]['registers']} registers, {info[key]['spill_bytes']} B "
+                    f"spilled)" if key else "")
+                for label, key in (("dx pass", "dx_pass"), ("weight pass", "weight_pass"),
+                                   ("reduce", "reduce"))))
     # each launch against the bound of its own work: the dx pass recomputes
     # fc1 and takes dh = do W2 and da = dz W1 (6*M*C*H) from x, g and the
     # weights, and writes dx; the weight pass recomputes fc1 and dh and takes
@@ -2003,6 +2068,12 @@ def check_k4(dev, out_dir: str) -> dict:
         check_k4_digests(dev)
     write_k4_report(out_dir)
     return rows
+
+
+def grad_errs(got, want) -> list[float]:
+    """K4's eight gradients against `want`: dx per element (scaled by
+    max(1, |y|)), the parameter gradients against their largest entry."""
+    return [scaled_err(got[0], want[0])] + [sum_err(a, b) for a, b in zip(got[1:], want[1:])]
 
 
 def k4_launch_bounds(m: int, c: int, h: int, dname: str, ms: dict) -> str:
@@ -2119,8 +2190,7 @@ def check_k4_zoo(dev, gen, tol: dict) -> dict:
                 again = fused_mlp_ln_bwd(*args, g, eps)
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), eps)
-                errs = [scaled_err(got[0], want[0])] + [
-                    sum_err(a, b) for a, b in zip(got[1:], want[1:])]
+                errs = grad_errs(got, want)
                 if not (same and all(torch.isfinite(z).all() for z in got)
                         and max(errs) <= tol[dt]):
                     raise AssertionError(f"K4 C/H={c}/{h} M={m} {dt}: errs "
@@ -2581,9 +2651,11 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
             sorted(groups.items(), key=lambda kv: -kv[1][0])))
         k4 = {label: [e for e in events if any(name in e.key for name in names)]
               for label, names in K4_LAUNCHES}
-        log("     K4 by launch, ms/step (kernels a step): " + "; ".join(
+        log("     K4 by launch, ms/step (kernels a step) [kernel]: " + "; ".join(
             f"{label} {sum(e.self_device_time_total for e in es) / 1e3 / n:.2f} "
-            f"({sum(e.count for e in es) / n:.0f})" for label, es in k4.items() if es))
+            f"({sum(e.count for e in es) / n:.0f}) "
+            f"[{'/'.join(sorted({kernel_name(e.key) for e in es}))}]"
+            for label, es in k4.items() if es))
         for line in lines[:8]:
             log(f"     {line[:110]}")
         return f"{100 * busy / wall_us:.1f}%"
@@ -2600,6 +2672,7 @@ def check_train_step(dev, out_dir: str) -> dict:
     from kasportsformer_torch.config import Config
     from kasportsformer_torch.data.pipeline import flip_generator
     from kasportsformer_torch.models import build_model
+    from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
     from kasportsformer_torch.train.loop import make_optimizer, make_train_step
 
     train, _ = synthetic_clipsets(10, 320, 4)
@@ -2623,35 +2696,42 @@ def check_train_step(dev, out_dir: str) -> dict:
         one()  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        fused_mlp_ln_bwd.launches = 0
         for _ in range(12):
             t0 = time.perf_counter()
             one()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+        k4_calls = fused_mlp_ln_bwd.launches
+        if k4_calls == 0:
+            raise AssertionError(f"the {dname} train step launched no K4")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         none = [n for n, p in model.named_parameters() if p.grad is None]
         if none:  # the step gives the unreached parameters zeros for AdamW
             raise AssertionError(f"no gradient after a step: {none[:5]}")
         med = statistics.median(times)
         busy = profile_steps(one, 3, f"train_{dname}", out_dir)
-        res[dname] = {"ms": med, "peak_gib": peak, "busy": busy}
+        res[dname] = {"ms": med, "peak_gib": peak, "busy": busy, "k4_launches": k4_calls}
         log(f"   train step {dname}, batch 32: median {med:.1f} ms over 12 "
             f"steps (min {min(times):.1f}, max {max(times):.1f}), "
-            f"{32e3 / med:.1f} clips/s, peak memory {peak:.2f} GiB")
+            f"{32e3 / med:.1f} clips/s, peak memory {peak:.2f} GiB; K4 calls "
+            f"{k4_calls} in the 12 steps ({k4_calls / 12:.0f} a step)")
         del model, opt, step
-    # 50 steps on one fixed batch, float32, no flips: the loss must fall
-    cfg = Config(flip=False, learning_rate=1e-3)
-    model = build_model(cfg, device=dev)
-    opt = make_optimizer(model, cfg)
-    step = make_train_step(model, cfg, opt)
-    w = torch.ones(32, device=dev)
-    losses = [step(arrays, np.arange(32), w)["loss_total"].item()
-              for _ in range(50)]
-    log(f"   50 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
-        f"(min {min(losses):.5f})")
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"fixed-batch losses did not fall: {losses}")
-    res["losses"] = (losses[0], losses[-1])
+    # 50 steps on one fixed batch in each dtype, no flips: the loss must fall
+    for dname in ("float32", "bfloat16"):
+        cfg = Config(flip=False, learning_rate=1e-3, compute_dtype=dname)
+        model = build_model(cfg, device=dev)
+        opt = make_optimizer(model, cfg)
+        step = make_train_step(model, cfg, opt)
+        w = torch.ones(32, device=dev)
+        losses = [step(arrays, np.arange(32), w)["loss_total"].item()
+                  for _ in range(50)]
+        log(f"   50 steps on one batch, {dname}: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+            f"(min {min(losses):.5f})")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{dname} fixed-batch losses did not fall: {losses}")
+        res[f"losses_{dname}"] = (losses[0], losses[-1])
+        del model, opt, step
     return res
 
 
@@ -2789,7 +2869,7 @@ def main() -> int:
     k2 = run("6", check_k2, dev, args.out)
     k4 = run("7", check_k4, dev, args.out)
     run("8", check_grads, dev)
-    run("9", check_train_step, dev, args.out)
+    step9 = run("9", check_train_step, dev, args.out)
     zoo_train = run("9b", check_zoo_train, dev, args.out)
     train_launches = run("10", check_train_cli, dev, args.out)
     log(f"== total {time.perf_counter() - t_start:.1f} s")
@@ -2802,7 +2882,7 @@ def main() -> int:
         return 0
     results = {"2": k1, "3": k3, "3b": k5, "3c": k5_launches, "3d": zoo_k,
                "5": launches, "5b": zoo, "5c": zoo_launches, "6": k2, "7": k4,
-               "9b": zoo_train, "10": train_launches}
+               "9": step9, "9b": zoo_train, "10": train_launches}
     empty = [f"phase {p}" for p, r in results.items() if not r]
     if FAILED or empty:
         report_failures(f"phases {FAILED}; phases without a result {empty}")
@@ -2842,6 +2922,12 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=train_launches["fused_mlp_ln_bwd"],
              **k4[(14688, "float32")]),
+        # the bf16 train step's (phase 9): the tensor-core passes at C = 128
+        dict(name="fused_mlp_ln_bwd", route="cuda", dtype="bfloat16",
+             source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
+             replaces="kasportsformer_tpu/ops/mlp.py:284",
+             launches=step9["bfloat16"]["k4_launches"],
+             **k4[(14688, "bfloat16")]),
         dict(name="fused_mlp", route="cuda", dtype="float32",
              source="kasportsformer_torch/ops/csrc/mlp.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:137",

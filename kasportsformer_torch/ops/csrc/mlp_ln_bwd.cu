@@ -24,15 +24,25 @@
 // The TPU kernel summed the parameter gradients over a sequential grid; the
 // card's blocks run in no order, and dW1 alone (256 KB in f32) does not fit
 // in shared memory. So three launches, and no atomics, so that reruns are
-// bitwise equal. Inputs of either dtype are staged in f32 and every product
-// accumulates in f32: on the CUDA cores, or at C = 64 in the weight pass on
-// the tensor cores in 3xTF32 (2c.): one TF32 product keeps ~3 digits and
-// would break the 1e-4 the gradients are held to, but each operand split as
-// hi + lo = tf32(x) + tf32(x - hi) and the three products hi hi + hi lo +
-// lo hi summed in f32 are good to ~2^-20 relative, near f32 FMAs' 2^-24,
-// two orders under that limit. Only dx is rounded to the input dtype.
-// Tail rows of a ragged M are loaded as zeros; their g is zero, so dh, dz
-// and every contribution of theirs vanish.
+// bitwise equal. In f32, and in bf16 at C = 64, 256 and 512, inputs are
+// staged in f32 and every product accumulates in f32: on the CUDA cores, or
+// at C = 64 in the weight pass on the tensor cores in 3xTF32 (2c.): one
+// TF32 product keeps ~3 digits and would break the 1e-4 the gradients are
+// held to, but each operand split as hi + lo = tf32(x) + tf32(x - hi) and
+// the three products hi hi + hi lo + lo hi summed in f32 are good to ~2^-20
+// relative, near f32 FMAs' 2^-24, two orders under that limit; only dx is
+// rounded to the input dtype there. In bf16 at C = 128 (the flagship's
+// width, and the JAX package's bench trains in bf16) both passes run on the
+// tensor cores (4.): mma.sync m16n8k16 on bf16 operands into f32
+// accumulators, with a = LN(x) * gamma + beta, h = GELU(z), do = g * ls2
+// and dz rounded to bf16 where the TPU kernel's bf16 path rounds them, as
+// the plain version in bf16 does (it is held to that, 1e-2; dW2 = ls2 G
+// with G = g^T h from g as it is, where the TPU kernel takes h^T do from
+// the rounded do: a difference of do's rounding, <= 2^-8 of dW2's largest
+// entry, and so db2 = ls2 sum g). So bf16 at C = 128 rounds four operands
+// that bf16 at the other widths keeps in f32. Tail rows of a ragged M are
+// loaded as zeros; their g is zero, so dh, dz and every contribution of
+// theirs vanish.
 //
 // Widths. Each launch is a template on C, instantiated at 64
 // (MotionAGFormer-XS and hierarchical), 128 (the flagship), 256 (DSTFormer)
@@ -70,19 +80,20 @@
 //       tiles would give 230 blocks, 1.74 waves).
 //     - Shared memory: aS = LN(x)*gamma + beta and dS = g*ls2, row-major at
 //       a stride of C + 4 (2 x 59,136 B); zS, hS, 112 x (32 + 8) floats
-//       (2 x 17,920 B); mean and rstd a row (896 B); then the weights. f32:
-//       a ring of two stages, each W1 rows j0..j0+31 (stride C + 4),
-//       W2[:, j0..j0+31] and b1[j0..j0+31] (33,408 B): 221,824 B. bf16: one
-//       bf16 stage (16,960 B), two widened W1 chunks with their b1 and one
-//       widened W2 chunk (50,432 B): 222,400 B.
+//       (2 x 17,920 B); mean and rstd a row (896 B); then the weights: a
+//       ring of two stages, each W1 rows j0..j0+31 (stride C + 4),
+//       W2[:, j0..j0+31] and b1[j0..j0+31] (33,408 B): 221,824 B. (The bf16
+//       chunk layouts below, dxp::Cfg's, are the C = 64 pass's, 1c.; bf16
+//       at C = 128 is the tensor-core pass, 4a.: in bf16 a bf16 stage and
+//       two widened W1 chunks with their b1 and one widened W2 chunk.)
 //     - The ring: each chunk is copied raw with 16-byte cp.async.cg, so no
 //       synchronous global load stays in the hidden loop; ls2 is folded into
-//       g when the tile is staged (do = g * ls2), so W2 is copied raw. f32:
+//       g when the tile is staged (do = g * ls2), so W2 is copied raw:
 //       chunk j+1 is issued at the barrier that opens chunk j and lands
-//       while chunk j is multiplied. bf16: chunk j+1 lands in the bf16 stage
-//       during chunk j's products and is widened to f32 during chunk j's dz
-//       step (its W2 buffer is free then, its W1 buffer is the other of
-//       two), so the products read f32 in both dtypes and wait for nothing.
+//       while chunk j is multiplied. (In bf16 at C = 64 chunk j+1 lands in
+//       the bf16 stage during chunk j's products and is widened to f32
+//       during chunk j's dz step, so the products read f32 and wait for
+//       nothing.)
 //     - Register-tiled products, operands read as float4s from layouts
 //       padded against bank conflicts: warps 0-3 run fc1 (7 rows x 4
 //       hidden columns a thread: 4 W1 + 7 a float4s per 112 FMAs), warps
@@ -410,6 +421,46 @@
 //       included, is the C = 128 grid's bit for bit.
 //     Registers, spills and blocks a SM: kasf_mlp_ln_bwd_info; the reduce
 //     alone on a caller's workspace: kasf_mlp_ln_bwd_reduce.
+//  4. bf16 at C = 128 on the tensor cores (namespaces mm, dxm, wpm). Bound:
+//     10*M*C*H FLOP at 989 TFLOP/s dense bf16, 0.0097 ms a call at M =
+//     14,688 and H = 512 (dx pass 6*M*C*H, 0.0058; weight pass 8*M*C*H,
+//     0.0078); the products are no longer the pace-setters, so the design
+//     keeps C = 128's tiles, grids and partials (the reduce is unchanged)
+//     and moves every product onto mma.sync; what is left is shared-memory
+//     traffic (ldmatrix), GELU' on M*H values a pass (erf by Abramowitz and
+//     Stegun, as at C = 64; without it the dx pass takes 28 % less time and
+//     the weight pass 12 %, scripts/k4_bf16_variants.py), and the barriers:
+//     0.0428 and 0.0653 ms at M = 14,688 (14 % and 12 % of their bounds;
+//     the CUDA-core passes before them 0.1672 and 0.2108), chip_smoke.py
+//     phase 7 on an H100 80GB HBM3 at 700 W. Both passes stage a = bf16(LN(x) gamma + beta) and
+//     do = bf16(g ls2) by one formula (mm::stage_rows), so they round alike;
+//     bf16 rows are padded by 16 bytes so an ldmatrix's eight rows fall on
+//     distinct banks.
+//  4a. dx pass (mlp_ln_bwd_dx_mma_kernel): one block of 7 warps a 112-row
+//     tile (dx_tiles and the partials as at 1.), a warp 16 rows; ~170 KB of
+//     shared memory, one block a SM, 132 blocks at M = 14,688. Each warp
+//     loads its rows' A fragments of a and do once (64 registers); hidden
+//     chunks of 64 columns arrive through a three-stage cp.async ring (W1
+//     rows, W2 columns, b1, raw bf16), one block barrier a chunk. For each
+//     16 columns: z (16 mma) and dh (16 mma) into two accumulator sets, dz =
+//     dh GELU'(z + b1) packed to bf16 is the A fragment of da += dz W1c (16
+//     mma, W1c by ldmatrix.trans), so the hidden never leaves registers; da
+//     (16 rows x 128 channels, 64 registers) is held over the whole hidden
+//     width. Epilogue: a row's 128 channels lie on the four lanes of a quad,
+//     so its two means take two shuffles; x and g re-read (L2); the tile's
+//     sums over its rows by shuffles, then over the warps in order.
+//  4b. weight pass (mlp_ln_bwd_w_mma_kernel): 2.'s grid of (hidden chunk of
+//     64, row split) and its splits of 40-row tiles; a block walks its
+//     split's rows in steps of 64 (a multiple of 16 for the k16 contraction
+//     over rows; the last step ragged, its tail rows zeros), the next step's
+//     x and g rows by two bulk copies into a raw stage while the step is
+//     multiplied. A step: a, do and g staged in bf16; warp w takes z and dh
+//     for rows 16 (w % 4) and columns 32 (w / 4) (W1c plain, W2c by
+//     ldmatrix.trans), h = GELU(z + b1) and dz to shared memory in bf16, db1
+//     from dz in f32; then warps 0-3 accumulate dW1c += dz^T a and warps 4-7
+//     G_c^T += h^T g, 32 hidden x 64 channels a warp (64 registers over the
+//     split), both transposed operands by ldmatrix.trans. Three barriers a
+//     step; ~140 KB of shared memory, 128 blocks at H = 512.
 #include <cuda.h>  // CUtensorMap and its encoder's signature (called through the runtime)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -526,12 +577,10 @@ struct Cfg {
   static_assert(kRG * 3 * C <= 2 * kR * kLdA, "the epilogue's sums fit in aS and dS");
 };
 
-template <typename T, int C>
+// the f32 one-block pass's shared memory (C = 128)
+template <int C>
 constexpr size_t smem_bytes() {
-  using K = Cfg<C>;
-  return std::is_same<T, float>::value
-             ? sizeof(float) * (K::kOffRing + 2 * K::kStageF)
-             : sizeof(float) * (K::kOffRing + K::kOffStageH) + sizeof(bf16) * K::kStageH;
+  return sizeof(float) * (Cfg<C>::kOffRing + 2 * Cfg<C>::kStageF);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -919,11 +968,10 @@ __device__ __forceinline__ void dx_epilogue(const float (&da)[K::kRT][4 * K::kK]
 
 }  // namespace dxp
 
-// One block per tile of dxp::Cfg<C>::kR rows; the hidden width in chunks of
-// kKC through a cp.async ring; warps 0-3 run fc1 and warps 4-7 dh, then all
-// take dz and da; dx and the tile's partial sums at the end. bf16 weights
-// land in one bf16 stage and are widened during the previous chunk's dz
-// step, so the products read f32 chunks in both dtypes.
+// One block per tile of dxp::Cfg<C>::kR rows, in f32 (bf16 at C = 128 runs
+// mlp_ln_bwd_dx_mma_kernel, 4a.); the hidden width in chunks of kKC through
+// a cp.async ring; warps 0-3 run fc1 and warps 4-7 dh, then all take dz and
+// da; dx and the tile's partial sums at the end.
 template <typename T, int C>
 __global__ void __launch_bounds__(dxp::kT, 1)
 mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -934,7 +982,7 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      float eps) {
   using namespace dxp;
   using K = Cfg<C>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(std::is_same<T, float>::value, "bf16 at C = 128 is mlp_ln_bwd_dx_mma_kernel");
   extern __shared__ float4 smem4[];
   float* aS = reinterpret_cast<float*>(smem4);
   float* dS = aS + K::kR * K::kLdA;
@@ -942,24 +990,13 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float* hS = zS + K::kR * K::kLdZ;
   float* sMean = aS + K::kOffStat;
   float* sRstd = sMean + K::kR;
-  float* ring = aS + K::kOffRing;
-  // f32: stages at ring and ring + kStageF. bf16: the widened W1 chunks (with
-  // b1) at ring and ring + kW1B, the W2 chunk at ring + kOffW2f, the bf16
-  // stage after it
-  T* st0 = reinterpret_cast<T*>(kF32 ? ring : ring + K::kOffStageH);
-  T* st1 = reinterpret_cast<T*>(ring + K::kStageF);  // f32 only
+  float* st0 = aS + K::kOffRing;  // the ring's two stages
+  float* st1 = st0 + K::kStageF;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long row0 = static_cast<long long>(blockIdx.x) * K::kR;
   fetch_chunk<C>(st0, w1, w2, b1, 0, H, tid);
   stage_rows<C>(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, row0, M, eps, warp, lane);
-  if constexpr (!kF32) {
-    kasf_mma::cp_async_wait<0>();
-    __syncthreads();
-    widen_chunk<C>(ring, ring + K::kOffW2f, st0, tid);
-    __syncthreads();  // the bf16 stage is free
-    fetch_chunk<C>(st0, w1, w2, b1, K::kKC, H, tid);
-  }
 
   // fc1 / dh layout (thread tid % 128 of warps 0-3 or 4-7): channel split
   // fastest, then column group, then row group (at C = 128: row group
@@ -975,20 +1012,17 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int k = 0; k < 4 * K::kK; ++k) da[i][k] = 0.f;
 
   for (int j0 = 0, s = 0; j0 < H; j0 += K::kKC, s ^= 1) {
-    // this chunk's W1, W2 and b1 in f32
-    const float* w1c =
-        kF32 ? reinterpret_cast<const float*>(s ? st1 : st0) : ring + s * K::kW1B;
-    const float* w2c = kF32 ? w1c + K::kW1F : ring + K::kOffW2f;
-    const float* b1c = w1c + (kF32 ? K::kW1F + K::kW2F : K::kW1F);
-    if constexpr (kF32) kasf_mma::cp_async_wait<0>();
+    const float* w1c = s ? st1 : st0;  // this chunk's W1, W2 and b1
+    const float* w2c = w1c + K::kW1F;
+    const float* b1c = w2c + K::kW2F;
+    kasf_mma::cp_async_wait<0>();
     __syncthreads();  // this chunk is in; the last chunk's zS and stage are consumed
-    if constexpr (kF32) fetch_chunk<C>(s ? st0 : st1, w1, w2, b1, j0 + K::kKC, H, tid);
+    fetch_chunk<C>(s ? st0 : st1, w1, w2, b1, j0 + K::kKC, H, tid);
     if (warp < 4)
       fc1_chunk<C>(aS, w1c, b1c, zS, q1, p1, s1);
     else
       dh_chunk<C>(dS, w2c, hS, q1, p1, s1);
-    if constexpr (!kF32) kasf_mma::cp_async_wait<0>();
-    __syncthreads();  // z and dh in; bf16: the next chunk landed, W2's buffer free
+    __syncthreads();  // z and dh in
     // dz = dh * GELU'(z + b1) in place of z, a pair of columns at a time
     constexpr int kPairs = K::kR * K::kKC / 2;
 #pragma unroll
@@ -1001,10 +1035,7 @@ mlp_ln_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
             make_float2(h.x * gelu_erf_grad(z.x), h.y * gelu_erf_grad(z.y));
       }
     }
-    if constexpr (!kF32)  // the next chunk
-      if (j0 + K::kKC < H) widen_chunk<C>(ring + (s ^ 1) * K::kW1B, ring + K::kOffW2f, st0, tid);
-    __syncthreads();  // dz in; bf16: the next chunk widened, the bf16 stage free
-    if constexpr (!kF32) fetch_chunk<C>(st0, w1, w2, b1, j0 + 2 * K::kKC, H, tid);
+    __syncthreads();  // dz in
     da_chunk<K>(zS, w1c, da, q4, p4);
   }
 
@@ -3796,6 +3827,559 @@ mlp_ln_bwd_reduce_wide_kernel(const float* __restrict__ part_dx, int n_dx,
   }
 }
 
+// ---- 4. bf16 at C = 128 on the tensor cores (4a. dx pass, 4b. weight
+// pass): what the two passes share
+namespace mm {
+
+using bf16 = __nv_bfloat16;
+using kasf_mma::ldsm_x4;
+using kasf_mma::ldsm_x4_trans;
+using kasf_mma::mma_k16;
+using kasf_mma::pack_bf16;
+
+constexpr int C = 128;
+constexpr int kKC = 64;        // hidden columns a chunk (dx pass) or a block (weight pass)
+constexpr int kLdA = C + 8;    // bf16 rows of the C channels: a, do, g, W1 rows
+constexpr int kLdJ = kKC + 8;  // bf16 rows of a chunk's columns: W2 rows, h, dz
+static_assert(kKC == wp::Cfg<128>::kJ, "the weight pass keeps C = 128's chunks and splits");
+
+// Lane l's element offset in a 16 x 16 block of a row-major bf16 array at
+// stride ld, for ldmatrix.x4: rows (l & 7) + 8 ((l >> 3) & 1), columns
+// 8 (l >> 4) (off_a) gives an A operand stored by rows of m (plain) and a B
+// operand stored by rows of k (.trans); rows (l & 7) + 8 (l >> 4), columns
+// 8 ((l >> 3) & 1) (off_b) gives a B operand stored by rows of n (plain)
+// and an A operand stored by rows of k (.trans). Either way registers
+// 0, 1 are the first n-tile's (b0, b1) and 2, 3 the second's for a B
+// operand.
+__device__ __forceinline__ int off_a(int lane, int ld) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+}
+__device__ __forceinline__ int off_b(int lane, int ld) {
+  return ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
+}
+
+// Both passes take GELU(z) and GELU'(z) from tc::gelu_and_grad, one formula
+// so both round dz alike: erf by Abramowitz and Stegun 7.1.26 (|error| <=
+// 1.5e-7, as the C = 64 passes take it; bf16 rounds dz at 2^-9), one expf
+// for Phi and phi. With erff the dx pass took 7 % longer and the weight
+// pass 5 % (scripts/k4_bf16_variants.py)
+
+// two neighbouring bf16 of memory as floats, and two floats stored as bf16
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(kasf_mma::bf16_lo(w), kasf_mma::bf16_hi(w));
+}
+__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// The tile's operands in bf16, rounded where the TPU kernel rounds them:
+// aB = bf16(LN(x) * gamma + beta), doB = bf16(g * ls2) and, where gB is
+// given, gB = g, rows of kLdA. xs and gs hold the tile's rows at a stride of
+// C (device memory in the dx pass, the raw stage in the weight pass); rows
+// r >= n are zeros. Warp w takes rows w + kWarps i, eight at a time, lane l
+// channels 4l..4l+3; one formula in both passes, so both round a alike.
+// Each row's mean and rstd go to sMean, sRstd where given.
+template <int kWarps, int kRows>
+__device__ __forceinline__ void stage_rows(const bf16* xs, const bf16* gs, int n,
+                                           float4 gm, float4 bt, float4 ls, bf16* aB, bf16* doB,
+                                           bf16* gB, float* sMean, float* sRstd, float eps,
+                                           int warp, int lane) {
+  constexpr int kB = 8, kPer = kRows / kWarps;
+  static_assert(kRows % kWarps == 0 && kPer % kB == 0, "whole batches of a warp's rows");
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+  for (int h = 0; h < kPer / kB; ++h) {
+    float4 xv[kB], gv[kB];
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const int r = warp + kWarps * (h * kB + i);
+      xv[i] = r < n ? dxp::load4(xs + r * C + 4 * lane) : zero;
+      gv[i] = r < n ? dxp::load4(gs + r * C + 4 * lane) : zero;
+    }
+    float s[kB], mean[kB];
+#pragma unroll
+    for (int i = 0; i < kB; ++i) s[i] = quad_sum(xv[i]);
+    wp::rows_sum<32>(s);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      mean[i] = s[i] * (1.0f / C);
+      const float4 v = xv[i];
+      xv[i] = make_float4(v.x - mean[i], v.y - mean[i], v.z - mean[i], v.w - mean[i]);
+      s[i] = quad_sq(xv[i]);
+    }
+    wp::rows_sum<32>(s);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const int r = warp + kWarps * (h * kB + i);
+      const float rstd = 1.0f / sqrtf(s[i] * (1.0f / C) + eps);
+      const float4 c = xv[i], gq = gv[i];
+      const float4 a = r < n ? make_float4(fmaf(c.x * rstd, gm.x, bt.x), fmaf(c.y * rstd, gm.y, bt.y),
+                                           fmaf(c.z * rstd, gm.z, bt.z), fmaf(c.w * rstd, gm.w, bt.w))
+                             : zero;
+      store4(aB + r * kLdA + 4 * lane, a);
+      store4(doB + r * kLdA + 4 * lane,
+             make_float4(gq.x * ls.x, gq.y * ls.y, gq.z * ls.z, gq.w * ls.w));
+      if (gB != nullptr) store4(gB + r * kLdA + 4 * lane, gq);
+      if (sMean != nullptr && lane == 0) {
+        sMean[r] = mean[i];
+        sRstd[r] = rstd;
+      }
+    }
+  }
+}
+
+}  // namespace mm
+
+// ---- 4a. the dx pass's tile: one block of 7 warps a 112-row tile (the
+// one-block pass's, so the dx partials and the reduce are C = 128's), a warp
+// 16 rows; the weights in chunks of 64 hidden columns through a cp.async
+// ring of three stages
+namespace dxm {
+
+using namespace mm;
+
+constexpr int kWarps = 7, kT = 32 * kWarps;
+constexpr int kR = 16 * kWarps;  // 112
+constexpr int kStages = 3;
+// a stage (bf16): the chunk's W1 rows [j][c], W2 columns [c][j], b1
+constexpr int kW1 = kKC * kLdA, kW2 = C * kLdJ, kStage = kW1 + kW2 + kKC;
+// shared memory (bf16): aB, doB | the ring | mean, rstd (floats)
+constexpr int kOffRing = 2 * kR * kLdA;
+constexpr int kOffStat = kOffRing + kStages * kStage;
+constexpr size_t kSmem = sizeof(bf16) * kOffStat + sizeof(float) * 2 * kR;
+static_assert(kR == dxp::Cfg<128>::kR, "C = 128's dx tiles: the reduce reads one partial a tile");
+static_assert(kW1 % 8 == 0 && kW2 % 8 == 0 && kStage % 8 == 0 && kOffRing % 8 == 0 &&
+                  kOffStat % 8 == 0,
+              "16-byte alignment of the shared buffers");
+static_assert(sizeof(float) * kWarps * 3 * C <= sizeof(bf16) * kOffRing,
+              "the epilogue's sums fit in aB and doB");
+static_assert(kSmem <= 232448, "one block a SM");
+
+// Start copying chunk j (W1 rows j0.., W2 columns j0.., b1) raw into stage
+// j % kStages by 16-byte cp.async; one group (empty past the last chunk)
+__device__ __forceinline__ void fetch_chunk(bf16* ring, const bf16* __restrict__ w1,
+                                            const bf16* __restrict__ w2,
+                                            const bf16* __restrict__ b1, int j, int H, int tid) {
+  const int j0 = j * kKC;
+  if (j0 < H) {
+    bf16* st = ring + (j % kStages) * kStage;
+    for (int e = tid; e < kKC * C / 8; e += kT) {
+      const int r = e / (C / 8), c8 = e % (C / 8);
+      kasf_mma::cp_async16(st + r * kLdA + 8 * c8, w1 + (j0 + r) * C + 8 * c8);
+    }
+    for (int e = tid; e < C * kKC / 8; e += kT) {
+      const int c = e / (kKC / 8), q = e % (kKC / 8);
+      kasf_mma::cp_async16(st + kW1 + c * kLdJ + 8 * q, w2 + c * H + j0 + 8 * q);
+    }
+    if (tid < kKC / 8) kasf_mma::cp_async16(st + kW1 + kW2 + 8 * tid, b1 + j0 + 8 * tid);
+  }
+  kasf_mma::cp_async_commit();
+}
+
+}  // namespace dxm
+
+// bf16 at C = 128: one block a 112-row tile. The tile's a and do are
+// staged in bf16 and each warp keeps its 16 rows' A fragments of both in
+// registers; for each 16 hidden columns of a chunk a warp takes z = a W1c^T
+// and dh = do W2c (two accumulator sets), dz = dh GELU'(z + b1) packed to
+// bf16 as the A fragment of da += dz W1c, so the hidden stays in registers;
+// da (16 rows x 128 channels a warp) meets LayerNorm's backward at the end.
+__global__ void __launch_bounds__(dxm::kT, 1)
+mlp_ln_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+                         const __nv_bfloat16* __restrict__ w2, const float* __restrict__ ls2,
+                         __nv_bfloat16* __restrict__ dx, float* __restrict__ part, long long M,
+                         int H, float eps) {
+  using namespace dxm;
+  extern __shared__ float4 smem4[];
+  bf16* aB = reinterpret_cast<bf16*>(smem4);
+  bf16* doB = aB + kR * kLdA;
+  bf16* ring = aB + kOffRing;
+  float* sMean = reinterpret_cast<float*>(aB + kOffStat);
+  float* sRstd = sMean + kR;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kR;
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) fetch_chunk(ring, w1, w2, b1, j, H, tid);
+  {
+    const long long left = M - row0;
+    stage_rows<kWarps, kR>(x + row0 * C, g + row0 * C, left < kR ? static_cast<int>(left) : kR,
+                           dxp::ld4(gamma + 4 * lane), dxp::ld4(beta + 4 * lane),
+                           dxp::ld4(ls2 + 4 * lane), aB, doB, nullptr, sMean, sRstd, eps, warp,
+                           lane);
+  }
+  __syncthreads();  // a and do staged
+  const int rw = 16 * warp;
+  uint32_t af[C / 16][4], df[C / 16][4];
+#pragma unroll
+  for (int k = 0; k < C / 16; ++k) {
+    ldsm_x4(af[k], aB + rw * kLdA + off_a(lane, kLdA) + 16 * k);
+    ldsm_x4(df[k], doB + rw * kLdA + off_a(lane, kLdA) + 16 * k);
+  }
+  float da[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) da[n][e] = 0.f;
+  const int ob = off_b(lane, kLdA), ot1 = off_a(lane, kLdA), ot2 = off_a(lane, kLdJ);
+
+  for (int ch = 0; ch < H / kKC; ++ch) {
+    kasf_mma::cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk ch landed; every warp is done with the stage refilled next
+    fetch_chunk(ring, w1, w2, b1, ch + kStages - 1, H, tid);
+    const bf16* w1c = ring + (ch % kStages) * kStage;
+    const bf16* w2c = w1c + kW1;
+    const bf16* b1c = w2c + kW2;
+#pragma unroll 1
+    for (int q = 0; q < kKC / 16; ++q) {
+      float z[2][4], dh[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[u][e] = dh[u][e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k) {
+        uint32_t b[4];
+        ldsm_x4(b, w1c + 16 * q * kLdA + ob + 16 * k);
+        mma_k16(z[0], af[k], b[0], b[1]);
+        mma_k16(z[1], af[k], b[2], b[3]);
+        ldsm_x4_trans(b, w2c + 16 * k * kLdJ + ot2 + 16 * q);
+        mma_k16(dh[0], df[k], b[0], b[1]);
+        mma_k16(dh[1], df[k], b[2], b[3]);
+      }
+      // dz = dh GELU'(z + b1), rows g and g + 8, columns 16 q + 8 u + 2 t..;
+      // packed, the A fragment of the 16 columns
+      uint32_t az[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float2 bias = load2(b1c + 16 * q + 8 * u + 2 * tq);
+        az[2 * u] = pack_bf16(dh[u][0] * tc::gelu_and_grad(z[u][0] + bias.x).y,
+                              dh[u][1] * tc::gelu_and_grad(z[u][1] + bias.y).y);
+        az[2 * u + 1] = pack_bf16(dh[u][2] * tc::gelu_and_grad(z[u][2] + bias.x).y,
+                                  dh[u][3] * tc::gelu_and_grad(z[u][3] + bias.y).y);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < C / 16; ++n2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, w1c + 16 * q * kLdA + ot1 + 16 * n2);
+        mma_k16(da[2 * n2], az, b[0], b[1]);
+        mma_k16(da[2 * n2 + 1], az, b[2], b[3]);
+      }
+    }
+  }
+
+  // ---- epilogue: the thread holds da of rows rw + gq (+ 8) and channels
+  // 8n + 2tq, + 1; a row's 128 channels lie on the 4 lanes of its quad
+  float mean[2], rstd[2], m1[2], m2[2];
+  long long row[2];
+  bool valid[2];
+#pragma unroll
+  for (int hs = 0; hs < 2; ++hs) {
+    const int r = rw + gq + 8 * hs;
+    row[hs] = row0 + r;
+    valid[hs] = row[hs] < M;
+    mean[hs] = sMean[r];
+    rstd[hs] = sRstd[r];
+    m1[hs] = m2[hs] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    const int c = 8 * n + 2 * tq;
+    const float2 gm = *reinterpret_cast<const float2*>(gamma + c);
+#pragma unroll
+    for (int hs = 0; hs < 2; ++hs) {
+      const float2 xv = valid[hs] ? load2(x + row[hs] * C + c) : make_float2(0.f, 0.f);
+      const float d0 = da[n][2 * hs] * gm.x, d1 = da[n][2 * hs + 1] * gm.y;
+      m1[hs] += d0;
+      m1[hs] += d1;
+      m2[hs] = fmaf(d0, (xv.x - mean[hs]) * rstd[hs], m2[hs]);
+      m2[hs] = fmaf(d1, (xv.y - mean[hs]) * rstd[hs], m2[hs]);
+    }
+  }
+#pragma unroll
+  for (int hs = 0; hs < 2; ++hs) {
+    m1[hs] = group_sum<4>(m1[hs]) * (1.0f / C);
+    m2[hs] = group_sum<4>(m2[hs]) * (1.0f / C);
+  }
+  // dx, and the sums of da * xhat, da and g over the warp's valid rows per
+  // channel (rows g, g + 8, then the 8 row groups by shuffles); aB and doB
+  // are free: every warp loaded its fragments before the first chunk
+  float* red = reinterpret_cast<float*>(aB);  // [warp][3][C]
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    const int c = 8 * n + 2 * tq;
+    const float2 gm = *reinterpret_cast<const float2*>(gamma + c);
+    float s[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int hs = 0; hs < 2; ++hs) {
+      if (!valid[hs]) continue;
+      const float2 xv = load2(x + row[hs] * C + c), gv = load2(g + row[hs] * C + c);
+      const float a0 = da[n][2 * hs], a1 = da[n][2 * hs + 1];
+      const float h0 = (xv.x - mean[hs]) * rstd[hs], h1 = (xv.y - mean[hs]) * rstd[hs];
+      store2(dx + row[hs] * C + c, gv.x + rstd[hs] * (a0 * gm.x - m1[hs] - h0 * m2[hs]),
+             gv.y + rstd[hs] * (a1 * gm.y - m1[hs] - h1 * m2[hs]));
+      s[0][0] = fmaf(a0, h0, s[0][0]);
+      s[0][1] = fmaf(a1, h1, s[0][1]);
+      s[1][0] += a0;
+      s[1][1] += a1;
+      s[2][0] += gv.x;
+      s[2][1] += gv.y;
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) s[k3][v] += __shfl_xor_sync(0xffffffffu, s[k3][v], off);
+    if (gq == 0)
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3)
+        *reinterpret_cast<float2*>(red + (warp * 3 + k3) * C + c) = make_float2(s[k3][0], s[k3][1]);
+  }
+  __syncthreads();
+  for (int e = tid; e < 3 * C; e += kT) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[w * 3 * C + e];
+    part[static_cast<long long>(blockIdx.x) * 3 * C + e] = t;
+  }
+}
+
+// ---- 4b. the weight pass's block: wp::Cfg<128>'s grid of (chunk of 64
+// hidden columns, row split) and its splits of 40-row tiles, so the partials
+// and the reduce are C = 128's; a block walks its split's rows in steps of
+// 64 (a multiple of 16 for the k16 contraction over rows), the last step
+// ragged
+namespace wpm {
+
+using namespace mm;
+
+constexpr int kWarps = 8, kT = 32 * kWarps;
+constexpr int kR = 64;                   // rows a step
+constexpr int kUnit = wp::Cfg<128>::kR;  // the partition's tile: 40 rows
+// shared memory (bf16): aB, doB, gB | W1 rows [j][c] | W2 columns [c][j] |
+// hB, dzB | b1 (floats) | the raw stage of a step's x and g rows | mbarrier
+constexpr int kOffW1 = 3 * kR * kLdA;
+constexpr int kOffW2 = kOffW1 + kKC * kLdA;
+constexpr int kOffH = kOffW2 + C * kLdJ;
+constexpr int kOffDz = kOffH + kR * kLdJ;
+constexpr int kOffB1 = kOffDz + kR * kLdJ;
+constexpr int kOffRaw = kOffB1 + 2 * kKC;
+constexpr int kOffBar = kOffRaw + 2 * kR * C;
+constexpr size_t kSmem = sizeof(bf16) * kOffBar + sizeof(unsigned long long);
+static_assert(kR % 16 == 0 && kR / 16 == kWarps / 2 && kKC == 2 * 32,
+              "the products' warp tiles cover the step");
+static_assert(kOffW1 % 8 == 0 && kOffW2 % 8 == 0 && kOffH % 8 == 0 && kOffDz % 8 == 0 &&
+                  kOffB1 % 8 == 0 && kOffRaw % 8 == 0 && kOffBar % 8 == 0,
+              "16-byte alignment of the shared buffers");
+static_assert(4 * kKC * sizeof(float) <= 2 * kR * kLdJ * sizeof(bf16), "db1's sums fit in hB");
+static_assert(kSmem <= 232448, "one block a SM");
+
+// One thread: copy rows row0..row0+n-1 of x and of g raw into the stage by
+// two bulk copies that complete on bar
+__device__ __forceinline__ void fetch_rows(bf16* raw, const bf16* __restrict__ x,
+                                           const bf16* __restrict__ g, long long row0, int n,
+                                           unsigned long long* bar) {
+  const unsigned bytes = static_cast<unsigned>(n) * C * sizeof(bf16);
+  kasf_mma::mbar_expect(bar, 2 * bytes);
+  kasf_mma::bulk_load(raw, x + row0 * C, bytes, bar);
+  kasf_mma::bulk_load(raw + kR * C, g + row0 * C, bytes, bar);
+}
+
+}  // namespace wpm
+
+// bf16 at C = 128: one block per (hidden chunk of 64, row split). A step:
+// a, do and g staged in bf16 from the raw stage (the next step's rows then
+// in flight); warp w takes z = a W1c^T and dh = do W2c for rows 16 (w % 4)
+// and columns 32 (w / 4) (8 n-tiles), h = GELU(z + b1) and dz = dh GELU'(z +
+// b1) go to shared memory in bf16 (db1 summed from dz in f32); then warps
+// 0-3 accumulate dW1c += dz^T a and warps 4-7 G_c^T += h^T g (32 hidden x
+// 64 channels a warp, ldmatrix.trans giving the transposed operands) in
+// registers over the split; the split's partial at the end.
+__global__ void __launch_bounds__(wpm::kT, 1)
+mlp_ln_bwd_w_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+                        const __nv_bfloat16* __restrict__ w2, const float* __restrict__ ls2,
+                        float* __restrict__ part, long long M, int H, float eps) {
+  using namespace wpm;
+  extern __shared__ float4 smem4[];
+  bf16* aB = reinterpret_cast<bf16*>(smem4);
+  bf16* doB = aB + kR * kLdA;
+  bf16* gB = doB + kR * kLdA;
+  bf16* w1B = aB + kOffW1;
+  bf16* w2B = aB + kOffW2;
+  bf16* hB = aB + kOffH;
+  bf16* dzB = aB + kOffDz;
+  float* b1s = reinterpret_cast<float*>(aB + kOffB1);
+  bf16* raw = aB + kOffRaw;
+  auto* bar = reinterpret_cast<unsigned long long*>(aB + kOffBar);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int j0 = blockIdx.x * kKC;
+  // the split's rows: per consecutive 40-row tiles of the partition
+  const long long units = (M + kUnit - 1) / kUnit;
+  const long long per = (units + gridDim.y - 1) / gridDim.y;
+  const long long r_begin = blockIdx.y * per * kUnit;
+  const long long r_end = r_begin + per * kUnit < M ? r_begin + per * kUnit : M;
+  if (tid == 0) kasf_mma::mbar_init(bar);
+  __syncthreads();  // the barrier is initialised
+  if (tid == 0 && r_begin < r_end)
+    fetch_rows(raw, x, g, r_begin, r_end - r_begin < kR ? static_cast<int>(r_end - r_begin) : kR,
+               bar);
+  // the chunk's weights once, raw: W1 rows j0.. and W2 columns j0..
+  for (int e = tid; e < kKC * C / 8; e += kT) {
+    const int r = e / (C / 8), c8 = e % (C / 8);
+    *reinterpret_cast<uint4*>(w1B + r * kLdA + 8 * c8) =
+        *reinterpret_cast<const uint4*>(w1 + (j0 + r) * C + 8 * c8);
+  }
+  for (int e = tid; e < C * kKC / 8; e += kT) {
+    const int c = e / (kKC / 8), q = e % (kKC / 8);
+    *reinterpret_cast<uint4*>(w2B + c * kLdJ + 8 * q) =
+        *reinterpret_cast<const uint4*>(w2 + c * H + j0 + 8 * q);
+  }
+  if (tid < kKC) b1s[tid] = to_f(b1[j0 + tid]);
+  const float4 gm = dxp::ld4(gamma + 4 * lane), bt = dxp::ld4(beta + 4 * lane),
+               ls = dxp::ld4(ls2 + 4 * lane);
+  __syncthreads();  // W1c, W2c and b1 are in
+
+  // z and dh: rows rw.., columns jw..; outer products: hidden rows jo..,
+  // channels co.. of dW1c (warps 0-3, from dz and a) or G_c^T (4-7, h and g)
+  const int rw = 16 * (warp & 3), jw = 32 * (warp >> 2);
+  const int jo = 32 * (warp & 1), co = 64 * ((warp >> 1) & 1);
+  const bf16* X = warp < 4 ? dzB : hB;
+  const bf16* Y = warp < 4 ? aB : gB;
+  float bias[4][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    bias[u][0] = b1s[jw + 8 * u + 2 * tq];
+    bias[u][1] = b1s[jw + 8 * u + 2 * tq + 1];
+  }
+  float acc[2][8][4], db1a[4][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) db1a[u][0] = db1a[u][1] = 0.f;
+  const int oa = rw * kLdA + off_a(lane, kLdA), ob = jw * kLdA + off_b(lane, kLdA);
+  const int ot2 = off_a(lane, kLdJ) + jw;
+  const int ox = off_b(lane, kLdJ) + jo, oy = off_a(lane, kLdA) + co;
+
+  unsigned parity = 0;
+  for (long long row0 = r_begin; row0 < r_end; row0 += kR, parity ^= 1) {
+    const int n = r_end - row0 < kR ? static_cast<int>(r_end - row0) : kR;
+    kasf_mma::mbar_wait(bar, parity);
+    __syncthreads();  // the step's rows landed; the last step's products are done
+    stage_rows<kWarps, kR>(raw, raw + kR * C, n, gm, bt, ls, aB, doB, gB, nullptr, nullptr, eps,
+                           warp, lane);
+    __syncthreads();  // a, do and g in; the raw stage is free
+    if (tid == 0 && row0 + kR < r_end)
+      fetch_rows(raw, x, g, row0 + kR,
+                 r_end - row0 - kR < kR ? static_cast<int>(r_end - row0 - kR) : kR, bar);
+    float z[4][4], dh[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[u][e] = dh[u][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < C / 16; ++k) {
+      uint32_t fa[4], fd[4];
+      ldsm_x4(fa, aB + oa + 16 * k);
+      ldsm_x4(fd, doB + oa + 16 * k);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4(b, w1B + ob + 16 * p * kLdA + 16 * k);
+        mma_k16(z[2 * p], fa, b[0], b[1]);
+        mma_k16(z[2 * p + 1], fa, b[2], b[3]);
+        ldsm_x4_trans(b, w2B + ot2 + 16 * k * kLdJ + 16 * p);
+        mma_k16(dh[2 * p], fd, b[0], b[1]);
+        mma_k16(dh[2 * p + 1], fd, b[2], b[3]);
+      }
+    }
+    // h and dz of rows rw + gq (+ 8), columns jw + 8u + 2tq, + 1, in bf16
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int hs = 0; hs < 2; ++hs) {
+        const float2 e0 = tc::gelu_and_grad(z[u][2 * hs] + bias[u][0]);
+        const float2 e1 = tc::gelu_and_grad(z[u][2 * hs + 1] + bias[u][1]);
+        const float d0 = dh[u][2 * hs] * e0.y, d1 = dh[u][2 * hs + 1] * e1.y;
+        db1a[u][0] += d0;
+        db1a[u][1] += d1;
+        const int o = (rw + gq + 8 * hs) * kLdJ + jw + 8 * u + 2 * tq;
+        store2(hB + o, e0.x, e1.x);
+        store2(dzB + o, d0, d1);
+      }
+    __syncthreads();  // hB and dzB are in
+#pragma unroll
+    for (int kk = 0; kk < kR / 16; ++kk) {
+      uint32_t fx[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) ldsm_x4_trans(fx[mi], X + ox + 16 * kk * kLdJ + 16 * mi);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, Y + oy + 16 * kk * kLdA + 16 * p);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_k16(acc[mi][2 * p], fx[mi], b[0], b[1]);
+          mma_k16(acc[mi][2 * p + 1], fx[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // the split's partial: dW1c rows (float2s), G_c columns, db1c
+  float* base = part + static_cast<long long>(blockIdx.y) * (2LL * H * C + H);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hs = 0; hs < 2; ++hs) {
+        const int j = j0 + jo + 16 * mi + gq + 8 * hs, c = co + 8 * n + 2 * tq;
+        const float v0 = acc[mi][n][2 * hs], v1 = acc[mi][n][2 * hs + 1];
+        if (warp < 4) {
+          *reinterpret_cast<float2*>(base + static_cast<long long>(j) * C + c) =
+              make_float2(v0, v1);
+        } else {
+          float* col = base + static_cast<long long>(H) * C + j;
+          col[static_cast<long long>(c) * H] = v0;
+          col[static_cast<long long>(c + 1) * H] = v1;
+        }
+      }
+  // db1: over the warp's 8 row groups, then its 4 row warps in order
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) db1a[u][v] += __shfl_xor_sync(0xffffffffu, db1a[u][v], off);
+  __syncthreads();  // hB is free
+  float* red = reinterpret_cast<float*>(hB);  // [row warp][kKC]
+  if (gq == 0)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      *reinterpret_cast<float2*>(red + (warp & 3) * kKC + jw + 8 * u + 2 * tq) =
+          make_float2(db1a[u][0], db1a[u][1]);
+  __syncthreads();
+  if (tid < kKC)
+    base[2LL * H * C + j0 + tid] =
+        ((red[tid] + red[kKC + tid]) + red[2 * kKC + tid]) + red[3 * kKC + tid];
+}
+
 struct Args {
   const void *x, *g, *w1, *b1, *w2, *b2;
   const float *gamma, *beta, *ls2;
@@ -3984,13 +4568,20 @@ cudaError_t launch_dx(const Args& a, float* stage, long long M, int H, float eps
     mlp_ln_bwd_dx_wg_kernel<T><<<static_cast<unsigned>(tiles), dxg::kT, dxg::Cfg::kSmem,
                                  stream>>>(x, g, a.gamma, a.beta, w1, b1, w2, a.ls2,
                                            static_cast<T*>(a.dx), a.work, M, H, eps);
+  } else if constexpr (C == 128 && !std::is_same<T, float>::value) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_mma_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(dxm::kSmem));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_dx_mma_kernel<<<static_cast<unsigned>(tiles), dxm::kT, dxm::kSmem, stream>>>(
+        x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), a.work, M, H, eps);
   } else if constexpr (C == 128) {
     const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_dx_kernel<T, C>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(dxp::smem_bytes<T, C>()));
+                                                 static_cast<int>(dxp::smem_bytes<C>()));
     if (err != cudaSuccess) return err;
     mlp_ln_bwd_dx_kernel<T, C><<<static_cast<unsigned>(tiles), dxp::kT,
-                                 dxp::smem_bytes<T, C>(), stream>>>(
+                                 dxp::smem_bytes<C>(), stream>>>(
         x, g, a.gamma, a.beta, w1, b1, w2, a.ls2, static_cast<T*>(a.dx), a.work, M, H, eps);
   } else {
     int resident = 0;
@@ -4028,6 +4619,15 @@ cudaError_t launch_w(const Args& a, float* part_w, const float* stage, long long
                                                  static_cast<int>(tc::smem_bytes<T>()));
     if (err != cudaSuccess) return err;
     mlp_ln_bwd_w_tc_kernel<T><<<dim3(H / tc::kJ, splits), tc::kT, tc::smem_bytes<T>(), stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+        static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
+        a.ls2, part_w, M, H, eps);
+  } else if constexpr (C == 128 && !std::is_same<T, float>::value) {
+    const cudaError_t err = cudaFuncSetAttribute(mlp_ln_bwd_w_mma_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(wpm::kSmem));
+    if (err != cudaSuccess) return err;
+    mlp_ln_bwd_w_mma_kernel<<<dim3(H / mm::kKC, splits), wpm::kT, wpm::kSmem, stream>>>(
         static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
         static_cast<const T*>(a.w1), static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
         a.ls2, part_w, M, H, eps);
@@ -4121,11 +4721,16 @@ void describe_all(long long M, int H, int* info) {
   const long long tiles = dx_tiles<C>(M);
   const int splits = w_splits<C>(M, H);
   if constexpr (C <= 128) {
-    const int smem_dx = static_cast<int>(C == 64 ? dxg::Cfg::kSmem : dxp::smem_bytes<T, C>());
+    constexpr bool kMma = C == 128 && !std::is_same<T, float>::value;  // bf16: 4a., 4b.
+    const int smem_dx = static_cast<int>(C == 64 ? dxg::Cfg::kSmem
+                                         : kMma  ? dxm::kSmem
+                                                 : dxp::smem_bytes<C>());
     const int sms = device_sms();
     bool dx_known = false;
     if constexpr (C == 64)
       dx_known = describe(mlp_ln_bwd_dx_wg_kernel<T>, dxg::kT, smem_dx, d);
+    else if constexpr (kMma)
+      dx_known = describe(mlp_ln_bwd_dx_mma_kernel, dxm::kT, smem_dx, d);
     else
       dx_known = describe(mlp_ln_bwd_dx_kernel<T, C>, dxp::kT, smem_dx, d);
     if (dx_known && sms > 0) {
@@ -4136,10 +4741,14 @@ void describe_all(long long M, int H, int* info) {
       info[22] = static_cast<int>(tiles);
       info[26] = C == 64 ? 2 : 1;
     }
-    const int smem_w = static_cast<int>(C == 64 ? tc::smem_bytes<T>() : wp::smem_bytes<T, C>());
+    const int smem_w = static_cast<int>(C == 64 ? tc::smem_bytes<T>()
+                                        : kMma  ? wpm::kSmem
+                                                : wp::smem_bytes<T, C>());
     bool w_known = false;
     if constexpr (C == 64)
       w_known = describe(mlp_ln_bwd_w_tc_kernel<T>, tc::kT, smem_w, d);
+    else if constexpr (kMma)
+      w_known = describe(mlp_ln_bwd_w_mma_kernel, wpm::kT, smem_w, d);
     else
       w_known = describe(mlp_ln_bwd_w_kernel<T, C>, wp::kT, smem_w, d);
     if (w_known && sms > 0) {

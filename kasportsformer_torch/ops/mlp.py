@@ -55,8 +55,20 @@ from L2, so R sets a launch's L2 reads, ceil(M / R) * 2*C*H*itemsize.
 registers, shared memory and spills as the runtime sees them, and the blocks
 of a launch over m rows.
 
-K4 is three launches, each a template on C, exact f32 on the CUDA cores
-from either dtype. The dx pass at C = 64 and 128 runs one block a 112-row
+K4 is three launches, each a template on C. In float32, and in bfloat16 at
+C = 64, 256 and 512, the passes compute in f32 from either dtype (on the
+CUDA cores; at C = 64 the weight pass in 3xTF32 on the tensor cores) and
+round only dx. In bfloat16 at C = 128 both passes run on the tensor cores
+(`mma.sync` m16n8k16, f32 accumulators) and round LN(x), the hidden, do =
+g * ls2 and dz to bfloat16 where the TPU kernel rounds them, as
+`fused_mlp_ln_bwd_reference` does in bfloat16 (the weight gradient of fc2
+stays ls2 * g^T h, from g as it is, not from the rounded do): the dx pass
+one block of 7 warps a 112-row tile, a warp's 16 rows keeping their a and
+do fragments in registers and each 16 hidden columns' dz going from fc1's
+and dh's accumulators straight into da as A fragments; the weight pass the
+C = 128 grid and row splits, a split's rows in steps of 64, h and dz through
+shared memory in bfloat16 into the outer products. The dx pass at C = 64
+and 128 (float32) runs one block a 112-row
 tile, the weights through a cp.async ring in chunks of 32 hidden columns; at
 C = 64 the block is two warp groups, each over half the hidden width with its
 own ring and named barrier (fc1, dh, dz and da of its chunks), whose halves
@@ -70,7 +82,7 @@ finishes dz for half of a chunk's 32 columns and sends it to the other, and
 each keeps da for its own channels. The other two launches are a weight
 pass and a reduce. The weight pass walks a row split's tiles with the next
 tile's rows in flight and keeps dW1, G = g^T h and db1 of a hidden chunk in
-registers over the split, exact f32 too: at C = 128 one block per (chunk of
+registers over the split (f32 as above): at C = 128 one block per (chunk of
 64 columns, split), 40-row tiles by bulk copies (at C = 64 chunks of 128
 columns and 56-row tiles); at 256 and 512 a
 thread-block cluster of two blocks per (chunk, split), each over half the
@@ -370,7 +382,9 @@ def fused_mlp_ln_bwd_kernel_info(dtype: torch.dtype, m: int = 14688,
     the hidden width (2 at C = 64, else 1); the
     weight pass has `chunk`, its hidden columns a block (a cluster's, each
     block over half the channels, at 256 and 512), `splits`, its row
-    splits for m rows and this hidden width, `cluster`, the blocks that
+    splits for m rows and this hidden width (the same partition in both
+    dtypes; in bfloat16 at C = 128 a block walks its split's rows in steps
+    of 64), `cluster`, the blocks that
     share a chunk and split (1 at C <= 128, 2 at 256 and 512), `resident`,
     the clusters the card holds at once, and `grid`, the blocks of its
     launch (hidden / chunk x splits clusters, one wave); the reduce has

@@ -100,12 +100,12 @@ extern "C" int kasf_stamps(unsigned long long* host, int reset) {
 """
 
 
-# the one-block dx pass (C = 64 before its warp-group kernel, and 128):
-# thread 0 runs fc1, thread 128 dh
+# the one-block dx pass (C = 64 before its warp-group kernel, and 128 in
+# f32): thread 0 runs fc1, thread 128 dh
 PHASES_ONE = ("prologue: chunk 0 issued, rows + LayerNorm", "chunk's wait and block barrier",
               "next chunk issued", "fc1 (thread 0) / dh (thread 128)",
               "block barrier: z and dh in", "dz = dh GELU'(z)",
-              "bf16 widening, block barrier: dz in", "da += dz W1c",
+              "block barrier: dz in", "da += dz W1c",
               "epilogue: dx rows, the tile's sums")
 _KERNEL_ONE = "mlp_ln_bwd_dx_kernel(const T* __restrict__ x"
 _ONE_DEF = "template <typename T, int C>\n__global__ void __launch_bounds__(dxp::kT, 1)\n"
@@ -116,18 +116,15 @@ EDITS_ONE = [
      "#define KASF_STAMP(k) { const long long n_ = clock64(); if (kasf_me) "
      "atomicAdd(&kasf_stamp_sums[tid >> 7][k], n_ - kasf_t0); kasf_t0 = n_; }\n"
      "  fetch_chunk<C>(st0, w1, w2, b1, 0, H, tid);\n"),
-    _at("    fetch_chunk<C>(st0, w1, w2, b1, K::kKC, H, tid);\n  }\n", 0, indent=2),
+    _at("  stage_rows<C>(x, g, gamma, beta, ls2, aS, dS, sMean, sRstd, row0, M, eps, warp, "
+        "lane);\n", 0, indent=2),
     _at("    __syncthreads();  // this chunk is in; the last chunk's zS and stage are consumed\n",
         1, indent=4),
-    _at("    if constexpr (kF32) fetch_chunk<C>(s ? st0 : st1, w1, w2, b1, j0 + K::kKC, H, tid);\n",
-        2, indent=4),
+    _at("    fetch_chunk<C>(s ? st0 : st1, w1, w2, b1, j0 + K::kKC, H, tid);\n", 2, indent=4),
     _at("      dh_chunk<C>(dS, w2c, hS, q1, p1, s1);\n", 3, indent=4),
-    _at("    __syncthreads();  // z and dh in; bf16: the next chunk landed, W2's buffer free\n", 4,
-        indent=4),
-    _at("    if constexpr (!kF32)  // the next chunk\n      if (j0 + K::kKC < H) widen_chunk", 5,
-        before=True, indent=4),
-    _at("    __syncthreads();  // dz in; bf16: the next chunk widened, the bf16 stage free\n", 6,
-        indent=4),
+    _at("    __syncthreads();  // z and dh in\n", 4, indent=4),
+    _at("    __syncthreads();  // dz in\n", 5, before=True, indent=4),
+    _at("    __syncthreads();  // dz in\n", 6, indent=4),
     _at("    da_chunk<K>(zS, w1c, da, q4, p4);\n", 7, indent=4),
     ("  dx_epilogue<K, C>(da, x, g, gamma, sMean, sRstd, aS, dx, part, row0, M, q4, p4, tid);\n}\n",
      "  dx_epilogue<K, C>(da, x, g, gamma, sMean, sRstd, aS, dx, part, row0, M, q4, p4, tid);\n"
@@ -219,6 +216,9 @@ def main() -> int:
                         choices=(64, 128, 256, 512))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     args = parser.parse_args()
+    if args.dtype == "bfloat16" and 128 in args.c:
+        parser.error("bf16 at C = 128 runs the tensor-core passes, which carry no stamps; "
+                     "scripts/k4_bf16_variants.py times them")
 
     import torch
 

@@ -189,6 +189,9 @@ def main() -> int:
     parser.add_argument("--mma-only", action="store_true",
                         help="the 3xTF32 kernel's fragment loads once a tile (time only)")
     args = parser.parse_args()
+    if args.dtype == "bfloat16" and 128 in args.c:
+        parser.error("bf16 at C = 128 runs the tensor-core passes, which carry no stamps; "
+                     "scripts/k4_bf16_variants.py times them")
 
     import torch
 

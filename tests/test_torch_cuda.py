@@ -41,7 +41,11 @@ pytestmark = pytest.mark.cuda
 # of its tensor-core products, and K5 the hidden activations.
 # K2 and K4 compute in f32 from either dtype and round only their
 # activation gradients (K4's parameter gradients are f32 sums over the rows,
-# held against their largest entry).
+# held against their largest entry), but K4 in bfloat16 at C = 128: its
+# tensor-core passes round LN(x), the hidden, do and dz to bfloat16 where
+# the TPU kernel does, so there it is held to the plain version run in
+# bfloat16, a gradient at a time (K4_BF16_C128), and its distance from the
+# f32 plain version to twice that plain version's own.
 TOL = {"masked_sdpa": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
        "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
        "masked_sdpa_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
@@ -647,20 +651,45 @@ def test_masked_sdpa_bwd_kernel_reruns_bitwise_equal(cuda, dtype):
 
 
 
+# K4 in bfloat16 at C = 128 against the plain version in bfloat16, in the
+# order of its gradients (dx, dgamma, dbeta, dW1, db1, dW2, db2, dls2): dx
+# per element within an ulp of its bfloat16 (2^-7) and a margin; dW2 and
+# db2, which the kernel takes from g and the plain version from do rounded
+# to bfloat16, within that rounding (2^-8 of their largest entry); dgamma,
+# dbeta, db1 and dls2 within 1e-3 of their largest entry and dW1 within
+# 2e-3 (its sums over a few rows move by a flip of dz's rounding), where a
+# kernel that does not round LN(x), the hidden, do and dz lands at 2.0e-3
+# or more on each (chip_smoke.K4_BF16_LIMITS, read by
+# scripts/k4_bf16_limits.py)
+K4_BF16_C128 = (1e-2, 1e-3, 1e-3, 2e-3, 1e-3, 2 ** -8, 2 ** -8, 1e-3)
+
+
+def _grad_errs(got, want) -> list[float]:
+    """K4's eight gradients against want's: dx per element, the parameter
+    gradients against their largest entry."""
+    return [_scaled_err(got[0], want[0])] + [_sum_err(a, w) for a, w in zip(got[1:], want[1:])]
+
+
 def _bwd_matches_plain(args, g, dtype, eps: float = 1e-5) -> tuple[torch.Tensor, ...]:
     """K4 once (one launch counted) against its plain version in float32 on
-    the same inputs: dx per element, the parameter gradients against their
-    largest entry; a rerun bitwise equal (no atomics). Returns K4's
-    gradients."""
+    the same inputs (in bfloat16 at C = 128, the tensor-core passes: the
+    plain version run in bfloat16 at K4_BF16_C128's limits, and within twice
+    its distance from the float32 plain version): dx per element, the
+    parameter gradients against their largest entry; a rerun bitwise equal
+    (no atomics). Returns K4's gradients."""
     before = fused_mlp_ln_bwd.launches
     got = fused_mlp_ln_bwd(*args, g, eps)
     assert fused_mlp_ln_bwd.launches == before + 1
-    want = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), eps)
+    exact = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), eps)
+    mma = dtype == torch.bfloat16 and args[0].shape[-1] == 128
+    want = fused_mlp_ln_bwd_reference(*args, g, eps) if mma else exact
     tol = TOL["fused_mlp_ln_bwd"][dtype]
     assert got[0].dtype == dtype and torch.isfinite(got[0]).all()
-    assert _scaled_err(got[0], want[0]) <= tol
-    for a, w in zip(got[1:], want[1:]):
-        assert a.dtype == torch.float32 and _sum_err(a, w) <= tol
+    assert all(a.dtype == torch.float32 for a in got[1:])
+    errs = _grad_errs(got, want)
+    assert all(e <= lim for e, lim in zip(errs, K4_BF16_C128 if mma else [tol] * 8)), errs
+    if mma:
+        assert max(_grad_errs(got, exact)) <= 2 * max(_grad_errs(want, exact))
     again = fused_mlp_ln_bwd(*args, g, eps)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     return got
@@ -716,7 +745,16 @@ def test_fused_mlp_ln_bwd_kernel_nearly_constant_rows(cuda, dtype):
     So dx is held to float64 autograd of `fused_mlp_ln_reference` on the
     same inputs, within twice the f32 plain version's own distance from it
     and never looser than the usual limit; the parameter gradients to the
-    f32 plain version at the usual limit."""
+    f32 plain version at the usual limit. In bfloat16 the tensor-core
+    passes round LN(x), the hidden, do and dz as the TPU kernel does, and
+    rstd times that rounding reaches dx; the plain version run in bfloat16
+    rounds alike, so all eight gradients are held to it directly: the
+    parameter gradients at K4_BF16_C128's limits, dx within 1e-2 of its
+    largest entry and per element, scaled by max(1, |y|), within 0.2. A sum
+    order that moves a value of dz or LN(x) across a rounding edge moves its
+    row's dx by rstd times that ulp (up to 0.1 per element, 4.8e-3 of the
+    largest entry, on the card); a kernel that does not round is 0.44 per
+    element away (scripts/k4_bf16_limits.py)."""
     m = 1377
     args = list(_mlp_args(cuda, m, dtype))
     noise = torch.randn(m, 128, device="cuda", generator=cuda)
@@ -725,6 +763,13 @@ def test_fused_mlp_ln_bwd_kernel_nearly_constant_rows(cuda, dtype):
     got = fused_mlp_ln_bwd(*args, g, 1e-5)
     again = fused_mlp_ln_bwd(*args, g, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.isfinite(got[0]).all()
+    if dtype == torch.bfloat16:
+        plain = fused_mlp_ln_bwd_reference(*args, g, 1e-5)
+        errs = _grad_errs(got, plain)
+        assert errs[0] <= 0.2 and _sum_err(got[0], plain[0]) <= 1e-2, errs
+        assert all(e <= lim for e, lim in zip(errs[1:], K4_BF16_C128[1:])), errs
+        return
     plain = fused_mlp_ln_bwd_reference(*(a.float() for a in args), g.float(), 1e-5)
     tol = TOL["fused_mlp_ln_bwd"][dtype]
     for a, w in zip(got[1:], plain[1:]):
@@ -733,7 +778,7 @@ def test_fused_mlp_ln_bwd_kernel_nearly_constant_rows(cuda, dtype):
     (exact,) = torch.autograd.grad(fused_mlp_ln_reference(*leaves, 1e-5), leaves[0],
                                    g.cpu().double())
     limit = max(tol, 2 * _scaled_err(plain[0].cpu(), exact))
-    assert torch.isfinite(got[0]).all() and _scaled_err(got[0].cpu(), exact) <= limit
+    assert _scaled_err(got[0].cpu(), exact) <= limit
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -777,7 +822,9 @@ def test_fused_mlp_ln_bwd_weight_pass_one_hot(cuda, dtype):
     nonzero only at (u(k), k), sum over the rows with k(i) = k of
     A GELU'(A - 6) W2[m(i), u(k)], and G = dW2 (ls2 = 1) only at
     (m(i), u(k(i))), GELU(A - 6) per row: a permuted hidden chunk, row or
-    channel in the weight pass moves an entry."""
+    channel in the weight pass moves an entry. In bfloat16 the tensor-core
+    passes round A, GELU(A - 6) and dz to bfloat16 (db1 sums dz before
+    that), and so does the expected value."""
     c, hidden, m = 128, 512, 1377
     dev = "cuda"
     rows, chans = torch.arange(m, device=dev), torch.arange(c, device=dev)
@@ -799,12 +846,18 @@ def test_fused_mlp_ln_bwd_weight_pass_one_hot(cuda, dtype):
     g = torch.zeros(m, c, device=dev)
     g[rows, mi] = 1.0
     got = _bwd_matches_plain(args, g.to(dtype), dtype)
-    z = torch.tensor(big - rest - 6.0, dtype=torch.float64)
+
+    def rounded(v: torch.Tensor) -> torch.Tensor:  # where the bf16 passes round
+        return v.to(torch.bfloat16).double() if dtype == torch.bfloat16 else v
+
+    a_k = rounded(torch.tensor(big - rest, dtype=torch.float64))
+    z = a_k - 6.0
     cdf = 0.5 * (1 + torch.erf(z / 2 ** 0.5))
-    gelu, grad = (z * cdf).item(), (cdf + z * torch.exp(-z * z / 2) / (2 * torch.pi) ** 0.5).item()
+    gelu = rounded(z * cdf).item()
+    grad = (cdf + z * torch.exp(-z * z / 2) / (2 * torch.pi) ** 0.5).item()
     dz = w2.double()[mi, unit[k]] * grad  # a row's dz at its unit
     dw1 = torch.zeros(hidden, c, dtype=torch.float64, device=dev)
-    dw1.index_put_((unit[k], k), dz * (big - rest), accumulate=True)
+    dw1.index_put_((unit[k], k), rounded(dz) * a_k.item(), accumulate=True)
     gg = torch.zeros(c, hidden, dtype=torch.float64, device=dev)
     gg.index_put_((mi, unit[k]), torch.full((m,), gelu, dtype=torch.float64, device=dev),
                   accumulate=True)
@@ -854,10 +907,11 @@ def test_fused_mlp_ln_bwd_partition_matches_library(cuda):
     for m in (1, 40, 300, 1377, 14688, 58752):
         for hidden in (64, 128, 192, 512, 1024, 2048):
             p = fused_mlp_ln_bwd_partition(m, hidden)
-            info = fused_mlp_ln_bwd_kernel_info(torch.float32, m, hidden)
-            assert (p["dx_rows"], p["w_rows"], p["splits"]) == (
-                info["dx_pass"]["rows"], info["weight_pass"]["rows"],
-                info["weight_pass"]["splits"]), (m, hidden)
+            for dtype in (torch.float32, torch.bfloat16):  # bf16: the tensor-core passes
+                info = fused_mlp_ln_bwd_kernel_info(dtype, m, hidden)
+                assert (p["dx_rows"], p["w_rows"], p["splits"]) == (
+                    info["dx_pass"]["rows"], info["weight_pass"]["rows"],
+                    info["weight_pass"]["splits"]), (m, hidden, dtype)
             assert _bwd_workspace_size(m, hidden) == (
                 p["dx_tiles"] * 3 * 128 + p["splits"] * (2 * hidden * 128 + hidden))
     for dtype in (torch.float32, torch.bfloat16):
@@ -1197,6 +1251,30 @@ def test_fused_mlp_ln_bwd_c64_weight_pass_instantiation(cuda):
         assert wp["spill_bytes"] == 0 and wp["grid"] == 132, wp
 
 
+def test_fused_mlp_ln_bwd_c128_bf16_instantiations(cuda):
+    """bf16 at C = 128 as the runtime reports it: the tensor-core dx pass,
+    224 threads (7 warps of 16 rows) on the 112-row tiles, one block a tile
+    and a SM; the tensor-core weight pass, 256 threads a (chunk of 64, split)
+    over the partition's 40-row tiles, one block a SM; no spills in either."""
+    info = fused_mlp_ln_bwd_kernel_info(torch.bfloat16, 14688, 512)
+    dx, wp = info["dx_pass"], info["weight_pass"]
+    assert (dx["threads"], dx["rows"], dx["blocks_per_sm"], dx["grid"]) == (224, 112, 1, 132), dx
+    assert (wp["threads"], wp["rows"], wp["chunk"], wp["splits"], wp["blocks_per_sm"]) == (
+        256, 40, 64, 16, 1), wp
+    assert dx["spill_bytes"] == 0 and wp["spill_bytes"] == 0, info
+
+
+@pytest.mark.parametrize("m", [63, 65, 129, 680, 5121])
+def test_fused_mlp_ln_bwd_c128_bf16_weight_steps(cuda, m):
+    """The bf16 weight pass walks a split's rows in 64-row steps, the last
+    ragged: one row either side of a step (63, 65), a step and one row
+    (129), splits of 80 rows (680: 17 tiles of 40 over splits of two) and
+    of 360 (5,121: 129 tiles over splits of nine, five steps and 40 rows)."""
+    args = _mlp_args(cuda, m, torch.bfloat16)
+    g = torch.randn(m, 128, device="cuda", generator=cuda).to(torch.bfloat16)
+    _bwd_matches_plain(args, g, torch.bfloat16)
+
+
 def test_fused_mlp_ln_bwd_zoo_digests_unchanged(cuda):
     """K4 at DSTFormer's 256/1024 and MixSTE's 512/1024 computes bit for bit
     what it computed before the C = 64 dx pass became two warp groups: SHA-1
@@ -1262,15 +1340,17 @@ def test_fused_mlp_ln_bwd_zoo_reruns_bitwise_equal(cuda, dtype, c, eps):
 
 def test_fused_mlp_ln_bwd_c128_digests_unchanged(cuda):
     """The flagship's K4 (C = 128) computes bit for bit what it computed
-    before its launches became templates on C: SHA-1 of dx, dgamma, dbeta,
-    dw1, db1, dw2 and db2 on the seeded inputs of `scripts/torch_ab.sh
-    digest` (an H100; the CUDA generator's stream), in both dtypes."""
+    before its launches became templates on C (in bfloat16: since its two
+    passes moved to the tensor cores, which round LN(x), the hidden, do and
+    dz to bfloat16): SHA-1 of dx, dgamma, dbeta, dw1, db1, dw2 and db2 on
+    the seeded inputs of `scripts/torch_ab.sh digest` (an H100; the CUDA
+    generator's stream), in both dtypes."""
     import hashlib
 
     want = {torch.float32: "58156b444940 8096f000dc3e 79a2cd00ff2b c32c2aeb5932 "
                            "f5be679db688 1847d887a6fd 759b064cbe19",
-            torch.bfloat16: "9c78e50c0815 7ec0c39f18e4 8d5f581f0385 172cace851fc "
-                            "dd3e797cde42 bf63323800c2 480f126a9d2c"}
+            torch.bfloat16: "fc7c02ccc4c3 c2adb69612cc 8b806c6fcd31 475406a19829 "
+                            "3ec28cd956f4 76cf961ed755 e03611052c51"}
     gen = torch.Generator(device="cuda").manual_seed(9)
     for dt in (torch.float32, torch.bfloat16):
         def randn(*shape, scale=1.0):

@@ -1,6 +1,7 @@
 """The `clock64` stamp scripts of K4's passes (`scripts/k4_dx_stamps.py`,
 `scripts/k4_w_stamps.py`, each pass's kernel at every width) and the A/B scripts of the dx
-pass and the reduce (`scripts/k4_dx_variants.py`, `scripts/k4_reduce_variants.py`) edit a
+pass, the reduce and the bf16 passes at C = 128 (`scripts/k4_dx_variants.py`,
+`scripts/k4_reduce_variants.py`, `scripts/k4_bf16_variants.py`) edit a
 copy of `csrc/mlp_ln_bwd.cu` at
 anchors in its text and stop on the card if one is gone. Here, on the CPU,
 every variant's anchors are found once in today's source and each phase
@@ -14,6 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "scripts"))
 
+import k4_bf16_variants  # noqa: E402
 import k4_dx_stamps  # noqa: E402
 import k4_dx_variants  # noqa: E402
 import k4_reduce_variants  # noqa: E402
@@ -89,3 +91,15 @@ def test_reduce_variants_apply(c, variant):
     assert "std::integral_constant<int, 128>" not in text
     assert f"return f(std::integral_constant<int, {c}>{{}});" in text
     assert (text == k4_reduce_variants.variant_source([], c)) == (variant == "shipped")
+
+
+@pytest.mark.parametrize("variant", list(k4_bf16_variants.VARIANTS))
+def test_bf16_variants_apply(variant):
+    """Each A/B variant of the bf16 tensor-core passes at C = 128 applies its
+    edits and the cut to that width once; every variant but the kernels as
+    they are changes the source."""
+    text = k4_bf16_variants.variant_source(k4_bf16_variants.VARIANTS[variant][1])
+    assert "mlp_ln_bwd_dx_mma_kernel" in text and "mlp_ln_bwd_w_mma_kernel" in text
+    assert "std::integral_constant<int, 64>" not in text
+    assert "return f(std::integral_constant<int, 128>{});" in text
+    assert (text == k4_bf16_variants.variant_source([])) == (variant == "shipped")

@@ -280,22 +280,44 @@ def test_fused_mlp_ln_bwd_refuses_cpu_tensors():
     assert fused_mlp_ln_bwd.launches == before
 
 
-def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def _gelu_tanh_and_grad(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """GELU and GELU' in the tanh form of the TPU kernel's bfloat16 path
+    (`_mlp_ln_bwd_kernel`): sig = (1 + tanh(z u)) / 2, u = c (1 + 0.044715
+    z^2), GELU = z sig, GELU' = sig + z sig (1 - sig) (2c + 6c 0.044715 z^2)."""
+    c = 0.7978845608
+    s = z * z
+    sig = 0.5 * (1.0 + torch.tanh(z * (c * 0.044715 * s + c)))
+    return z * sig, sig + z * (sig * (1.0 - sig)) * (3 * (2 * c * 0.044715) * s + 2 * c)
+
+
+def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5,
+                  bf16: bool = False, tanh: bool = False) -> torch.Tensor:
     """The workspace K4's two passes leave, built in plain float32 torch over
     their partition: a dx partial (sum da * xhat, sum da, sum g) a dx tile
     (112 rows at C = 128), then a weight partial (dW1 = dz^T a, G = g^T h,
     db1 = sum dz) a row split of consecutive weight-pass tiles (56 rows at
-    C = 64, 40 at 128, 48 at 256, 32 at 512; an empty split's zeros)."""
-    x, gamma, beta, w1, b1, w2, b2, ls2 = args
+    C = 64, 40 at 128, 48 at 256, 32 at 512; an empty split's zeros). With
+    bf16, as the tensor-core passes at C = 128 build it from bfloat16
+    operands: a = LN(x) gamma + beta, h, do = g ls2 and dz rounded to
+    bfloat16 (da and dW1 from the rounded dz, db1 from dz before its
+    rounding, G from g, exact in bfloat16). With tanh, GELU and GELU' in
+    the TPU kernel's bfloat16 tanh form in place of the erf form."""
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16).float() if bf16 else t
+
+    x, gamma, beta, w1, b1, w2, b2, ls2 = (t.float() for t in args)
     m, c = x.shape
     hidden = w1.shape[0]
     mean = x.mean(-1, keepdim=True)
     xhat = (x - mean) * torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
-    a = xhat * gamma + beta
+    a = rnd(xhat * gamma + beta)
     z = a @ w1.t() + b1
-    h = torch.nn.functional.gelu(z)
-    dz = (g * ls2) @ w2 * _gelu_grad(z)
-    da = dz @ w1
+    gelu, grad = (_gelu_tanh_and_grad(z) if tanh else
+                  (torch.nn.functional.gelu(z), _gelu_grad(z)))
+    h = rnd(gelu)
+    dz = rnd(g * ls2) @ w2 * grad
+    dzb = rnd(dz)
+    da = dzb @ w1
     p = fused_mlp_ln_bwd_partition(m, hidden, c)
     parts = []
     for n in range(p["dx_tiles"]):
@@ -304,9 +326,65 @@ def _k4_workspace(args, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     rows = p["per_split"] * p["w_rows"]
     for s in range(p["splits"]):
         r = slice(s * rows, (s + 1) * rows)
-        parts.append(torch.cat([(dz[r].t() @ a[r]).reshape(-1),
+        parts.append(torch.cat([(dzb[r].t() @ a[r]).reshape(-1),
                                 (g[r].t() @ h[r]).reshape(-1), dz[r].sum(0)]))
     return torch.cat([t.reshape(-1) for t in parts])
+
+
+@pytest.mark.parametrize("m,tiles", [(300, (3, 8)), (1377, (13, 16)), (39, (1, 1)),
+                                     (41, (1, 2))])
+def test_fused_mlp_ln_bwd_reduce_reference_bf16_tensor_core_partials(m, tiles):
+    """bf16 at C = 128: the reduce's plain version on partials built as the
+    tensor-core passes build them (a, h, do and dz rounded to bfloat16,
+    G = g^T h), over K4's partition (dx tiles, weight splits): a ragged
+    M = 300, the step's ragged 1,377, and one row either side of a 40-row
+    weight tile (39, 41). Against JAX's bf16 backward kernel (interpret
+    mode) on the rows padded with zeros to a multiple of 64, rows that add
+    nothing to the parameter gradients (g = 0, so dz = 0): within 1e-2 of
+    each gradient's largest entry, K4's bf16 limit on the card, and per
+    element, scaled by max(1, |y|), within 1e-1. Per element the 5e-2 of
+    the other K4 cases does not hold, for two causes that the same partials
+    in the TPU kernel's tanh GELU tell apart: the GELU form (the erf
+    partials up to 3.5e-2 from the kernel on dW1, the tanh ones within
+    5e-2, held, on dgamma, dbeta, dW1, db1 and dls2), and dW2 = ls2 G, db2 =
+    ls2 sum g from g, where the TPU kernel sums bf16(g ls2) (up to 6.1e-2 on
+    dW2 and db2 in either form, at M = 1,377; the plain version, which
+    rounds do as the kernel does, 5.1e-2 on dW2 and 3.3e-3 on db2;
+    scripts/k4_bf16_jax_readings.py prints them). Against
+    the port's plain version in bfloat16: dgamma, dbeta,
+    dW1, db1 and dls2 within float32 summation order (1e-4 absolute, 1e-5
+    relative); dW2 = ls2 G and db2 = ls2 sum g, which the plain version
+    takes from do rounded to bfloat16, within that rounding, 2^-8 of their
+    largest entry. Inputs from a generator of their own."""
+    rng = np.random.default_rng(1000 + m)
+    a = _mlp_inputs(m, 128, 512, rng)
+    g = rng.standard_normal((m, 128)).astype(np.float32)
+    args = [t.to(torch.bfloat16) if i in (0, 3, 4, 5, 6) else t
+            for i, t in enumerate(_torch_mlp_args(a))]
+    gb = _t(g).to(torch.bfloat16)
+    p = fused_mlp_ln_bwd_partition(m, 512)
+    assert (p["dx_tiles"], p["splits"], p["w_rows"]) == (*tiles, 40)
+    got, tanh = (fused_mlp_ln_bwd_reduce_reference(
+        _k4_workspace(args, gb.float(), bf16=True, tanh=t), *args[5:], m) for t in (False, True))
+    pad = -m % 64
+    jargs = [jnp.asarray(a[k]) for k in _ORDER]
+    jargs[0] = jnp.pad(jargs[0], ((0, pad), (0, 0)))
+    for i in (0, 3, 4, 5, 6):
+        jargs[i] = jargs[i].astype(jnp.bfloat16)
+    kernel = [np.asarray(z, np.float32) for z in fused_mlp_ln_bwd_pallas(
+        *jargs, jnp.pad(jnp.asarray(g, jnp.bfloat16), ((0, pad), (0, 0))), interpret=True)]
+    kernel[3], kernel[5] = kernel[3].T, kernel[5].T
+    plain = fused_mlp_ln_bwd_reference(*args, gb)
+    for name, x, xt, w, q in zip(_ORDER[1:], got, tanh, kernel[1:], plain[1:]):
+        err = np.abs(x.numpy() - w).max() / np.abs(w).max()
+        assert float(err) <= 1e-2, (name, float(err))
+        for y, lim in ((x, 1e-1), (xt, 1e-1 if name in ("w2", "b2") else 5e-2)):
+            per = np.abs(y.numpy() - w) / np.maximum(1.0, np.abs(w))
+            assert float(per.max()) <= lim, (name, lim, float(per.max()))
+        if name in ("w2", "b2"):
+            assert (x - q).abs().max() <= 2 ** -8 * q.abs().max(), name
+        else:
+            np.testing.assert_allclose(x.numpy(), q.numpy(), atol=1e-4, rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("m,hidden,c,eps", [
