@@ -82,6 +82,11 @@ Phases (any failure exits non-zero and prints no result line):
      the same times and shares; heads of 128 and 4 and C = 1024 raise; K2's
      registers, shared memory, spills, tile and grid an instantiation (D = 8,
      16, 32, 64) to --out/chip_smoke_k2_kernel.txt (a spill fails the phase).
+     bfloat16 at heads of 16 (masked_sdpa_bwd_mma_kernel) also at N = 1,
+     17, 27 and 32 in both views, each time beside a control that rounds
+     neither P nor dS (K2 in float32 on the same values), which must lie
+     over a K2_BF16_LIMITS limit from N = 2 on; and K2 at heads of 16, 32
+     and 64 gives bit for bit the dq, dk and dv of `K2_DIGESTS`.
   7. K4 fused_mlp_ln_bwd against its plain version at M = 14,688 and 1,377,
      all eight gradients, and a rerun bitwise equal; the whole call's time,
      and each of its three launches' device time (dx pass, weight pass,
@@ -109,12 +114,14 @@ Phases (any failure exits non-zero and prints no result line):
      the eight gradients it gave before the C = 64 dx pass became two warp
      groups (SHA-1 digests, `K4_DIGESTS`; bf16 at C = 128 since its passes
      moved to the tensor cores). In phases 6 and 7 the plain version runs
-     in float32 on the kernel's own inputs, but for K4 in bf16 at C = 128:
-     there its tensor-core passes round LN(x), the hidden, do and dz to
-     bf16 as the TPU kernel does, and are held to the plain version run in
-     bf16 (limit 1e-2), their distance from the float32 plain version at
-     most twice that plain version's own; each launch's kernel name,
-     registers and spills are logged.
+     in float32 on the kernel's own inputs, but for K2 in bf16 at heads of
+     16 and K4 in bf16 at C = 128: there the tensor-core kernels round P and
+     dS (K2), LN(x), the hidden, do and dz (K4) to bf16 as the TPU kernels
+     do, and are held to the plain version run in bf16 (per element 1e-2;
+     K2's results each also by their mean error, K2_BF16_LIMITS), K4's
+     distance from the float32 plain version at most twice that plain
+     version's own; each launch's kernel name, registers and spills are
+     logged.
   8. full-model gradients: the train-mode loss and every parameter's
      gradient on the card (kernels) against the CPU (plain versions), same
      weights, B=4, the CPU's top-k adjacencies and ReLU gates replayed; the
@@ -122,10 +129,11 @@ Phases (any failure exits non-zero and prints no result line):
      backward.
   9. the train step at the config's batch 32, float32 and bfloat16: median
      ms/step, clips/s, peak memory, device busy share and a profiler table
-     (the profiles of phases 4 and 9 with the SM clock they ran at; K4's
-     launches by kernel name), the K4 calls of the 12 timed steps (none
-     fails the phase); then 50 steps on one batch in each dtype, whose loss
-     must fall.
+     (the profiles of phases 4 and 9 with the SM clock they ran at; K2's
+     and K4's launches by kernel name), the K4 calls of the 12 timed steps
+     and their K2 calls, which must be 104 a step (in bfloat16 through
+     masked_sdpa_bwd_mma_kernel); then 50 steps on one batch in each dtype,
+     whose loss must fall.
   9b. the zoo trains on the card (MixSTE, DSTFormer and MotionAGFormer base,
      use_tcn, hierarchical, graph_only and XS at full width, drop_path 0 as
      the config sets it, and D3DP's diffusion objective at -cs 512 -dep 8,
@@ -1679,6 +1687,76 @@ def sum_err(got, want) -> float:
     return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
 
 
+# K2 in bfloat16 at heads of 16 (masked_sdpa_bwd_mma_kernel) against the
+# plain version run in bfloat16 on the same inputs. Both round P (for dV),
+# dS and dq, dk, dv where _attn_bwd_kernel rounds them, so they differ only
+# where a sum order moves a value across a rounding edge. A per-element
+# limit cannot tell that from a kernel that rounds only its results (both
+# lie within an ulp of each entry), so each result is also held, as a
+# whole, to mean |a - b| / mean |b| (mean_err) within its limit here, where
+# K2 in float32 on the same values (the CUDA-core kernel's numerics, only
+# the results rounded) lies over one from N = 2 on. Read over 4 seeds at
+# N = 1, 17, 27 and 32, both views (NVIDIA H100 80GB HBM3, 700 W,
+# scripts/k2_bf16_limits.py): the kernel <= 5.9e-7 on each result (2.1e-6
+# at phase 6's x60 spread), the control >= 1.59e-3 from N = 17 on; both 0 at
+# N = 1, where P is 1 and dS 0
+K2_BF16_LIMITS = {"dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+_K2_GRADS = ("dq", "dk", "dv")
+
+
+def mean_err(got, want) -> float:
+    """mean |got - want| / mean |want| (the absolute mean where want is 0)."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().mean() / w.abs().mean().clamp(min=1e-30)).item()
+
+
+def k2_kernel(dt, n: int, d: int = 16) -> str:
+    """The kernel of K2's instantiation for (dt, N = n, heads of d):
+    masked_sdpa_bwd_mma_kernel (bfloat16 at heads of 16: P and dS rounded to
+    bfloat16 on the tensor cores) or masked_sdpa_bwd_kernel (exact float32);
+    "unknown" in an older tree, kept for A/B runs, whose library does not
+    say."""
+    from kasportsformer_torch.ops import attention
+
+    if not hasattr(attention, "masked_sdpa_bwd_kernel_info"):
+        return "unknown"
+    mma = attention.masked_sdpa_bwd_kernel_info(dt, n, d=d).get("mma")
+    return {1: "masked_sdpa_bwd_mma_kernel", 0: "masked_sdpa_bwd_kernel"}.get(mma, "unknown")
+
+
+def k2_rounds(dt, n: int, d: int = 16) -> bool:
+    """Whether K2's instantiation for (dt, N = n, heads of d) rounds P and
+    dS to bfloat16."""
+    return k2_kernel(dt, n, d) == "masked_sdpa_bwd_mma_kernel"
+
+
+def k2_against_plain(got, args, scale: float, heads: int, tol: float):
+    """K2's (dq, dk, dv) on args against its plain version: where its
+    instantiation rounds P and dS (bfloat16 at heads of 16), the plain
+    version run in bfloat16, each result per element within 1e-2 (scaled by
+    max(1, |y|)) and within its K2_BF16_LIMITS mean error; else the plain
+    version run in float32, per element within tol. Returns (want, the
+    per-element errors, the mean errors or None, whether all hold)."""
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd_reference
+
+    q = args[0]
+    rounds = k2_rounds(q.dtype, q.shape[-2], q.shape[-1] // heads)
+    want = masked_sdpa_bwd_reference(*(args if rounds else (z.float() for z in args)),
+                                     scale, heads)
+    errs = _errs(got, want)
+    means = [mean_err(a, w) for a, w in zip(got, want)] if rounds else None
+    ok = (all(torch.isfinite(z).all() for z in got) and max(errs) <= (1e-2 if rounds else tol)
+          and (means is None or all(m <= K2_BF16_LIMITS[nm] for nm, m in zip(_K2_GRADS, means))))
+    return want, errs, means, ok
+
+
+def k2_means_text(means) -> str:
+    return "" if means is None else " mean err " + ", ".join(
+        f"{nm} {m:.2e} ({K2_BF16_LIMITS[nm]:.0e})" for nm, m in zip(_K2_GRADS, means))
+
+
 @phase("phase 6: K2 masked_sdpa_bwd vs plain")
 def check_k2(dev, out_dir: str) -> dict:
     import torch
@@ -1689,8 +1767,9 @@ def check_k2(dev, out_dir: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(6)
     heads, scale = 8, 16 ** -0.5
-    # against the plain version run in float32 on the same inputs: float32
-    # differs in summation order only; bfloat16 rounds only dq, dk, dv
+    # per element against the plain version in float32 on the same inputs
+    # (float32: summation order only), but bfloat16 at heads of 16: see
+    # k2_against_plain
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1702,12 +1781,11 @@ def check_k2(dev, out_dir: str) -> dict:
                  "temporal": tuple(z.transpose(1, 2) for z in (q, k, v, gfull))}
         for mode, (qq, kk, vv, gg) in views.items():
             got = masked_sdpa_bwd(qq, kk, vv, gg, scale, heads)
-            want = masked_sdpa_bwd_reference(*(z.float() for z in (qq, kk, vv, gg)),
-                                             scale, heads)
-            errs = _errs(got, want)
-            if not (all(torch.isfinite(z).all() for z in got)
-                    and max(errs) <= tol[dt]):
-                raise AssertionError(f"K2 {mode} {dt}: errs {errs} > {tol[dt]}")
+            want, errs, means, ok = k2_against_plain(got, (qq, kk, vv, gg), scale, heads,
+                                                     tol[dt])
+            if not ok:
+                raise AssertionError(f"K2 {mode} {dt}: errs {errs} > {tol[dt]}"
+                                     + k2_means_text(means))
             b, g, n, c = qq.shape
             # the library yardstick: the backward of one SDPA call on
             # (B*G, H, N, D), timed in turns with the kernel
@@ -1729,9 +1807,12 @@ def check_k2(dev, out_dir: str) -> dict:
                 (a.float() - w).abs().max().item() for a, w in zip(got, want)),
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
             log(f"   K2 {mode:8s} {dname:8s} {tuple(qq.shape)} err dq/dk/dv "
-                + "/".join(f"{e:.2e}" for e in errs) + f" (limit {tol[dt]:.0e}) "
-                f"kernel {ms:.4f} ms  plain {plain:.4f}  sdpa bwd {lib:.4f}  "
-                f"bound {bms:.4f} ({by})  " + k2_row_line(dt, b * g, n, heads, ms, lib, bms))
+                + "/".join(f"{e:.2e}" for e in errs)
+                + f" (limit {1e-2 if means is not None else tol[dt]:.0e}"
+                + (", from the plain version in bfloat16)" if means is not None else ")")
+                + k2_means_text(means) + f" kernel {ms:.4f} ms  plain {plain:.4f}  "
+                f"sdpa bwd {lib:.4f}  bound {bms:.4f} ({by})  "
+                + k2_row_line(dt, b * g, n, heads, ms, lib, bms))
     q, k, v, g = (torch.randn(2, 4, 17, 128, device=dev, generator=gen)
                   for _ in range(4))
     q[..., :16] *= 60.0
@@ -1739,12 +1820,12 @@ def check_k2(dev, out_dir: str) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         args = [z.to(dt) for z in (q, k, v, g)]
         got = masked_sdpa_bwd(*args, 0.25, heads)
-        errs = _errs(got, masked_sdpa_bwd_reference(
-            *(z.float() for z in args), 0.25, heads))
-        if not (all(torch.isfinite(z).all() for z in got) and max(errs) <= tol[dt]):
-            raise AssertionError(f"K2 x60 spread {dt}: errs {errs}")
+        _, errs, means, ok = k2_against_plain(got, args, 0.25, heads, tol[dt])
+        if not ok:
+            raise AssertionError(f"K2 x60 spread {dt}: errs {errs}" + k2_means_text(means))
         log(f"   K2 x60 inter-head spread {dt}: errs "
-            + "/".join(f"{e:.2e}" for e in errs))
+            + "/".join(f"{e:.2e}" for e in errs) + k2_means_text(means))
+    check_k2_bf16_rounding(dev, gen)
     from kasportsformer_torch.ops import attention
     if 64 in attention.LIMITS["masked_sdpa_bwd"][0]:  # an older tree has D = 16 only
         rows.update(check_k2_zoo(dev, gen, tol))
@@ -1753,11 +1834,71 @@ def check_k2(dev, out_dir: str) -> dict:
     return rows
 
 
+def k2_bf16_case(dev, gen, n: int, view: str, b: int = 8, g: int = 27):
+    """bfloat16 q, k, v and g at heads of 16, C = 128: column slices of one
+    qkv projection of (b, g, n) rows ("spatial"), or of (b, n, g) rows
+    permuted to (b, g, n) with a transposed gradient ("temporal")."""
+    import torch
+
+    lead = (b, g, n) if view == "spatial" else (b, n, g)
+    qkv = torch.randn(*lead, 384, device=dev, generator=gen).to(torch.bfloat16)
+    gr = torch.randn(*lead, 128, device=dev, generator=gen).to(torch.bfloat16)
+    args = (*qkv.split(128, dim=-1), gr)
+    return args if view == "spatial" else tuple(z.transpose(1, 2) for z in args)
+
+
+def k2_bf16_control(args, scale: float, heads: int):
+    """K2 in float32 on the values of bfloat16 args, its results rounded to
+    bfloat16: what a kernel that rounds neither P nor dS gives."""
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+
+    return tuple(z.to(torch.bfloat16) for z in masked_sdpa_bwd(
+        *(z.float() for z in args), scale, heads))
+
+
+def check_k2_bf16_rounding(dev, gen) -> None:
+    """K2 in bfloat16 at heads of 16 at N = 1, 17, 27 and 32, spatial and
+    temporal views: within its limits of the plain version run in bfloat16
+    (k2_against_plain) and a rerun bitwise equal, and the control
+    (k2_bf16_control) over a mean limit from N = 2 on: the checks tell a
+    kernel that rounds P and dS from one that does not. Raises otherwise."""
+    import torch
+
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
+
+    if not k2_rounds(torch.bfloat16, 17):  # an older tree's K2
+        log("   K2 bfloat16 at heads of 16: this tree's kernel rounds only its results")
+        return
+    heads, scale = 8, 16 ** -0.5
+    for n in (1, 17, 27, 32):
+        for view in ("spatial", "temporal"):
+            args = k2_bf16_case(dev, gen, n, view)
+            got = masked_sdpa_bwd(*args, scale, heads)
+            again = masked_sdpa_bwd(*args, scale, heads)
+            want, errs, means, ok = k2_against_plain(got, args, scale, heads, 1e-2)
+            ctl = k2_bf16_control(args, scale, heads)
+            ctl_means = [mean_err(a, w) for a, w in zip(ctl, want)]
+            ctl_over = any(m > K2_BF16_LIMITS[nm] for nm, m in zip(_K2_GRADS, ctl_means))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"   K2 bfloat16 N={n:2d} {view:8s} {tuple(args[0].shape)}: kernel err "
+                + "/".join(f"{e:.2e}" for e in errs) + k2_means_text(means)
+                + "; control mean err " + "/".join(f"{m:.2e}" for m in ctl_means)
+                + f" ({'over' if ctl_over else 'WITHIN'} a limit); rerun bitwise equal {same}")
+            if not (ok and same and (ctl_over or n == 1)):
+                raise AssertionError(f"K2 bfloat16 N={n} {view}: kernel within its limits "
+                                     f"{ok}, rerun equal {same}, control over a limit {ctl_over}")
+
+
 # k2_digests on an H100 before K2's tile at heads of 8 took eight heads: the
-# outputs at the other head widths, whose instantiations that change left alone
+# outputs at the other head widths, whose instantiations that change left
+# alone. bfloat16 at heads of 16 taken anew when it moved to the tensor cores
+# (masked_sdpa_bwd_mma_kernel), which round P and dS to bfloat16 where the TPU
+# kernel does: its outputs are meant to differ from the exact float32 ones
 K2_DIGESTS = {
     (16, "float32"): "e71fbeea5386 06b6bd4608f3 1a8ab6c33868",
-    (16, "bfloat16"): "8f5720e19966 60ffe5abb901 36c215381941",
+    (16, "bfloat16"): "fd9ee027fd3a 2c4e058ddf3e 0da2bedad691",
     (32, "float32"): "6f58124588bb 71721f088f17 a63594cb7fb5",
     (32, "bfloat16"): "a53e72a2057a bff9f178506f 6c47a390d624",
     (64, "float32"): "3f0f91e1518e 544eccee4af0 17376d4cc065",
@@ -1770,9 +1911,9 @@ def check_k2_digests(dev) -> None:
     got = k2_digests(dev)
     changed = [key for key, want in K2_DIGESTS.items() if got[key] != want]
     log(f"   K2 at heads of 16, 32 and 64 (8 heads, batch 32, temporal views, f32 and bf16): "
-        f"dq, dk and dv's SHA-1 digests {'equal' if not changed else 'NOT equal'} to those "
-        f"before the tile at heads of 8 took eight heads" + (f": changed at {changed}"
-                                                              if changed else ""))
+        f"dq, dk and dv's SHA-1 digests {'equal' if not changed else 'NOT equal'} to "
+        f"K2_DIGESTS" + (f": changed at {changed}, now "
+                         + "; ".join(f"{key} {got[key]}" for key in changed) if changed else ""))
     if changed:
         raise AssertionError(f"K2's outputs changed at (D, dtype) {changed}")
 
@@ -2649,6 +2790,12 @@ def profile_steps(step, n: int, name: str, out_dir: str) -> str:
         log("     by group, ms/step (kernels a step): " + "; ".join(
             f"{g} {t:.1f} ({c:.0f})" for g, (t, c) in
             sorted(groups.items(), key=lambda kv: -kv[1][0])))
+        k2 = [e for e in events if kernel_group(e.key) == "K2"]
+        if k2:
+            log(f"     K2, ms/step (kernels a step) [kernel]: "
+                f"{sum(e.self_device_time_total for e in k2) / 1e3 / n:.2f} "
+                f"({sum(e.count for e in k2) / n:.0f}) "
+                f"[{'/'.join(sorted({kernel_name(e.key) for e in k2}))}]")
         k4 = {label: [e for e in events if any(name in e.key for name in names)]
               for label, names in K4_LAUNCHES}
         log("     K4 by launch, ms/step (kernels a step) [kernel]: " + "; ".join(
@@ -2672,6 +2819,7 @@ def check_train_step(dev, out_dir: str) -> dict:
     from kasportsformer_torch.config import Config
     from kasportsformer_torch.data.pipeline import flip_generator
     from kasportsformer_torch.models import build_model
+    from kasportsformer_torch.ops.attention import masked_sdpa_bwd
     from kasportsformer_torch.ops.mlp import fused_mlp_ln_bwd
     from kasportsformer_torch.train.loop import make_optimizer, make_train_step
 
@@ -2696,26 +2844,35 @@ def check_train_step(dev, out_dir: str) -> dict:
         one()  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_mlp_ln_bwd.launches = 0
+        fused_mlp_ln_bwd.launches = masked_sdpa_bwd.launches = 0
         for _ in range(12):
             t0 = time.perf_counter()
             one()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        k4_calls = fused_mlp_ln_bwd.launches
+        k4_calls, k2_calls = fused_mlp_ln_bwd.launches, masked_sdpa_bwd.launches
         if k4_calls == 0:
             raise AssertionError(f"the {dname} train step launched no K4")
+        # 104 K2 a step (52 blocks' two attention cores); in bfloat16 through
+        # the tensor-core kernel at both of the flagship's lengths (N = 17, 27)
+        k2_kernels = sorted({k2_kernel(getattr(torch, dname), n) for n in (17, 27)})
+        if k2_calls != 104 * 12 or (dname == "bfloat16"
+                                    and "masked_sdpa_bwd_kernel" in k2_kernels):
+            raise AssertionError(f"the {dname} train step: {k2_calls} K2 launches in 12 "
+                                 f"steps, kernels at N = 17, 27: {k2_kernels}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         none = [n for n, p in model.named_parameters() if p.grad is None]
         if none:  # the step gives the unreached parameters zeros for AdamW
             raise AssertionError(f"no gradient after a step: {none[:5]}")
         med = statistics.median(times)
         busy = profile_steps(one, 3, f"train_{dname}", out_dir)
-        res[dname] = {"ms": med, "peak_gib": peak, "busy": busy, "k4_launches": k4_calls}
+        res[dname] = {"ms": med, "peak_gib": peak, "busy": busy, "k4_launches": k4_calls,
+                      "k2_launches": k2_calls}
         log(f"   train step {dname}, batch 32: median {med:.1f} ms over 12 "
             f"steps (min {min(times):.1f}, max {max(times):.1f}), "
             f"{32e3 / med:.1f} clips/s, peak memory {peak:.2f} GiB; K4 calls "
-            f"{k4_calls} in the 12 steps ({k4_calls / 12:.0f} a step)")
+            f"{k4_calls} in the 12 steps ({k4_calls / 12:.0f} a step), K2 calls "
+            f"{k2_calls} ({k2_calls / 12:.0f} a step, {'/'.join(k2_kernels)})")
         del model, opt, step
     # 50 steps on one fixed batch in each dtype, no flips: the loss must fall
     for dname in ("float32", "bfloat16"):
@@ -2922,7 +3079,13 @@ def main() -> int:
              replaces="kasportsformer_tpu/ops/mlp.py:284",
              launches=train_launches["fused_mlp_ln_bwd"],
              **k4[(14688, "float32")]),
-        # the bf16 train step's (phase 9): the tensor-core passes at C = 128
+        # the bf16 train step's (phase 9): K2 at heads of 16 on the tensor
+        # cores (masked_sdpa_bwd_mma_kernel), K4's tensor-core passes at C = 128
+        dict(name="masked_sdpa_bwd", route="cuda", dtype="bfloat16",
+             source="kasportsformer_torch/ops/csrc/masked_sdpa_bwd.cu",
+             replaces="kasportsformer_tpu/ops/attention.py:365",
+             launches=step9["bfloat16"]["k2_launches"],
+             **k2[("spatial", "bfloat16")]),
         dict(name="fused_mlp_ln_bwd", route="cuda", dtype="bfloat16",
              source="kasportsformer_torch/ops/csrc/mlp_ln_bwd.cu",
              replaces="kasportsformer_tpu/ops/mlp.py:284",

@@ -63,25 +63,32 @@ def masked_sdpa_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     output gradient g, in the closed form of K2 (and of the JAX kernel
     `_attn_bwd_kernel`): P recomputed with a float32 softmax,
     dV = P^T g, dP = g V^T, dS = P (dP - rowsum(P dP)) scale, dq = dS K,
-    dk = dS^T q per head. P and dS are rounded to the input dtype before
-    their products, as the JAX kernel does. Returns (dq, dk, dv)."""
+    dk = dS^T q per head. Every product is formed in float32 (float64 for
+    float64 inputs) from the inputs widened; P (for dV only) and dS are
+    rounded to the input dtype before their products and the three results
+    once at the end, where `_attn_bwd_kernel` rounds them
+    (`preferred_element_type=f32` products of bf16 operands). Returns
+    (dq, dk, dv)."""
     c = q.shape[-1]
     d = c // num_heads
     dt = q.dtype
+    ct = torch.promote_types(dt, torch.float32)
 
-    def heads(z: torch.Tensor) -> torch.Tensor:  # (..., N, C) -> (..., H, N, D)
-        return z.unflatten(-1, (num_heads, d)).transpose(-3, -2)
+    def heads(z: torch.Tensor) -> torch.Tensor:  # (..., N, C) -> (..., H, N, D), widened
+        return z.to(dt).to(ct).unflatten(-1, (num_heads, d)).transpose(-3, -2)
 
-    def merge(z: torch.Tensor) -> torch.Tensor:  # (..., H, N, D) -> (..., N, C)
-        return z.transpose(-3, -2).flatten(-2)
+    def merge(z: torch.Tensor) -> torch.Tensor:  # (..., H, N, D) -> (..., N, C), rounded
+        return z.transpose(-3, -2).flatten(-2).to(dt)
 
-    qh, kh, vh, gh = (heads(z) for z in (q, k, v, g.to(dt)))
-    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * scale
+    def rounded(z: torch.Tensor) -> torch.Tensor:  # to the input dtype and back
+        return z.to(dt).to(ct)
+
+    qh, kh, vh, gh = (heads(z) for z in (q, k, v, g))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
-    dprobs = torch.matmul(gh, vh.transpose(-1, -2)).float()
-    ds = probs * (dprobs - (probs * dprobs).sum(-1, keepdim=True)) * scale
-    probs, ds = probs.to(dt), ds.to(dt)
-    dv = torch.matmul(probs.transpose(-1, -2), gh)
+    dprobs = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = rounded(probs * (dprobs - (probs * dprobs).sum(-1, keepdim=True)) * scale)
+    dv = torch.matmul(rounded(probs).transpose(-1, -2), gh)
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     return merge(dq), merge(dk), merge(dv)
@@ -236,19 +243,24 @@ def masked_sdpa_kernel_info(dtype: torch.dtype, d: int, n: int = 32) -> dict:
 def masked_sdpa_bwd_kernel_info(dtype: torch.dtype, n: int = 32,
                                 d: int = 16) -> dict:
     """K2's instantiation for `dtype`, head width `d` (8, 16, 32 or 64) and
-    N = `n` (one a block of four rows) on the current CUDA device, as the
-    runtime reports it: threads a block, registers a thread, dynamic shared memory a block,
+    N = `n` (one a block of four rows; in bfloat16 at d = 16 one a block of
+    eight keys) on the current CUDA device, as the runtime reports it:
+    threads a block, registers a thread, dynamic shared memory a block,
     local memory (spills) a thread in bytes, blocks resident a SM, the tile
-    (heads of one sequence; rows, N padded to a multiple of four) and the
-    persistent grid (blocks resident on the device: a launch of more tiles
-    walks them with this many blocks). Builds the kernel if needed;
-    launches nothing."""
+    (heads of one sequence; rows, N padded to a multiple of four, or of
+    eight), the persistent grid (blocks resident on the device: a launch of
+    more tiles walks them with this many blocks), and `mma`: 1 where the
+    instantiation is `masked_sdpa_bwd_mma_kernel` (bfloat16 at d = 16, on
+    the tensor cores, rounding P and dS to bfloat16 as `_attn_bwd_kernel`
+    does), 0 for `masked_sdpa_bwd_kernel` (exact float32 on the CUDA cores,
+    only dq, dk and dv rounded). Builds the kernel if needed; launches
+    nothing."""
     lib = _build.library("masked_sdpa_bwd")
-    info = (ctypes.c_int * 8)(*([-1] * 8))
+    info = (ctypes.c_int * 9)(*([-1] * 9))
     fn = lib.kasf_masked_sdpa_bwd_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     fn(_DTYPE_CODE[dtype], d, n, info)
     return dict(zip(("threads", "registers", "smem_bytes", "spill_bytes",
-                     "blocks_per_sm", "tile_heads", "tile_rows", "grid"), info))
+                     "blocks_per_sm", "tile_heads", "tile_rows", "grid", "mma"), info))

@@ -41,9 +41,18 @@
 //    warp at the issue (~2k cycles a tile in the stamps); one bulk copy a
 //    row (4 N a tile) measured no better than this.
 //  * Exact f32 on the CUDA cores from either dtype (TF32 would put ~5e-4 on
-//    each logit). bf16 is copied as bf16 (half the bytes) and widened to an
-//    f32 copy of the stage once a tile, so no product widens its operands;
-//    only dq, dk and dv are rounded.
+//    each logit), but bf16 at D = 16 (below). bf16 is copied as bf16 (half
+//    the bytes) and widened to an f32 copy of the stage once a tile, so no
+//    product widens its operands; only dq, dk and dv are rounded. So bf16 at
+//    D = 8, 32 and 64 computes more exactly than _attn_bwd_kernel, which
+//    rounds P and dS to bf16 for their products (no config trains those
+//    widths in bf16).
+//  * bf16 at D = 16 (the flagship's, which the JAX package's bench trains in
+//    bf16) is masked_sdpa_bwd_mma_kernel, on the tensor cores: it rounds P
+//    and dS where _attn_bwd_kernel does, and its design is written beside
+//    it. Its bound is 26.3 MB at (32, 27, 17, 128), 7.9 us; its products,
+//    10 x 32^2 x C a sequence with the padding, ~1 us at the dense bf16
+//    rate: bound by bytes.
 //  * A tile's time goes to shared-memory reads and their latency more than
 //    to FMAs, so every product runs on register tiles (each float read feeds
 //    2 to 4 FMAs, every read 16 bytes wide) and each warp has 16 or more
@@ -176,6 +185,10 @@ struct Tile {
   static_assert(kF32 == (kRingPitch == kPitch), "an f32 ring stage is the f32 stage");
   static_assert(D % 8 == 0, "dq's lanes take four or eight channels of a head");
 };
+
+// bf16 at heads of 16 (the flagship's) runs masked_sdpa_bwd_mma_kernel
+template <typename T, int D>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value && D == 16;
 
 // leading stride a (0..2) of operand z (q, k, v, g)
 __device__ __forceinline__ long long stride(const BwdStrides& st, int z, int a) {
@@ -610,24 +623,354 @@ masked_sdpa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// blocks of one instantiation resident at once on a device (SMs x blocks a
-// SM), found once per device; the dynamic shared-memory limit is raised
-// there first
-template <typename T, int D, int NB>
-cudaError_t resident_blocks(int* blocks) {
-  using Tl = Tile<T, D, NB>;
-  static int cached[kMaxDevices];  // one array per instantiation
+// ------------------------------------------- bf16 at heads of 16: the tensor cores
+//
+// masked_sdpa_bwd_mma_kernel<NT>, NT = ceil(N / 8) key n-tiles. A tile is
+// the (sequence, 64-channel head group) of masked_sdpa_bwd_kernel at D = 16,
+// copied by its loader into its ring (bf16, never widened); each of the
+// group's four heads is one warp's, and a warp needs no other warp's data:
+//  * S = q k^T and dP = g v^T on mma.sync m16n8k16 (one k-step: D = 16),
+//    rows padded to 16 MT (MT = ceil(NT / 2) m-tiles, zero rows of the
+//    stage), keys to 8 NT; q, g by ldmatrix as A, k, v by ldmatrix as B.
+//  * The softmax in the accumulators' layout: a lane holds two keys of each
+//    n-tile for rows g and g + 8, so a row's max, sum and rowsum(P dP) are
+//    its own values and two quad shuffles. Padded keys are masked to -inf,
+//    so P and dS are exactly 0 there.
+//  * P (for dV) and dS rounded to bf16 where _attn_bwd_kernel rounds them;
+//    dS's accumulators, packed, are the A fragments of dq = dS k (B = k by
+//    ldmatrix.trans; an odd last n-tile a k8 step). P and dS go to the
+//    warp's own 2 KB each of shared memory (rows of 32 keys, 16-byte chunks
+//    XOR-swizzled by row, so the fragment stores and the transposed loads
+//    are free of bank conflicts), and ldmatrix.trans reads them back as
+//    the A fragments P^T, dS^T of dV = P^T g and dk = dS^T q (B = g, q by
+//    ldmatrix.trans). Storing them in bf16 is exact: they are rounded there.
+//  * dq, dk, dv summed in f32 accumulators, rounded once at the store, each
+//    element one chain of mma in a fixed order: reruns are bitwise equal.
+// 128 threads and 53,264 B a block: four blocks a SM.
+namespace mm {
+
+using bf16 = __nv_bfloat16;
+using Ring = Tile<bf16, 16, 1>;  // the ring, its loader and its stage's layout
+constexpr int kHeads = Ring::HG;  // four, a warp each
+constexpr int kThreads = 32 * kHeads;
+constexpr int kPRow = 32;                // bf16 a row of a head's P or dS: 32 keys
+constexpr int kPHead = kMaxN * kPRow;    // 2 KB
+constexpr int kPBytes = 2 * kHeads * kPHead * 2;
+constexpr int kBarBytes = 16;
+constexpr int kSmem = Ring::kRingBytes + kPBytes + kBarBytes;
+constexpr int kMinBlocks = 4;
+static_assert(kMinBlocks * (kSmem + 1024) <= kSmemPerSM, "four blocks a SM");
+
+// element offset of (row r, key j) in a head's P or dS: 16-byte chunk j / 8
+// of the row XORed with (r / 2) % 4, so eight rows' same chunk (an
+// ldmatrix.trans) and a fragment's eight rows of 4 bytes (a store) each
+// fall on distinct banks
+__device__ __forceinline__ int pidx(int r, int j) {
+  return r * kPRow + ((((j >> 3) ^ (r >> 1)) & 3) << 3) + (j & 7);
+}
+
+// one head of a landed tile: h's 16 channels of q, k, v, g in `stage`, its
+// own P and dS buffers `pw`, `dw`; dq, dk, dv rows 0..N-1 from element `o`
+template <int NT>
+__device__ __forceinline__ void head_bwd(const bf16* stage, bf16* pw, bf16* dw, int h,
+                                         bf16* __restrict__ dq, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, long long o, int N, int C,
+                                         float scale, int lane) {
+  constexpr int MT = (NT + 1) / 2;  // m-tiles of 16 rows, and of 16 keys for dV, dk
+  constexpr int P = Ring::kRingPitch;
+  constexpr float kLog2e = 1.4426950408889634f;
+  using kasf_mma::ldsm_x2;
+  using kasf_mma::ldsm_x2_trans;
+  using kasf_mma::ldsm_x4;
+  using kasf_mma::ldsm_x4_trans;
+  using kasf_mma::mma_k16;
+  using kasf_mma::mma_k8;
+  const bf16* qs = stage + h * 16;
+  const bf16* ks = qs + Ring::kRows * P;
+  const bf16* vs = ks + Ring::kRows * P;
+  const bf16* gs = vs + Ring::kRows * P;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int l7 = lane & 7, l8 = ((lane >> 3) & 1) << 3, l16 = (lane >> 4) << 3;
+
+  // ---- S = q k^T, dP = g v^T: B fragments of k and v a pair of n-tiles
+  // (keys 16 p ..) at a time, then each m-tile's A of q and g
+  uint32_t bk[NT][2], bv[NT][2];
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    uint32_t r[4];
+    const int off = (16 * p + l7 + l16) * P + l8;
+    ldsm_x4(r, ks + off);
+    bk[2 * p][0] = r[0], bk[2 * p][1] = r[1], bk[2 * p + 1][0] = r[2], bk[2 * p + 1][1] = r[3];
+    ldsm_x4(r, vs + off);
+    bv[2 * p][0] = r[0], bv[2 * p][1] = r[1], bv[2 * p + 1][0] = r[2], bv[2 * p + 1][1] = r[3];
+  }
+  if constexpr (NT % 2 == 1) {
+    uint32_t r[2];
+    const int off = (8 * (NT - 1) + l7) * P + l8;
+    ldsm_x2(r, ks + off);
+    bk[NT - 1][0] = r[0], bk[NT - 1][1] = r[1];
+    ldsm_x2(r, vs + off);
+    bv[NT - 1][0] = r[0], bv[NT - 1][1] = r[1];
+  }
+  float s[MT][NT][4], dp[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
+    uint32_t a[4];
+    const int off = (16 * mi + (lane & 15)) * P + l16;
+    ldsm_x4(a, qs + off);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_k16(s[mi][j], a, bk[j][0], bk[j][1]);
+    ldsm_x4(a, gs + off);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_k16(dp[mi][j], a, bv[j][0], bv[j][1]);
+  }
+
+  // ---- the softmax of each of the lane's 2 MT rows (16 mi + gq + 8 hf), the
+  // rows side by side so that their shuffles overlap: the scaled logits'
+  // exact max (padded keys -inf), p = 2^((t - m) log2 e) with t - m formed
+  // first, P = p / sum, rowsum(P dP), then dS = P (dP - rowsum) scale in
+  // place of dP
+  float m[MT][2], l[MT][2], rs[MT][2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[mi][hf] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mi][j][2 * hf + e];
+          x = 8 * j + 2 * tq + e < N ? x * scale : -INFINITY;
+          m[mi][hf] = fmaxf(m[mi][hf], x);
+        }
+    }
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        m[mi][hf] = fmaxf(m[mi][hf], __shfl_xor_sync(0xffffffffu, m[mi][hf], o2));
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[mi][hf] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mi][j][2 * hf + e];
+          x = fast_exp2((x - m[mi][hf]) * kLog2e);  // padded keys: 2^-inf = 0
+          l[mi][hf] += x;
+        }
+    }
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        l[mi][hf] += __shfl_xor_sync(0xffffffffu, l[mi][hf], o2);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float inv = fast_rcp(l[mi][hf]);  // l >= 1: the max logit contributes 2^0
+      rs[mi][hf] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[mi][j][2 * hf + e] *= inv;
+          rs[mi][hf] = fmaf(s[mi][j][2 * hf + e], dp[mi][j][2 * hf + e], rs[mi][hf]);
+        }
+    }
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        rs[mi][hf] += __shfl_xor_sync(0xffffffffu, rs[mi][hf], o2);
+
+  // ---- P and dS rounded to bf16: both to the warp's buffers, dS also kept
+  // packed as dq's A fragments ([mi][j][hf]: row 16 mi + gq + 8 hf, keys
+  // 8 j + 2 tq, + 1)
+  uint32_t ads[MT][NT][2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float* p = s[mi][j] + 2 * hf;
+        float* d = dp[mi][j] + 2 * hf;
+        d[0] = p[0] * (d[0] - rs[mi][hf]) * scale;
+        d[1] = p[1] * (d[1] - rs[mi][hf]) * scale;
+        ads[mi][j][hf] = pack_bf16(d[0], d[1]);
+        const int at = pidx(16 * mi + gq + 8 * hf, 8 * j + 2 * tq);
+        *reinterpret_cast<uint32_t*>(pw + at) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dw + at) = ads[mi][j][hf];
+      }
+  __syncwarp();
+
+  // ---- dq = dS k over the keys, k16 steps (B = k by ldmatrix.trans), an odd
+  // last n-tile of keys a k8 step
+  float aq[MT][2][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aq[mi][c][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, ks + (16 * kk + l7 + l8) * P + l16);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const uint32_t a[4] = {ads[mi][2 * kk][0], ads[mi][2 * kk][1], ads[mi][2 * kk + 1][0],
+                             ads[mi][2 * kk + 1][1]};
+      mma_k16(aq[mi][0], a, b[0], b[1]);
+      mma_k16(aq[mi][1], a, b[2], b[3]);
+    }
+  }
+  if constexpr (NT % 2 == 1) {
+    uint32_t b[2];
+    ldsm_x2_trans(b, ks + (8 * (NT - 1) + l7) * P + l8);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const uint32_t a[2] = {ads[mi][NT - 1][0], ads[mi][NT - 1][1]};
+      mma_k8(aq[mi][0], a, b[0]);
+      mma_k8(aq[mi][1], a, b[1]);
+    }
+  }
+
+  // ---- dV = P^T g and dk = dS^T q over the rows, k16 steps: A = P^T, dS^T
+  // by ldmatrix.trans of the warp's buffers (keys 16 km ..; keys past 8 NT
+  // read the zeros they were set to), B = g, q by ldmatrix.trans
+  float av[MT][2][4], ak[MT][2][4];
+#pragma unroll
+  for (int km = 0; km < MT; ++km)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[km][c][e] = ak[km][c][e] = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < MT; ++rr) {
+    uint32_t bg[4], bq[4];
+    const int off = (16 * rr + l7 + l8) * P + l16;
+    ldsm_x4_trans(bg, gs + off);
+    ldsm_x4_trans(bq, qs + off);
+#pragma unroll
+    for (int km = 0; km < MT; ++km) {
+      uint32_t a[4];
+      const int at = pidx(16 * rr + l7 + l16, 16 * km + l8);
+      ldsm_x4_trans(a, pw + at);
+      mma_k16(av[km][0], a, bg[0], bg[1]);
+      mma_k16(av[km][1], a, bg[2], bg[3]);
+      ldsm_x4_trans(a, dw + at);
+      mma_k16(ak[km][0], a, bq[0], bq[1]);
+      mma_k16(ak[km][1], a, bq[2], bq[3]);
+    }
+  }
+
+  // ---- each result rounded once: a lane's two channels of rows (dq) or
+  // keys (dk, dv) 16 i + gq + 8 hf below N
+  const long long oh = o + h * 16 + 2 * tq;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * i + gq + 8 * hf;
+      if (r < N) {
+        const long long at = oh + static_cast<long long>(r) * C;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float* x = aq[i][c] + 2 * hf;
+          const float* y = ak[i][c] + 2 * hf;
+          const float* z = av[i][c] + 2 * hf;
+          *reinterpret_cast<uint32_t*>(dq + at + 8 * c) = pack_bf16(x[0], x[1]);
+          *reinterpret_cast<uint32_t*>(dk + at + 8 * c) = pack_bf16(y[0], y[1]);
+          *reinterpret_cast<uint32_t*>(dv + at + 8 * c) = pack_bf16(z[0], z[1]);
+        }
+      }
+    }
+}
+
+}  // namespace mm
+
+template <int NT>
+__global__ void __launch_bounds__(mm::kThreads, mm::kMinBlocks)
+masked_sdpa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dq,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           BwdStrides st, int tiles, int groups, int G, int N, int C, int H,
+                           float scale) {
+  using mm::Ring;
+  extern __shared__ uint4 smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* pbuf = reinterpret_cast<__nv_bfloat16*>(base + Ring::kRingBytes);
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(base + mm::kSmem - mm::kBarBytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool loader = warp == mm::kHeads - 1;  // the last head's warp copies too
+
+  // zero everything once: the stage's padded rows and P's, dS's padded keys
+  // are never written by the launch
+  for (int e = threadIdx.x; e < (mm::kSmem - mm::kBarBytes) / 16; e += mm::kThreads)
+    smem[e] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {  // one arrival a loader lane
+    mbar_init(bar, 32);
+    mbar_init(bar + 1, 32);
+  }
+  __syncthreads();
+
+  int t = blockIdx.x;  // at most one block a tile
+  TileBase cur = tile_base<Ring::HG, Ring::W>(t, groups, N, C, H);
+  if (loader) load_tile<__nv_bfloat16, 16, 1>(ring, bar, q, k, v, g, st, cur, G, N, lane);
+  for (int it = 0;; ++it) {
+    const int next = t + gridDim.x;
+    const bool more = next < tiles;
+    const TileBase nb = more ? tile_base<Ring::HG, Ring::W>(next, groups, N, C, H) : cur;
+    if (more && loader)
+      load_tile<__nv_bfloat16, 16, 1>(ring + ((it + 1) % kStages) * Ring::kRingStage,
+                                      bar + (it + 1) % kStages, q, k, v, g, st, nb, G, N, lane);
+    mbar_wait(bar + it % kStages, (it / kStages) & 1);  // tile `it` is in its stage
+    if (warp < cur.heads)
+      mm::head_bwd<NT>(ring + (it % kStages) * Ring::kRingStage, pbuf + warp * mm::kPHead,
+                       pbuf + (mm::kHeads + warp) * mm::kPHead, warp, dq, dk, dv, cur.o, N, C,
+                       scale, lane);
+    __syncthreads();  // every warp is done with the stage (and its P, dS) before it refills
+    if (!more) break;
+    cur = nb;
+    t = next;
+  }
+}
+
+// blocks of one kernel resident at once on a device (SMs x blocks a SM),
+// found once per device and kept in `cached` (an array per kernel); the
+// dynamic shared-memory limit is raised there first
+template <typename Kernel>
+cudaError_t resident_on_device(Kernel kernel, int threads, int smem, int* cached, int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cached[dev] == 0) {
-    err = cudaFuncSetAttribute(masked_sdpa_bwd_kernel<T, D, NB>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, masked_sdpa_bwd_kernel<T, D, NB>, Tl::kThreads, Tl::kSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -639,25 +982,65 @@ cudaError_t resident_blocks(int* blocks) {
 }
 
 template <typename T, int D, int NB>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq,
-                   void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
-                   int H, float scale, cudaStream_t stream) {
+cudaError_t resident_blocks(int* blocks) {
   using Tl = Tile<T, D, NB>;
-  int resident = 0;
-  cudaError_t err = resident_blocks<T, D, NB>(&resident);
+  static int cached[kMaxDevices];  // one array per instantiation
+  return resident_on_device(masked_sdpa_bwd_kernel<T, D, NB>, Tl::kThreads, Tl::kSmem, cached,
+                            blocks);
+}
+
+// one launch of `kernel` (either kernel: the same arguments), its grid the
+// `resident` blocks the device holds or one a tile, whichever is fewer;
+// `err` is that count's query
+template <typename T, typename Kernel>
+cudaError_t launch_tiles(Kernel kernel, cudaError_t err, int resident, int threads, int smem,
+                         int heads_a_tile, const void* q, const void* k, const void* v,
+                         const void* g, void* dq, void* dk, void* dv, const BwdStrides& st,
+                         int B, int G, int N, int C, int H, float scale, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
-  const int groups = (H + Tl::HG - 1) / Tl::HG;
+  const int groups = (H + heads_a_tile - 1) / heads_a_tile;
   const long long tiles = static_cast<long long>(B) * G * groups;
   if (tiles > INT32_MAX - resident) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles : resident);
-  masked_sdpa_bwd_kernel<T, D, NB><<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), st, static_cast<int>(tiles), groups, G, N, C, H, scale);
   return cudaGetLastError();
 }
 
-// the instantiation for N's blocks of four rows
+template <typename T, int D, int NB>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq,
+                   void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
+                   int H, float scale, cudaStream_t stream) {
+  using Tl = Tile<T, D, NB>;
+  int resident = 0;
+  const cudaError_t err = resident_blocks<T, D, NB>(&resident);
+  return launch_tiles<T>(masked_sdpa_bwd_kernel<T, D, NB>, err, resident, Tl::kThreads,
+                         Tl::kSmem, Tl::HG, q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale,
+                         stream);
+}
+
+template <int NT>
+cudaError_t resident_mma(int* blocks) {
+  static int cached[kMaxDevices];  // one array per instantiation
+  return resident_on_device(masked_sdpa_bwd_mma_kernel<NT>, mm::kThreads, mm::kSmem, cached,
+                            blocks);
+}
+
+template <int NT>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* g, void* dq,
+                       void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
+                       int H, float scale, cudaStream_t stream) {
+  int resident = 0;
+  const cudaError_t err = resident_mma<NT>(&resident);
+  return launch_tiles<__nv_bfloat16>(masked_sdpa_bwd_mma_kernel<NT>, err, resident,
+                                     mm::kThreads, mm::kSmem, mm::kHeads, q, k, v, g, dq, dk,
+                                     dv, st, B, G, N, C, H, scale, stream);
+}
+
+// the instantiation for N: bf16 at D = 16 the tensor-core kernel for its
+// key n-tiles, else the one for its blocks of four rows
 template <typename T, int D>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* g, void* dq,
                         void* dk, void* dv, const BwdStrides& st, int B, int G, int N, int C,
@@ -671,47 +1054,84 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
     if (st.q[a] % Tl::kChunk || st.k[a] % Tl::kChunk || st.v[a] % Tl::kChunk ||
         st.g[a] % Tl::kChunk)
       return cudaErrorMisalignedAddress;
+  if constexpr (kMma<T, D>) {  // bf16 at heads of 16: the tensor cores, N's key n-tiles
+#define KASF_KEYS(nt) \
+  case nt: return launch_mma<nt>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
+    switch ((N + 7) / 8) {
+      KASF_KEYS(1) KASF_KEYS(2) KASF_KEYS(3) KASF_KEYS(4)
+      default: return cudaErrorInvalidValue;
+    }
+#undef KASF_KEYS
+  } else {
 #define KASF_ROWS(nb) \
   case nb: return launch<T, D, nb>(q, k, v, g, dq, dk, dv, st, B, G, N, C, H, scale, stream);
-  switch ((N + 3) / 4) {
-    KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
-    KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
-    default: return cudaErrorInvalidValue;
-  }
+    switch ((N + 3) / 4) {
+      KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
+      KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
+      default: return cudaErrorInvalidValue;
+    }
 #undef KASF_ROWS
+  }
+}
+
+// kasf_masked_sdpa_bwd_info's fields of `kernel`, whose launches hold
+// `resident` blocks on the current device (`err`: that count's query)
+template <typename Kernel>
+void describe_kernel(Kernel kernel, cudaError_t err, int resident, int threads, int smem,
+                     int heads_a_tile, int rows, int mma, int* info) {
+  cudaFuncAttributes attr{};
+  if (err != cudaSuccess || cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  info[0] = threads;
+  info[1] = attr.numRegs;
+  info[2] = smem;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = resident / sms;
+  info[5] = heads_a_tile;
+  info[6] = rows;
+  info[7] = resident;
+  info[8] = mma;
 }
 
 template <typename T, int D, int NB>
 void describe(int* info) {
   using Tl = Tile<T, D, NB>;
-  cudaFuncAttributes attr{};
   int resident = 0;
-  if (cudaFuncGetAttributes(&attr, masked_sdpa_bwd_kernel<T, D, NB>) != cudaSuccess ||
-      resident_blocks<T, D, NB>(&resident) != cudaSuccess)
-    return;
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  info[0] = Tl::kThreads;
-  info[1] = attr.numRegs;
-  info[2] = Tl::kSmem;
-  info[3] = static_cast<int>(attr.localSizeBytes);
-  info[4] = resident / sms;
-  info[5] = Tl::HG;
-  info[6] = 4 * NB;
-  info[7] = resident;
+  const cudaError_t err = resident_blocks<T, D, NB>(&resident);
+  describe_kernel(masked_sdpa_bwd_kernel<T, D, NB>, err, resident, Tl::kThreads, Tl::kSmem,
+                  Tl::HG, 4 * NB, 0, info);
+}
+
+template <int NT>
+void describe_mma(int* info) {
+  int resident = 0;
+  const cudaError_t err = resident_mma<NT>(&resident);
+  describe_kernel(masked_sdpa_bwd_mma_kernel<NT>, err, resident, mm::kThreads, mm::kSmem,
+                  mm::kHeads, 8 * NT, 1, info);
 }
 
 template <typename T, int D>
 void describe_rows(int n, int* info) {
+  if constexpr (kMma<T, D>) {
+    switch ((n + 7) / 8) {
+      case 1: describe_mma<1>(info); break;
+      case 2: describe_mma<2>(info); break;
+      case 3: describe_mma<3>(info); break;
+      case 4: describe_mma<4>(info); break;
+      default: break;
+    }
+  } else {
 #define KASF_ROWS(nb) \
   case nb: describe<T, D, nb>(info); break;
-  switch ((n + 3) / 4) {
-    KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
-    KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
-    default: break;
-  }
+    switch ((n + 3) / 4) {
+      KASF_ROWS(1) KASF_ROWS(2) KASF_ROWS(3) KASF_ROWS(4)
+      KASF_ROWS(5) KASF_ROWS(6) KASF_ROWS(7) KASF_ROWS(8)
+      default: break;
+    }
 #undef KASF_ROWS
+  }
 }
 
 template <typename T>
@@ -769,9 +1189,11 @@ int kasf_masked_sdpa_bwd(int dtype, const void* q, const void* k, const void* v,
 // The instantiation for (dtype, head width d, N) on the current device, for reports:
 // info = {threads a block, registers a thread, dynamic shared memory a block
 // in bytes, local memory (spills) a thread in bytes, blocks resident a SM,
-// heads a tile, rows a tile (N padded to a multiple of 4), the persistent
-// grid (blocks resident on the device: a launch of more tiles has this
-// many blocks)}. Left untouched for a dtype, d or N there is none of.
+// heads a tile, rows a tile (N padded to a multiple of 4; of 8, its keys,
+// for the tensor-core kernel), the persistent grid (blocks resident on the
+// device: a launch of more tiles has this many blocks), 1 for
+// masked_sdpa_bwd_mma_kernel (bf16 at d = 16) and 0 for
+// masked_sdpa_bwd_kernel}. Left untouched for a dtype, d or N there is none of.
 void kasf_masked_sdpa_bwd_info(int dtype, int d, int n, int* info) {
   if (dtype == 0) describe_width<float>(d, n, info);
   if (dtype == 1) describe_width<__nv_bfloat16>(d, n, info);

@@ -41,11 +41,12 @@ pytestmark = pytest.mark.cuda
 # of its tensor-core products, and K5 the hidden activations.
 # K2 and K4 compute in f32 from either dtype and round only their
 # activation gradients (K4's parameter gradients are f32 sums over the rows,
-# held against their largest entry), but K4 in bfloat16 at C = 128: its
-# tensor-core passes round LN(x), the hidden, do and dz to bfloat16 where
-# the TPU kernel does, so there it is held to the plain version run in
-# bfloat16, a gradient at a time (K4_BF16_C128), and its distance from the
-# f32 plain version to twice that plain version's own.
+# held against their largest entry), but K2 in bfloat16 at heads of 16 and
+# K4 in bfloat16 at C = 128: their tensor-core kernels round P and dS (K2),
+# LN(x), the hidden, do and dz (K4) to bfloat16 where the TPU kernels do, so
+# there they are held to the plain version run in bfloat16, a gradient at a
+# time (K2_BF16_D16, K4_BF16_C128), and K4's distance from the f32 plain
+# version to twice that plain version's own.
 TOL = {"masked_sdpa": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
        "fused_mlp_ln": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
        "masked_sdpa_bwd": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
@@ -546,13 +547,7 @@ def test_masked_sdpa_bwd_kernel_matches_plain(cuda, dtype, mode):
     q, k, v = qkv.split(128, dim=-1)
     if mode == "temporal":
         q, k, v, g = (z.transpose(1, 2) for z in (q, k, v, g))
-    before = masked_sdpa_bwd.launches
-    got = masked_sdpa_bwd(q, k, v, g, 0.25, 8)
-    want = masked_sdpa_bwd_reference(*(z.float() for z in (q, k, v, g)), 0.25, 8)
-    assert masked_sdpa_bwd.launches == before + 1
-    for a, w in zip(got, want):
-        assert a.is_contiguous() and torch.isfinite(a).all()
-        assert _scaled_err(a, w) <= TOL["masked_sdpa_bwd"][dtype]
+    _bwd_holds((q, k, v, g), 8, dtype)
 
 
 def test_masked_sdpa_bwd_kernel_large_interhead_spread(cuda):
@@ -576,17 +571,39 @@ def _bwd_views(gen, b: int, g: int, n: int, heads: int, dtype, d: int = 16):
     return tuple(z.transpose(1, 2) for z in (*qkv.split(c, dim=-1), gw[..., 16:]))
 
 
+# K2 in bfloat16 at heads of 16 against the plain version in bfloat16, dq, dk
+# and dv each as a whole: mean |a - b| / mean |b| (_mean_err), where the
+# kernel reads <= 2.1e-6 and K2 in float32 on the same values, rounding only
+# its results, >= 1.59e-3 from N = 17 on (chip_smoke.K2_BF16_LIMITS, read by
+# scripts/k2_bf16_limits.py); per element both lie within an ulp (1e-2)
+K2_BF16_D16 = (1e-4, 1e-4, 1e-4)
+
+
+def _mean_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).abs().mean() / w.abs().mean().clamp(min=1e-30)).item()
+
+
 def _bwd_holds(args, heads: int, dtype, scale: float = 0.25):
-    """K2 once (one launch counted) against its plain version in float32 on
-    the same inputs; returns K2's gradients."""
+    """K2 once (one launch counted) against its plain version: in float32 on
+    the same inputs, per element; in bfloat16 at heads of 16 (the
+    tensor-core kernel, which rounds P and dS) the plain version run in
+    bfloat16, per element within 1e-2 and each result's mean error within
+    K2_BF16_D16. Returns K2's gradients."""
+    n, d = args[0].shape[-2], args[0].shape[-1] // heads
+    rounds = dtype == torch.bfloat16 and d == 16
+    assert masked_sdpa_bwd_kernel_info(dtype, n, d=d)["mma"] == int(rounds)
     before = masked_sdpa_bwd.launches
     got = masked_sdpa_bwd(*args, scale, heads)
     assert masked_sdpa_bwd.launches == before + 1
-    want = masked_sdpa_bwd_reference(*(z.float() for z in args), scale, heads)
-    for a, w in zip(got, want):
+    want = masked_sdpa_bwd_reference(*(args if rounds else (z.float() for z in args)),
+                                     scale, heads)
+    for i, (a, w) in enumerate(zip(got, want)):
         assert a.dtype == dtype and a.shape == args[0].shape and a.is_contiguous()
         assert torch.isfinite(a).all()
         assert _scaled_err(a, w) <= TOL["masked_sdpa_bwd"][dtype]
+        if rounds:
+            assert _mean_err(a, w) <= K2_BF16_D16[i], (i, _mean_err(a, w))
     return got
 
 
@@ -609,6 +626,7 @@ def test_masked_sdpa_bwd_kernel_tiles_off_the_grid(cuda, dtype, tiles):
     and the ring refills a stage."""
     info = masked_sdpa_bwd_kernel_info(dtype, 27)
     assert info["spill_bytes"] == 0 and info["grid"] > 0
+    assert info["mma"] == int(dtype == torch.bfloat16)  # masked_sdpa_bwd_mma_kernel
     b, g, heads = {"one": (1, 1, 8), "short last group": (133, 3, 6),
                    "a wave and one": (info["grid"] + 1, 1, info["tile_heads"])}[tiles]
     args = tuple(torch.randn(b, g, 27, 16 * heads, device="cuda", generator=cuda)
@@ -637,6 +655,21 @@ def test_masked_sdpa_bwd_kernel_one_hot_probabilities(cuda, dtype):
         want = torch.zeros_like(gf[..., cols])
         want[:, :, j] = gf[..., cols].sum(2)
         assert _scaled_err(dv[..., cols], want) <= TOL["masked_sdpa_bwd"][dtype]
+
+
+@pytest.mark.parametrize("n", [2, 17, 27, 32])
+def test_masked_sdpa_bwd_kernel_bf16_limits_fail_a_kernel_that_does_not_round(cuda, n):
+    """The bfloat16 checks at heads of 16 tell a kernel that rounds P and dS
+    from one that does not: K2 in float32 on the same values, its results
+    rounded to bfloat16 (the CUDA-core kernel's numerics), lies over a
+    K2_BF16_D16 limit of the plain version in bfloat16, where the kernel
+    holds (strided, permuted views)."""
+    args = _bwd_views(cuda, 8, 27, n, 8, torch.bfloat16)
+    _bwd_holds(args, 8, torch.bfloat16)
+    want = masked_sdpa_bwd_reference(*args, 0.25, 8)
+    control = masked_sdpa_bwd(*(z.float() for z in args), 0.25, 8)
+    means = [_mean_err(a.to(torch.bfloat16), w) for a, w in zip(control, want)]
+    assert any(m > lim for m, lim in zip(means, K2_BF16_D16)), means
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -100,6 +100,50 @@ def test_masked_sdpa_bwd_reference_matches_jax(n, heads, d):
         np.testing.assert_allclose(a.numpy(), np.asarray(p), atol=1e-5, rtol=1e-4)
 
 
+def _bf16_scaled_err(got: torch.Tensor, want: np.ndarray) -> float:
+    a = got.float().numpy()
+    return float((np.abs(a - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+@pytest.mark.parametrize("n,heads,d", [
+    pytest.param(1, 8, 16, id="1-8"), pytest.param(17, 8, 16, id="17-8"),
+    pytest.param(27, 8, 16, id="27-8"), pytest.param(32, 8, 16, id="32-8"),
+    pytest.param(17, 5, 16, id="17-5"), pytest.param(27, 5, 16, id="27-5"),
+    pytest.param(17, 8, 32, id="17-8-d32"), pytest.param(27, 8, 32, id="27-8-d32"),
+    pytest.param(17, 8, 64, id="17-8-d64"), pytest.param(27, 8, 64, id="27-8-d64")])
+def test_masked_sdpa_bwd_reference_bf16_rounds_where_the_pallas_kernel_does(n, heads, d):
+    """The plain backward in bfloat16 against the Pallas backward kernel in
+    bfloat16 (interpret mode): both form S, dP and the three products in
+    float32 from the bfloat16 inputs and round P (for dV), dS and the
+    results to bfloat16, so they differ only where a sum order moves a
+    value across a rounding edge: within 2.5e-3 per element, scaled by
+    max(1, |y|). A plain version that computes in float32 throughout and
+    rounds only its results lies outside that limit from N = 17 on; at
+    N = 1, P is 1 and dS is 0, so nothing rounds and both are exact.
+    Inputs from a generator of their own, so the file's other tests keep
+    theirs."""
+    c = d * heads
+    rng = np.random.default_rng(2500 + 100 * n + c)
+    q, k, v, g = (rng.standard_normal((1, 3, n, c)).astype(np.float32)
+                  for _ in range(4))
+    args = [_t(z).to(torch.bfloat16) for z in (q, k, v, g)]
+    scale = d ** -0.5
+    got = masked_sdpa_bwd_reference(*args, scale, heads)
+    control = [z.to(torch.bfloat16) for z in
+               masked_sdpa_bwd_reference(*(z.float() for z in args), scale, heads)]
+    want = [np.asarray(z, np.float32) for z in masked_sdpa_bwd_pallas(
+        *(jnp.asarray(z, jnp.bfloat16) for z in (q, k, v, g)), scale, heads,
+        interpret=True)]
+    errs = [_bf16_scaled_err(a, w) for a, w in zip(got, want)]
+    ctl = [_bf16_scaled_err(a, w) for a, w in zip(control, want)]
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    assert max(errs) <= 2.5e-3, errs
+    if n == 1:
+        assert max(errs) == max(ctl) == 0.0, (errs, ctl)
+    else:
+        assert max(ctl) > 2.5e-3, ctl
+
+
 @pytest.mark.parametrize("mode", ["spatial", "temporal"])
 def test_masked_sdpa_autograd_matches_jax_on_strided_views(mode):
     """The port's autograd through column slices of one qkv projection and
